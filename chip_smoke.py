@@ -9,20 +9,38 @@ Phases, each printing its own lines; any failure ends the run with a
 non-zero exit and no result line:
 
 1. device: the card's name and power limit (nvidia-smi), device count;
-2. build: the flash-attention kernel from ``tpuslo_torch/ops/csrc`` with
-   nvcc for sm_90a, its build seconds and ptxas report;
-3. kernel vs plain: the kernel against ``flash_attention_reference``
-   (f32 on the card) at Llama-3.2-3B's attention widths, at every
-   shape the serve phase gives it and a few more, with kernel, plain
-   and library (SDPA, a yardstick the port never calls) times and the
-   card's lower bound for the same work;
+2. build: both kernels from ``tpuslo_torch/ops/csrc`` (flash attention,
+   K1, and paged decode attention, K2) with nvcc for sm_90a, one nvcc
+   each, started together; build seconds and ptxas reports;
+3. K1 vs plain: the kernel against ``flash_attention_reference`` (f32 on
+   the card) at Llama-3.2-3B's attention widths, at every shape the
+   serve phase gives it and a few more, with kernel, plain and library
+   (SDPA, a yardstick the port never calls) times and the card's lower
+   bound for the same work;
 4. serve: a full-depth, full-width ``llama32_3b`` ``ServeEngine`` with
    seeded random weights answers three ``generate`` requests and one
-   ``generate_batch``; the kernel's launch count over this phase must
-   be one per layer for every flash-eligible prefill;
-5. parity: a 2-layer full-width model's prefill logits on the card
+   ``generate_batch``; K1's launch count over this phase must be one per
+   layer for every flash-eligible prefill;
+5. dense batching: a ``ContinuousBatchingEngine`` on the same weights
+   serves 8 requests through 4 slots; every stream is held to
+   ``ServeEngine.generate`` by the near-tie rule, K1's launches to the
+   phase's eligible prefills, and a steady step to one host sync;
+6. paged serving, the slice's path: a ``PagedBatchingEngine`` with K2
+   switched on serves 12 requests through 8 slots over a 129-block pool,
+   4 of them sharing a prefix and one past the largest prefill bucket;
+   K2 must launch once per layer per step, K1 once per layer per
+   eligible prefill, shared prefix blocks must be reused, a steady step
+   must sync once, and every stream must pass the near-tie rule;
+7. K2 vs plain: the kernel against
+   ``paged_decode_attention_reference`` at the page tables and lengths
+   the paged phase produced and at random tables of batch 8 and 32,
+   each with a bf16 and an int8 pool, a parked lane and shared blocks,
+   with kernel, plain and dense-SDPA times and the bound;
+8. breakdown: one paged decode step with 8 live lanes, with K2 and with
+   the plain pool attention;
+9. parity: a 2-layer full-width model's prefill logits on the card
    (kernel path) against the same weights on the CPU (plain path);
-6. the ``kernels`` JSON line, the card line, and the result line.
+10. the ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card and imports nothing of JAX or of the JAX package.
 Every measurement also goes into one ``record:`` JSON line.
@@ -36,6 +54,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -60,8 +79,22 @@ KERNEL_ROW_TOL = 2.0**-5
 # Card vs CPU logits of the 2-layer model: both run bf16 with f32
 # accumulation, but in another summation order and through the kernel
 # vs the plain attention; logits are rounded to bf16 by the output
-# matmul, whose ulp is 2^-5 for |logit| in [4, 8): 4 ulps there.
+# matmul, whose ulp is 2^-5 for |logit| in [4, 8): 4 ulps there.  The
+# batching phases hold streams by the same rule: a token may differ from
+# ServeEngine.generate's only where that engine's top-2 margin is under
+# 2 * PARITY_TOL.
 PARITY_TOL = 0.125
+# K2 vs its plain version, set before the first run from a CPU model of
+# the kernel's arithmetic (f32 throughout, one rounding of the output to
+# bf16).  Absolute: half a bf16 ulp is at most 2^-8 of |o|, and |o| is a
+# convex combination of v rows, under 8 here, so 2^-6 = 0.0156 at worst
+# (the model: 3.9e-3 on random pools, 7.2e-3 on a model's own pool).
+# Row-scaled (each (b, h) row's max error over that row's RMS in the
+# reference): the same rounding of a row's largest element, 0.0175 at
+# most in the model; tighter than K1's 2^-5, which also rounds p to
+# bf16.  A dropped or misread block moves a row by O(1) of its RMS.
+PAGED_TOL = 2e-2
+PAGED_ROW_TOL = 0.025
 
 # The issue's shapes, (B, S, causal) at llama32_3b's H=24, KV=8, D=128;
 # the shapes the serve phase gives the kernel are added to these.
@@ -74,6 +107,7 @@ SHAPES = (
 )
 LINE_SHAPE = (1, 256, True)  # the kernels line reports this main-path shape
 
+KERNELS = ("flash_attention", "paged_attention")  # csrc/<name>.cu
 BUCKETS = (32, 64, 128, 256)  # the engine's prefill buckets
 BATCH_BUCKETS = (1, 2, 4, 8)  # generate_batch's default row buckets
 # Each generate request's name says how its prompt ingests: a prefill
@@ -96,6 +130,32 @@ BATCH_PROMPTS = [
     "with an example of a shared system prompt.",
 ]
 NEW_TOKENS = 32
+# The batching phases.  Dense: 8 requests through 4 slots, so requests
+# queue and slots are reused.  Paged: 12 requests through 8 slots; the 4
+# prefix requests come first so that the first populates the shared
+# blocks (the 203-id prefix fills 3 blocks of 64 positions) and the other 3
+# reuse them; the "chunked" prompt (728 ids) is ingested as a head
+# prefill plus chunked appends.
+DENSE_SLOTS = 4
+DENSE_JOBS = [(p, None) for p in PROMPTS.values()] + [(p, None) for p in BATCH_PROMPTS] + [
+    ("Why did the p99 TTFT of tenant B double after the deploy?", None)
+]
+BREAKDOWN_PAIRS = 5  # (on, off) + (off, on) turns of the breakdown's wall timing
+PAGED_SLOTS = 8
+PAGED_BLOCK = 64
+PAGED_PREFIX = (
+    "You are the serving team's incident assistant. Answer from the SLO "
+    "dashboards only: name the tenant, the objective that burns, the fault "
+    "domain and the first action to take, in at most three sentences. "
+)
+PAGED_JOBS = [
+    (q, PAGED_PREFIX) for q in (
+        "Which tenant burns its TTFT budget fastest?",
+        "Is the decode throughput objective at risk?",
+        "What changed in the last deploy?",
+        "Should we demote tenant C?",
+    )
+] + DENSE_JOBS
 
 
 def _fail(msg: str) -> None:
@@ -149,30 +209,46 @@ def _time_ms(torch, fn, reps: int, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _per_call_ms(torch, fn, reps: int, what: str) -> tuple[float, float]:
+def _device_us(torch, fn, reps: int, flush) -> float:
+    """Device kernel time (µs, CUPTI) of ``reps`` calls of ``fn``, each
+    after ``flush.zero_()`` when a flush buffer is given."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return sum(
+        e.self_device_time_total
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA
+    )
+
+
+def _per_call_ms(torch, fn, reps: int, what: str, flush=None) -> tuple[float, float]:
     """(ms, back-to-back ms) per call of ``fn``.
 
     ms is the kernel time the profiler records (CUPTI), summed over
     every kernel ``fn`` launches; it does not include the host's time to
-    queue them.  Back-to-back ms is CUDA-event time over ``reps`` calls
-    queued in a row, which at small shapes is the host's queueing rate.
-    A trace that holds no kernel is taken again, up to five times; after
-    that the run fails rather than report another clock under ms.
+    queue them.  With ``flush`` (a buffer larger than the 50 MB L2),
+    every call finds the cache cold, as a decode step finds a layer's
+    K/V, and the flush's own device time, profiled alone, is subtracted.
+    Back-to-back ms is CUDA-event time over ``reps`` calls queued in a
+    row, which at small shapes is the host's queueing rate.  A trace
+    that holds no kernel is taken again, up to five times; after that
+    the run fails rather than report another clock under ms.
     """
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     event_ms = _time_ms(torch, fn, reps)
     for _ in range(5):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        device_us = sum(
-            e.self_device_time_total
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-        )
+        device_us = _device_us(torch, fn, reps, flush)
+        if flush is not None and device_us > 0:
+            flush_us = _device_us(torch, lambda: None, reps, flush)
+            if flush_us <= 0 or device_us <= flush_us:
+                continue
+            device_us -= flush_us
         if device_us > 0:
             return device_us / 1e3 / reps, event_ms
     _fail(f"{what}: five profiler traces held no kernel time")
@@ -290,10 +366,11 @@ def _device_breakdown(torch, fn) -> dict:
         "device_ms": device_ms if device_ms > 0 else None,  # None: not measured
         "kernel_launches": sum(e.count for e in kernels),
         "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top},
+        "top_kernels_launches": {e.key[:60]: e.count for e in top},
     }
 
 
-def phase_serve(torch, fa, llama, serve, cfg, serve_shapes) -> dict:
+def phase_serve(torch, fa, llama, serve, cfg, serve_shapes) -> tuple[dict, object]:
     t0 = time.perf_counter()
     engine = serve.ServeEngine(cfg, rng_seed=0, prefill_buckets=BUCKETS,
                                decode_chunk_size=NEW_TOKENS, device="cuda")
@@ -396,7 +473,351 @@ def phase_serve(torch, fa, llama, serve, cfg, serve_shapes) -> dict:
         "launches_needed": expected, "prefill_shapes": serve_shapes,
         "syncs_per_chunk": {k: len(v) for k, v in syncs.items()},
         "breakdown": breakdown,
+    }, engine
+
+
+def _job_ids(serve, cfg, prompt: str, prefix: str | None) -> list[int]:
+    """The ids a batching engine decodes from for one job."""
+    if prefix:
+        p_ids, s_ids = serve.prefix_prompt_ids(prefix, prompt, cfg.max_seq_len)
+        return p_ids + s_ids
+    return serve.encode_bytes(prompt, cfg.max_seq_len - 2)
+
+
+def _eligible_prefills(fa, serve, cfg, jobs) -> int:
+    """Flash-eligible head prefills the admissions of ``jobs`` make: one
+    per prompt without a prefix (its head at the largest bucket), one per
+    distinct prefix (ingested once by the engine's prefix cache); suffix
+    appends run plain attention."""
+    heads = []
+    seen = set()
+    for prompt, prefix in jobs:
+        if prefix:
+            if prefix in seen:
+                continue
+            seen.add(prefix)
+            ids, _ = serve.prefix_prompt_ids(prefix, "", cfg.max_seq_len)
+        else:
+            ids = serve.encode_bytes(prompt, cfg.max_seq_len - 2)
+        heads.append(serve._bucket(min(len(ids), BUCKETS[-1]), BUCKETS))
+    return sum(
+        fa.flash_eligible((1, S, cfg.n_heads, cfg.head_dim), cfg.n_kv_heads)
+        for S in heads
+    )
+
+
+def _hold_streams(torch, serve, cfg, ref, jobs, results, what: str) -> list[dict]:
+    """Each job's stream against ``ref.generate`` (the single-request
+    engine on the same weights): identical, or diverging first where the
+    reference's top-2 margin is under 2 * PARITY_TOL."""
+    report = []
+    for i, (prompt, prefix) in enumerate(jobs):
+        want = [e.token_id for e in ref.generate(prompt, NEW_TOKENS, stop_at_eos=False,
+                                                 prefix=prefix)]
+        got = results[i]
+        diverged, margin = None, None
+        if len(got) != len(want):
+            _fail(f"{what} request {i}: {len(got)} tokens, generate gave {len(want)}")
+        for k, (a, b) in enumerate(zip(want, got)):
+            if a != b:
+                logits, _ = ref.ingest_ids(_job_ids(serve, cfg, prompt, prefix) + want[:k])
+                top2 = torch.topk(logits[0].float(), 2).values
+                diverged, margin = k, float(top2[0] - top2[1])
+                if margin >= 2 * PARITY_TOL:
+                    _fail(f"{what} request {i} diverged from generate at token {k} "
+                          f"where the top-2 margin is {margin:.4f} "
+                          f"(>= {2 * PARITY_TOL}): {got} vs {want}")
+                break
+        report.append({"request": i, "diverged_at": diverged, "tie_margin": margin})
+    return report
+
+
+def _drive_batching(torch, engine, jobs) -> dict:
+    """Submit ``jobs`` and step ``engine`` to the end.  Counts the host
+    syncs of the first steady step (every slot busy before and after,
+    none admitted) and captures the batch state at the first step with
+    every slot live."""
+    ids = [engine.submit(p, NEW_TOKENS, stop_at_eos=False, prefix=pre) for p, pre in jobs]
+    syncs, capture = None, None
+    t0 = time.perf_counter()
+    more = True
+    while more:
+        busy = all(s is not None for s in engine._slots)
+        if syncs is None and busy and engine.steps >= 1:
+            out = []
+            caught = _syncs(torch, lambda: out.append(engine.step()))
+            more = out[0]
+            if all(s is not None for s in engine._slots):
+                syncs = caught
+        else:
+            more = engine.step()
+        if capture is None and all(s is not None for s in engine._slots):
+            cache = engine._cache
+            capture = {"tokens": engine._tokens.clone(), "length": cache["length"].clone(),
+                       "stats": engine.stats()}
+            if "page_table" in cache:
+                capture["page_table"] = cache["page_table"].clone()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    return {"ids": ids, "wall_s": wall_s, "syncs": syncs, "capture": capture}
+
+
+def _batching_phase(torch, fa, pa, serve, cfg, ref, engine, jobs, what: str,
+                    k2_on: bool) -> tuple[dict, dict]:
+    """Serve ``jobs`` through a batching engine with the launch counts
+    set to 0 just before and read just after, then hold it: K1 once per
+    layer per eligible head prefill, K2 once per layer per step when it
+    is on (else never), one host sync in a steady step, every stream
+    against ``ref.generate`` by the near-tie rule.  Returns (record,
+    state captured at the first full step)."""
+    expected_k1 = cfg.n_layers * _eligible_prefills(fa, serve, cfg, jobs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention.launches = 0
+    pa.paged_decode_attention.launches = 0
+    run = _drive_batching(torch, engine, jobs)
+    k1, k2 = fa.flash_attention.launches, pa.paged_decode_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected_k2 = engine.steps * cfg.n_layers if k2_on else 0
+    results = [engine.results[rid] for rid in run["ids"]]
+    tokens = sum(len(r) for r in results)
+    print(f"{what}: {len(jobs)} requests x {NEW_TOKENS} tokens through "
+          f"{engine.max_slots} slots: {engine.steps} steps, {run['wall_s'] * 1e3:.1f} ms, "
+          f"{tokens / run['wall_s']:.1f} tok/s; peak memory {peak_gb:.2f} GB", flush=True)
+    print(f"{what}: stats at the first full step {run['capture']['stats']}; at the end "
+          f"{engine.stats()}", flush=True)
+    print(f"{what}: K2 launches {k2} ({engine.steps} steps x {cfg.n_layers} layers "
+          f"{'' if k2_on else 'x 0 (K2 off) '}= {expected_k2}); K1 launches {k1} "
+          f"(eligible prefills need {expected_k1}); host syncs in a steady step: "
+          f"{run['syncs']}", flush=True)
+    timings = engine.request_timings()
+    rows = []
+    for i, rid in enumerate(run["ids"]):
+        t = timings[rid]
+        # The first token comes from the prefill and is emitted at
+        # admission: TTFT is the queue delay (prefill included).
+        rows.append({"request": i, "tokens": len(engine.results[rid]),
+                     "ttft_ms": t["queue_delay_s"] * 1e3, "e2e_ms": t["e2e_s"] * 1e3})
+        print(f"{what}: request {i}: {rows[-1]['tokens']} tokens, TTFT = queue delay "
+              f"{rows[-1]['ttft_ms']:.1f} ms, e2e {rows[-1]['e2e_ms']:.1f} ms", flush=True)
+    if k2 != expected_k2 or (k2_on and expected_k2 == 0):
+        _fail(f"{what}: K2 launched {k2} times, the phase's steps need {expected_k2}")
+    if k1 != expected_k1:
+        _fail(f"{what}: K1 launched {k1} times, the phase's prefills need {expected_k1}")
+    if run["syncs"] is None or len(run["syncs"]) != 1:
+        _fail(f"{what}: a steady step synchronized {run['syncs']} (one token read expected)")
+    parity = _hold_streams(torch, serve, cfg, ref, jobs, results, what)
+    print(f"{what}: streams vs generate: "
+          f"{sum(r['diverged_at'] is None for r in parity)}/{len(parity)} identical, "
+          f"the rest diverge at near-ties {[r for r in parity if r['diverged_at'] is not None]}",
+          flush=True)
+    record = {
+        "slots": engine.max_slots, "requests": len(jobs), "steps": engine.steps,
+        "wall_ms": run["wall_s"] * 1e3, "tok_s": tokens / run["wall_s"],
+        "k1_launches": k1, "k1_needed": expected_k1, "k2_launches": k2,
+        "k2_needed": expected_k2, "syncs_per_steady_step": len(run["syncs"]),
+        "stats_full_step": run["capture"]["stats"], "stats_end": engine.stats(),
+        "peak_memory_gb": peak_gb, "timings": rows, "parity": parity,
     }
+    return record, run["capture"]
+
+
+def phase_dense(torch, fa, pa, batching, serve, cfg, ref) -> dict:
+    engine = batching.ContinuousBatchingEngine(
+        cfg, ref.params, max_slots=DENSE_SLOTS, prefill_buckets=BUCKETS, device="cuda"
+    )
+    record, _ = _batching_phase(torch, fa, pa, serve, cfg, ref, engine, DENSE_JOBS,
+                                "dense", k2_on=False)
+    del engine
+    torch.cuda.empty_cache()
+    return record
+
+
+def phase_paged(torch, fa, pa, paged_kv, serve, cfg, ref) -> tuple[dict, object, dict]:
+    engine = paged_kv.PagedBatchingEngine(
+        cfg, ref.params, max_slots=PAGED_SLOTS, block_size=PAGED_BLOCK,
+        prefill_buckets=BUCKETS, pallas_attention=True, device="cuda",
+    )
+    pool_bytes = paged_kv.paged_pool_bytes(cfg, engine.n_blocks, PAGED_BLOCK)
+    print(f"paged: pool of {engine.n_blocks} blocks x {PAGED_BLOCK} positions x "
+          f"{cfg.n_layers} layers, {pool_bytes} bytes ({pool_bytes / 1e9:.3f} GB); "
+          f"K2 switch {'on' if engine.pallas_attention else 'off'}", flush=True)
+    record, capture = _batching_phase(torch, fa, pa, serve, cfg, ref, engine, PAGED_JOBS,
+                                      "paged", k2_on=True)
+    if engine.prefix_reuse_hits < 3:
+        _fail(f"only {engine.prefix_reuse_hits} admissions reused the shared prefix blocks")
+    record.update(block_size=PAGED_BLOCK, n_blocks=engine.n_blocks, pool_bytes=pool_bytes,
+                  prefix_reuse_hits=engine.prefix_reuse_hits)
+    return record, engine, capture
+
+
+def _paged_bound(torch, table, lengths, BS, H, KV, HD, kv_bytes, scales) -> tuple[float, str]:
+    """Least time on the card for one paged decode attention call.
+
+    Bytes: every visible (block, position) pair's K and V once, over all
+    kv heads (a block shared by lanes, or read twice by a parked lane, is
+    counted once), plus int8 scales, q and the bf16 output, the page
+    table and the lengths.  Operations: 4 * HD per visible (query row,
+    position) pair.  Counted from these inputs.
+    """
+    table, lengths = table.cpu().long(), lengths.cpu().long()
+    B, MB = table.shape
+    pairs = set()
+    ops = 0
+    for b in range(B):
+        n = min(int(lengths[b]) + 1, MB * BS)
+        ops += 4 * HD * H * n
+        for t in range(n):
+            pairs.add((int(table[b, t // BS]), t % BS))
+    per_pos = 2 * KV * (HD * kv_bytes + (4 if scales else 0))
+    nbytes = len(pairs) * per_pos + 2 * B * H * HD * 2 + table.numel() * 4 + B * 4
+    t_ops, t_bytes = ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def _random_tables(torch, B, MB, N, BS, gen):
+    """Random tables and lengths (as the JAX lowering tests draw them),
+    with the last lane parked (zeroed table, length 100) and lane 1
+    sharing lane 0's first two blocks."""
+    table = torch.randint(1, N, (B, MB), generator=gen, dtype=torch.int32)
+    lengths = torch.randint(1, MB * BS, (B,), generator=gen, dtype=torch.int32)
+    table[-1] = 0
+    lengths[-1] = 100
+    table[1, :2] = table[0, :2]
+    return table, lengths
+
+
+def phase_paged_kernel(torch, pa, kv_cache, cfg, engine, capture) -> dict:
+    import torch.nn.functional as F
+
+    H, KV, HD, BS = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, PAGED_BLOCK
+    dev = engine.device
+    gen = torch.Generator().manual_seed(4321)
+    pools = {}
+    serve_k = engine._cache["k"][0]  # layer 0 of the phase's own pool
+    serve_v = engine._cache["v"][0]
+    pools["serve"] = (serve_k, serve_v, capture["page_table"], capture["length"].int())
+    for name, (B, MB, N) in (("B8", (8, 4, 40)), ("B32", (32, 8, 300))):
+        k = torch.randn(N, BS, KV, HD, generator=gen).bfloat16().to(dev)
+        v = torch.randn(N, BS, KV, HD, generator=gen).bfloat16().to(dev)
+        table, lengths = _random_tables(torch, B, MB, N, BS, gen)
+        pools[name] = (k, v, table.to(dev), lengths.to(dev))
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)  # > L2
+    rows = []
+    for name, (k, v, table, lengths) in pools.items():
+        for dtype in ("bf16", "int8"):
+            if dtype == "int8":
+                k, v = kv_cache.quantize_kv(k.float()), kv_cache.quantize_kv(v.float())
+            B, MB = table.shape
+            q = torch.randn(B, H, HD, generator=gen).bfloat16().to(dev)
+            out = pa.paged_decode_attention(q, k, v, table, lengths, block_size=BS)
+            torch.cuda.synchronize()
+            ref = pa.paged_decode_attention_reference(
+                q, k, v, table, lengths, block_size=BS, out_dtype=torch.float32
+            )
+            diff = (out.float() - ref).abs()
+            err = float(diff.max())
+            row_err = float((diff / ref.pow(2).mean(dim=-1, keepdim=True).sqrt()).max())
+            what = f"{name} B={B} MB={MB} {dtype} pool"
+            if not torch.isfinite(out).all() or err > PAGED_TOL or row_err > PAGED_ROW_TOL:
+                _fail(f"K2 vs plain at {what}: max abs err {err} (tol {PAGED_TOL}), "
+                      f"row-scaled {row_err} (tol {PAGED_ROW_TOL})")
+            def kernel():
+                pa.paged_decode_attention(q, k, v, table, lengths, block_size=BS)
+
+            ms, ms_b2b = _per_call_ms(torch, kernel, 50, f"K2 {what}", flush)
+            ms_warm, _ = _per_call_ms(torch, kernel, 50, f"K2 warm {what}")
+            plain_ms, _ = _per_call_ms(
+                torch, lambda: pa.paged_decode_attention_reference(
+                    q, k, v, table, lengths, block_size=BS), 10, f"plain {what}", flush,
+            )
+            # Yardstick: SDPA over K/V already gathered per lane (bf16,
+            # dequantized for an int8 pool), padding masked; not timed:
+            # the gather.  The port never calls it.
+            idx = table.long()
+            kg = kv_cache.kv_load({"q": k["q"][idx], "s": k["s"][idx]}) if dtype == "int8" else k[idx]
+            vg = kv_cache.kv_load({"q": v["q"][idx], "s": v["s"][idx]}) if dtype == "int8" else v[idx]
+            T = MB * BS
+            kg = kg.reshape(B, T, KV, HD).transpose(1, 2).contiguous()
+            vg = vg.reshape(B, T, KV, HD).transpose(1, 2).contiguous()
+            mask = (torch.arange(T, device=dev)[None, :] <= lengths.long()[:, None])[:, None, None, :]
+            qs = q[:, :, None, :]
+            sdpa_ms, _ = _per_call_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qs, kg, vg, attn_mask=mask, enable_gqa=True), 50, f"sdpa {what}", flush,
+            )
+            bound_ms, bound_by = _paged_bound(
+                torch, table, lengths, BS, H, KV, HD, 1 if dtype == "int8" else 2,
+                dtype == "int8",
+            )
+            row = {
+                "shape": name, "pool": dtype, "B": B, "MB": MB, "BS": BS, "H": H, "KV": KV,
+                "HD": HD, "N": int((k["q"] if dtype == "int8" else k).shape[0]),
+                "lengths": lengths.tolist(), "max_abs_err": err, "tol": PAGED_TOL,
+                "row_scaled_err": row_err, "row_tol": PAGED_ROW_TOL, "ms": ms,
+                "ms_warm_l2": ms_warm, "ms_back_to_back": ms_b2b, "plain_ms": plain_ms,
+                "dense_sdpa_ms": sdpa_ms,
+                "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+            rows.append(row)
+            print(f"K2: {what}: err={err:.3e} (tol {PAGED_TOL}) row-scaled={row_err:.3e} "
+                  f"(tol {PAGED_ROW_TOL}) device, cold L2: kernel={ms:.4f}ms "
+                  f"plain={plain_ms:.4f}ms dense-sdpa={sdpa_ms:.4f}ms "
+                  f"bound={bound_ms * 1e3:.2f}us ({bound_by}); kernel warm L2={ms_warm:.4f}ms, "
+                  f"back-to-back={ms_b2b:.4f}ms", flush=True)
+    return {"shapes": rows, "library_note": "no single PyTorch call computes paged "
+            "decode attention; dense_sdpa_ms is SDPA over K/V gathered per lane "
+            "beforehand (gather not timed), a yardstick the port never calls"}
+
+
+def phase_breakdown(torch, paged_kv, cfg, engine, capture) -> dict:
+    """One paged decode step over the captured 8-lane state, with K2 and
+    with the plain pool attention over the whole pool: one profiled
+    breakdown each, then host wall times of both in turns (on, off,
+    off, on, ...), since a single wall sample on a shared host is noise."""
+    state = {"k": engine._cache["k"], "v": engine._cache["v"],
+             "page_table": capture["page_table"], "length": capture["length"]}
+
+    def step(pallas: bool):
+        def run():
+            paged_kv.paged_decode_step(engine.params, capture["tokens"], dict(state), cfg,
+                                       PAGED_BLOCK, pallas=pallas)
+            torch.cuda.synchronize()
+        return run
+
+    out = {}
+    for name, pallas in (("k2_on", True), ("k2_off", False)):
+        step(pallas)()  # first call sets up library state
+        b = _device_breakdown(torch, step(pallas))
+        out[name] = b
+        dev = "not measured" if b["device_ms"] is None else f"{b['device_ms']:.2f} ms"
+        print(f"breakdown: paged decode step, 8 lanes, {name}: wall {b['wall_ms']:.2f} ms, "
+              f"device kernels {dev}, {b['kernel_launches']} launches; top "
+              + ", ".join(f"{k} {v:.2f}" for k, v in b["top_kernels_ms"].items()),
+              flush=True)
+    walls = {"k2_on": [], "k2_off": []}
+    for order in ((True, False), (False, True)) * BREAKDOWN_PAIRS:
+        for pallas in order:
+            t0 = time.perf_counter()
+            step(pallas)()
+            walls["k2_on" if pallas else "k2_off"].append((time.perf_counter() - t0) * 1e3)
+    for name, ws in walls.items():
+        out[name]["wall_ms_runs"] = ws
+        out[name]["wall_ms_median"] = sorted(ws)[len(ws) // 2]
+    print(f"breakdown: host wall per step in turns, {len(walls['k2_on'])} each: median "
+          f"K2 on {out['k2_on']['wall_ms_median']:.2f} ms, K2 off "
+          f"{out['k2_off']['wall_ms_median']:.2f} ms; runs on "
+          f"{[round(w, 2) for w in walls['k2_on']]}, off "
+          f"{[round(w, 2) for w in walls['k2_off']]}", flush=True)
+    return out
+
+
+def _in_step_ms(breakdown: dict, kernel: str) -> float | None:
+    """Device ms per launch of ``kernel`` inside a profiled step."""
+    for name, ms in breakdown["top_kernels_ms"].items():
+        if kernel in name:
+            return ms / breakdown["top_kernels_launches"][name]
+    return None
 
 
 def phase_parity(torch, fa, llama) -> dict:
@@ -445,18 +866,20 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke runs on a GPU only",
               file=sys.stderr)
         return 2
-    if not (ROOT / "tpuslo_torch" / "ops" / "csrc" / "flash_attention.cu").exists():
+    csrc = ROOT / "tpuslo_torch" / "ops" / "csrc"
+    if not all((csrc / f"{n}.cu").exists() for n in KERNELS):
         print(f"chip_smoke: the port's sources are not beside {Path(__file__).name}",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     import importlib
 
-    from tpuslo_torch.models import llama, serve
+    from tpuslo_torch.models import batching, kv_cache, llama, paged_kv, serve
     from tpuslo_torch.ops import _build
 
-    # The module (the package re-exports its function under the same name).
+    # The modules (the package re-exports their functions under the same names).
     fa = importlib.import_module("tpuslo_torch.ops.flash_attention")
+    pa = importlib.import_module("tpuslo_torch.ops.paged_attention")
 
     # 1. device
     card = _card_line()
@@ -465,34 +888,48 @@ def main() -> int:
     print(f"device: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
           f"| {kind} x{count}", flush=True)
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    info = _build.build("flash_attention")
-    print(f"build: {info.path.name} in {time.perf_counter() - t0:.2f}s "
-          f"(nvcc {info.seconds:.2f}s; 0 means reused)", flush=True)
-    for line in info.ptxas.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"build: ptxas: {line.strip()}", flush=True)
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        builds = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
+    print(f"build: {len(builds)} kernels in {time.perf_counter() - t0:.2f}s", flush=True)
+    for name, info in builds.items():
+        print(f"build: {info.path.name}: nvcc {info.seconds:.2f}s (0 means reused)",
+              flush=True)
+        for line in info.ptxas.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"build: {name}: ptxas: {line.strip()}", flush=True)
 
-    # 3. kernel vs plain, at the issue's shapes and the serve path's
+    # 3. K1 vs plain, at the fixed shapes and the serve path's
     cfg = llama.llama32_3b(max_seq_len=2048)
     serve_shapes = serve_prefills(serve, fa, cfg)
     kernel = phase_kernel(torch, fa, cfg, serve_shapes)
-    # 4. serve
-    served = phase_serve(torch, fa, llama, serve, cfg, serve_shapes)
-    # 5. parity
+    # 4. serve (its engine's weights serve every later phase)
+    served, engine = phase_serve(torch, fa, llama, serve, cfg, serve_shapes)
+    # 5. dense continuous batching
+    dense = phase_dense(torch, fa, pa, batching, serve, cfg, engine)
+    # 6. paged serving through K2
+    paged, paged_engine, capture = phase_paged(torch, fa, pa, paged_kv, serve, cfg, engine)
+    # 7. K2 vs plain, at the paged phase's step and random tables
+    k2 = phase_paged_kernel(torch, pa, kv_cache, cfg, paged_engine, capture)
+    # 8. one paged step with K2 on and off
+    breakdown = phase_breakdown(torch, paged_kv, cfg, paged_engine, capture)
+    del paged_engine, engine
+    torch.cuda.empty_cache()
+    # 9. parity
     parity = phase_parity(torch, fa, llama)
 
-    # 6. kernels line, card line, result line
+    # 10. kernels line, card line, result line
     line_row = next(
         r for r in kernel["shapes"] if (r["B"], r["S"], r["causal"]) == LINE_SHAPE
     )
+    k2_row = next(r for r in k2["shapes"] if (r["shape"], r["pool"]) == ("serve", "bf16"))
     kernels = {"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
         "source": "tpuslo_torch/ops/csrc/flash_attention.cu",
         "replaces": "tpuslo/ops/flash_attention.py:41",
-        "launches": served["launches"],
+        "launches": served["launches"] + dense["k1_launches"] + paged["k1_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kernel["shapes"]),
         "ms": line_row["ms"],
         "plain_ms": line_row["plain_ms"],
@@ -500,10 +937,28 @@ def main() -> int:
         "bound_by": line_row["bound_by"],
         "library_ms": line_row["library_ms"],
         "shape": "B=1 S=256 H=24 KV=8 D=128 causal bf16",
+    }, {
+        "name": "paged_attention",
+        "route": "cuda",
+        "source": "tpuslo_torch/ops/csrc/paged_attention.cu",
+        "replaces": "tpuslo/ops/paged_attention.py:65",
+        "launches": paged["k2_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in k2["shapes"]),
+        "ms": k2_row["ms"],
+        "plain_ms": k2_row["plain_ms"],
+        "bound_ms": k2_row["bound_ms"],
+        "bound_by": k2_row["bound_by"],
+        "library_ms": None,
+        "dense_sdpa_ms": k2_row["dense_sdpa_ms"],
+        "ms_in_step": _in_step_ms(breakdown["k2_on"], "paged_decode_kernel"),
+        "shape": f"B={k2_row['B']} MB={k2_row['MB']} BS={k2_row['BS']} H=24 KV=8 HD=128 "
+                 "bf16 pool, the paged phase's step",
     }]}
     record = {"card": card, "kind": kind, "count": count, "torch": torch.__version__,
-              "build_s": info.seconds, "ptxas": info.ptxas, "kernel": kernel,
-              "serve": served, "parity": parity, **kernels}
+              "build_s": {n: b.seconds for n, b in builds.items()},
+              "ptxas": {n: b.ptxas for n, b in builds.items()}, "kernel": kernel,
+              "serve": served, "dense": dense, "paged": paged, "paged_kernel": k2,
+              "paged_breakdown": breakdown, "parity": parity, **kernels}
     print(f"record: {json.dumps(record)}")
     print(json.dumps(kernels))
     print(card)

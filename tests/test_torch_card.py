@@ -1,11 +1,11 @@
-"""Card-only tests of the port: the CUDA kernel and the engine on a GPU.
+"""Card-only tests of the port: the CUDA kernels and the engines on a GPU.
 
 They import nothing of JAX, so they also run where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_card.py
 
-Without a CUDA device every test skips (the kernel has no CPU mode); the
-decision is taken inside a fixture, never at import.
+Without a CUDA device every test skips (the kernels have no CPU mode);
+the decision is taken inside a fixture, never at import.
 """
 
 from __future__ import annotations
@@ -18,9 +18,13 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from tpuslo_torch.models import llama, serve  # noqa: E402
+from tpuslo_torch.models import kv_cache, llama, paged_kv, serve  # noqa: E402
 from tpuslo_torch.ops import flash_attention  # noqa: E402
 from tpuslo_torch.ops.flash_attention import flash_attention_reference  # noqa: E402
+from tpuslo_torch.ops.paged_attention import (  # noqa: E402
+    paged_decode_attention,
+    paged_decode_attention_reference,
+)
 
 # bf16 output rounding and bf16 p in p.v (see the kernel's source note);
 # the JAX package's own bf16 kernel test uses the same bound.
@@ -31,6 +35,14 @@ KERNEL_ROW_TOL = 2.0**-5
 # Card vs CPU bf16 logits: other summation order and kernel vs plain
 # attention; 4 bf16 ulps at |logit| in [4, 8).
 LOGIT_TOL = 0.125
+# K2 vs its plain version: the kernel keeps f32 up to its output, which
+# it rounds once to bf16: half an ulp is at most 2^-8 of |o|, and |o| < 8
+# (a convex combination of v rows), so 2^-6 at worst; 3.9e-3 by a CPU
+# model of that rounding.  Row-scaled (each (b, h) row's max error over
+# its RMS): the same rounding of a row's largest element, 0.0175 at
+# worst in the CPU model.
+PAGED_TOL = 2e-2
+PAGED_ROW_TOL = 0.025
 
 
 @pytest.fixture
@@ -123,3 +135,129 @@ def test_engine_on_card_matches_cpu(cuda_device):
     )
     assert report["ok"], report
     assert flash_attention.launches - before >= cfg.n_layers
+
+
+def _paged_inputs(seed, B, MB, N, H, KV, HD, BS, quantized, device):
+    """Random q and pools with random tables and lengths, like the JAX
+    lowering tests; the last lane is parked (zeroed table, length 100)
+    and lane 1 shares lane 0's first two blocks."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, H, HD, generator=g).bfloat16()
+    k = torch.randn(N, BS, KV, HD, generator=g).bfloat16()
+    v = torch.randn(N, BS, KV, HD, generator=g).bfloat16()
+    if quantized:
+        k, v = kv_cache.quantize_kv(k.float()), kv_cache.quantize_kv(v.float())
+    table = torch.randint(1, N, (B, MB), generator=g, dtype=torch.int32)
+    lengths = torch.randint(1, MB * BS, (B,), generator=g, dtype=torch.int32)
+    table[-1] = 0
+    lengths[-1] = 100
+    table[1, :2] = table[0, :2]
+    return tuple(kv_cache.kv_map(lambda t: t.to(device), x) for x in (q, k, v, table, lengths))
+
+
+PAGED_SHAPES = {
+    "B8-bf16": (8, 4, 40, 24, 8, 128, 64, False),
+    "B8-int8": (8, 4, 40, 24, 8, 128, 64, True),
+    "B32-bf16": (32, 8, 300, 24, 8, 128, 64, False),
+    "B32-int8": (32, 8, 300, 24, 8, 128, 64, True),
+    "HD64-BS16": (6, 6, 30, 8, 2, 64, 16, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(PAGED_SHAPES))
+def test_paged_kernel_matches_plain(cuda_device, shape):
+    B, MB, N, H, KV, HD, BS, quantized = PAGED_SHAPES[shape]
+    q, k, v, table, lengths = _paged_inputs(1, B, MB, N, H, KV, HD, BS, quantized, cuda_device)
+    before = paged_decode_attention.launches
+    out = paged_decode_attention(q, k, v, table, lengths, block_size=BS)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    ref = paged_decode_attention_reference(
+        q, k, v, table, lengths, block_size=BS, out_dtype=torch.float32
+    )
+    diff = (out.float() - ref).abs()
+    assert torch.isfinite(out).all()
+    assert diff.max().item() < PAGED_TOL
+    row_rms = ref.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    assert (diff / row_rms).max().item() < PAGED_ROW_TOL
+
+
+@pytest.mark.cuda
+def test_paged_kernel_skips_blocks_past_length(cuda_device):
+    """Poisoning every block but lane 0's first leaves lane 0's output
+    bit for bit as it was."""
+    q, k, v, table, lengths = _paged_inputs(2, 4, 4, 20, 24, 8, 128, 64, False, cuda_device)
+    lengths[0] = 30
+    clean = paged_decode_attention(q, k, v, table, lengths, block_size=64)
+    poison = torch.full_like(k, 1e4)
+    owned = int(table[0, 0])
+    poison[owned] = k[owned]
+    dirty = paged_decode_attention(q, poison, v, table, lengths, block_size=64)
+    torch.cuda.synchronize()
+    assert torch.equal(clean[0], dirty[0])
+
+
+@pytest.mark.cuda
+def test_paged_kernel_never_falls_back(cuda_device):
+    q, k, v, table, lengths = _paged_inputs(3, 2, 2, 6, 8, 2, 128, 16, False, cuda_device)
+    before = paged_decode_attention.launches
+    with pytest.raises(ValueError, match="bf16 or int8"):
+        paged_decode_attention(q, k.float(), v.float(), table, lengths, block_size=16)
+    with pytest.raises(ValueError, match="int32"):
+        paged_decode_attention(q, k, v, table.long(), lengths, block_size=16)
+    q96 = torch.zeros(2, 8, 96, dtype=torch.bfloat16, device=cuda_device)
+    k96 = torch.zeros(6, 16, 2, 96, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="head dims"):
+        paged_decode_attention(q96, k96, k96, table, lengths, block_size=16)
+    assert paged_decode_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_paged_engine_on_card_matches_cpu(cuda_device):
+    """A small head-dim-128 bf16 paged engine with K2 switched on (the
+    kernel on the card, its plain version on the CPU), same weights, a
+    shared prefix and a plain request in flight; streams are held by
+    the tie rule against the CPU single-request engine's margins."""
+    cfg = llama.LlamaConfig(
+        vocab_size=512, dim=256, n_layers=2, n_heads=2, n_kv_heads=1,
+        ffn_dim=512, max_seq_len=512,
+    )
+    cpu_params = llama.init_params(0, cfg, "cpu")
+    card_params = {
+        "embed": cpu_params["embed"].to(cuda_device),
+        "layers": {n: t.to(cuda_device) for n, t in cpu_params["layers"].items()},
+        "final_norm": cpu_params["final_norm"].to(cuda_device),
+        "output": cpu_params["output"].to(cuda_device),
+    }
+    prefix = "The card serves this shared system prompt. " * 2
+    jobs = [("first suffix", prefix), ("second suffix", prefix), ("no prefix at all", None)]
+    results = {}
+    for where, params in (("card", card_params), ("cpu", cpu_params)):
+        engine = paged_kv.PagedBatchingEngine(
+            cfg, params, max_slots=3, block_size=16, pallas_attention=True,
+            device=cuda_device if where == "card" else "cpu",
+        )
+        before = paged_decode_attention.launches
+        ids = [engine.submit(p, max_new_tokens=8, stop_at_eos=False, prefix=pre)
+               for p, pre in jobs]
+        engine.run()
+        launches = paged_decode_attention.launches - before
+        assert launches == (engine.steps * cfg.n_layers if where == "card" else 0)
+        assert engine.prefix_reuse_hits >= 1
+        results[where] = [engine.results[i] for i in ids]
+    single = serve.ServeEngine(cfg, cpu_params, device="cpu")
+    for (prompt, pre), got, want in zip(jobs, results["card"], results["cpu"]):
+        assert len(got) == len(want)
+        if pre:
+            p_ids, s_ids = serve.prefix_prompt_ids(pre, prompt, cfg.max_seq_len)
+            ids = p_ids + s_ids
+        else:
+            ids = serve.encode_bytes(prompt, cfg.max_seq_len - 2)
+        for i, (a, b) in enumerate(zip(want, got)):
+            if a != b:
+                logits, _ = single.ingest_ids(ids + want[:i])
+                top2 = torch.topk(logits[0].float(), 2).values
+                assert float(top2[0] - top2[1]) < 2 * LOGIT_TOL, (prompt, i, want, got)
+                break

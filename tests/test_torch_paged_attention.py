@@ -1,0 +1,207 @@
+"""Paged decode attention (K2): ``tpuslo_torch.ops.paged_attention`` against
+the JAX package.
+
+On the CPU the port's ``paged_decode_attention`` is its plain version,
+``paged_decode_attention_reference``; it is held to the Pallas kernel
+``tpuslo.ops.paged_attention.paged_decode_attention`` in interpret mode
+(the same kernel code a TPU runs) on the same numpy inputs, at the
+geometry of ``tests/test_paged_attention_kernel.py``.  Tolerances are the
+JAX test's: 2e-5 absolute / 1e-4 relative for f32 pools (both sides
+accumulate in f32, in another order), 5e-4 / 1e-3 for int8 pools.  The
+plain physical-pool path (``pool_visibility_mask`` + ``_pool_attention``)
+is held to JAX's too, the mask exactly.
+"""
+
+from __future__ import annotations
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from tpuslo.models import kv_cache as jkv  # noqa: E402
+from tpuslo.models import paged_kv as jpk  # noqa: E402
+from tpuslo.ops import paged_attention as jpa  # noqa: E402
+from tpuslo_torch.models import paged_kv as tpk  # noqa: E402
+from tpuslo_torch.ops import paged_attention as tpa  # noqa: E402
+
+F32_TOL = dict(atol=2e-5, rtol=1e-4)
+INT8_TOL = dict(atol=5e-4, rtol=1e-3)
+BS = 8
+
+
+def _setup(B=3, MB=4, N=10, KV=2, n_rep=2, HD=16, seed=0, quantized=False,
+           lengths=None):
+    """The JAX kernel test's geometry as numpy: lane b owns blocks
+    ``1 + b*MB ..`` (mod N-1), the last lane is parked (zeroed table),
+    lengths straddle block boundaries."""
+    rng = np.random.RandomState(seed)
+    H = KV * n_rep
+    q = rng.randn(B, H, HD).astype(np.float32)
+    k = rng.randn(N, BS, KV, HD).astype(np.float32)
+    v = rng.randn(N, BS, KV, HD).astype(np.float32)
+    if quantized:
+        k = {n: np.asarray(a) for n, a in jkv.quantize_kv(jnp.asarray(k)).items()}
+        v = {n: np.asarray(a) for n, a in jkv.quantize_kv(jnp.asarray(v)).items()}
+    table = np.zeros((B, MB), np.int32)
+    for b in range(B - 1):
+        table[b] = np.arange(1 + b * MB, 1 + (b + 1) * MB) % (N - 1)
+    lens = np.asarray(lengths if lengths is not None else [5, BS * 2 + 3, 7][:B], np.int32)
+    return q, k, v, table, lens
+
+
+def _jax(x):
+    return {n: jnp.asarray(a) for n, a in x.items()} if isinstance(x, dict) else jnp.asarray(x)
+
+
+def _torch(x):
+    if isinstance(x, dict):
+        return {n: torch.from_numpy(np.array(a)) for n, a in x.items()}
+    return torch.from_numpy(np.array(x))
+
+
+def _both(q, k, v, table, lens):
+    want = jpa.paged_decode_attention(
+        _jax(q), _jax(k), _jax(v), _jax(table), _jax(lens),
+        block_size=BS, interpret=True,
+    )
+    got = tpa.paged_decode_attention(
+        _torch(q), _torch(k), _torch(v), _torch(table), _torch(lens), block_size=BS
+    )
+    return np.asarray(want), got.numpy()
+
+
+def test_f32_pool_matches_pallas_interpret():
+    before = tpa.paged_decode_attention.launches
+    want, got = _both(*_setup())
+    assert got.dtype == np.float32 and got.shape == (3, 4, 16)
+    np.testing.assert_allclose(got[:2], want[:2], **F32_TOL)
+    # The parked lane reads the null block: finite in both.
+    assert np.isfinite(got[2]).all() and np.isfinite(want[2]).all()
+    np.testing.assert_allclose(got[2], want[2], **F32_TOL)
+    assert tpa.paged_decode_attention.launches == before  # CPU: no kernel
+
+
+def test_int8_pool_matches_pallas_interpret():
+    want, got = _both(*_setup(quantized=True))
+    np.testing.assert_allclose(got, want, **INT8_TOL)
+
+
+def test_blocks_past_length_change_nothing():
+    """Poisoning every block but lane 0's first leaves lane 0 alone."""
+    q, k, v, table, lens = _setup()
+    clean = tpa.paged_decode_attention(
+        _torch(q), _torch(k), _torch(v), _torch(table), _torch(lens), block_size=BS
+    )
+    poison = k.copy()
+    for n in range(poison.shape[0]):
+        if n != table[0, 0]:
+            poison[n] = 1e4
+    dirty = tpa.paged_decode_attention(
+        _torch(q), _torch(poison), _torch(v), _torch(table), _torch(lens), block_size=BS
+    )
+    np.testing.assert_allclose(dirty[0].numpy(), clean[0].numpy(), atol=1e-5)
+    want, got = _both(q, poison, v, table, lens)
+    np.testing.assert_allclose(got[0], want[0], **F32_TOL)
+
+
+def test_lanes_sharing_blocks_match_pallas_interpret():
+    """Two lanes whose tables point at the same physical prefix blocks
+    (copy-on-write sharing), each with its own private tail."""
+    q, k, v, table, lens = _setup(lengths=[BS * 2 + 5, BS * 3 + 1, 0])
+    table[1, :2] = table[0, :2]
+    want, got = _both(q, k, v, table, lens)
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    # The shared span gives the same scores on both lanes: with one
+    # query and one length, the two lanes' outputs coincide.
+    q[1] = q[0]
+    same = tpa.paged_decode_attention(
+        _torch(q), _torch(k), _torch(v), _torch(table),
+        _torch(np.asarray([BS * 2 - 1, BS * 2 - 1, 0], np.int32)), block_size=BS,
+    )
+    np.testing.assert_allclose(same[0].numpy(), same[1].numpy(), atol=1e-6)
+
+
+def test_length_past_the_table_keeps_every_block_visible():
+    """A parked lane's length walks past MB * BS - 1: every block stays
+    visible, as the Pallas kernel's relevant test and clamp give."""
+    q, k, v, table, lens = _setup(lengths=[4 * BS + 9, 100, 4 * BS - 1])
+    want, got = _both(q, k, v, table, lens)
+    np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_out_dtype_is_respected(out_dtype):
+    q, k, v, table, lens = _setup()
+    got = tpa.paged_decode_attention(
+        _torch(q), _torch(k), _torch(v), _torch(table), _torch(lens),
+        block_size=BS, out_dtype=out_dtype,
+    )
+    ref = tpa.paged_decode_attention_reference(
+        _torch(q), _torch(k), _torch(v), _torch(table), _torch(lens), block_size=BS
+    )
+    assert got.dtype == out_dtype
+    assert torch.equal(got, ref.to(out_dtype))
+
+
+def test_other_devices_raise():
+    q, k, v, table, lens = _setup()
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tpa.paged_decode_attention(
+            _torch(q).to("meta"), _torch(k), _torch(v), _torch(table),
+            _torch(lens), block_size=BS,
+        )
+    with pytest.raises(ValueError, match="block_size"):
+        tpa.paged_decode_attention(
+            _torch(q), _torch(k), _torch(v), _torch(table), _torch(lens), block_size=4
+        )
+
+
+@pytest.mark.parametrize("case", ["random", "shared", "parked", "all_zero"])
+def test_pool_visibility_mask_equals_jax(case):
+    rng = np.random.RandomState(3)
+    B, MB, N = 4, 5, 12
+    # Each lane owns distinct blocks, as the allocator hands them out.
+    table = np.stack([rng.permutation(np.arange(1, N))[:MB] for _ in range(B)])
+    table = table.astype(np.int32)
+    lens = rng.randint(0, MB * BS + 6, size=(B,)).astype(np.int32)
+    if case == "shared":
+        table[2, :3] = table[1, :3]
+    if case == "parked":
+        table[0] = 0
+        table[3, 2:] = 0
+    if case == "all_zero":
+        table[:] = 0
+    want = np.asarray(jpk.pool_visibility_mask(jnp.asarray(table), jnp.asarray(lens), N, BS))
+    got = tpk.pool_visibility_mask(torch.from_numpy(table), torch.from_numpy(lens), N, BS)
+    assert got.dtype == torch.bool and got.shape == (B, N * BS)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+def test_pool_attention_matches_jax(quantized):
+    """The plain physical-pool path on the mask: f32 inputs (int8 pools
+    dequantized to f32 first, as the JAX kernel test's reference does)."""
+    q, k, v, table, lens = _setup(quantized=quantized)
+    n = 10  # the pool's blocks
+    jmask = jpk.pool_visibility_mask(jnp.asarray(table), jnp.asarray(lens), n, BS)
+    want = jpk._pool_attention(
+        jnp.asarray(q), jkv.kv_load(_jax(k), jnp.float32),
+        jkv.kv_load(_jax(v), jnp.float32), jmask, 2,
+    )
+    tmask = tpk.pool_visibility_mask(torch.from_numpy(table), torch.from_numpy(lens), n, BS)
+    from tpuslo_torch.models import kv_cache as tkv
+
+    got = tpk._pool_attention(
+        torch.from_numpy(q), tkv.kv_load(_torch(k), torch.float32),
+        tkv.kv_load(_torch(v), torch.float32), tmask, 2,
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+    # Live lanes: the kernel's plain version agrees with the pool path.
+    ref = tpa.paged_decode_attention_reference(
+        torch.from_numpy(q), _torch(k), _torch(v), torch.from_numpy(table),
+        torch.from_numpy(lens), block_size=BS,
+    )
+    np.testing.assert_allclose(ref[:2].numpy(), got[:2].numpy(), **INT8_TOL)

@@ -1,5 +1,6 @@
 """Serving models of the port: the Llama family, its KV caches, the
-single-stream ``ServeEngine`` and the JAX weight bridge."""
+single-stream ``ServeEngine``, the continuous-batching engines (dense
+and paged) and the JAX weight bridge."""
 
 from tpuslo_torch.models.llama import (
     GREEDY,
@@ -21,10 +22,14 @@ from tpuslo_torch.models.llama import (
     verify_chunk,
 )
 from tpuslo_torch.models.serve import ServeEngine, TokenEvent
+from tpuslo_torch.models.batching import ContinuousBatchingEngine
+from tpuslo_torch.models.paged_kv import PagedBatchingEngine
 
 __all__ = [
     "GREEDY",
+    "ContinuousBatchingEngine",
     "LlamaConfig",
+    "PagedBatchingEngine",
     "SamplingConfig",
     "ServeEngine",
     "TokenEvent",

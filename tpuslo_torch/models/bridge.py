@@ -10,8 +10,11 @@ carries over as a copy:
 * an int8 ``{"q", "s"}`` leaf is copied as it is and never quantized
   again: re-quantizing could round exact .5 boundaries differently.
 
-KV caches go the other way, port to numpy, so that tests can hold them
-to the JAX module's.
+KV state goes both ways: a dense or int8 cache
+(:func:`cache_to_numpy`, :func:`cache_from_numpy`) and a paged pool with
+its page table and lengths (:func:`paged_state_to_numpy`,
+:func:`paged_state_from_numpy`), so that tests can start the port from
+JAX's state and hold the port's to it.
 """
 
 from __future__ import annotations
@@ -66,4 +69,50 @@ def cache_to_numpy(cache: dict) -> dict:
         "k": _side_to_numpy(cache["k"]),
         "v": _side_to_numpy(cache["v"]),
         "length": np.asarray(length, np.int64),
+    }
+
+
+def _length_from_numpy(length, device: torch.device):
+    """A cache length as the port keeps it: a Python int for a scalar, a
+    ``(B,)`` int64 tensor for per-row lengths."""
+    length = np.asarray(length)
+    if length.ndim == 0:
+        return int(length)
+    return torch.from_numpy(length.astype(np.int64)).to(device)
+
+
+def cache_from_numpy(tree: dict, cfg, device: str | torch.device = "cuda") -> dict:
+    """A port KV cache from a JAX cache given as numpy: dense sides are
+    cast to ``cfg.dtype``, int8 ``{"q", "s"}`` sides are copied as they
+    are, ``length`` becomes an int or a ``(B,)`` int64 tensor."""
+    dev = resolve_device(device)
+    return {
+        "k": _leaf_to_torch(tree["k"], cfg.dtype, dev),
+        "v": _leaf_to_torch(tree["v"], cfg.dtype, dev),
+        "length": _length_from_numpy(tree["length"], dev),
+    }
+
+
+def paged_state_to_numpy(state: dict) -> dict:
+    """A port paged state as numpy: the pool sides as in
+    :func:`cache_to_numpy`, the page table as int32, lengths as int64."""
+    return {
+        "k": _side_to_numpy(state["k"]),
+        "v": _side_to_numpy(state["v"]),
+        "page_table": state["page_table"].cpu().numpy().astype(np.int32),
+        "length": state["length"].cpu().numpy().astype(np.int64),
+    }
+
+
+def paged_state_from_numpy(tree: dict, cfg, device: str | torch.device = "cuda") -> dict:
+    """A port paged state from a JAX one given as numpy: pool sides as in
+    :func:`cache_from_numpy`, an int32 page table and int64 lengths."""
+    dev = resolve_device(device)
+    return {
+        "k": _leaf_to_torch(tree["k"], cfg.dtype, dev),
+        "v": _leaf_to_torch(tree["v"], cfg.dtype, dev),
+        "page_table": torch.from_numpy(
+            np.asarray(tree["page_table"], np.int32).copy()
+        ).to(dev),
+        "length": torch.from_numpy(np.asarray(tree["length"], np.int64).copy()).to(dev),
     }

@@ -19,8 +19,12 @@ survive later writes clones it first (``kv_map(torch.clone, kv)``).
 
 ``lax.dynamic_update_slice`` clamps a start that runs past the end of
 the cache, silently overwriting earlier positions; :func:`kv_write_seq`
-raises instead.  Per-row scatters use PyTorch's own index checks, which
-raise on out-of-range rows or positions.
+raises instead.  :func:`kv_write_rows` drops a row's write at a position
+at or past the cache end, as JAX's scatter does: the continuous-batching
+engines keep decoding released slots, whose lengths walk past the end,
+and such a write must neither raise on the CPU nor trip a device-side
+assert on the card.  :func:`kv_write_rows_seq` leaves the index checks to
+PyTorch, which raise on out-of-range rows or positions.
 """
 
 from __future__ import annotations
@@ -106,13 +110,27 @@ def kv_write_rows(
     kv: KV, new: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor
 ) -> KV:
     """Scatter one ``(B, KV, HD)`` slot per row at per-row positions
-    (the vector-length batched decode path), in place."""
+    (the vector-length batched decode path), in place.
+
+    A row whose position is at or past the cache end writes nothing, as
+    JAX's out-of-range scatter drops it: the write goes through a clamped
+    index and keeps the old value there, so no index ever leaves the
+    cache and rows inside it are written exactly as before.
+    """
+    S = (kv["q"] if isinstance(kv, dict) else kv).shape[1]
+    inside = pos < S
+    idx = pos.clamp(max=S - 1)
+
+    def put(side, value):
+        keep = inside.view((-1,) + (1,) * (value.ndim - 1))
+        side[rows, idx] = torch.where(keep, value, side[rows, idx])
+
     if isinstance(kv, dict):
         qs = quantize_kv(new)
-        kv["q"][rows, pos] = qs["q"]
-        kv["s"][rows, pos] = qs["s"]
+        put(kv["q"], qs["q"])
+        put(kv["s"], qs["s"])
         return kv
-    kv[rows, pos] = new
+    put(kv, new)
     return kv
 
 
@@ -155,6 +173,14 @@ def kv_bytes(shape: tuple[int, ...], dtype: torch.dtype, kv_dtype: str) -> int:
     if kv_dtype == "int8":
         return n + 4 * (n // shape[-1])
     return n * dtype.itemsize
+
+
+def kv_leaf_pairs(a: KV, b: KV) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """(a leaf, b leaf) pairs of two cache sides in one representation,
+    for copies between them (``dst[...] = src[...]`` per pair)."""
+    if isinstance(a, dict):
+        return [(a["q"], b["q"]), (a["s"], b["s"])]
+    return [(a, b)]
 
 
 def kv_map(fn: Callable[[torch.Tensor], torch.Tensor], kv: KV) -> KV:

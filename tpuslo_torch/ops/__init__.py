@@ -6,5 +6,15 @@ from tpuslo_torch.ops.flash_attention import (
     flash_attention_reference,
     flash_eligible,
 )
+from tpuslo_torch.ops.paged_attention import (
+    paged_decode_attention,
+    paged_decode_attention_reference,
+)
 
-__all__ = ["flash_attention", "flash_attention_reference", "flash_eligible"]
+__all__ = [
+    "flash_attention",
+    "flash_attention_reference",
+    "flash_eligible",
+    "paged_decode_attention",
+    "paged_decode_attention_reference",
+]
