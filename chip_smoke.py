@@ -11,12 +11,15 @@ non-zero exit and no result line:
 1. device: the card's name and power limit (nvidia-smi), device count;
 2. build: both kernels from ``tpuslo_torch/ops/csrc`` (flash attention,
    K1, and paged decode attention, K2) with nvcc for sm_90a, one nvcc
-   each, started together; build seconds and ptxas reports;
+   each, started together; build seconds and one ptxas line per kernel
+   instantiation (registers, spills, static shared memory; the main
+   path's marked), and any ptxas "Performance Loss" line;
 3. K1 vs plain: the kernel against ``flash_attention_reference`` (f32 on
    the card) at Llama-3.2-3B's attention widths, at every shape the
    serve phase gives it and a few more, with kernel, plain and library
-   (SDPA, a yardstick the port never calls) times and the card's lower
-   bound for the same work;
+   (SDPA, a yardstick the port never calls) times, the card's lower
+   bound for the same work, the kernel's ratio to SDPA and its share of
+   the bound;
 4. serve: a full-depth, full-width ``llama32_3b`` ``ServeEngine`` with
    seeded random weights answers three ``generate`` requests and one
    ``generate_batch``; K1's launch count over this phase must be one per
@@ -35,9 +38,12 @@ non-zero exit and no result line:
    ``paged_decode_attention_reference`` at the page tables and lengths
    the paged phase produced and at random tables of batch 8 and 32,
    each with a bf16 and an int8 pool, a parked lane and shared blocks,
-   with kernel, plain and dense-SDPA times and the bound;
+   with kernel, plain and dense-SDPA times, the bound, the kernel's ratio
+   to dense SDPA and its share of the bound; the kernels one K2 call
+   launches (split and combine) are learned by profiling one call;
 8. breakdown: one paged decode step with 8 live lanes, with K2 and with
-   the plain pool attention;
+   the plain pool attention; K2's time in the step sums every kernel one
+   call launches;
 9. parity: a 2-layer full-width model's prefill logits on the card
    (kernel path) against the same weights on the CPU (plain path);
 10. the ``kernels`` JSON line, the card line, and the result line.
@@ -50,6 +56,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import re
 import subprocess
 import sys
 import time
@@ -108,6 +116,11 @@ SHAPES = (
 LINE_SHAPE = (1, 256, True)  # the kernels line reports this main-path shape
 
 KERNELS = ("flash_attention", "paged_attention")  # csrc/<name>.cu
+# The instantiations the main path runs: K1, and K2's split and combine
+# kernels for a bf16 pool at Llama-3.2-3B's head dim 128 and 3 query heads
+# per kv head.
+PATH_INSTANTIATIONS = ("flash_fwd_kernel", "paged_split_kernel<bf16,128,3>",
+                       "paged_combine_kernel<128,3>")
 BUCKETS = (32, 64, 128, 256)  # the engine's prefill buckets
 BATCH_BUCKETS = (1, 2, 4, 8)  # generate_batch's default row buckets
 # Each generate request's name says how its prompt ingests: a prefill
@@ -163,6 +176,41 @@ def _fail(msg: str) -> None:
     raise SystemExit(1)
 
 
+def ptxas_entries(report: str) -> list[dict]:
+    """One record per kernel instantiation of a ``ptxas -v`` report:
+    name (kernel and template arguments, from the mangled name),
+    registers, spill bytes (stores + loads) and static shared memory."""
+    entries = []
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            name = mangled
+            base = re.search(r"[a-z][a-z_]*kernel", mangled)
+            if base:
+                args = mangled[base.end():]
+                args = args.split("EEv")[0] if args.startswith("I") else ""
+                dtype = ("bf16" if args.startswith("I13__nv_bfloat16")
+                         else "int8" if args.startswith("Ia") else None)
+                params = ([dtype] if dtype else []) + re.findall(r"Li(\d+)E", args)
+                name = base.group(0) + (f"<{','.join(params)}>" if params else "")
+            entries.append({"name": name, "registers": None, "spill_bytes": 0,
+                            "smem_bytes": 0})
+            continue
+        if not entries:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            entries[-1]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entries[-1]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            entries[-1]["smem_bytes"] = int(m.group(1))
+    return entries
+
+
 def _card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -209,9 +257,26 @@ def _time_ms(torch, fn, reps: int, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _per_call_kernels(kernels, calls: int) -> dict[str, tuple[float, int]]:
+    """{kernel name: (mean device µs per launch, launches per call)} from
+    the profiler's averages over a trace of ``calls`` calls.  The
+    profiler was seen on the card to drop the first one or two kernel
+    events of a trace (49 or 48 of 50 left), so a kernel's launches per
+    call are its count over the calls, rounded, and its time per launch
+    is its mean over the launches the trace kept.  A kernel seen in
+    fewer than half the calls is not part of a call."""
+    out = {}
+    for e in kernels:
+        per_call = round(e.count / calls)
+        if per_call:
+            out[e.key] = (e.self_device_time_total / e.count, per_call)
+    return out
+
+
 def _device_us(torch, fn, reps: int, flush) -> float:
-    """Device kernel time (µs, CUPTI) of ``reps`` calls of ``fn``, each
-    after ``flush.zero_()`` when a flush buffer is given."""
+    """Device kernel time (µs, CUPTI) per call of ``fn``, from one trace
+    of ``reps`` calls, each after ``flush.zero_()`` when a flush buffer
+    is given (see _per_call_kernels); 0 for a trace without kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -221,11 +286,11 @@ def _device_us(torch, fn, reps: int, flush) -> float:
                 flush.zero_()
             fn()
         torch.cuda.synchronize()
-    return sum(
-        e.self_device_time_total
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA
-    )
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if any(e.count % reps for e in kernels):
+        print(f"chip_smoke: the profiler kept {[(e.key[:40], e.count) for e in kernels]} "
+              f"kernel events of {reps} calls", file=sys.stderr, flush=True)
+    return sum(us * n for us, n in _per_call_kernels(kernels, reps).values())
 
 
 def _per_call_ms(torch, fn, reps: int, what: str, flush=None) -> tuple[float, float]:
@@ -250,7 +315,7 @@ def _per_call_ms(torch, fn, reps: int, what: str, flush=None) -> tuple[float, fl
                 continue
             device_us -= flush_us
         if device_us > 0:
-            return device_us / 1e3 / reps, event_ms
+            return device_us / 1e3, event_ms
     _fail(f"{what}: five profiler traces held no kernel time")
 
 
@@ -315,12 +380,14 @@ def phase_kernel(torch, fa, cfg, serve_shapes) -> dict:
             "row_scaled_err": row_err, "row_tol": KERNEL_ROW_TOL, "ms": ms,
             "ms_back_to_back": ms_b2b, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "vs_sdpa": ms / library_ms, "bound_share": bound_ms / ms,
         }
         rows.append(row)
         print(f"kernel: {what} serve path {row['serve_path']}: err={err:.3e} "
               f"(tol {KERNEL_TOL}) row-scaled={row_err:.3e} (tol {KERNEL_ROW_TOL}) "
               f"device: kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
               f"sdpa={library_ms:.4f}ms bound={bound_ms * 1e3:.2f}us ({bound_by}); "
+              f"kernel/sdpa={row['vs_sdpa']:.3f} bound share={row['bound_share']:.3f}; "
               f"kernel back-to-back={ms_b2b:.4f}ms", flush=True)
     return {"shapes": rows}
 
@@ -367,7 +434,31 @@ def _device_breakdown(torch, fn) -> dict:
         "kernel_launches": sum(e.count for e in kernels),
         "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top},
         "top_kernels_launches": {e.key[:60]: e.count for e in top},
+        "kernels_ms": {e.key: e.self_device_time_total / 1e3 for e in kernels},
+        "kernels_launches": {e.key: e.count for e in kernels},
     }
+
+
+def _launched_kernels(torch, fn) -> dict[str, int]:
+    """{kernel name: launches per call} of the device kernels ``fn``
+    launches (profiled alone over 10 calls), so that a step's breakdown
+    can be read by what a wrapper launches rather than by a kernel name
+    written here."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):  # a trace may come back empty (see _per_call_ms)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        found = {k: n for k, (_, n) in _per_call_kernels(kernels, 10).items()}
+        if found:
+            return found
+    _fail("five profiler traces of one call held no kernel")
 
 
 def phase_serve(torch, fa, llama, serve, cfg, serve_shapes) -> tuple[dict, object]:
@@ -758,14 +849,20 @@ def phase_paged_kernel(torch, pa, kv_cache, cfg, engine, capture) -> dict:
                 "ms_warm_l2": ms_warm, "ms_back_to_back": ms_b2b, "plain_ms": plain_ms,
                 "dense_sdpa_ms": sdpa_ms,
                 "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+                "vs_dense_sdpa": ms / sdpa_ms, "bound_share": bound_ms / ms,
             }
             rows.append(row)
             print(f"K2: {what}: err={err:.3e} (tol {PAGED_TOL}) row-scaled={row_err:.3e} "
                   f"(tol {PAGED_ROW_TOL}) device, cold L2: kernel={ms:.4f}ms "
                   f"plain={plain_ms:.4f}ms dense-sdpa={sdpa_ms:.4f}ms "
-                  f"bound={bound_ms * 1e3:.2f}us ({bound_by}); kernel warm L2={ms_warm:.4f}ms, "
-                  f"back-to-back={ms_b2b:.4f}ms", flush=True)
-    return {"shapes": rows, "library_note": "no single PyTorch call computes paged "
+                  f"bound={bound_ms * 1e3:.2f}us ({bound_by}); kernel/dense-sdpa="
+                  f"{row['vs_dense_sdpa']:.3f} bound share={row['bound_share']:.4f}; "
+                  f"kernel warm L2={ms_warm:.4f}ms, back-to-back={ms_b2b:.4f}ms", flush=True)
+            if name == "serve" and dtype == "bf16":
+                launched = _launched_kernels(torch, kernel)
+    print(f"K2: one call at the paged step launches {launched}", flush=True)
+    return {"shapes": rows, "launched_kernels": launched,
+            "library_note": "no single PyTorch call computes paged "
             "decode attention; dense_sdpa_ms is SDPA over K/V gathered per lane "
             "beforehand (gather not timed), a yardstick the port never calls"}
 
@@ -812,12 +909,17 @@ def phase_breakdown(torch, paged_kv, cfg, engine, capture) -> dict:
     return out
 
 
-def _in_step_ms(breakdown: dict, kernel: str) -> float | None:
-    """Device ms per launch of ``kernel`` inside a profiled step."""
-    for name, ms in breakdown["top_kernels_ms"].items():
-        if kernel in name:
-            return ms / breakdown["top_kernels_launches"][name]
-    return None
+def _in_step_ms(breakdown: dict, kernels: dict[str, int]) -> float | None:
+    """Device ms per wrapper call inside a profiled step: for every
+    kernel one call launches (``kernels``: name -> launches per call,
+    learned by profiling a call alone), its mean time per launch in the
+    step times its launches per call, summed.  None when the step's trace
+    holds none of them."""
+    found = [k for k in kernels if k in breakdown["kernels_ms"]]
+    if not found:
+        return None
+    return sum(breakdown["kernels_ms"][k] / breakdown["kernels_launches"][k] * kernels[k]
+               for k in found)
 
 
 def phase_parity(torch, fa, llama) -> dict:
@@ -893,12 +995,21 @@ def main() -> int:
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         builds = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
     print(f"build: {len(builds)} kernels in {time.perf_counter() - t0:.2f}s", flush=True)
+    ptxas = {}
     for name, info in builds.items():
         print(f"build: {info.path.name}: nvcc {info.seconds:.2f}s (0 means reused)",
               flush=True)
+        ptxas[name] = ptxas_entries(info.ptxas)
         for line in info.ptxas.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print(f"build: {name}: ptxas: {line.strip()}", flush=True)
+            if "Performance Loss" in line:  # e.g. wgmma serialised (C7513)
+                print(f"build: {name}: ptxas: {line.strip()[:200]}", flush=True)
+        for e in ptxas[name]:
+            on_path = e["name"] in PATH_INSTANTIATIONS
+            print(f"build: {name}: ptxas: {e['name']}: {e['registers']} registers, "
+                  f"{e['spill_bytes']} bytes spilled, {e['smem_bytes']} bytes static smem"
+                  f"{' (on the path)' if on_path else ''}", flush=True)
+        if not ptxas[name]:
+            _fail(f"no ptxas report for {name}")
 
     # 3. K1 vs plain, at the fixed shapes and the serve path's
     cfg = llama.llama32_3b(max_seq_len=2048)
@@ -950,13 +1061,13 @@ def main() -> int:
         "bound_by": k2_row["bound_by"],
         "library_ms": None,
         "dense_sdpa_ms": k2_row["dense_sdpa_ms"],
-        "ms_in_step": _in_step_ms(breakdown["k2_on"], "paged_decode_kernel"),
+        "ms_in_step": _in_step_ms(breakdown["k2_on"], k2["launched_kernels"]),
         "shape": f"B={k2_row['B']} MB={k2_row['MB']} BS={k2_row['BS']} H=24 KV=8 HD=128 "
                  "bf16 pool, the paged phase's step",
     }]}
     record = {"card": card, "kind": kind, "count": count, "torch": torch.__version__,
               "build_s": {n: b.seconds for n, b in builds.items()},
-              "ptxas": {n: b.ptxas for n, b in builds.items()}, "kernel": kernel,
+              "ptxas": ptxas, "kernel": kernel,
               "serve": served, "dense": dense, "paged": paged, "paged_kernel": k2,
               "paged_breakdown": breakdown, "parity": parity, **kernels}
     print(f"record: {json.dumps(record)}")

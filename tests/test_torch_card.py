@@ -24,6 +24,7 @@ from tpuslo_torch.ops.flash_attention import flash_attention_reference  # noqa: 
 from tpuslo_torch.ops.paged_attention import (  # noqa: E402
     paged_decode_attention,
     paged_decode_attention_reference,
+    paged_decode_attention_split,
 )
 
 # bf16 output rounding and bf16 p in p.v (see the kernel's source note);
@@ -69,6 +70,9 @@ def _qkv(seed, B, S, H, KV, D, device):
     (4, 256, 24, 8, True),
     (1, 256, 24, 8, False),
     (2, 512, 4, 2, True),
+    (2, 512, 24, 8, True),
+    (1, 1024, 24, 8, True),
+    (2, 1024, 24, 8, False),
 ])
 def test_kernel_matches_plain(cuda_device, B, S, H, KV, causal):
     q, k, v = _qkv(7, B, S, H, KV, 128, cuda_device)
@@ -161,6 +165,17 @@ PAGED_SHAPES = {
     "B32-bf16": (32, 8, 300, 24, 8, 128, 64, False),
     "B32-int8": (32, 8, 300, 24, 8, 128, 64, True),
     "HD64-BS16": (6, 6, 30, 8, 2, 64, 16, False),
+    # Every group size the kernel is built for, and both head dims.
+    "nrep1": (4, 6, 30, 8, 8, 128, 64, False),
+    "nrep2-int8": (4, 6, 30, 16, 8, 128, 64, True),
+    "nrep4": (4, 6, 30, 32, 8, 128, 64, False),
+    "nrep8-int8": (4, 6, 30, 64, 8, 128, 64, True),
+    "HD64-nrep3": (4, 6, 30, 24, 8, 64, 64, False),
+    "HD64-nrep2-int8": (4, 6, 30, 16, 8, 64, 64, True),
+    # Spans that cut a block into chunks (BS > 64) or hold several.
+    "BS128-chunks": (4, 3, 14, 24, 8, 128, 128, False),
+    "BS100-HD64": (3, 3, 12, 8, 2, 64, 100, False),
+    "BS8-HD64-int8": (5, 20, 120, 8, 2, 64, 8, True),
 }
 
 
@@ -182,6 +197,83 @@ def test_paged_kernel_matches_plain(cuda_device, shape):
     assert diff.max().item() < PAGED_TOL
     row_rms = ref.pow(2).mean(dim=-1, keepdim=True).sqrt()
     assert (diff / row_rms).max().item() < PAGED_ROW_TOL
+
+
+def _hold_to_plain(q, k, v, table, lengths, block_size, plain=paged_decode_attention_reference):
+    out = paged_decode_attention(q, k, v, table, lengths, block_size=block_size)
+    torch.cuda.synchronize()
+    ref = plain(q, k, v, table, lengths, block_size=block_size, out_dtype=torch.float32)
+    diff = (out.float() - ref).abs()
+    assert torch.isfinite(out).all()
+    assert diff.max().item() < PAGED_TOL
+    row_rms = ref.pow(2).mean(dim=-1, keepdim=True).sqrt().clamp_min(1e-30)
+    rows = ref.abs().amax(dim=-1, keepdim=True) > 0
+    assert ((diff / row_rms) * rows).max().item() < PAGED_ROW_TOL
+    return out
+
+
+@pytest.mark.cuda
+def test_paged_kernel_one_lane_all_blocks_visible(cuda_device):
+    """B 1 with all 32 blocks of the table visible: 32 spans run and are
+    merged."""
+    q, k, v, table, lengths = _paged_inputs(4, 2, 32, 40, 24, 8, 128, 64, False, cuda_device)
+    q, table, lengths = q[:1], table[:1].clone(), lengths[:1].clone()
+    table[0] = torch.arange(1, 33, dtype=torch.int32, device=cuda_device)
+    for length in (32 * 64 - 1, 32 * 64 + 500):
+        lengths.fill_(length)
+        _hold_to_plain(q, k, v, table, lengths, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [64, 16, 128])
+def test_paged_kernel_span_boundaries(cuda_device, bs):
+    """Lengths that end a span exactly and that put one position into
+    the next span."""
+    q, k, v, table, lengths = _paged_inputs(5, 6, 8, 60, 24, 8, 128, bs, False, cuda_device)
+    values = [63, 64, 127, 128, 4 * bs - 1, 4 * bs]
+    lengths.copy_(torch.tensor(values, dtype=torch.int32))
+    _hold_to_plain(q, k, v, table, lengths, bs)
+
+
+@pytest.mark.cuda
+def test_paged_kernel_out_of_pool_entries(cuda_device):
+    """Table entries outside [0, N) are skipped: a middle block's entry
+    leaves its span empty (max -inf, sum 0), a lane with every entry out
+    of range returns zeros; held to the plain model of the split."""
+    q, k, v, table, lengths = _paged_inputs(6, 4, 4, 30, 24, 8, 128, 64, False, cuda_device)
+    lengths.copy_(torch.tensor([200, 150, 255, 40], dtype=torch.int32))
+    table[0, 1] = 30
+    table[1, 2] = -1
+    table[2] = torch.tensor([31, 32, -5, 1 << 20], dtype=torch.int32)
+    out = _hold_to_plain(q, k, v, table, lengths, 64, plain=paged_decode_attention_split)
+    assert torch.equal(out[2], torch.zeros_like(out[2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+def test_paged_kernel_replays_in_a_cuda_graph(cuda_device, quantized):
+    """One call captured in a CUDA graph, replayed after the lengths and
+    the page table change in place: the grid and the scratch depend on
+    shapes only, and the kernel reads the new values on the device."""
+    q, k, v, table, lengths = _paged_inputs(7, 8, 6, 60, 24, 8, 128, 64, quantized, cuda_device)
+    paged_decode_attention(q, k, v, table, lengths, block_size=64)  # build, warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged_decode_attention(q, k, v, table, lengths, block_size=64)
+    g = torch.Generator().manual_seed(70)
+    for _ in range(3):
+        lengths.copy_(torch.randint(0, 6 * 64 + 50, (8,), generator=g, dtype=torch.int32))
+        table.copy_(torch.randint(0, 60, (8, 6), generator=g, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = paged_decode_attention_reference(
+            q, k, v, table, lengths, block_size=64, out_dtype=torch.float32
+        )
+        diff = (out.float() - ref).abs()
+        assert torch.isfinite(out).all() and diff.max().item() < PAGED_TOL
+        row_rms = ref.pow(2).mean(dim=-1, keepdim=True).sqrt()
+        assert (diff / row_rms).max().item() < PAGED_ROW_TOL
 
 
 @pytest.mark.cuda

@@ -14,6 +14,7 @@ holds it to the plain version there and skips elsewhere.
 
 from __future__ import annotations
 
+import shutil
 import stat
 
 import pytest
@@ -192,3 +193,29 @@ def test_build_is_keyed_by_source_hash(tmp_path, monkeypatch):
     assert first.path == again.path and first.path.exists()
     assert again.seconds == 0.0 and "Used 8 registers" in again.ptxas
     assert first.path.parent.name.startswith("flash_attention-")
+
+
+def test_header_edit_changes_the_build_directory(tmp_path, monkeypatch):
+    """A build depends on the shared headers too: editing one under
+    ``csrc/`` gives a new build directory (and a new nvcc run), never the
+    stale library."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\nwhile [ $# -gt 0 ]; do if [ \"$1\" = -o ]; then "
+        "touch \"$2\"; fi; shift; done\necho built >> \"$(dirname \"$0\")/runs\"\n"
+    )
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers, "the kernels share at least one header"
+    first = _build.build("paged_attention")
+    assert _build.build("paged_attention").path == first.path
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    second = _build.build("paged_attention")
+    assert second.path.parent != first.path.parent
+    assert second.path.exists() and second.seconds > 0.0
+    assert (tmp_path / "runs").read_text().count("built") == 2

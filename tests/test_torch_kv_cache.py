@@ -171,3 +171,15 @@ def test_validate_kv_dtype():
     assert tkv.validate_kv_dtype("int8") == "int8"
     with pytest.raises(ValueError, match="kv_dtype"):
         tkv.validate_kv_dtype("fp8")
+
+
+@pytest.mark.parametrize("rep", REPS)
+def test_init_kv_defaults_to_the_card(rep, monkeypatch):
+    """Like every entry point of the port, ``init_kv`` lands on the card
+    unless the caller asks for the CPU: without a card it raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tkv.init_kv((2, 8, 2, 4), torch.bfloat16, rep)
+    side = tkv.init_kv((2, 8, 2, 4), torch.bfloat16, rep, device="cpu")
+    leaf = side["q"] if rep == "int8" else side
+    assert leaf.device.type == "cpu"

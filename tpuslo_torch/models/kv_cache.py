@@ -34,6 +34,8 @@ from typing import Any, Callable
 
 import torch
 
+from tpuslo_torch.device import resolve_device
+
 KV_DTYPES = ("bf16", "int8")
 
 KV = Any  # a dense tensor or an int8 {"q", "s"} dict
@@ -155,9 +157,12 @@ def init_kv(
     shape: tuple[int, ...],
     dtype: torch.dtype,
     kv_dtype: str,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> KV:
-    """One cache side (k or v) of logical shape ``(..., S, KV, HD)``."""
+    """One cache side (k or v) of logical shape ``(..., S, KV, HD)``, on
+    the card by default (``resolve_device``: raises without one); pass
+    ``device="cpu"`` for the plain path on the CPU."""
+    device = resolve_device(device)
     if validate_kv_dtype(kv_dtype) == "int8":
         return {
             "q": torch.zeros(shape, dtype=torch.int8, device=device),

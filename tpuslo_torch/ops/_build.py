@@ -6,9 +6,11 @@ PyTorch header, so one ``nvcc`` call builds it in seconds:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o lib<name>.so <name>.cu
 
-The library goes to ``build/tpuslo_torch/<name>-<hash>/`` at the root of
-the checkout (listed in ``.gitignore``), keyed by a hash of the source
-and the flags, and is built at first use.  ``ptxas``'s report
+Sources may include the shared headers ``csrc/*.cuh`` (``hopper.cuh``:
+cp.async, mbarrier, TMA and wgmma helpers).  The library goes to
+``build/tpuslo_torch/<name>-<hash>/`` at the root of the checkout (listed
+in ``.gitignore``), keyed by a hash of the source, every header under
+``csrc/`` and the flags, and is built at first use.  ``ptxas``'s report
 (registers, shared memory, spills) is kept beside it in ``ptxas.log``.
 A failed build raises with the compiler's output.
 """
@@ -62,14 +64,22 @@ def nvcc_path() -> str:
     )
 
 
+def source_digest(name: str) -> str:
+    """Hash of what a build of ``csrc/<name>.cu`` depends on: the source,
+    every ``*.cuh`` header under ``csrc/`` (by name and content) and the
+    flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> BuildInfo:
-    """Compile ``csrc/<name>.cu`` unless a build of the same source and
-    flags exists; return where the library is."""
+    """Compile ``csrc/<name>.cu`` unless a build of the same source,
+    headers and flags exists; return where the library is."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + "\0".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    out_dir = BUILD_ROOT / f"{name}-{digest}"
+    out_dir = BUILD_ROOT / f"{name}-{source_digest(name)}"
     lib = out_dir / f"lib{name}.so"
     log = out_dir / "ptxas.log"
     if lib.exists():

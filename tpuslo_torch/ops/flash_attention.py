@@ -8,7 +8,8 @@ inputs alone:
   version of the kernel's arithmetic (the CPU tests hold it to the
   Pallas kernel in interpret mode);
 * a CUDA tensor launches the hand-written Hopper kernel in
-  ``csrc/flash_attention.cu`` (built with nvcc at first use, see
+  ``csrc/flash_attention.cu`` (TMA loads into a two-stage K/V ring,
+  both products on ``wgmma``; built with nvcc at first use, see
   :mod:`tpuslo_torch.ops._build`), or the call raises.  There is no
   fallback from the card to the plain version.
 
@@ -93,7 +94,13 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != torch.bfloat16:
             raise ValueError(f"the CUDA kernel takes bf16; {name} is {t.dtype}")
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]):
+        # What a TMA tensor map can describe: 16-byte multiples, and no
+        # broadcast (zero-stride) dim.
+        if (
+            t.stride(-1) != 1
+            or any(s % 8 for s in t.stride()[:-1])
+            or any(s == 0 and n > 1 for s, n in zip(t.stride(), t.shape))
+        ):
             raise ValueError(
                 f"{name} needs a unit inner stride and 16-byte aligned rows, "
                 f"got strides {t.stride()}"

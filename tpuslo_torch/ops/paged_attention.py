@@ -20,14 +20,23 @@ routes by the device of its inputs alone:
   failed build or a refused launch.  There is no fallback from the card
   to the plain version.
 
-``paged_decode_attention.launches`` counts kernel launches, so that a
-run can show that its path went through the kernel.
+The kernel splits each lane's walk over its blocks into spans of at
+most :data:`SPAN` positions (flash-decoding): :func:`split_plan` sizes
+the spans, the grid and the f32 scratch of partial results from shapes
+alone, and :func:`paged_decode_attention_split` is the plain PyTorch
+model of that split-then-combine arithmetic (the CPU tests hold it to
+the reference and to the Pallas kernel).
+
+``paged_decode_attention.launches`` counts wrapper calls that launched
+the kernel (one per call, though a call launches a split and a combine
+kernel), so that a run can show that its path went through the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -35,7 +44,48 @@ from tpuslo_torch.ops import _build
 
 HEAD_DIMS = (64, 128)  # the head dims the kernel is built for
 GROUP_SIZES = (1, 2, 3, 4, 8)  # query heads per kv head it is built for
-MAX_BLOCK_SIZE = 1024  # scores of one block live in shared memory
+MAX_BLOCK_SIZE = 1024  # the largest pool block the kernel is built for
+SPAN = 64  # logical positions one CTA of the kernel holds at most
+MAX_SPLITS = 65535  # spans per lane: the kernel's grid z limit
+
+
+@dataclass(frozen=True)
+class SplitPlan:
+    """How the kernel cuts one lane's walk, from shapes alone.
+
+    Span ``i`` covers ``blocks_per_split`` whole pool blocks starting at
+    logical block ``(i // chunks_per_block) * blocks_per_split`` and, in
+    each, positions ``[c * chunk, min(BS, (c + 1) * chunk))`` with
+    ``c = i % chunks_per_block``.  ``scratch_shape`` is the f32 scratch
+    of partials ``(B, KV, n_split, n_rep, HD + 2)``: per span and query
+    row the span's max (log2 units), its sum and its accumulator.
+    """
+
+    blocks_per_split: int
+    chunks_per_block: int
+    chunk: int
+    n_split: int
+    scratch_shape: tuple[int, int, int, int, int]
+
+
+def split_plan(batch: int, kv_heads: int, n_rep: int, head_dim: int,
+               block_size: int, max_blocks: int) -> SplitPlan:
+    """Spans of at most :data:`SPAN` positions: ``SPAN // BS`` whole
+    blocks when a block is smaller, else ``ceil(BS / SPAN)`` chunks of
+    each block."""
+    if not 1 <= block_size <= MAX_BLOCK_SIZE or max_blocks < 1:
+        raise ValueError(f"no split plan for block_size {block_size}, "
+                         f"{max_blocks} blocks per lane")
+    if block_size < SPAN:
+        bps, cps, chunk = SPAN // block_size, 1, block_size
+    else:
+        bps, cps, chunk = 1, -(-block_size // SPAN), SPAN
+    n_split = -(-max_blocks // bps) * cps
+    if n_split > MAX_SPLITS:
+        raise ValueError(f"{max_blocks} blocks of {block_size} positions make {n_split} "
+                         f"spans per lane; the kernel's grid takes {MAX_SPLITS}")
+    return SplitPlan(bps, cps, chunk, n_split,
+                     (batch, kv_heads, n_split, n_rep, head_dim + 2))
 
 
 def _pool_leaves(pool):
@@ -96,13 +146,86 @@ def paged_decode_attention_reference(
     return out.reshape(B, H, HD).to(out_dtype or q.dtype)
 
 
+def _split_of_position(plan: SplitPlan, block_size: int, T: int) -> torch.Tensor:
+    """Which span each logical position ``t < T`` falls in."""
+    t = torch.arange(T)
+    j, s = t // block_size, t % block_size
+    return (j // plan.blocks_per_split) * plan.chunks_per_block + s // plan.chunk
+
+
+def paged_decode_attention_split(
+    q: torch.Tensor,
+    k_pool,
+    v_pool,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    block_size: int,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch model of the kernel's split-then-combine arithmetic.
+
+    Each span of :func:`split_plan` gives per query row its max ``m``
+    (over visible positions; ``-inf`` if none), its sum ``l`` of
+    ``exp(s - m)`` and its accumulator; the spans are merged with
+    weights ``exp(m - M)`` (0 for ``m == -inf``) and divided by the
+    merged sum with the ``l == 0`` guard.  A page-table entry outside
+    ``[0, N)`` makes its block invisible, as in the kernel, so a lane
+    whose entries all lie outside returns zeros.  Otherwise equal to
+    :func:`paged_decode_attention_reference` up to f32 rounding.
+    """
+    B, H, HD = q.shape
+    kq, ks = _pool_leaves(k_pool)
+    vq, vs = _pool_leaves(v_pool)
+    N, BS, KV, _ = kq.shape
+    if block_size != BS:
+        raise ValueError(f"block_size {block_size} != pool block {BS}")
+    n_rep = H // KV
+    MB = page_table.shape[1]
+    plan = split_plan(B, KV, n_rep, HD, BS, MB)
+    in_pool = (page_table >= 0) & (page_table < N)
+    idx = torch.where(in_pool, page_table, torch.zeros_like(page_table)).long()
+    k = kq[idx].float()  # (B, MB, BS, KV, HD)
+    v = vq[idx].float()
+    if ks is not None:
+        k = k * ks[idx].float()[..., None]
+        v = v * vs[idx].float()[..., None]
+    T = MB * BS
+    k = k.reshape(B, T, KV, HD)
+    v = v.reshape(B, T, KV, HD)
+    qg = q.float().reshape(B, KV, n_rep, HD)
+    s = torch.einsum("bgrd,btgd->bgrt", qg, k) * HD**-0.5
+    pos = torch.arange(T, device=q.device)
+    visible = (pos[None, :] <= lengths.to(q.device).long()[:, None]) & in_pool.to(
+        q.device
+    ).repeat_interleave(BS, dim=1)
+    s = s.masked_fill(~visible[:, None, None, :], float("-inf"))
+    # Per span: max, sum and accumulator of its visible positions.
+    onehot = (
+        _split_of_position(plan, BS, T)[:, None] == torch.arange(plan.n_split)[None, :]
+    ).to(q.device)  # (T, n_split)
+    spans = s[..., None].masked_fill(~onehot, float("-inf"))  # (B, KV, R, T, n_split)
+    m = spans.amax(dim=-2)  # (B, KV, R, n_split)
+    m_safe = torch.where(m == float("-inf"), torch.zeros_like(m), m)
+    p = torch.exp(spans - m_safe[..., None, :])  # exp(-inf) = 0
+    part_l = p.sum(dim=-2)
+    part_acc = torch.einsum("bgrts,btgd->bgrsd", p, v)
+    # Combine.
+    M = m.amax(dim=-1, keepdim=True)
+    w = torch.where(m == float("-inf"), torch.zeros_like(m), torch.exp(m - M))
+    L = (w * part_l).sum(dim=-1)
+    O = torch.einsum("bgrs,bgrsd->bgrd", w, part_acc)
+    out = O / torch.where(L == 0.0, torch.ones_like(L), L)[..., None]
+    return out.reshape(B, H, HD).to(out_dtype or q.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     lib = _build.load("paged_attention")
     fn = lib.tpuslo_paged_decode_attention
     fn.argtypes = (
-        [ctypes.c_void_p] * 8
-        + [ctypes.c_int] * 8
+        [ctypes.c_void_p] * 9
+        + [ctypes.c_int] * 12
         + [ctypes.c_longlong] * 11
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
@@ -204,7 +327,10 @@ def paged_decode_attention(
     CUDA it launches the Hopper kernel on the current stream (bf16 q,
     bf16 or int8 pools, int32 page table and lengths, head dim 64 or
     128) and raises on anything else.  It reads the lengths and the page
-    table on the device: the call never waits for the card.
+    table on the device and sizes its grid and scratch from shapes
+    alone: the call never waits for the card, and it can be captured in
+    a CUDA graph and replayed after the lengths and the table change in
+    place.
     """
     out_dtype = out_dtype or q.dtype
     if q.device.type == "cpu":
@@ -221,7 +347,10 @@ def paged_decode_attention(
     _check_kernel_inputs(q, kq, ks, vq, vs, page_table, lengths, block_size, out_dtype)
     B, H, HD = q.shape
     N, BS, KV, _ = kq.shape
+    MB = page_table.shape[1]
+    plan = split_plan(B, KV, H // KV, HD, BS, MB)
     out = torch.empty((B, H, HD), dtype=out_dtype, device=q.device)
+    scratch = torch.empty(plan.scratch_shape, dtype=torch.float32, device=q.device)
     scale_strides = ks.stride() if ks is not None else (0, 0, 0)
     fn = _kernel()
     with torch.cuda.device(q.device):
@@ -231,7 +360,9 @@ def paged_decode_attention(
             ks.data_ptr() if ks is not None else None,
             vs.data_ptr() if vs is not None else None,
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, KV, H // KV, HD, N, BS, page_table.shape[1], int(ks is not None),
+            scratch.data_ptr(),
+            B, KV, H // KV, HD, N, BS, MB, int(ks is not None),
+            plan.n_split, plan.blocks_per_split, plan.chunks_per_block, plan.chunk,
             *q.stride()[:2], *kq.stride()[:3], *scale_strides,
             page_table.stride(0), *out.stride()[:2],
             HD**-0.5, int(out_dtype == torch.float32), stream,
