@@ -44,9 +44,28 @@ non-zero exit and no result line:
 8. breakdown: one paged decode step with 8 live lanes, with K2 and with
    the plain pool attention; K2's time in the step sums every kernel one
    call launches;
-9. parity: a 2-layer full-width model's prefill logits on the card
-   (kernel path) against the same weights on the CPU (plain path);
-10. the ``kernels`` JSON line, the card line, and the result line.
+9. speculative decoding: a ``SpeculativeEngine`` over the 3B target and a
+   full-width ``llama32_1b`` draft (random weights from a seed), k 4,
+   streams 2 prompts and serves one ``generate_batch`` of 4, then the
+   same with a self-draft (a second engine over the target's own
+   weights), which is what exercises acceptance; every stream is held
+   to ``ServeEngine.generate`` by the near-tie rule, the self-draft must
+   accept draft tokens and emit k+1 tokens in some round, one steady
+   round is broken down (host wall, device time, kernels), must make no
+   host sync and one read, and 20 steady rounds must not grow the peak
+   memory;
+10. the front door, the slice's main path: a ``FrontDoorEngine`` (8 slots,
+    2 rounds per step, paged parks, a ``BurnEngine`` with one tenant
+    demoted) serves 16 requests from two tenants through a queue bound
+    that sheds, with a late healthy arrival that preempts, parks
+    block-granular and resumes; then a JSON snapshot taken mid-run is
+    restored into a fresh engine;
+11. the router: an ``SLORouter`` over 2 front doors sharing the two
+    ``ServeEngine``s serves 12 requests in 3 prefix groups across a
+    ``kill_engine``; no request may be lost;
+12. parity: a 2-layer full-width model's prefill logits on the card
+    (kernel path) against the same weights on the CPU (plain path);
+13. the ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card and imports nothing of JAX or of the JAX package.
 Every measurement also goes into one ``record:`` JSON line.
@@ -56,7 +75,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import math
 import re
 import subprocess
 import sys
@@ -112,6 +130,13 @@ SHAPES = (
     (4, 256, True),
     (1, 2048, True),
     (1, 256, False),
+    # the front door's admission buckets (B 2, 4, 8) at the two
+    # flash-eligible prefill buckets
+    (2, 128, True),
+    (4, 128, True),
+    (8, 128, True),
+    (2, 256, True),
+    (8, 256, True),
 )
 LINE_SHAPE = (1, 256, True)  # the kernels line reports this main-path shape
 
@@ -169,6 +194,38 @@ PAGED_JOBS = [
         "Should we demote tenant C?",
     )
 ] + DENSE_JOBS
+
+
+# The front-door path.  Speculation: k 4 against a llama32_1b draft.  The
+# front door: 8 slots, 2 chained rounds per step, parks in blocks of 32.
+# 16 requests from two tenants, tenant-b demoted before submission; the
+# queue holds 14, so the 15th arrival (tenant-a) displaces a queued
+# tenant-b request and the 16th (tenant-b) is refused.  The first wave is
+# then 6 tenant-a and 2 tenant-b requests; after two steps a tenant-a
+# request arrives at the full house and preempts a tenant-b slot.
+SPEC_K = 4
+SPEC_STREAMS = ("bucket128", "bucket256")  # of PROMPTS
+FRONT_SLOTS = 8
+FRONT_ROUNDS = 2
+FRONT_BLOCK = 32
+FRONT_QUEUE = 14
+FRONT_JOBS = PAGED_JOBS + [
+    ("Which engine holds the warm prefix of tenant A?", None),
+    ("Summarise the burn-rate alerts of the last hour.", None),
+    ("Name the slowest fault domain this week and its owner.", None),
+    ("Is the queue bound of the front door too small for this burst?", None),
+]
+FRONT_TENANT_A = {0, 3, 6, 9, 12, 14}  # indices of FRONT_JOBS; the rest are tenant-b
+FRONT_LATE = ("A healthy tenant arrives at a full house and must not wait.", None)
+RESTORE_JOBS = DENSE_JOBS[3:7]
+ROUTER_SLOTS = 4
+ROUTER_GROUPS = tuple(
+    f"You answer for serving group {g} of the fleet. Keep to the runbook of that group, "
+    "name the engine and the tenant, and say what to do first. " for g in "ABC"
+)
+ROUTER_JOBS = [(f"Question {i}: which request waits longest, and why?", ROUTER_GROUPS[i % 3])
+               for i in range(12)]
+ROUTER_KILL_AFTER = 3  # steps
 
 
 def _fail(msg: str) -> None:
@@ -264,10 +321,11 @@ def _per_call_kernels(kernels, calls: int) -> dict[str, tuple[float, int]]:
     events of a trace (49 or 48 of 50 left), so a kernel's launches per
     call are its count over the calls, rounded, and its time per launch
     is its mean over the launches the trace kept.  A kernel seen in
-    fewer than half the calls is not part of a call."""
+    fewer than half the calls is not part of a call (exactly half
+    counts: a short trace was seen to keep 5 of 10 launches)."""
     out = {}
     for e in kernels:
-        per_call = round(e.count / calls)
+        per_call = int(e.count / calls + 0.5)
         if per_call:
             out[e.key] = (e.self_device_time_total / e.count, per_call)
     return out
@@ -310,7 +368,9 @@ def _per_call_ms(torch, fn, reps: int, what: str, flush=None) -> tuple[float, fl
     for _ in range(5):
         device_us = _device_us(torch, fn, reps, flush)
         if flush is not None and device_us > 0:
-            flush_us = _device_us(torch, lambda: None, reps, flush)
+            # The flush alone is one kernel per call: over few calls the
+            # trace's lost first events are a large share, so take 50.
+            flush_us = _device_us(torch, lambda: None, max(reps, 50), flush)
             if flush_us <= 0 or device_us <= flush_us:
                 continue
             device_us -= flush_us
@@ -922,6 +982,446 @@ def _in_step_ms(breakdown: dict, kernels: dict[str, int]) -> float | None:
                for k in found)
 
 
+def _record_prefills(serve, log: list):
+    """Replace ``serve.prefill`` (the function every engine's head
+    prefill goes through) by one that also logs (cfg, B, S); returns the
+    function that puts the original back."""
+    original = serve.prefill
+
+    def logged(params, tokens, cache, cfg, true_length=None):
+        log.append((cfg, int(tokens.shape[0]), int(tokens.shape[1])))
+        return original(params, tokens, cache, cfg, true_length=true_length)
+
+    serve.prefill = logged
+
+    def undo():
+        serve.prefill = original
+
+    return undo
+
+
+def _eligible_logged(fa, log, cfg) -> list[tuple[int, int]]:
+    """(B, S) of the logged head prefills of ``cfg``'s model that are
+    flash-eligible: each must have launched K1 once per layer."""
+    return [
+        (B, S) for c, B, S in log
+        if c == cfg and fa.flash_eligible((B, S, c.n_heads, c.head_dim), c.n_kv_heads)
+    ]
+
+
+def _record_accepted(spec) -> list:
+    """Make ``spec``'s round functions keep every round's device-side
+    accepted counts (read after the run, so the run reads nothing more)."""
+    seen = []
+
+    def keep(fn):
+        def run(*args):
+            out = fn(*args)
+            seen.append(out[2])
+            return out
+        return run
+
+    spec._round = keep(spec._round)
+    spec._round_batch = keep(spec._round_batch)
+    return seen
+
+
+def _spec_run(torch, fa, serve, speculative, cfg, target, draft, what: str, self_draft: bool) -> dict:
+    """Stream SPEC_STREAMS and serve one generate_batch through a
+    SpeculativeEngine; hold every stream to ``target.generate``, K1's
+    launches to the logged eligible prefills, reads to one per round."""
+    spec = speculative.SpeculativeEngine(target, draft, k=SPEC_K)
+    accepted = _record_accepted(spec)
+    log: list = []
+    undo = _record_prefills(serve, log)
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    reads0 = serve._HostRead.reads
+    streams = []
+    jobs = [(PROMPTS[name], None) for name in SPEC_STREAMS]
+    results = []
+    try:
+        for name in SPEC_STREAMS:
+            t0 = time.perf_counter()
+            gen = spec.stream(PROMPTS[name], NEW_TOKENS, stop_at_eos=False)
+            toks = [next(gen)]
+            ttft_ms = (time.perf_counter() - t0) * 1e3
+            rounds0 = spec.rounds
+            toks += list(gen)
+            total_s = time.perf_counter() - t0
+            results.append(toks)
+            streams.append({"request": name, "tokens": len(toks), "ttft_ms": ttft_ms,
+                            "rounds": spec.rounds - rounds0,
+                            "tok_s": (len(toks) - 1) / (total_s - ttft_ms / 1e3)})
+            print(f"{what}: stream {name}: {len(toks)} tokens in {streams[-1]['rounds']} rounds, "
+                  f"TTFT {ttft_ms:.1f} ms, {streams[-1]['tok_s']:.1f} tok/s after it", flush=True)
+        stream_rounds = spec.rounds
+        stream_reads = serve._HostRead.reads - reads0
+        stream_accepted = spec.accepted_draft_tokens
+        t0 = time.perf_counter()
+        batch = spec.generate_batch(BATCH_PROMPTS, NEW_TOKENS, stop_at_eos=False)
+        batch_s = time.perf_counter() - t0
+    finally:
+        undo()
+    k1 = fa.flash_attention.launches
+    per_round = torch.cat([a.reshape(-1) for a in accepted[:stream_rounds]]).tolist()
+    eligible = _eligible_logged(fa, log, cfg)
+    expected_k1 = cfg.n_layers * len(eligible)
+    batch_tok_s = sum(len(r) for r in batch) / batch_s
+    print(f"{what}: generate_batch x{len(batch)}: {batch_s * 1e3:.1f} ms, {batch_tok_s:.1f} tok/s; "
+          f"rounds {spec.rounds} (streams {stream_rounds}), acceptance "
+          f"{spec.acceptance_rate:.4f} (streams {stream_accepted}/{stream_rounds * SPEC_K}), "
+          f"accepted per stream round {per_round}; reads over the streams {stream_reads} "
+          f"(2 first tokens + {stream_rounds} rounds); K1 launches {k1} (eligible prefills "
+          f"(B, S) {eligible} x {cfg.n_layers} layers need {expected_k1})", flush=True)
+    if any(len(r) != NEW_TOKENS for r in results + batch):
+        _fail(f"{what}: streams of {[len(r) for r in results + batch]} tokens")
+    if stream_reads != len(SPEC_STREAMS) + stream_rounds:
+        _fail(f"{what}: {stream_reads} host reads over {stream_rounds} stream rounds")
+    if k1 != expected_k1 or expected_k1 == 0:
+        _fail(f"{what}: K1 launched {k1} times, the eligible prefills need {expected_k1}")
+    if self_draft and (stream_accepted == 0 or max(per_round) < SPEC_K):
+        _fail(f"{what}: the self-draft accepted {stream_accepted} draft tokens; most in a "
+              f"round {max(per_round)} of {SPEC_K}")
+    parity = _hold_streams(torch, serve, cfg, target, jobs + [(p, None) for p in BATCH_PROMPTS],
+                           results + batch, what)
+    print(f"{what}: streams vs generate: "
+          f"{sum(r['diverged_at'] is None for r in parity)}/{len(parity)} identical, the rest "
+          f"diverge at near-ties {[r for r in parity if r['diverged_at'] is not None]}", flush=True)
+    return {"streams": streams, "batch": {"rows": len(batch), "ms": batch_s * 1e3,
+                                          "tok_s": batch_tok_s},
+            "rounds": spec.rounds, "stream_rounds": stream_rounds,
+            "acceptance": spec.acceptance_rate, "accepted_per_stream_round": per_round,
+            "stream_reads": stream_reads, "k1_launches": k1, "k1_needed": expected_k1,
+            "prefill_shapes": eligible, "parity": parity}
+
+
+def _steady_round(torch, serve, speculative, target, draft, what: str) -> dict:
+    """One steady single-stream round on fixed carries (the caches are
+    written in place at the same positions every time): host syncs in
+    sync debug mode, the breakdown, reads, and the peak memory over 20
+    more rounds."""
+    ids = serve.encode_bytes(PROMPTS["bucket256"], target.generation_prompt_cap())
+    logits, cache_t = target._ingest_ids(ids)
+    _, cache_d = draft._ingest_ids(ids)
+    current = logits.argmax(dim=-1)
+    frontier = torch.tensor(len(ids), dtype=torch.long, device=target.device)
+    cache_t, cache_d = {**cache_t, "length": frontier}, {**cache_d, "length": frontier}
+    fn = speculative._shared_spec_round_fn(target.cfg, draft.cfg, SPEC_K)
+
+    def one_round():
+        return fn(target.params, draft.params, current, cache_t, cache_d)
+
+    def round_and_read():
+        d, p, a, *_ = one_round()
+        return serve._HostRead(speculative.pack_round(d, p, a)[0]).values()
+
+    round_and_read()  # first call sets up library state
+    syncs_round = _syncs(torch, one_round)
+    reads0 = serve._HostRead.reads
+    syncs_with_read = _syncs(torch, round_and_read)
+    reads = serve._HostRead.reads - reads0
+
+    def timed():
+        round_and_read()
+        torch.cuda.synchronize()
+
+    b = _device_breakdown(torch, timed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    round_and_read()
+    torch.cuda.synchronize()
+    peak_1 = torch.cuda.max_memory_allocated()
+    for _ in range(20):
+        round_and_read()
+    torch.cuda.synchronize()
+    peak_21 = torch.cuda.max_memory_allocated()
+    dev = "not measured" if b["device_ms"] is None else f"{b['device_ms']:.2f} ms"
+    print(f"{what}: one steady round (k {SPEC_K}, frontier {len(ids)}): wall {b['wall_ms']:.2f} ms, "
+          f"device kernels {dev}, {b['kernel_launches']} launches; host syncs inside the round "
+          f"{syncs_round}, with its read {syncs_with_read}, reads {reads}; peak memory after 1 "
+          f"round {peak_1 / 1e9:.3f} GB, after 20 more {peak_21 / 1e9:.3f} GB; top "
+          + ", ".join(f"{k} {v:.2f}" for k, v in b["top_kernels_ms"].items()), flush=True)
+    if syncs_round or len(syncs_with_read) > 1 or reads != 1:
+        _fail(f"{what}: a steady round synchronized {syncs_round} (none expected), with its "
+              f"read {syncs_with_read}, reads {reads} (one expected)")
+    if peak_21 > peak_1 + 2**20:
+        _fail(f"{what}: peak memory grew from {peak_1} to {peak_21} bytes over 20 rounds")
+    return {"breakdown": b, "syncs_in_round": len(syncs_round),
+            "syncs_with_read": len(syncs_with_read), "reads_per_round": reads,
+            "peak_after_1_round_gb": peak_1 / 1e9, "peak_after_21_rounds_gb": peak_21 / 1e9}
+
+
+def phase_spec(torch, fa, llama, serve, speculative, cfg, target) -> tuple[dict, object]:
+    t0 = time.perf_counter()
+    cfg_d = llama.llama32_1b(max_seq_len=cfg.max_seq_len)
+    draft = serve.ServeEngine(cfg_d, rng_seed=1, prefill_buckets=BUCKETS,
+                              decode_chunk_size=NEW_TOKENS, device="cuda")
+    torch.cuda.synchronize()
+    print(f"spec: draft llama32_1b L={cfg_d.n_layers} D={cfg_d.dim} H={cfg_d.n_heads} "
+          f"KV={cfg_d.n_kv_heads} HD={cfg_d.head_dim} params={llama.param_count(cfg_d)} "
+          f"init={time.perf_counter() - t0:.2f}s; k {SPEC_K}", flush=True)
+    out = {"draft_params": llama.param_count(cfg_d)}
+    out["draft_1b"] = _spec_run(torch, fa, serve, speculative, cfg, target, draft,
+                                "spec (1B draft)", self_draft=False)
+    out["draft_1b"]["steady_round"] = _steady_round(torch, serve, speculative, target, draft,
+                                                    "spec (1B draft)")
+    self_draft = serve.ServeEngine(cfg, target.params, prefill_buckets=BUCKETS,
+                                   decode_chunk_size=NEW_TOKENS, device="cuda")
+    out["self_draft"] = _spec_run(torch, fa, serve, speculative, cfg, target, self_draft,
+                                  "spec (self-draft)", self_draft=True)
+    out["self_draft"]["steady_round"] = _steady_round(torch, serve, speculative, target,
+                                                      self_draft, "spec (self-draft)")
+    return out, draft
+
+
+def _drive_frontdoor(torch, serve, fd, late) -> dict:
+    """Step ``fd`` to the end.  After two steps ``late`` (a tenant-a
+    request) arrives.  Counts the host syncs and reads of the first
+    steady step: every slot busy before and after it, none admitted,
+    parked or retired in it."""
+    steady = None
+    late_id = None
+    steps = 0
+    t0 = time.perf_counter()
+    more = True
+    while more:
+        if steps == 2 and late is not None and late_id is None:
+            late_id = fd.submit(late[0], tenant="tenant-a", max_new_tokens=NEW_TOKENS,
+                                stop_at_eos=False, prefix=late[1])
+        before = list(fd._slots)
+        if steady is None and steps > 2 and all(s is not None for s in before):
+            out = []
+            reads0 = serve._HostRead.reads
+            caught = _syncs(torch, lambda: out.append(fd.step()))
+            more = out[0]
+            if fd._slots == before:
+                steady = {"syncs": caught, "reads": serve._HostRead.reads - reads0}
+        else:
+            more = fd.step()
+        steps += 1
+    torch.cuda.synchronize()
+    return {"wall_s": time.perf_counter() - t0, "steady": steady, "late_id": late_id,
+            "steps": steps}
+
+
+def phase_frontdoor(torch, fa, pa, serve, frontdoor, sloengine, cfg, target, draft,
+                    kernel_shapes) -> dict:
+    burn = sloengine.BurnEngine()
+    burn.demote_tenant("tenant-b")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fd = frontdoor.FrontDoorEngine(
+        target, draft, k=SPEC_K, max_slots=FRONT_SLOTS, max_queue=FRONT_QUEUE,
+        rounds_per_step=FRONT_ROUNDS, burn_engine=burn, paged=True, block_size=FRONT_BLOCK,
+    )
+    log: list = []
+    undo = _record_prefills(serve, log)
+    fa.flash_attention.launches = 0
+    pa.paged_decode_attention.launches = 0
+    try:
+        ids = [
+            fd.submit(p, tenant="tenant-a" if i in FRONT_TENANT_A else "tenant-b",
+                      max_new_tokens=NEW_TOKENS, stop_at_eos=False, prefix=pre)
+            for i, (p, pre) in enumerate(FRONT_JOBS)
+        ]
+        run = _drive_frontdoor(torch, serve, fd, FRONT_LATE)
+    finally:
+        undo()
+    k1, k2 = fa.flash_attention.launches, pa.paged_decode_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = fd.stats()
+    eligible = _eligible_logged(fa, log, cfg)
+    expected_k1 = cfg.n_layers * len(eligible)
+    jobs = FRONT_JOBS + [FRONT_LATE]
+    rids = ids + [run["late_id"]]
+    served = [(job, rid) for job, rid in zip(jobs, rids) if rid is not None and rid in fd.results]
+    tokens = sum(len(fd.results[rid]) for _, rid in served)
+    print(f"frontdoor: {len(FRONT_JOBS)} + 1 late requests x {NEW_TOKENS} tokens from 2 tenants "
+          f"through {FRONT_SLOTS} slots, {FRONT_ROUNDS} rounds per step, queue bound {FRONT_QUEUE}: "
+          f"{fd.rounds} dispatches, {run['wall_s'] * 1e3:.1f} ms, {tokens / run['wall_s']:.1f} "
+          f"tok/s over {len(served)} served; acceptance {fd.acceptance_rate:.4f}; peak memory "
+          f"{peak_gb:.2f} GB", flush=True)
+    print(f"frontdoor: stats {stats}", flush=True)
+    print(f"frontdoor: shed {fd.shed_requests}; burn engine recorded {burn.recorded} outcomes; "
+          f"K1 launches {k1} (eligible target prefills (B, S) {eligible} x {cfg.n_layers} "
+          f"layers need {expected_k1}); K2 launches {k2} (the front door decodes on the dense "
+          f"round); first steady step: {run['steady']}", flush=True)
+    timings = fd.request_timings()
+    rows = []
+    for (prompt, _pre), rid in served:
+        t = timings[rid]
+        rows.append({"request": rid, "tenant": t["tenant"], "tokens": int(t["tokens"]),
+                     "ttft_ms": t["ttft_s"] * 1e3, "e2e_ms": t["e2e_s"] * 1e3,
+                     "preemptions": int(t["preemptions"])})
+        print(f"frontdoor: request {rid} ({t['tenant']}): {rows[-1]['tokens']} tokens, TTFT "
+              f"{rows[-1]['ttft_ms']:.1f} ms, e2e {rows[-1]['e2e_ms']:.1f} ms, preempted "
+              f"{rows[-1]['preemptions']}x", flush=True)
+    shed_ids = [rid for rid in range(len(FRONT_JOBS)) if rid not in fd.results]
+    if len(served) + len(fd.shed_requests) != len(jobs) or any(
+        len(fd.results[rid]) != NEW_TOKENS for _, rid in served
+    ):
+        _fail(f"frontdoor: {len(served)} served and {len(fd.shed_requests)} shed of {len(jobs)}")
+    if fd.preemptions < 1 or fd.paged_parks < 1 or fd.resumes < 1:
+        _fail(f"frontdoor: preemptions {fd.preemptions}, paged parks {fd.paged_parks}, "
+              f"resumes {fd.resumes}: the late arrival did not preempt, park and resume")
+    by_reason = {r: n for r, n in fd.shed_by_reason.items() if n}
+    if not by_reason or sum(by_reason.values()) != len(fd.shed_requests) or sorted(
+        fd.shed_requests
+    ) != shed_ids:
+        _fail(f"frontdoor: shed by reason {fd.shed_by_reason} against shed requests "
+              f"{fd.shed_requests} (unserved ids {shed_ids})")
+    if burn.recorded != len(served) + len(fd.shed_requests):
+        _fail(f"frontdoor: the burn engine holds {burn.recorded} outcomes for {len(served)} "
+              f"completed and {len(fd.shed_requests)} shed requests")
+    if k1 != expected_k1 or not any(B > 1 for B, _ in eligible) or k2 != 0:
+        _fail(f"frontdoor: K1 launched {k1} times, the eligible prefills {eligible} need "
+              f"{expected_k1} (one with B > 1 expected); K2 {k2}")
+    unchecked = [bs for bs in eligible if (*bs, True) not in kernel_shapes]
+    if unchecked:
+        _fail(f"frontdoor: K1 ran at {unchecked}, which the kernel phase did not hold to plain")
+    if run["steady"] is None or len(run["steady"]["syncs"]) > 1 or run["steady"]["reads"] != 1:
+        _fail(f"frontdoor: a steady step made {run['steady']} (one read expected)")
+    parity = _hold_streams(torch, serve, cfg, target, [job for job, _ in served],
+                           [fd.results[rid] for _, rid in served], "frontdoor")
+    print(f"frontdoor: streams vs generate: "
+          f"{sum(r['diverged_at'] is None for r in parity)}/{len(parity)} identical, the rest "
+          f"diverge at near-ties {[r for r in parity if r['diverged_at'] is not None]}", flush=True)
+
+    # One steady step at a full house, broken down on an engine of its
+    # own, so that the profiler's cost stays out of the phase's times.
+    probe = frontdoor.FrontDoorEngine(
+        target, draft, k=SPEC_K, max_slots=FRONT_SLOTS, rounds_per_step=FRONT_ROUNDS,
+        paged=True, block_size=FRONT_BLOCK,
+    )
+    for p, pre in FRONT_JOBS[4 : 4 + FRONT_SLOTS]:
+        probe.submit(p, max_new_tokens=NEW_TOKENS, stop_at_eos=False, prefix=pre)
+    for _ in range(2):
+        probe.step()
+    full_house = list(probe._slots)
+
+    def one_step():
+        probe.step()
+        torch.cuda.synchronize()
+
+    b = _device_breakdown(torch, one_step)
+    if None in full_house or probe._slots != full_house:
+        _fail("frontdoor: the step that was broken down was not a steady one at a full house")
+    dev = "not measured" if b["device_ms"] is None else f"{b['device_ms']:.2f} ms"
+    print(f"frontdoor: one steady step ({FRONT_SLOTS} slots x {FRONT_ROUNDS} rounds): wall "
+          f"{b['wall_ms']:.2f} ms, device kernels {dev}, {b['kernel_launches']} launches; top "
+          + ", ".join(f"{k} {v:.2f}" for k, v in b["top_kernels_ms"].items()), flush=True)
+    del probe
+
+    # A JSON snapshot taken mid-run, restored into a fresh engine.
+    first = frontdoor.FrontDoorEngine(target, draft, k=SPEC_K, max_slots=ROUTER_SLOTS,
+                                      rounds_per_step=FRONT_ROUNDS)
+    rids = [first.submit(p, max_new_tokens=NEW_TOKENS, stop_at_eos=False, prefix=pre)
+            for p, pre in RESTORE_JOBS]
+    for _ in range(3):
+        first.step()
+    in_flight = [len(first.partial_tokens(rid)) for rid in rids]
+    blob = json.dumps(first.export_state())
+    del first
+    second = frontdoor.FrontDoorEngine(target, draft, k=SPEC_K, max_slots=ROUTER_SLOTS,
+                                       rounds_per_step=FRONT_ROUNDS)
+    second.restore_state(json.loads(blob))
+    restored = second.run()
+    if second.snapshot_resumes != len(RESTORE_JOBS) or any(
+        len(restored[rid]) != NEW_TOKENS for rid in rids
+    ):
+        _fail(f"frontdoor: restore resumed {second.snapshot_resumes} of {len(RESTORE_JOBS)} "
+              f"requests, streams of {[len(restored.get(rid, [])) for rid in rids]} tokens")
+    restore_parity = _hold_streams(torch, serve, cfg, target, RESTORE_JOBS,
+                                   [restored[rid] for rid in rids], "frontdoor restore")
+    print(f"frontdoor: snapshot of {len(blob)} bytes taken with {in_flight} tokens emitted, "
+          f"restored into a fresh engine: {second.snapshot_resumes} requests resumed by teacher "
+          f"forcing; streams vs generate "
+          f"{sum(r['diverged_at'] is None for r in restore_parity)}/{len(restore_parity)} "
+          f"identical, the rest at near-ties "
+          f"{[r for r in restore_parity if r['diverged_at'] is not None]}", flush=True)
+    snapshot_resumes = second.snapshot_resumes
+    del second
+    return {
+        "slots": FRONT_SLOTS, "rounds_per_step": FRONT_ROUNDS, "k": SPEC_K,
+        "requests": len(jobs), "served": len(served), "dispatches": fd.rounds,
+        "wall_ms": run["wall_s"] * 1e3, "tok_s": tokens / run["wall_s"],
+        "acceptance": fd.acceptance_rate, "stats": stats, "shed_requests": fd.shed_requests,
+        "burn_recorded": burn.recorded, "k1_launches": k1, "k1_needed": expected_k1,
+        "k2_launches": k2, "prefill_shapes": eligible,
+        "steady_step": {"syncs": len(run["steady"]["syncs"]), "reads": run["steady"]["reads"]},
+        "steady_step_breakdown": b,
+        "peak_memory_gb": peak_gb, "timings": rows, "parity": parity,
+        "restore": {"snapshot_bytes": len(blob), "tokens_at_snapshot": in_flight,
+                    "snapshot_resumes": snapshot_resumes, "parity": restore_parity},
+    }
+
+
+def phase_router(torch, fa, serve, frontdoor, router_mod, cfg, target, draft) -> dict:
+    fleet = [
+        frontdoor.FrontDoorEngine(target, draft, k=SPEC_K, max_slots=ROUTER_SLOTS,
+                                  rounds_per_step=FRONT_ROUNDS, paged=True, block_size=FRONT_BLOCK)
+        for _ in range(2)
+    ]
+    router = router_mod.SLORouter(fleet, seed=0)
+    log: list = []
+    undo = _record_prefills(serve, log)
+    fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    try:
+        gids = [router.route(p, max_new_tokens=NEW_TOKENS, stop_at_eos=False, prefix=pre)
+                for p, pre in ROUTER_JOBS]
+        for _ in range(ROUTER_KILL_AFTER):
+            router.step()
+        dead_warm = sorted(router._warm[0])
+        dead_busy = fleet[0].busy_slots + fleet[0].queue_depth
+        moved = router.kill_engine(0)
+        results = router.run()
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    k1 = fa.flash_attention.launches
+    eligible = _eligible_logged(fa, log, cfg)
+    expected_k1 = cfg.n_layers * len(eligible)
+    decisions = {"warm_hit": sum(d.warm_hit for d in router.decisions),
+                 "cold": sum(not d.warm_hit for d in router.decisions),
+                 "burning": sum(d.burning for d in router.decisions),
+                 "shed": sum(d.shed_reason is not None for d in router.decisions),
+                 "by_engine": [sum(d.engine == i for d in router.decisions) for i in range(2)]}
+    rehomed = {g: [i for i in router.live_engines() if g in router._warm[i]] for g in dead_warm}
+    tokens = sum(len(t) for t in results.values())
+    stats = router.stats()
+    print(f"router: {len(ROUTER_JOBS)} requests in {len(ROUTER_GROUPS)} prefix groups over 2 "
+          f"front doors of {ROUTER_SLOTS} slots; engine 0 killed after {ROUTER_KILL_AFTER} steps "
+          f"with {dead_busy} live requests: drained and adopted {moved}, lost "
+          f"{len(ROUTER_JOBS) - len(results)}; {wall_s * 1e3:.1f} ms, {tokens / wall_s:.1f} tok/s; "
+          f"decisions {decisions}; the dead engine's warm groups re-homed to "
+          f"{list(rehomed.values())}; K1 launches {k1} (eligible prefills {eligible} need "
+          f"{expected_k1})", flush=True)
+    print(f"router: stats {stats}", flush=True)
+    if None in gids or router.shed or sorted(results) != sorted(gids) or any(
+        len(results[g]) != NEW_TOKENS for g in gids
+    ):
+        _fail(f"router: {len(results)} of {len(gids)} streams finished, shed {router.shed}")
+    if moved < 1 or moved != router.rebalanced or moved != dead_busy:
+        _fail(f"router: the kill moved {moved} requests of {dead_busy} live on the dead engine")
+    if not dead_warm or not all(rehomed.values()):
+        _fail(f"router: the dead engine's warm groups were not re-homed: {rehomed}")
+    if k1 != expected_k1:
+        _fail(f"router: K1 launched {k1} times, the eligible prefills need {expected_k1}")
+    parity = _hold_streams(torch, serve, cfg, target, ROUTER_JOBS,
+                           [results[g] for g in gids], "router")
+    print(f"router: streams vs generate: "
+          f"{sum(r['diverged_at'] is None for r in parity)}/{len(parity)} identical, the rest "
+          f"diverge at near-ties {[r for r in parity if r['diverged_at'] is not None]}", flush=True)
+    return {"requests": len(gids), "finished": len(results), "lost": len(gids) - len(results),
+            "moved": moved, "live_on_dead_engine": dead_busy, "decisions": decisions,
+            "rehomed_groups": len(rehomed), "wall_ms": wall_s * 1e3, "tok_s": tokens / wall_s,
+            "k1_launches": k1, "k1_needed": expected_k1, "prefill_shapes": eligible,
+            "stats": {k: v for k, v in stats.items() if k != "engine_stats"}, "parity": parity}
+
+
 def phase_parity(torch, fa, llama) -> dict:
     cfg = dataclasses.replace(llama.llama32_3b(max_seq_len=256), n_layers=2)
     S = 128
@@ -976,7 +1476,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import importlib
 
-    from tpuslo_torch.models import batching, kv_cache, llama, paged_kv, serve
+    from tpuslo_torch import sloengine
+    from tpuslo_torch.models import (batching, frontdoor, kv_cache, llama, paged_kv, router,
+                                     serve, speculative)
     from tpuslo_torch.ops import _build
 
     # The modules (the package re-exports their functions under the same names).
@@ -1025,12 +1527,23 @@ def main() -> int:
     k2 = phase_paged_kernel(torch, pa, kv_cache, cfg, paged_engine, capture)
     # 8. one paged step with K2 on and off
     breakdown = phase_breakdown(torch, paged_kv, cfg, paged_engine, capture)
-    del paged_engine, engine
+    del paged_engine
     torch.cuda.empty_cache()
-    # 9. parity
+    # 9. speculative decoding: the 1B draft, then a self-draft
+    spec, draft = phase_spec(torch, fa, llama, serve, speculative, cfg, engine)
+    # 10. the front door (this slice's main path)
+    kernel_shapes = {(r["B"], r["S"], r["causal"]) for r in kernel["shapes"]}
+    front = phase_frontdoor(torch, fa, pa, serve, frontdoor, sloengine, cfg, engine, draft,
+                            kernel_shapes)
+    torch.cuda.empty_cache()
+    # 11. the router over two front doors, across a kill
+    routed = phase_router(torch, fa, serve, frontdoor, router, cfg, engine, draft)
+    del engine, draft
+    torch.cuda.empty_cache()
+    # 12. parity
     parity = phase_parity(torch, fa, llama)
 
-    # 10. kernels line, card line, result line
+    # 13. kernels line, card line, result line
     line_row = next(
         r for r in kernel["shapes"] if (r["B"], r["S"], r["causal"]) == LINE_SHAPE
     )
@@ -1040,7 +1553,9 @@ def main() -> int:
         "route": "cuda",
         "source": "tpuslo_torch/ops/csrc/flash_attention.cu",
         "replaces": "tpuslo/ops/flash_attention.py:41",
-        "launches": served["launches"] + dense["k1_launches"] + paged["k1_launches"],
+        "launches": (served["launches"] + dense["k1_launches"] + paged["k1_launches"]
+                     + spec["draft_1b"]["k1_launches"] + spec["self_draft"]["k1_launches"]
+                     + front["k1_launches"] + routed["k1_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel["shapes"]),
         "ms": line_row["ms"],
         "plain_ms": line_row["plain_ms"],
@@ -1069,7 +1584,8 @@ def main() -> int:
               "build_s": {n: b.seconds for n, b in builds.items()},
               "ptxas": ptxas, "kernel": kernel,
               "serve": served, "dense": dense, "paged": paged, "paged_kernel": k2,
-              "paged_breakdown": breakdown, "parity": parity, **kernels}
+              "paged_breakdown": breakdown, "spec": spec, "frontdoor": front,
+              "router": routed, "parity": parity, **kernels}
     print(f"record: {json.dumps(record)}")
     print(json.dumps(kernels))
     print(card)

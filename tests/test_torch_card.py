@@ -18,7 +18,8 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from tpuslo_torch.models import kv_cache, llama, paged_kv, serve  # noqa: E402
+from tpuslo_torch.models import frontdoor, kv_cache, llama, paged_kv, serve  # noqa: E402
+from tpuslo_torch.models import speculative  # noqa: E402
 from tpuslo_torch.ops import flash_attention  # noqa: E402
 from tpuslo_torch.ops.flash_attention import flash_attention_reference  # noqa: E402
 from tpuslo_torch.ops.paged_attention import (  # noqa: E402
@@ -353,3 +354,178 @@ def test_paged_engine_on_card_matches_cpu(cuda_device):
                 top2 = torch.topk(logits[0].float(), 2).values
                 assert float(top2[0] - top2[1]) < 2 * LOGIT_TOL, (prompt, i, want, got)
                 break
+
+
+# ---- speculative rounds and the front door on the card -------------------
+
+
+def _spec_pair(device, max_seq_len=256):
+    """A small bf16 target (2 layers, head dim 128, so that its prefills
+    take kernel K1) and a 1-layer draft of its own widths, on ``device``."""
+    cfg_t = llama.LlamaConfig(
+        vocab_size=512, dim=256, n_layers=2, n_heads=2, n_kv_heads=1,
+        ffn_dim=512, max_seq_len=max_seq_len,
+    )
+    cfg_d = dataclasses.replace(cfg_t, n_layers=1)
+    target = serve.ServeEngine(cfg_t, rng_seed=0, device=device)
+    draft = serve.ServeEngine(cfg_d, rng_seed=1, device=device)
+    return target, draft
+
+
+def _round_state(target, draft, rows):
+    logits, cache_t = target._prefill_rows(rows, 0)
+    _, cache_d = draft._prefill_rows(rows, 0)
+    return logits.argmax(dim=-1), cache_t, cache_d
+
+
+@pytest.mark.cuda
+def test_spec_rounds_make_no_host_sync(cuda_device):
+    """A batched round, a 2-round chain and a single-stream round (0-d
+    frontier) queue with no synchronizing call: PyTorch's sync debug mode
+    raises on one.  The uploads of the frontiers and the mask and the
+    packed read's copy are inside the guarded region too."""
+    target, draft = _spec_pair(cuda_device)
+    k = 3
+    rows = [[serve.BOS, 5, 6, 7, 8], [serve.BOS, 9, 10], [serve.BOS, 3, 4, 5], [serve.BOS, 2]]
+    cur, cache_t, cache_d = _round_state(target, draft, rows)
+    batch = speculative._shared_spec_round_batch_fn(target.cfg, draft.cfg, k)
+    multi = speculative._shared_spec_multi_round_fn(target.cfg, draft.cfg, k, 2)
+    single = speculative._shared_spec_round_fn(target.cfg, draft.cfg, k)
+    cur1, ct1, cd1 = _round_state(target, draft, rows[:1])
+    frontier = torch.tensor(len(rows[0]), dtype=torch.long, device=cuda_device)
+    ct1, cd1 = {**ct1, "length": frontier}, {**cd1, "length": frontier}
+    lens = [len(r) for r in rows]
+    mask = [True, True, False, True]
+
+    def run_all(cur, cache_t, cache_d, cur1, ct1, cd1):
+        start = serve._upload(lens, torch.long, cuda_device)
+        active = serve._upload(mask, torch.bool, cuda_device)
+        d, p, a, cur, cache_t, cache_d = batch(
+            target.params, draft.params, cur, cache_t, cache_d, start, active)
+        read = serve._HostRead(speculative.pack_round(d, p, a))
+        d, p, a, cur, cache_t, cache_d = multi(
+            target.params, draft.params, cur, cache_t, cache_d, cache_t["length"], active)
+        d1, p1, a1, cur1, ct1, cd1 = single(target.params, draft.params, cur1, ct1, cd1)
+        assert ct1["length"].ndim == 0 and ct1["length"].is_cuda
+        return read, cache_t["length"]
+
+    run_all(cur, cache_t, cache_d, cur1, ct1, cd1)  # first calls set up library state
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        read, lengths = run_all(cur, cache_t, cache_d, cur1, ct1, cd1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    values = read.values()
+    assert len(values) == 4 and len(values[0]) == 2 * k + 2
+    assert int(lengths[2]) == lens[2]  # the frozen row did not advance
+
+
+@pytest.mark.cuda
+def test_parked_rows_survive_four_rounds_on_the_card(cuda_device):
+    """A dense park is a copy: four further rounds that write the pool in
+    place leave it unchanged, and the resumed stream equals the
+    uninterrupted one."""
+    target, draft = _spec_pair(cuda_device)
+
+    class Burn:
+        def admission_priority(self, tenant):
+            return 10 if tenant == "lowly" else 100
+
+        def tenant_burn_state(self, tenant):
+            return "ok"
+
+        def record(self, outcome):
+            pass
+
+    want = speculative.SpeculativeEngine(target, draft, k=3).generate(
+        "to be parked", max_new_tokens=30, stop_at_eos=False)
+    for paged in (False, True):
+        fd = frontdoor.FrontDoorEngine(target, draft, k=3, max_slots=1, burn_engine=Burn(),
+                                       paged=paged, block_size=32)
+        low = fd.submit("to be parked", tenant="lowly", max_new_tokens=30, stop_at_eos=False)
+        fd.step()
+        fd.submit("takes the slot", tenant="vip", max_new_tokens=40, stop_at_eos=False)
+        fd._fill_slots()
+        (parked_req,) = fd._queue
+        if paged:
+            phys = list(parked_req.parked.phys)
+            before = [fd._paged_pool_t["k"][:, phys].clone(), fd._paged_pool_d["v"][:, phys].clone()]
+        else:
+            row_t, row_d, _, _ = parked_req.parked
+            before = [row_t["k"].clone(), row_d["v"].clone()]
+        for _ in range(2):  # 2 steps of 2 rounds
+            fd.step()
+        assert fd._queue == [parked_req]
+        if paged:
+            after = [fd._paged_pool_t["k"][:, phys], fd._paged_pool_d["v"][:, phys]]
+        else:
+            after = [row_t["k"], row_d["v"]]
+        assert all(torch.equal(a, b) for a, b in zip(before, after))
+        assert fd.run()[low] == want
+        assert fd.resumes == 1 and fd.paged_resumes == int(paged)
+
+
+@pytest.mark.cuda
+def test_batched_round_replays_in_a_cuda_graph(cuda_device):
+    """One batched round captured in a CUDA graph and replayed with new
+    ``current``, ``start`` and ``active`` gives what the eager round
+    gives on the same caches: the round holds no host read and no
+    data-dependent shape."""
+    target, draft = _spec_pair(cuda_device)
+    k = 3
+    rows = [[serve.BOS, 5, 6, 7, 8], [serve.BOS, 9, 10], [serve.BOS, 3, 4, 5], [serve.BOS, 2]]
+    cur, cache_t, cache_d = _round_state(target, draft, rows)
+    fn = speculative._shared_spec_round_batch_fn(target.cfg, draft.cfg, k)
+    s_cur = cur.clone()
+    s_start = cache_t["length"].clone()
+    s_active = torch.ones(4, dtype=torch.bool, device=cuda_device)
+
+    def snapshot():
+        return [kv_cache.kv_map(torch.clone, c[side]) for c in (cache_t, cache_d)
+                for side in ("k", "v")]
+
+    def restore(saved):
+        for c, (k_saved, v_saved) in zip((cache_t, cache_d), (saved[:2], saved[2:])):
+            c["k"].copy_(k_saved)
+            c["v"].copy_(v_saved)
+
+    saved = snapshot()
+    side_stream = torch.cuda.Stream()
+    side_stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side_stream):  # warm up off the capture
+        for _ in range(2):
+            fn(target.params, draft.params, s_cur, cache_t, cache_d, s_start, s_active)
+    torch.cuda.current_stream().wait_stream(side_stream)
+    restore(saved)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out = fn(target.params, draft.params, s_cur, cache_t, cache_d, s_start, s_active)
+    g_d, g_p, g_a, g_cur, g_ct, g_cd = g_out
+
+    def eager(cur_in, start_in, active_in):
+        restore(saved)
+        d, p, a, c, ct, cd = fn(target.params, draft.params, cur_in, cache_t, cache_d,
+                                start_in, active_in)
+        torch.cuda.synchronize()
+        return [t.clone() for t in (d, p, a, c, ct["length"], cd["length"], ct["k"], cd["k"])]
+
+    cases = [
+        (cur.clone(), cache_t["length"].clone(), torch.ones(4, dtype=torch.bool, device=cuda_device)),
+        (torch.tensor([7, 8, 9, 10], device=cuda_device),
+         torch.tensor([3, 2, 4, 1], device=cuda_device),
+         torch.tensor([True, False, True, True], device=cuda_device)),
+    ]
+    for cur_in, start_in, active_in in cases:
+        want = eager(cur_in, start_in, active_in)
+        restore(saved)
+        s_cur.copy_(cur_in)
+        s_start.copy_(start_in)
+        s_active.copy_(active_in)
+        graph.replay()
+        torch.cuda.synchronize()
+        got = [g_d, g_p, g_a, g_cur, g_ct["length"], g_cd["length"], g_ct["k"], g_cd["k"]]
+        for a, b in zip(want[:6], got[:6]):
+            assert torch.equal(a, b)
+        for a, b in zip(want[6:], got[6:]):
+            assert torch.equal(a, b)

@@ -165,6 +165,24 @@ def test_kernel_input_checks_raise(case):
         _check_kernel_inputs(q, k, v)
 
 
+def test_head_dim_256_is_eligible_in_both_gates_but_refused_by_the_cuda_kernel():
+    """A known difference, pinned as it stands: both eligibility gates
+    accept any head dim that is a multiple of 128, and the JAX kernel
+    computes at 256, but the CUDA kernel is built for head dim 128 only
+    and refuses 256 before launch.  No config of the repo has head dim
+    256, so no path reaches it; on the CPU the plain version computes."""
+    shape, kv = (1, 128, 2, 256), 1
+    assert flash_eligible(shape, kv) is True
+    assert jfa.flash_eligible(shape, kv) is True
+    q = torch.zeros(*shape, dtype=torch.bfloat16)
+    k = v = torch.zeros(1, 128, kv, 256, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="built for head dim 128, got 256"):
+        _check_kernel_inputs(q, k, v)
+    assert tfa_fn(q, k, v).shape == q.shape  # CPU tensors: the plain version
+    qj, kj, vj = (a.astype(np.float32) for a in _qkv(9, 1, 128, 2, 1, 256))
+    assert np.isfinite(_pallas(qj, kj, vj, causal=True)).all()
+
+
 def test_failed_build_raises(tmp_path, monkeypatch):
     """A compiler error surfaces as an exception with its output; no
     library is left behind for a later load to pick up."""

@@ -39,6 +39,9 @@ def _imported_modules(tree: ast.AST):
 def test_port_files_exist():
     assert len(PORT_FILES) >= 10
     assert REPO / "tpuslo_torch" / "models" / "serve.py" in PORT_FILES
+    for rel in ("models/speculative.py", "models/frontdoor.py", "models/router.py",
+                "sloengine/engine.py", "deviceplane/dispatch.py", "obs/tracer.py"):
+        assert REPO / "tpuslo_torch" / rel in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -50,7 +53,10 @@ def test_no_jax_or_tpuslo_import(path):
 
 def test_importing_the_port_loads_no_jax():
     code = (
-        "import sys, tpuslo_torch.models, tpuslo_torch.ops, tpuslo_torch.models.bridge; "
+        "import sys, tpuslo_torch.models, tpuslo_torch.ops, tpuslo_torch.models.bridge, "
+        "tpuslo_torch.models.frontdoor, tpuslo_torch.models.router, "
+        "tpuslo_torch.models.speculative, tpuslo_torch.sloengine, "
+        "tpuslo_torch.deviceplane, tpuslo_torch.obs.tracer; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tpuslo')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )

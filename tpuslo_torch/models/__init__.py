@@ -1,6 +1,7 @@
 """Serving models of the port: the Llama family, its KV caches, the
 single-stream ``ServeEngine``, the continuous-batching engines (dense
-and paged) and the JAX weight bridge."""
+and paged), speculative decoding, the SLO-aware front door, the router
+over replicated front doors, and the JAX weight bridge."""
 
 from tpuslo_torch.models.llama import (
     GREEDY,
@@ -24,14 +25,21 @@ from tpuslo_torch.models.llama import (
 from tpuslo_torch.models.serve import ServeEngine, TokenEvent
 from tpuslo_torch.models.batching import ContinuousBatchingEngine
 from tpuslo_torch.models.paged_kv import PagedBatchingEngine
+from tpuslo_torch.models.speculative import SpeculativeEngine
+from tpuslo_torch.models.frontdoor import FrontDoorEngine, FrontDoorObserver
+from tpuslo_torch.models.router import SLORouter
 
 __all__ = [
     "GREEDY",
     "ContinuousBatchingEngine",
+    "FrontDoorEngine",
+    "FrontDoorObserver",
     "LlamaConfig",
     "PagedBatchingEngine",
+    "SLORouter",
     "SamplingConfig",
     "ServeEngine",
+    "SpeculativeEngine",
     "TokenEvent",
     "decode_chunk",
     "decode_step",

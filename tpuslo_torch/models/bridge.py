@@ -14,7 +14,10 @@ KV state goes both ways: a dense or int8 cache
 (:func:`cache_to_numpy`, :func:`cache_from_numpy`) and a paged pool with
 its page table and lengths (:func:`paged_state_to_numpy`,
 :func:`paged_state_from_numpy`), so that tests can start the port from
-JAX's state and hold the port's to it.
+JAX's state and hold the port's to it.  A front door's dense parked
+snapshot ``(row_t, row_d, current, frontier)`` goes both ways too
+(:func:`parked_to_numpy`, :func:`parked_from_numpy`): a request parked
+by one framework's front door can be adopted by the other's.
 """
 
 from __future__ import annotations
@@ -116,3 +119,30 @@ def paged_state_from_numpy(tree: dict, cfg, device: str | torch.device = "cuda")
         ).to(dev),
         "length": torch.from_numpy(np.asarray(tree["length"], np.int64).copy()).to(dev),
     }
+
+
+def parked_to_numpy(parked: tuple) -> dict:
+    """A front door's dense parked snapshot ``(row_t, row_d, current,
+    frontier)`` as numpy: both single-row caches as in
+    :func:`cache_to_numpy`, the carried token and the frontier as ints."""
+    row_t, row_d, current, frontier = parked
+    return {
+        "row_t": cache_to_numpy(row_t),
+        "row_d": cache_to_numpy(row_d),
+        "current": int(current),
+        "frontier": int(frontier),
+    }
+
+
+def parked_from_numpy(
+    tree: dict, cfg_t, cfg_d, device: str | torch.device = "cuda"
+) -> tuple:
+    """The port's parked snapshot from one given as numpy (the layout of
+    :func:`parked_to_numpy`; the rows may come from a JAX front door's
+    ``req.parked``), ready for ``FrontDoorRequest.parked``."""
+    return (
+        cache_from_numpy(tree["row_t"], cfg_t, device),
+        cache_from_numpy(tree["row_d"], cfg_d, device),
+        int(tree["current"]),
+        int(tree["frontier"]),
+    )

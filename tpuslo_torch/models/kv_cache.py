@@ -23,8 +23,10 @@ raises instead.  :func:`kv_write_rows` drops a row's write at a position
 at or past the cache end, as JAX's scatter does: the continuous-batching
 engines keep decoding released slots, whose lengths walk past the end,
 and such a write must neither raise on the CPU nor trip a device-side
-assert on the card.  :func:`kv_write_rows_seq` leaves the index checks to
-PyTorch, which raise on out-of-range rows or positions.
+assert on the card.  :func:`kv_write_rows_seq` drops every single
+position at or past the cache end in the same way: a finished row of a
+speculative batch keeps verifying ``k + 1`` positions from a frontier
+that may sit within ``k`` of the end.
 """
 
 from __future__ import annotations
@@ -136,20 +138,51 @@ def kv_write_rows(
     return kv
 
 
+def rows_seq_index(
+    pos: torch.Tensor, K: int, S: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(index, inside) of a ``K``-position chunk per row from per-row
+    starts ``pos`` in a cache of ``S`` positions, both ``(B, K)``.
+
+    ``inside`` marks the positions that lie in the cache.  A position
+    past the end is sent to ``position % S``: within one row the wrapped
+    indices are distinct from each other and from the positions inside
+    (``K <= S``), so a write through ``index`` names every slot once and
+    its outcome does not depend on the order of the scatter.
+    """
+    if K > S:
+        raise ValueError(f"a chunk of {K} positions exceeds the cache ({S})")
+    idx = pos[:, None] + torch.arange(K, device=pos.device)[None, :]
+    return idx % S, idx < S
+
+
 def kv_write_rows_seq(
-    kv: KV, new: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor
+    kv: KV, new: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor,
+    index: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> KV:
     """Scatter a ``(B, K, KV, HD)`` chunk per row starting at per-row
     positions (batched verify: every row scores K positions from its
-    own cache frontier), in place."""
-    K = new.shape[1]
-    idx = pos[:, None] + torch.arange(K, device=pos.device)[None, :]
+    own cache frontier), in place.
+
+    A position at or past the cache end writes nothing, as JAX's
+    out-of-range scatter drops it: it goes through a wrapped index that
+    gets its old value back (:func:`rows_seq_index`; ``index`` passes a
+    precomputed pair, so that a layer loop computes it once).
+    """
+    S = (kv["q"] if isinstance(kv, dict) else kv).shape[1]
+    idx, inside = index if index is not None else rows_seq_index(pos, new.shape[1], S)
+    r = rows[:, None]
+
+    def put(side, value):
+        keep = inside.view(inside.shape + (1,) * (value.ndim - 2))
+        side[r, idx] = torch.where(keep, value, side[r, idx])
+
     if isinstance(kv, dict):
         qs = quantize_kv(new)
-        kv["q"][rows[:, None], idx] = qs["q"]
-        kv["s"][rows[:, None], idx] = qs["s"]
+        put(kv["q"], qs["q"])
+        put(kv["s"], qs["s"])
         return kv
-    kv[rows[:, None], idx] = new
+    put(kv, new)
     return kv
 
 

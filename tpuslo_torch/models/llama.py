@@ -396,8 +396,12 @@ def init_kv_cache(
     stores K/V quantized (see :mod:`tpuslo_torch.models.kv_cache`).
 
     ``length`` is a Python int while every row sits at the same position
-    (the host always knows it, so no device read is needed to slice),
-    and a ``(B,)`` int64 tensor once rows have their own lengths.
+    and the host knows it (so no device read is needed to slice), a
+    ``(B,)`` int64 tensor once rows have their own lengths, and a 0-d
+    int64 tensor where one shared frontier advances by a count that only
+    the device knows (a speculative stream's accepted tokens): decode and
+    verify then take the per-row path with the frontier broadcast, and
+    hand the length back 0-d, with no host read.
     """
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, cfg.max_seq_len, cfg.n_kv_heads, cfg.head_dim)
@@ -416,11 +420,12 @@ def kv_cache_bytes(cfg: LlamaConfig, batch: int, kv_dtype: str = "bf16") -> int:
 
 def _as_length(length, batch: int, device: torch.device):
     """A cache length as the port keeps it: a Python int for one shared
-    position, a ``(B,)`` int64 tensor on ``device`` for per-row ones."""
+    position the host knows, a ``(B,)`` int64 tensor on ``device`` for
+    per-row ones, a 0-d int64 tensor for a shared device-side frontier
+    (never read to the host here)."""
     if isinstance(length, torch.Tensor):
-        if length.ndim == 0:
-            return int(length)
-        return length.to(device=device, dtype=torch.long).expand(batch)
+        length = length.to(device=device, dtype=torch.long)
+        return length if length.ndim == 0 else length.expand(batch)
     if isinstance(length, (list, tuple)):
         return torch.tensor(length, dtype=torch.long, device=device)
     return int(length)
@@ -428,7 +433,7 @@ def _as_length(length, batch: int, device: torch.device):
 
 def _row_lengths(length, batch: int, device: torch.device) -> torch.Tensor:
     if isinstance(length, torch.Tensor):
-        return length
+        return length.expand(batch)
     return torch.full((batch,), length, dtype=torch.long, device=device)
 
 
@@ -510,9 +515,10 @@ def decode_step(
     """One-token decode.  token: (B,) -> f32 logits (B, vocab).
 
     ``cache["length"]`` is an int (every row at one position: this is
-    :func:`verify_chunk` at K=1) or a ``(B,)`` tensor (per-row
-    positions: one slot per row is scattered in place, and each row
-    sees the cache positions ``<= length``).
+    :func:`verify_chunk` at K=1) or a tensor, ``(B,)`` per-row positions
+    or one 0-d device-side position for every row (one slot per row is
+    scattered in place, and each row sees the cache positions
+    ``<= length``).
     """
     B = token.shape[0]
     dev = token.device
@@ -520,13 +526,14 @@ def decode_step(
     if isinstance(pos, int):
         logits, cache = verify_chunk(params, token[:, None], {**cache, "length": pos}, cfg)
         return logits[:, 0], {**cache, "length": pos + 1}
+    row_pos = pos.expand(B)  # a 0-d shared frontier, broadcast
     h = _embed_lookup(params, token[:, None], cfg.dtype)
-    cos, sin = rope_frequencies(cfg, pos[:, None])
-    visible = torch.arange(cfg.max_seq_len, device=dev)[None, :] <= pos[:, None]
+    cos, sin = rope_frequencies(cfg, row_pos[:, None])
+    visible = torch.arange(cfg.max_seq_len, device=dev)[None, :] <= row_pos[:, None]
     rows = torch.arange(B, device=dev)
 
     def write(side, new):
-        kvc.kv_write_rows(side, new[:, 0], rows, pos)
+        kvc.kv_write_rows(side, new[:, 0], rows, row_pos)
 
     h = _cached_layers(params, cfg, h, cache, cos, sin, visible[:, None, :], write)
     cache = {"k": cache["k"], "v": cache["v"], "length": pos + 1}
@@ -597,8 +604,10 @@ def verify_chunk(
     ``length``.  Their KV is written in place at ``length .. length+K-1``
     and ``length`` is left unchanged: the caller decides how many
     positions were accepted.  ``length`` is an int (one frontier, a
-    contiguous write that raises past the cache end) or a ``(B,)``
-    tensor (each row verifies K positions from its own frontier).
+    contiguous write that raises past the cache end), a ``(B,)`` tensor
+    (each row verifies K positions from its own frontier; a position
+    past the cache end is dropped) or a 0-d tensor (one device-side
+    frontier, broadcast over the rows).
     """
     B, K = tokens.shape
     dev = tokens.device
@@ -612,12 +621,14 @@ def verify_chunk(
         def write(side, new):
             kvc.kv_write_seq(side, new, start)
     else:
-        positions = start[:, None] + offs[None, :]  # (B, K)
+        row_start = start.expand(B)
+        positions = row_start[:, None] + offs[None, :]  # (B, K)
         mask = key_pos[None, None, :] <= positions[:, :, None]  # (B, K, T)
         rows = torch.arange(B, device=dev)
+        index = kvc.rows_seq_index(row_start, K, cfg.max_seq_len)
 
         def write(side, new):
-            kvc.kv_write_rows_seq(side, new, rows, start)
+            kvc.kv_write_rows_seq(side, new, rows, row_start, index)
 
     h = _embed_lookup(params, tokens, cfg.dtype)
     cos, sin = rope_frequencies(cfg, positions)

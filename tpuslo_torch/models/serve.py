@@ -203,9 +203,14 @@ class _HostRead:
     """One device-to-host read of a token tensor, started now and waited
     for later: a copy into pinned memory plus an event, so that work
     queued after it does not delay it (a plain ``.tolist()`` would wait
-    for everything queued on the stream)."""
+    for everything queued on the stream).  ``reads`` counts every read
+    started, in the whole process: tests and the smoke run take its
+    difference over a round to show one read per dispatch."""
+
+    reads = 0
 
     def __init__(self, t: torch.Tensor):
+        _HostRead.reads += 1
         if t.device.type == "cuda":
             self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             self._host.copy_(t, non_blocking=True)
@@ -218,6 +223,18 @@ class _HostRead:
         if self._event is not None:
             self._event.synchronize()
         return self._host.tolist()
+
+
+def _upload(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Host values (a list or a numpy array) as a new tensor on
+    ``device``, never a view of ``values``.  To a card the copy goes
+    from pinned memory and does not make the host wait, so a serving
+    step can hand the device its per-slot frontiers and masks without a
+    synchronizing call."""
+    host = torch.tensor(values, dtype=dtype)
+    if device.type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)
 
 
 def _sub_batch_seed(seed: int, index: int) -> int:
