@@ -19,7 +19,8 @@ non-zero exit and no result line:
    serve phase gives it and a few more, with kernel, plain and library
    (SDPA, a yardstick the port never calls) times, the card's lower
    bound for the same work, the kernel's ratio to SDPA and its share of
-   the bound;
+   the bound; then K1's head-dim-256 instantiation the same way at three
+   shapes (no model of the repo has that head dim);
 4. serve: a full-depth, full-width ``llama32_3b`` ``ServeEngine`` with
    seeded random weights answers three ``generate`` requests and one
    ``generate_batch``; K1's launch count over this phase must be one per
@@ -63,9 +64,19 @@ non-zero exit and no result line:
 11. the router: an ``SLORouter`` over 2 front doors sharing the two
     ``ServeEngine``s serves 12 requests in 3 prefix groups across a
     ``kill_engine``; no request may be lost;
-12. parity: a 2-layer full-width model's prefill logits on the card
+12. the device plane: the front door stepped under the continuous
+    profiler (``source="torch"``, each window one step under ``capture``,
+    the governor held to stride 2; every window folded through the
+    ledger, its buckets held to the window within 0.1% and its idle share
+    to the ops lane's within 2 points, the K1 events its ops lane kept
+    against K1's launches in it), one paged step with K2 under
+    ``capture`` (the same two checks, the K2 events kept against 2 x its
+    calls, the roofline verdict of ``decode_step_cost`` at this config
+    and batch), the live HBM reading against the CUDA allocator and the
+    recording self-tracer's cycles; one ``deviceplane:`` JSON line;
+13. parity: a 2-layer full-width model's prefill logits on the card
     (kernel path) against the same weights on the CPU (plain path);
-13. the ``kernels`` JSON line, the card line, and the result line.
+14. the ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card and imports nothing of JAX or of the JAX package.
 Every measurement also goes into one ``record:`` JSON line.
@@ -139,12 +150,15 @@ SHAPES = (
     (8, 256, True),
 )
 LINE_SHAPE = (1, 256, True)  # the kernels line reports this main-path shape
+# K1's head-dim-256 instantiation, which no model of the repo reaches
+# (Llama-3.2-3B's head dim is 128): (B, S, causal) at H=24, KV=8, D=256.
+WIDE_SHAPES = ((1, 256, True), (8, 256, True), (1, 2048, True))
 
 KERNELS = ("flash_attention", "paged_attention")  # csrc/<name>.cu
 # The instantiations the main path runs: K1, and K2's split and combine
 # kernels for a bf16 pool at Llama-3.2-3B's head dim 128 and 3 query heads
 # per kv head.
-PATH_INSTANTIATIONS = ("flash_fwd_kernel", "paged_split_kernel<bf16,128,3>",
+PATH_INSTANTIATIONS = ("flash_fwd_kernel<128>", "paged_split_kernel<bf16,128,3>",
                        "paged_combine_kernel<128,3>")
 BUCKETS = (32, 64, 128, 256)  # the engine's prefill buckets
 BATCH_BUCKETS = (1, 2, 4, 8)  # generate_batch's default row buckets
@@ -226,6 +240,22 @@ ROUTER_GROUPS = tuple(
 ROUTER_JOBS = [(f"Question {i}: which request waits longest, and why?", ROUTER_GROUPS[i % 3])
                for i in range(12)]
 ROUTER_KILL_AFTER = 3  # steps
+# The device plane: the front door (same 8 slots, 2 rounds per step) stepped
+# DEVICEPLANE_CYCLES times under the continuous profiler at stride 1 after
+# two unprofiled steps, over waves of 8 requests of 8 tokens each, so that
+# a new wave is admitted (K1 on its batched prefill) every fourth step.
+DEVICEPLANE_WAVES = 4
+DEVICEPLANE_TOKENS = 8
+DEVICEPLANE_CYCLES = 12
+# A window's ledger buckets must sum to the window within this share.
+DEVICEPLANE_SUM_TOL = 1e-3
+# A window's ledger idle share against the ops lane's (1 - the share of
+# the window some kernel, copy or memset ran): they differ only by device
+# work outside every dispatch range (a step's few uploads between its
+# dispatches), which must stay under this share of the window.
+DEVICEPLANE_IDLE_TOL = 0.02
+# The governor may back the profiler off to this stride and no further.
+DEVICEPLANE_MAX_STRIDE = 2
 
 
 def _fail(msg: str) -> None:
@@ -314,6 +344,17 @@ def _time_ms(torch, fn, reps: int, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_kernels(prof) -> list:
+    """The device events of a trace (kernels, copies, memsets) from its
+    averages, without the device extents of the port's dispatch ranges
+    (``gpu_user_annotation`` events), which span kernels counted here
+    already."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+
+
 def _per_call_kernels(kernels, calls: int) -> dict[str, tuple[float, int]]:
     """{kernel name: (mean device µs per launch, launches per call)} from
     the profiler's averages over a trace of ``calls`` calls.  The
@@ -335,7 +376,6 @@ def _device_us(torch, fn, reps: int, flush) -> float:
     """Device kernel time (µs, CUPTI) per call of ``fn``, from one trace
     of ``reps`` calls, each after ``flush.zero_()`` when a flush buffer
     is given (see _per_call_kernels); 0 for a trace without kernels."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -344,7 +384,7 @@ def _device_us(torch, fn, reps: int, flush) -> float:
                 flush.zero_()
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = _device_kernels(prof)
     if any(e.count % reps for e in kernels):
         print(f"chip_smoke: the profiler kept {[(e.key[:40], e.count) for e in kernels]} "
               f"kernel events of {reps} calls", file=sys.stderr, flush=True)
@@ -394,12 +434,14 @@ def _attention_bound(B, S, H, KV, D, causal) -> tuple[float, str]:
 def phase_kernel(torch, fa, cfg, serve_shapes) -> dict:
     import torch.nn.functional as F
 
-    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(1234)
     on_path = {(B, S, True) for B, S in serve_shapes}
     rows = []
-    for B, S, causal in sorted(set(SHAPES) | on_path):
+    cases = [(B, S, causal, cfg.head_dim) for B, S, causal in sorted(set(SHAPES) | on_path)]
+    cases += [(B, S, causal, 256) for B, S, causal in WIDE_SHAPES]
+    for B, S, causal, D in cases:
         q = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
         k = torch.randn(B, S, KV, D, generator=gen, device=dev).bfloat16()
         v = torch.randn(B, S, KV, D, generator=gen, device=dev).bfloat16()
@@ -411,11 +453,11 @@ def phase_kernel(torch, fa, cfg, serve_shapes) -> dict:
         ref_rms = ref.pow(2).mean(dim=-1, keepdim=True).sqrt()
         row_err = float((diff / ref_rms).max())
         if not torch.isfinite(out).all() or err > KERNEL_TOL or row_err > KERNEL_ROW_TOL:
-            _fail(f"kernel vs plain at B={B} S={S} causal={causal}: max abs err "
+            _fail(f"kernel vs plain at B={B} S={S} D={D} causal={causal}: max abs err "
                   f"{err} (tol {KERNEL_TOL}), row-scaled {row_err} "
                   f"(tol {KERNEL_ROW_TOL})")
         reps = 20 if S >= 2048 else 50
-        what = f"B={B} S={S} causal={causal}"
+        what = f"B={B} S={S} D={D} causal={causal}"
         ms, ms_b2b = _per_call_ms(
             torch, lambda: fa.flash_attention(q, k, v, causal=causal), reps,
             f"kernel {what}",
@@ -435,7 +477,7 @@ def phase_kernel(torch, fa, cfg, serve_shapes) -> dict:
         bound_ms, bound_by = _attention_bound(B, S, H, KV, D, causal)
         row = {
             "B": B, "S": S, "H": H, "KV": KV, "D": D, "causal": causal,
-            "serve_path": (B, S, causal) in on_path,
+            "serve_path": D == cfg.head_dim and (B, S, causal) in on_path,
             "max_abs_err": err, "tol": KERNEL_TOL,
             "row_scaled_err": row_err, "row_tol": KERNEL_ROW_TOL, "ms": ms,
             "ms_back_to_back": ms_b2b, "plain_ms": plain_ms,
@@ -474,7 +516,6 @@ def _device_breakdown(torch, fn) -> dict:
     time of the kernels it launched, from one ``torch.profiler`` trace
     (the profiler's own overhead inflates ``profiled_wall_ms``; the
     unprofiled wall comes from a run just before)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
@@ -484,7 +525,7 @@ def _device_breakdown(torch, fn) -> dict:
         t0 = time.perf_counter()
         fn()
         profiled_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = _device_kernels(prof)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     return {
@@ -504,7 +545,6 @@ def _launched_kernels(torch, fn) -> dict[str, int]:
     launches (profiled alone over 10 calls), so that a step's breakdown
     can be read by what a wrapper launches rather than by a kernel name
     written here."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -514,7 +554,7 @@ def _launched_kernels(torch, fn) -> dict[str, int]:
             for _ in range(10):
                 fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        kernels = _device_kernels(prof)
         found = {k: n for k, (_, n) in _per_call_kernels(kernels, 10).items()}
         if found:
             return found
@@ -1422,6 +1462,292 @@ def phase_router(torch, fa, serve, frontdoor, router_mod, cfg, target, draft) ->
             "stats": {k: v for k, v in stats.items() if k != "engine_stats"}, "parity": parity}
 
 
+def _program_of(spans, module: str) -> str:
+    """The program id of ``module``'s launches in a capture ('' if none)."""
+    return next((s.program_id for s in spans
+                 if s.lane == "XLA Modules" and s.module_name == module), "")
+
+
+def _ops_busy_us(ops) -> float:
+    """Union of the device ops' intervals (µs): the time some kernel,
+    copy or memset ran."""
+    busy, end = 0.0, float("-inf")
+    for op in sorted(ops, key=lambda s: s.start_us):
+        lo, hi = op.start_us, op.start_us + op.duration_us
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy
+
+
+def _ledger_view(ledger, spans, dispatch_count) -> dict:
+    """A window's ledger in ms, with its bucket sum held to the window
+    (the run fails past DEVICEPLANE_SUM_TOL) and its idle share to the
+    ops lane's (past DEVICEPLANE_IDLE_TOL)."""
+    total = ledger.total_us
+    ops = [s for s in spans if s.lane == "XLA Ops"]
+    if total <= 0:
+        _fail("deviceplane: an empty ledger window")
+    view = {
+        "window_ms": total / 1e3,
+        "buckets_ms": ledger.bucket_ms(),
+        "bucket_sum_ms": ledger.bucket_sum_us / 1e3,
+        "raw_join_rate": ledger.raw_join_rate,
+        "substantive_join_rate": ledger.substantive_join_rate,
+        "tier_counts": dict(ledger.tier_counts),
+        "dispatches": dispatch_count(ledger),
+        "module_spans": len(ledger.launches),
+        "device_idle_gap_ms": ledger.idle_gap_ms(),
+        "idle_share": ledger.idle_gap_ms() * 1e3 / total,
+        "device_unexplained_share": ledger.unexplained_share,
+        "ops": len(ops),
+        "ops_ms": sum(s.duration_us for s in ops) / 1e3,
+        "ops_busy_share": _ops_busy_us(ops) / total,
+    }
+    view["idle_minus_ops_idle"] = view["idle_share"] - (1.0 - view["ops_busy_share"])
+    if abs(ledger.bucket_sum_us - total) > DEVICEPLANE_SUM_TOL * total:
+        _fail(f"deviceplane: ledger buckets sum to {ledger.bucket_sum_us} us against a "
+              f"{total} us window (tolerance {DEVICEPLANE_SUM_TOL})")
+    if abs(view["idle_minus_ops_idle"]) > DEVICEPLANE_IDLE_TOL:
+        _fail(f"deviceplane: the ledger's idle share {view['idle_share']:.4f} differs from "
+              f"the ops lane's {1.0 - view['ops_busy_share']:.4f} by more than "
+              f"{DEVICEPLANE_IDLE_TOL}")
+    return view
+
+
+def _kernel_events(spans, names: tuple[str, ...]) -> int:
+    return sum(1 for s in spans if s.lane == "XLA Ops" and any(n in s.name for n in names))
+
+
+def phase_deviceplane(torch, fa, pa, llama, paged_kv, frontdoor, cfg, target, draft) -> dict:
+    """The device plane on the main path: the front door stepped under the
+    continuous profiler (windows folded through the ledger, with the K1
+    events each window's ops lane kept against K1's launches), one paged
+    step with K2 under ``capture`` and its roofline verdict, the live HBM
+    reading and the recording self-tracer."""
+    import tempfile
+
+    from tpuslo_torch.collector import hbm_sampler, native
+    from tpuslo_torch.deviceplane import ledger as dl
+    from tpuslo_torch.deviceplane import profiler as dp
+    from tpuslo_torch.deviceplane import roofline as rf
+    from tpuslo_torch.obs import tracer as obs
+    from tpuslo_torch.otel import xla_spans
+
+    kind = torch.cuda.get_device_name(0)
+    peak_bw, peak_flops = rf.peaks_for_chip(kind)
+    cfg_d = draft.cfg
+    out: dict = {"peaks": {"hbm_bytes_s": peak_bw, "bf16_flops": peak_flops}}
+    tmp = tempfile.TemporaryDirectory(prefix="tpuslo-deviceplane-")
+    try:
+        # -- the front door under the continuous profiler ---------------
+        exported: list = []
+        tracer = obs.SelfTracer(obs.TracerConfig(sample_rate=1.0, metrics_stride=1),
+                                on_export=exported.append)
+        fd = frontdoor.FrontDoorEngine(
+            target, draft, k=SPEC_K, max_slots=FRONT_SLOTS, rounds_per_step=FRONT_ROUNDS,
+            paged=True, block_size=FRONT_BLOCK, self_tracer=tracer,
+        )
+        for i in range(DEVICEPLANE_WAVES * FRONT_SLOTS):
+            prompt, _ = DENSE_JOBS[i % len(DENSE_JOBS)]
+            fd.submit(f"{prompt} ({i})", tenant="tenant-a",
+                      max_new_tokens=DEVICEPLANE_TOKENS, stop_at_eos=False)
+        walls = []
+        for _ in range(2):  # the first wave's admission, then a steady step
+            t0 = time.perf_counter()
+            fd.step()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        budget_ms = walls[-1]
+        # The cost model of one multi-round dispatch (the front door's
+        # program): per round k + 1 draft decode steps and one verify of
+        # k + 1 positions, each reading its weights and its whole dense
+        # cache (the plain cached attention reads the full allocation).
+        nt, nd, B = llama.param_count(cfg), llama.param_count(cfg_d), FRONT_SLOTS
+        d_bytes, d_flops = rf.decode_step_cost(nd, llama.kv_cache_bytes(cfg_d, B), batch=B)
+        v_bytes, v_flops = rf.decode_step_cost(nt, llama.kv_cache_bytes(cfg, B),
+                                               batch=B * (SPEC_K + 1))
+        round_bytes = FRONT_ROUNDS * ((SPEC_K + 1) * d_bytes + v_bytes)
+        round_flops = FRONT_ROUNDS * ((SPEC_K + 1) * d_flops + v_flops)
+        program = xla_spans.program_fingerprint(
+            "spec_multi_round", torch.empty(B, dtype=torch.long), SPEC_K, FRONT_ROUNDS)
+        work = {"k1": 0, "ms": 0.0, "spans": None, "source": None}
+
+        def capture_step(_index):
+            """One front-door step under ``capture``; its spans are kept
+            for the window's checks."""
+            with xla_spans.capture(tmp.name, include_ops=True) as cap:
+                k1 = fa.flash_attention.launches
+                t0 = time.perf_counter()
+                fd.step()
+                work["ms"] = (time.perf_counter() - t0) * 1e3
+                work["k1"] = fa.flash_attention.launches - k1
+            work["spans"], work["source"] = cap.spans, cap.module_source
+            return cap.spans, []
+
+        # The governor is charged what a capture costs beyond the step it
+        # brackets (the step runs whether or not it is profiled).
+        prof = dp.ContinuousProfiler(
+            source="torch", capture_fn=capture_step, stride_cycles=1,
+            max_stride_cycles=DEVICEPLANE_MAX_STRIDE, cycle_budget_ms=budget_ms,
+            bytes_per_step=round_bytes, flops_per_step=round_flops, program_id=program,
+            peak_bw=peak_bw, peak_flops=peak_flops,
+            cost_fn=lambda ms: max(ms - work["ms"], 0.0),
+        )
+        windows, k1_launched, unprofiled = [], 0, []
+        t_loop = time.perf_counter()
+        for cycle in range(DEVICEPLANE_CYCLES):
+            k1_before = fa.flash_attention.launches
+            t0 = time.perf_counter()
+            w = prof.tick()
+            if w is None:
+                fd.step()
+                unprofiled.append((time.perf_counter() - t0) * 1e3)
+                k1_launched += fa.flash_attention.launches - k1_before
+                continue
+            spans = work["spans"]
+            ledger = dl.build_ledger(spans)
+            view = _ledger_view(ledger, spans, dp.dispatch_count)
+            k1_kept = _kernel_events(spans, ("flash_fwd_kernel",))
+            row = {
+                **w.to_dict(), **view, "step_ms": work["ms"],
+                "module_lane_source": work["source"],
+                "capture_ms_beyond_step": w.capture_cost_ms,
+                "overhead_ema_pct": prof.overhead_ema_pct,
+                "k1_launched": work["k1"], "k1_kept": k1_kept,
+                "k1_kept_ratio": k1_kept / work["k1"] if work["k1"] else None,
+                "roofline": prof.window_roofline(w.index),
+            }
+            k1_launched += work["k1"]
+            windows.append(row)
+            b = {k: round(v, 2) for k, v in view["buckets_ms"].items()}
+            print(f"deviceplane: window {w.index} (cycle {w.cycle}, stride {w.stride_cycles}"
+                  f"{', degraded' if w.degraded else ''}): {view['window_ms']:.2f} ms, "
+                  f"buckets {b} sum {view['bucket_sum_ms']:.3f} ms; joins raw "
+                  f"{w.raw_join_rate:.4f} substantive {w.substantive_join_rate:.4f}; tiers "
+                  f"{view['tier_counts']} over {view['dispatches']} dispatches in "
+                  f"{view['module_spans']} module spans ({work['source']}); idle gap "
+                  f"{w.idle_gap_ms:.2f} ms (share {view['idle_share']:.4f}, ops lane's "
+                  f"{1.0 - view['ops_busy_share']:.4f}); unexplained {w.unexplained_share:.4f}; "
+                  f"MFU {w.mfu_pct:.3f}% ({w.verdict}, HBM "
+                  f"{prof.window_roofline(w.index).get('hbm_bw_pct')}%); ops {view['ops']} kept, "
+                  f"{view['ops_ms']:.2f} ms; K1 kept "
+                  f"{k1_kept} of {work['k1']} launched; step {work['ms']:.1f} ms, capture "
+                  f"beyond it {w.capture_cost_ms:.1f} ms, overhead EMA "
+                  f"{prof.overhead_ema_pct:.2f}%", flush=True)
+            if work["k1"] and not k1_kept:
+                _fail(f"deviceplane: window {w.index} launched K1 {work['k1']} times and its "
+                      "ops lane holds no K1 event")
+        loop_s = time.perf_counter() - t_loop
+        if not windows:
+            _fail("deviceplane: the continuous profiler never captured")
+        if not any(r["k1_launched"] for r in windows):
+            _fail("deviceplane: no captured window admitted a request (no K1 to hold)")
+        dispatching = next(
+            (spans for spans in exported if any(s.name == "dispatch" for s in spans)), None)
+        if dispatching is None:
+            _fail(f"deviceplane: the tracer exported {len(exported)} cycles, none dispatching")
+        if prof.stride_cycles > DEVICEPLANE_MAX_STRIDE:
+            _fail(f"deviceplane: the governor went to stride {prof.stride_cycles}")
+        stages = [s.name for s in dispatching[1:]]
+        out["frontdoor"] = {
+            "slots": FRONT_SLOTS, "rounds_per_step": FRONT_ROUNDS, "cycles": DEVICEPLANE_CYCLES,
+            "requests": DEVICEPLANE_WAVES * FRONT_SLOTS, "tokens": DEVICEPLANE_TOKENS,
+            "step_walls_before_ms": walls, "cycle_budget_ms": budget_ms,
+            "unprofiled_step_ms": unprofiled, "loop_s": loop_s,
+            "round_bytes": round_bytes, "round_flops": round_flops, "program_id": program,
+            "windows": windows, "stats": prof.stats(), "k1_launched": k1_launched,
+            "tracer": {"exported_cycles": len(exported), "stages": stages,
+                       "snapshot": tracer.snapshot()},
+        }
+        kept = sum(r["k1_kept"] for r in windows)
+        launched = sum(r["k1_launched"] for r in windows)
+        print(f"deviceplane: front door {len(windows)} windows over {DEVICEPLANE_CYCLES} cycles "
+              f"in {loop_s:.1f} s; stats {prof.stats()}; K1 kept {kept} of {launched} launched "
+              f"in captured windows ({kept / max(launched, 1):.4f}); tracer exported "
+              f"{len(exported)} cycles, a dispatching one: {dispatching[0].name} -> {stages}",
+              flush=True)
+        del fd, prof
+        torch.cuda.empty_cache()
+
+        # -- one paged step with K2 under capture -----------------------
+        engine = paged_kv.PagedBatchingEngine(
+            cfg, target.params, max_slots=PAGED_SLOTS, block_size=PAGED_BLOCK,
+            n_blocks=1 + PAGED_SLOTS * (cfg.max_seq_len // PAGED_BLOCK),
+            prefill_buckets=BUCKETS, pallas_attention=True, device="cuda",
+        )
+        for i in range(PAGED_SLOTS):
+            prompt = BATCH_PROMPTS[i % len(BATCH_PROMPTS)]
+            engine.submit(f"{prompt} ({i})", NEW_TOKENS, stop_at_eos=False)
+        engine.step()
+        engine.step()
+        if not all(s is not None for s in engine._slots):
+            _fail("deviceplane: the paged engine is not full after admission")
+        k2_before = pa.paged_decode_attention.launches
+        with xla_spans.capture(tmp.name, include_ops=True) as cap:
+            engine.step()
+        k2_calls = pa.paged_decode_attention.launches - k2_before
+        spans = cap.spans
+        ledger = dl.build_ledger(spans)
+        view = _ledger_view(ledger, spans, dp.dispatch_count)
+        k2_kept = _kernel_events(spans, ("paged_split_kernel", "paged_combine_kernel"))
+        lengths = engine._cache["length"].tolist()
+        per_pos = 2 * cfg.n_kv_heads * cfg.head_dim * 2 * cfg.n_layers
+        live_kv = sum(n + 1 for n in lengths) * per_pos
+        step_bytes, step_flops = rf.decode_step_cost(llama.param_count(cfg), live_kv,
+                                                      batch=PAGED_SLOTS)
+        step_program = _program_of(spans, "paged_decode_step")
+        verdict = rf.verdict_from_ledger(ledger, step_bytes, step_flops,
+                                         program_id=step_program, peak_bw=peak_bw,
+                                         peak_flops=peak_flops)
+        if not k2_kept or not k2_calls:
+            _fail(f"deviceplane: the paged capture holds {k2_kept} K2 events for {k2_calls} "
+                  "calls")
+        if verdict is None:
+            _fail("deviceplane: the paged step's ledger joined no launch of its program")
+        out["paged"] = {**view, "k2_calls": k2_calls, "k2_launched": 2 * k2_calls,
+                        "k2_kept": k2_kept, "k2_kept_ratio": k2_kept / (2 * k2_calls),
+                        "lengths": lengths, "step_bytes": step_bytes, "step_flops": step_flops,
+                        "roofline": verdict, "module_lane_source": cap.module_source,
+                        "memory_bound": verdict["verdict"] == rf.VERDICT_MEMORY_BOUND}
+        print(f"deviceplane: paged step (K2 on, {PAGED_SLOTS} lanes, lengths {lengths}) under "
+              f"capture: module lane from {cap.module_source}; {view['window_ms']:.2f} ms window, "
+              f"buckets {({k: round(v, 3) for k, v in view['buckets_ms'].items()})}, idle share "
+              f"{view['idle_share']:.4f}, ops busy share {view['ops_busy_share']:.4f}; K2 kept "
+              f"{k2_kept} of {2 * k2_calls} launched (split + combine x {k2_calls} calls); "
+              f"roofline: {verdict['verdict']} (memory-bound expected: "
+              f"{'yes' if out['paged']['memory_bound'] else 'NO'}), {verdict['device_time_ms']} ms, "
+              f"{verdict['achieved_gb_per_sec']} GB/s = {verdict['hbm_bw_pct']}% of HBM, MFU "
+              f"{verdict['mfu_pct']}%", flush=True)
+        del engine
+        torch.cuda.empty_cache()
+
+        # -- the live HBM reading -----------------------------------------
+        stats = hbm_sampler.read_stats()
+        allocated = torch.cuda.memory_allocated()
+        free, total = torch.cuda.mem_get_info()
+        if stats is None:
+            _fail(f"deviceplane: read_stats() is None on the card "
+                  f"({hbm_sampler.LAST_PROBE_ERROR})")
+        try:
+            sampler = hbm_sampler.HBMSampler(str(Path(tmp.name) / "hbm.ring"))
+        except native.NativeRuntimeError as exc:
+            wrote, ring_note = False, f"native runtime not available: {exc}"
+        else:
+            wrote, ring_note = sampler.sample_once(), "ring written"
+            sampler.close()
+        out["hbm"] = {"read_stats": list(stats), "memory_allocated": allocated,
+                      "mem_get_info": [free, total],
+                      "utilization_pct": 100.0 * stats[0] / stats[1],
+                      "sampler_wrote": wrote, "sampler_note": ring_note}
+        print(f"deviceplane: HBM read_stats {stats} vs memory_allocated {allocated}, "
+              f"mem_get_info (free, total) {(free, total)}: {out['hbm']['utilization_pct']:.3f}% "
+              f"in use; HBMSampler.sample_once wrote to a ring: {wrote} ({ring_note})", flush=True)
+    finally:
+        tmp.cleanup()
+    return out
+
+
 def phase_parity(torch, fa, llama) -> dict:
     cfg = dataclasses.replace(llama.llama32_3b(max_seq_len=256), n_layers=2)
     S = 128
@@ -1532,20 +1858,29 @@ def main() -> int:
     # 9. speculative decoding: the 1B draft, then a self-draft
     spec, draft = phase_spec(torch, fa, llama, serve, speculative, cfg, engine)
     # 10. the front door (this slice's main path)
-    kernel_shapes = {(r["B"], r["S"], r["causal"]) for r in kernel["shapes"]}
+    kernel_shapes = {(r["B"], r["S"], r["causal"]) for r in kernel["shapes"]
+                     if r["D"] == cfg.head_dim}
     front = phase_frontdoor(torch, fa, pa, serve, frontdoor, sloengine, cfg, engine, draft,
                             kernel_shapes)
     torch.cuda.empty_cache()
     # 11. the router over two front doors, across a kill
     routed = phase_router(torch, fa, serve, frontdoor, router, cfg, engine, draft)
+    torch.cuda.empty_cache()
+    # 12. the device plane over the front door and a paged step
+    fa.flash_attention.launches = 0
+    pa.paged_decode_attention.launches = 0
+    device = phase_deviceplane(torch, fa, pa, llama, paged_kv, frontdoor, cfg, engine, draft)
+    device_k1, device_k2 = fa.flash_attention.launches, pa.paged_decode_attention.launches
+    print(f"deviceplane: {json.dumps(device)}", flush=True)
     del engine, draft
     torch.cuda.empty_cache()
-    # 12. parity
+    # 13. parity
     parity = phase_parity(torch, fa, llama)
 
-    # 13. kernels line, card line, result line
+    # 14. kernels line, card line, result line
     line_row = next(
-        r for r in kernel["shapes"] if (r["B"], r["S"], r["causal"]) == LINE_SHAPE
+        r for r in kernel["shapes"]
+        if (r["B"], r["S"], r["causal"]) == LINE_SHAPE and r["D"] == cfg.head_dim
     )
     k2_row = next(r for r in k2["shapes"] if (r["shape"], r["pool"]) == ("serve", "bf16"))
     kernels = {"kernels": [{
@@ -1555,7 +1890,7 @@ def main() -> int:
         "replaces": "tpuslo/ops/flash_attention.py:41",
         "launches": (served["launches"] + dense["k1_launches"] + paged["k1_launches"]
                      + spec["draft_1b"]["k1_launches"] + spec["self_draft"]["k1_launches"]
-                     + front["k1_launches"] + routed["k1_launches"]),
+                     + front["k1_launches"] + routed["k1_launches"] + device_k1),
         "max_abs_err": max(r["max_abs_err"] for r in kernel["shapes"]),
         "ms": line_row["ms"],
         "plain_ms": line_row["plain_ms"],
@@ -1568,7 +1903,7 @@ def main() -> int:
         "route": "cuda",
         "source": "tpuslo_torch/ops/csrc/paged_attention.cu",
         "replaces": "tpuslo/ops/paged_attention.py:65",
-        "launches": paged["k2_launches"],
+        "launches": paged["k2_launches"] + device_k2,
         "max_abs_err": max(r["max_abs_err"] for r in k2["shapes"]),
         "ms": k2_row["ms"],
         "plain_ms": k2_row["plain_ms"],
@@ -1585,7 +1920,7 @@ def main() -> int:
               "ptxas": ptxas, "kernel": kernel,
               "serve": served, "dense": dense, "paged": paged, "paged_kernel": k2,
               "paged_breakdown": breakdown, "spec": spec, "frontdoor": front,
-              "router": routed, "parity": parity, **kernels}
+              "router": routed, "deviceplane": device, "parity": parity, **kernels}
     print(f"record: {json.dumps(record)}")
     print(json.dumps(kernels))
     print(card)

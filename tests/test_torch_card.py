@@ -65,18 +65,25 @@ def _qkv(seed, B, S, H, KV, D, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H,KV,causal", [
-    (1, 128, 24, 8, True),
-    (4, 128, 24, 8, True),
-    (4, 256, 24, 8, True),
-    (1, 256, 24, 8, False),
-    (2, 512, 4, 2, True),
-    (2, 512, 24, 8, True),
-    (1, 1024, 24, 8, True),
-    (2, 1024, 24, 8, False),
+@pytest.mark.parametrize("B,S,H,KV,D,causal", [
+    (1, 128, 24, 8, 128, True),
+    (4, 128, 24, 8, 128, True),
+    (4, 256, 24, 8, 128, True),
+    (1, 256, 24, 8, 128, False),
+    (2, 512, 4, 2, 128, True),
+    (2, 512, 24, 8, 128, True),
+    (1, 1024, 24, 8, 128, True),
+    (2, 1024, 24, 8, 128, False),
+    # The head-dim-256 instantiation (four 64-column boxes per tile, two
+    # 128-column accumulator blocks), held to the same bounds: the
+    # scores' scale keeps their spread the same.
+    (1, 128, 2, 1, 256, True),
+    (2, 256, 4, 2, 256, True),
+    (1, 512, 8, 4, 256, False),
+    (2, 1024, 4, 1, 256, True),
 ])
-def test_kernel_matches_plain(cuda_device, B, S, H, KV, causal):
-    q, k, v = _qkv(7, B, S, H, KV, 128, cuda_device)
+def test_kernel_matches_plain(cuda_device, B, S, H, KV, D, causal):
+    q, k, v = _qkv(7, B, S, H, KV, D, cuda_device)
     before = flash_attention.launches
     out = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -111,6 +118,9 @@ def test_cuda_tensor_never_falls_back(cuda_device):
         flash_attention(q.float(), k.float(), v.float())
     with pytest.raises(ValueError):
         flash_attention(q[:, :100], k[:, :100], v[:, :100])
+    wide = torch.zeros(1, 128, 2, 384, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="built for head dims"):
+        flash_attention(wide, wide[:, :, :1], wide[:, :, :1])
     assert flash_attention.launches == before
 
 
@@ -529,3 +539,121 @@ def test_batched_round_replays_in_a_cuda_graph(cuda_device):
             assert torch.equal(a, b)
         for a, b in zip(want[6:], got[6:]):
             assert torch.equal(a, b)
+
+
+# ---- the device plane on the card -----------------------------------------
+
+
+@pytest.mark.cuda
+def test_capture_finds_k1_and_k2_and_the_ledger_closes(cuda_device, tmp_path):
+    """One prefill (K1), one decode chunk and one paged step with K2 on,
+    under ``capture``: the ops lane names both kernels, every dispatch
+    comes back as module spans on the device (one per run of its
+    kernels), the ledger's buckets sum to its window, and its busy time
+    is kernel time, no more."""
+    from tpuslo_torch.deviceplane.ledger import build_ledger
+    from tpuslo_torch.otel import xla_spans
+
+    cfg = llama.LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=2, n_kv_heads=1,
+                            ffn_dim=512, max_seq_len=512)
+    engine = serve.ServeEngine(cfg, rng_seed=0, decode_chunk_size=4, device=cuda_device)
+    paged = paged_kv.PagedBatchingEngine(cfg, engine.params, max_slots=2, block_size=16,
+                                         pallas_attention=True, device=cuda_device)
+    for prompt in ("a paged lane", "another paged lane"):
+        paged.submit(prompt, max_new_tokens=16, stop_at_eos=False)
+    paged.step()
+    prompt = "x" * 100  # a 128-bucket prefill: K1
+    list(engine.generate(prompt, max_new_tokens=5, stop_at_eos=False))  # warm
+    k1, k2 = flash_attention.launches, paged_decode_attention.launches
+    with xla_spans.capture(str(tmp_path), include_ops=True) as cap:
+        list(engine.generate(prompt, max_new_tokens=5, stop_at_eos=False))
+        paged.step()
+    assert flash_attention.launches - k1 == cfg.n_layers
+    assert paged_decode_attention.launches - k2 == cfg.n_layers
+    assert cap.module_source == "kernel_segments"
+    ops = [s for s in cap.spans if s.lane == xla_spans.OPS_LANE]
+    names = " ".join(s.name for s in ops)
+    for kernel in ("flash_fwd_kernel", "paged_split_kernel", "paged_combine_kernel"):
+        assert kernel in names
+    mods = list(cap.launches())
+    assert {"prefill", "decode_chunk", "paged_decode_step"} <= {s.module_name for s in mods}
+    assert all(s.device_pid == cuda_device.index and s.launch_id >= 1 for s in mods)
+    ledger = build_ledger(cap.spans)
+    assert ledger.total_us > 0
+    assert ledger.bucket_sum_us == pytest.approx(ledger.total_us, rel=1e-9)
+    assert ledger.tier_counts.get("identity", 0) >= 3
+    busy = sum(s.duration_us for s in mods)
+    assert ledger.buckets_us["joined"] == pytest.approx(busy, rel=1e-9)
+    assert busy <= sum(s.duration_us for s in ops) + 1e-6
+
+
+@pytest.mark.cuda
+def test_live_hbm_reading_is_the_allocator(cuda_device, monkeypatch):
+    from tpuslo_torch.collector import hbm_sampler
+
+    monkeypatch.delenv("TPUSLO_HBM_STATS_PATH", raising=False)
+    monkeypatch.setattr(hbm_sampler, "_DEVICE_PROBE_DEAD", False)
+    keep = torch.empty(64 << 20, dtype=torch.uint8, device=cuda_device)
+    stats = hbm_sampler.read_stats()
+    assert stats is not None, hbm_sampler.LAST_PROBE_ERROR
+    in_use, limit = stats
+    assert in_use == torch.cuda.memory_allocated(cuda_device) >= keep.numel()
+    assert limit == torch.cuda.mem_get_info(cuda_device)[1]
+    assert hbm_sampler.LAST_PROBE_ERROR is None
+
+
+@pytest.mark.cuda
+def test_head_dim_256_block_runs_k1_on_the_card(cuda_device):
+    """A causal block at head dim 256 launches K1's 256 instantiation once
+    and equals the same block through the plain attention: within K1's
+    bound plus one bf16 ulp of the residual sum (|out| < 8)."""
+    cfg = llama.LlamaConfig(vocab_size=512, dim=512, n_layers=1, n_heads=2, n_kv_heads=1,
+                            ffn_dim=512, max_seq_len=256)
+    assert cfg.head_dim == 256
+    params = llama.init_params(5, cfg, cuda_device)
+    layer = llama._layer(params, 0)
+    S = 128
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    h = torch.randn(2, S, cfg.dim, generator=gen, device=cuda_device).bfloat16()
+    cos, sin = llama.rope_frequencies(cfg, torch.arange(S, device=cuda_device)[None])
+    mask = torch.ones(S, S, dtype=torch.bool, device=cuda_device).tril()
+    before = flash_attention.launches
+    out, _ = llama.attention_block(cfg, h, layer, cos, sin, mask, causal=True)
+    plain, _ = llama.attention_block(cfg, h, layer, cos, sin, mask, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - plain.float()).abs().max().item() < 2 * KERNEL_TOL
+
+
+@pytest.mark.cuda
+def test_annotated_round_graphs_and_profiles(cuda_device, tmp_path):
+    """The batched round's dispatch range is compiled in: the round still
+    captures in a CUDA graph (no profiler: the range is a no-op), and an
+    eager round under ``capture`` comes back as module spans of one
+    launch holding its kernels."""
+    from tpuslo_torch.otel import xla_spans
+
+    target, draft = _spec_pair(cuda_device)
+    rows = [[serve.BOS, 5, 6, 7], [serve.BOS, 9]]
+    cur, cache_t, cache_d = _round_state(target, draft, rows)
+    fn = speculative._shared_spec_round_batch_fn(target.cfg, draft.cfg, 3)
+    start = cache_t["length"].clone()
+    active = torch.ones(2, dtype=torch.bool, device=cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(target.params, draft.params, cur, cache_t, cache_d, start, active)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn(target.params, draft.params, cur, cache_t, cache_d, start, active)
+    graph.replay()
+    torch.cuda.synchronize()
+    with xla_spans.capture(str(tmp_path), include_ops=True) as cap:
+        fn(target.params, draft.params, cur, cache_t, cache_d, start, active)
+    runs = [s for s in cap.launches() if s.module_name == "spec_round_batch"]
+    assert len({(s.program_id, s.launch_id) for s in runs}) == 1
+    inside = [s for s in cap.spans if s.lane == xla_spans.OPS_LANE
+              and any(r.start_us <= s.start_us < r.start_us + r.duration_us for r in runs)]
+    assert len(inside) > 10

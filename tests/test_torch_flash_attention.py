@@ -166,21 +166,102 @@ def test_kernel_input_checks_raise(case):
 
 
 def test_head_dim_256_is_eligible_in_both_gates_but_refused_by_the_cuda_kernel():
-    """A known difference, pinned as it stands: both eligibility gates
-    accept any head dim that is a multiple of 128, and the JAX kernel
-    computes at 256, but the CUDA kernel is built for head dim 128 only
-    and refuses 256 before launch.  No config of the repo has head dim
-    256, so no path reaches it; on the CPU the plain version computes."""
+    """Both eligibility gates accept any head dim that is a multiple of
+    128, and the JAX kernel computes at 256.  The CUDA kernel is
+    instantiated for head dims 128 and 256: it takes 256 now and refuses
+    the next multiple, 384, before launch (the card test holds the 256
+    instantiation to the plain version); on the CPU the plain version
+    computes."""
     shape, kv = (1, 128, 2, 256), 1
     assert flash_eligible(shape, kv) is True
     assert jfa.flash_eligible(shape, kv) is True
     q = torch.zeros(*shape, dtype=torch.bfloat16)
     k = v = torch.zeros(1, 128, kv, 256, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="built for head dim 128, got 256"):
-        _check_kernel_inputs(q, k, v)
+    _check_kernel_inputs(q, k, v)
+    wide = torch.zeros(1, 128, 2, 384, dtype=torch.bfloat16)
+    assert flash_eligible(tuple(wide.shape), kv) is True
+    with pytest.raises(ValueError, match=r"built for head dims \(128, 256\), got 384"):
+        _check_kernel_inputs(wide, wide[:, :, :1], wide[:, :, :1])
     assert tfa_fn(q, k, v).shape == q.shape  # CPU tensors: the plain version
     qj, kj, vj = (a.astype(np.float32) for a in _qkv(9, 1, 128, 2, 1, 256))
     assert np.isfinite(_pallas(qj, kj, vj, causal=True)).all()
+
+
+@pytest.mark.parametrize(
+    "shape,kv,takes",
+    [
+        ((1, 256, 4, 256), 4, True),  # the JAX gate's head dim 256
+        ((2, 128, 2, 256), 1, True),
+        ((2, 128, 24, 128), 8, True),  # llama32_3b at the 128 bucket
+        ((1, 128, 2, 384), 1, False),  # flash-eligible, not instantiated
+        ((1, 128, 2, 512), 2, False),
+    ],
+)
+def test_cuda_kernel_takes_the_instantiated_head_dims(shape, kv, takes):
+    """Every shape here passes both gates; the CUDA kernel's input check
+    takes head dims 128 and 256 and refuses the rest before launch (a
+    CUDA tensor then raises: it never runs the plain version)."""
+    assert flash_eligible(shape, kv) is jfa.flash_eligible(shape, kv) is True
+    B, S, H, D = shape
+    q = torch.zeros(*shape, dtype=torch.bfloat16)
+    k = v = torch.zeros(B, S, kv, D, dtype=torch.bfloat16)
+    if takes:
+        _check_kernel_inputs(q, k, v)
+    else:
+        with pytest.raises(ValueError, match="built for head dims"):
+            _check_kernel_inputs(q, k, v)
+
+
+def test_plain_attention_at_head_dim_256_matches_pallas():
+    """At head dim 256 the port's flash attention on the CPU (the plain
+    version of the kernel) and the plain GQA attention under the causal
+    mask both compute what the Pallas kernel computes."""
+    from tpuslo_torch.models import llama as tl
+
+    B, S, H, KV, D = 1, 256, 4, 2, 256
+    q, k, v = _qkv(10, B, S, H, KV, D)
+    mask = torch.ones(S, S, dtype=torch.bool).tril()
+    want = _pallas(q, k, v)
+    port = tl.attention(*(torch.from_numpy(a) for a in (q, k, v)), mask, H // KV)
+    assert np.abs(port.numpy() - want).max() < F32_TOL
+    assert np.abs(_port(q, k, v) - want).max() < F32_TOL
+
+
+@pytest.mark.parametrize("head_dim,launches", [(256, 1), (128, 1)])
+def test_attention_block_routes_by_the_kernels_head_dim(monkeypatch, head_dim, launches):
+    """A causal full-sequence block calls ``flash_attention`` at both
+    head dims the kernel is built for (on the card a head dim it is not
+    built for raises there), and equals the same block through the plain
+    attention."""
+    import dataclasses
+
+    from tpuslo_torch.models import llama as tl
+
+    torch.set_num_threads(1)
+    cfg = dataclasses.replace(
+        tl.llama_tiny(max_seq_len=128), dim=2 * head_dim, n_heads=2, n_kv_heads=1,
+        dtype=torch.float32,
+    )
+    assert cfg.head_dim == head_dim
+    params = tl.init_params(3, cfg, "cpu")
+    layer = tl._layer(params, 0)
+    S = 128
+    gen = torch.Generator().manual_seed(4)
+    h = torch.randn(1, S, cfg.dim, generator=gen)
+    cos, sin = tl.rope_frequencies(cfg, torch.arange(S)[None])
+    mask = torch.ones(S, S, dtype=torch.bool).tril()
+    calls = []
+    real = tl.flash_attention
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tl, "flash_attention", counted)
+    out, _ = tl.attention_block(cfg, h, layer, cos, sin, mask, causal=True)
+    assert len(calls) == launches
+    plain, _ = tl.attention_block(cfg, h, layer, cos, sin, mask, causal=False)
+    assert (out - plain).abs().max().item() <= 1e-4
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

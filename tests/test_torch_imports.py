@@ -40,7 +40,12 @@ def test_port_files_exist():
     assert len(PORT_FILES) >= 10
     assert REPO / "tpuslo_torch" / "models" / "serve.py" in PORT_FILES
     for rel in ("models/speculative.py", "models/frontdoor.py", "models/router.py",
-                "sloengine/engine.py", "deviceplane/dispatch.py", "obs/tracer.py"):
+                "sloengine/engine.py", "deviceplane/dispatch.py", "obs/tracer.py",
+                "otel/xla_spans.py", "signals/constants.py", "signals/generator.py",
+                "deviceplane/ledger.py", "deviceplane/synthetic.py",
+                "deviceplane/roofline.py", "deviceplane/profiler.py",
+                "collector/hbm_sampler.py", "collector/native.py",
+                "collector/ringbuf.py"):
         assert REPO / "tpuslo_torch" / rel in PORT_FILES
 
 
@@ -56,7 +61,10 @@ def test_importing_the_port_loads_no_jax():
         "import sys, tpuslo_torch.models, tpuslo_torch.ops, tpuslo_torch.models.bridge, "
         "tpuslo_torch.models.frontdoor, tpuslo_torch.models.router, "
         "tpuslo_torch.models.speculative, tpuslo_torch.sloengine, "
-        "tpuslo_torch.deviceplane, tpuslo_torch.obs.tracer; "
+        "tpuslo_torch.deviceplane, tpuslo_torch.obs.tracer, tpuslo_torch.obs, "
+        "tpuslo_torch.otel.xla_spans, tpuslo_torch.signals, "
+        "tpuslo_torch.collector.hbm_sampler, tpuslo_torch.collector.ringbuf, "
+        "tpuslo_torch.deviceplane.profiler; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tpuslo')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )

@@ -40,6 +40,7 @@ from tpuslo_torch.models.llama import (
     llama_tiny,
 )
 from tpuslo_torch.models.serve import BOS, EOS, ServeEngine
+from tpuslo_torch.otel.xla_spans import dispatch_range
 
 Cache = dict[str, Any]
 
@@ -63,13 +64,14 @@ def _inject_rows(pool: Cache, rows: Cache, slots: Sequence[int]) -> Cache:
     row writes later and wins.
     """
     lengths = rows["length"]
-    for i in reversed(range(len(slots))):
-        slot = int(slots[i])
-        for side in ("k", "v"):
-            for dst, src in kv_leaf_pairs(pool[side], rows[side]):
-                dst[:, slot] = src[:, i]
-        per_row = isinstance(lengths, torch.Tensor) and lengths.ndim == 1
-        _copy_length(pool["length"], slot, lengths[i] if per_row else lengths)
+    with dispatch_range("inject_rows", rows["k"], len(slots)):
+        for i in reversed(range(len(slots))):
+            slot = int(slots[i])
+            for side in ("k", "v"):
+                for dst, src in kv_leaf_pairs(pool[side], rows[side]):
+                    dst[:, slot] = src[:, i]
+            per_row = isinstance(lengths, torch.Tensor) and lengths.ndim == 1
+            _copy_length(pool["length"], slot, lengths[i] if per_row else lengths)
     return pool
 
 
@@ -85,11 +87,12 @@ def _extract_row(pool: Cache, slot: int) -> Cache:
     def take(leaf: torch.Tensor) -> torch.Tensor:
         return leaf[:, slot : slot + 1].clone()
 
-    return {
-        "k": kv_map(take, pool["k"]),
-        "v": kv_map(take, pool["v"]),
-        "length": pool["length"][slot].clone(),
-    }
+    with dispatch_range("extract_row", pool["k"]):
+        return {
+            "k": kv_map(take, pool["k"]),
+            "v": kv_map(take, pool["v"]),
+            "length": pool["length"][slot].clone(),
+        }
 
 
 @dataclass
@@ -162,6 +165,10 @@ class ContinuousBatchingEngine:
             step_fn if step_fn is not None
             else functools.partial(decode_step, cfg=self.cfg)
         )
+        # The step's program name in a profiler capture.
+        self._step_program = getattr(
+            getattr(self._step, "func", self._step), "__name__", "step_fn"
+        )
 
         self._cache = self._init_decode_state()
         self._tokens = torch.full(
@@ -195,7 +202,8 @@ class ContinuousBatchingEngine:
         return True
 
     def _decode_tokens(self) -> torch.Tensor:
-        logits, self._cache = self._step(self.params, self._tokens, self._cache)
+        with dispatch_range(self._step_program, self._tokens, self._cache):
+            logits, self._cache = self._step(self.params, self._tokens, self._cache)
         return logits
 
     def _release_slot(self, slot: int) -> None:

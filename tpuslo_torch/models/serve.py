@@ -47,6 +47,7 @@ from tpuslo_torch.models.llama import (
     sample_from_logits,
     verify_chunk,
 )
+from tpuslo_torch.otel.xla_spans import dispatch_range
 
 BOS = 256
 EOS = 257
@@ -419,9 +420,7 @@ class ServeEngine:
         first = _HostRead(token)
         pending = None
         if max_new_tokens > 1:
-            toks, token, cache = decode_chunk(
-                self.params, token, cache, self.cfg, chunk, sampling, rng
-            )
+            toks, token, cache = self._decode_chunk(token, cache, chunk, sampling, rng)
             pending = _HostRead(toks)
         outputs = [[int(t)] for t in first.values()]
         done = [stop_at_eos and t[0] == EOS for t in outputs]
@@ -431,8 +430,8 @@ class ServeEngine:
             # Queue chunk N+1 before reading chunk N.
             next_read = next_token = None
             if produced + chunk < max_new_tokens:
-                next_toks, next_token, cache = decode_chunk(
-                    self.params, token, cache, self.cfg, chunk, sampling, rng
+                next_toks, next_token, cache = self._decode_chunk(
+                    token, cache, chunk, sampling, rng
                 )
                 next_read = _HostRead(next_toks)
             for row, values in enumerate(pending.values()):
@@ -445,6 +444,11 @@ class ServeEngine:
             produced += chunk
             pending, token = next_read, next_token
         return outputs[:n_real]
+
+    def _decode_chunk(self, token, cache, chunk: int, sampling, rng):
+        """One decode chunk: a single dispatch in a profiler capture."""
+        with dispatch_range("decode_chunk", token, chunk):
+            return decode_chunk(self.params, token, cache, self.cfg, chunk, sampling, rng)
 
     def _prefill_rows(self, rows: list[list[int]], start: int, kv=None):
         """Batched chunked ingestion of encoded rows at scalar ``start``.
@@ -479,14 +483,16 @@ class ServeEngine:
                 dtype=torch.long, device=self.device,
             )
             if pos == 0 and start == 0 and kv is None:
-                logits, cache = prefill(
-                    self.params, tokens, self._new_cache(B), self.cfg, true_length=tl
-                )
+                with dispatch_range("prefill", tokens):
+                    logits, cache = prefill(
+                        self.params, tokens, self._new_cache(B), self.cfg, true_length=tl
+                    )
             else:
                 kv_now = kv if pos == 0 else {"k": cache["k"], "v": cache["v"]}
-                logits, cache = suffix_prefill(
-                    self.params, tokens, kv_now, start + pos, tl, self.cfg
-                )
+                with dispatch_range("suffix_prefill", tokens):
+                    logits, cache = suffix_prefill(
+                        self.params, tokens, kv_now, start + pos, tl, self.cfg
+                    )
             ends = torch.tensor(
                 [pos < length <= pos + take for length in lens], device=self.device
             )
@@ -509,9 +515,10 @@ class ServeEngine:
         """
         bucket = _bucket(len(ids), self.prefill_buckets)
         tokens = self._tokens([ids + [0] * (bucket - len(ids))])
-        return prefill(
-            self.params, tokens, self._new_cache(1), self.cfg, true_length=len(ids)
-        )
+        with dispatch_range("prefill", tokens):
+            return prefill(
+                self.params, tokens, self._new_cache(1), self.cfg, true_length=len(ids)
+            )
 
     def cache_prefix(self, text: str) -> PrefixEntry:
         """Prefill a shared prefix once; later requests clone its KV and
@@ -571,10 +578,12 @@ class ServeEngine:
             if first_hit:
                 synchronize(self.device)  # time this chunk alone
             t0 = time.perf_counter()
-            logits, cache = suffix_prefill(
-                self.params, self._tokens([chunk]),
-                {"k": cache["k"], "v": cache["v"]}, start + pos, take, self.cfg,
-            )
+            tokens = self._tokens([chunk])
+            with dispatch_range("suffix_prefill", tokens):
+                logits, cache = suffix_prefill(
+                    self.params, tokens,
+                    {"k": cache["k"], "v": cache["v"]}, start + pos, take, self.cfg,
+                )
             if first_hit:
                 synchronize(self.device)
                 self._record_compile(
@@ -682,9 +691,7 @@ class ServeEngine:
         if (stop_at_eos and first == EOS) or max_new_tokens <= 1:
             return
 
-        toks, last, cache = decode_chunk(
-            self.params, token, cache, self.cfg, chunk, sampling, rng
-        )
+        toks, last, cache = self._decode_chunk(token, cache, chunk, sampling, rng)
         pending = _HostRead(toks[0])
         idx = 1
         while idx < max_new_tokens:
@@ -693,8 +700,8 @@ class ServeEngine:
             # read chunk N.
             next_read = next_last = None
             if idx + chunk < max_new_tokens:
-                next_toks, next_last, cache = decode_chunk(
-                    self.params, last, cache, self.cfg, chunk, sampling, rng
+                next_toks, next_last, cache = self._decode_chunk(
+                    last, cache, chunk, sampling, rng
                 )
                 next_read = _HostRead(next_toks[0])
             for value in pending.values():

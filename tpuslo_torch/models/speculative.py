@@ -58,6 +58,7 @@ from tpuslo_torch.models.serve import (
     encode_bytes,
     prefix_prompt_ids,
 )
+from tpuslo_torch.otel.xla_spans import dispatch_range
 
 
 def _spec_round_core(
@@ -143,11 +144,12 @@ def _shared_spec_round_fn(cfg_t, cfg_d, k: int):
     kernels in, one packed read out."""
 
     def spec_round(params_t, params_d, current, cache_t, cache_d):
-        start = _device_frontier(cache_t["length"], current.device)
-        return _spec_round_core(
-            params_t, params_d, current, cache_t, cache_d,
-            start, None, k, cfg_t, cfg_d,
-        )
+        with dispatch_range("spec_round", current, k):
+            start = _device_frontier(cache_t["length"], current.device)
+            return _spec_round_core(
+                params_t, params_d, current, cache_t, cache_d,
+                start, None, k, cfg_t, cfg_d,
+            )
 
     return spec_round
 
@@ -161,10 +163,11 @@ def _shared_spec_round_batch_fn(cfg_t, cfg_d, k: int):
     def spec_round_batch(
         params_t, params_d, current, cache_t, cache_d, start, active
     ):
-        return _spec_round_core(
-            params_t, params_d, current, cache_t, cache_d,
-            start, active, k, cfg_t, cfg_d,
-        )
+        with dispatch_range("spec_round_batch", current, k):
+            return _spec_round_core(
+                params_t, params_d, current, cache_t, cache_d,
+                start, active, k, cfg_t, cfg_d,
+            )
 
     return spec_round_batch
 
@@ -192,6 +195,10 @@ def _shared_spec_multi_round_fn(cfg_t, cfg_d, k: int, rounds: int):
     def spec_multi_round(
         params_t, params_d, current, cache_t, cache_d, start, active
     ):
+        with dispatch_range("spec_multi_round", current, k, rounds):
+            return _chain(params_t, params_d, current, cache_t, cache_d, start, active)
+
+    def _chain(params_t, params_d, current, cache_t, cache_d, start, active):
         drafts_all, preds_all, accepted_all = [], [], []
         for _ in range(rounds):
             draft_toks, preds, accepted, current, cache_t, cache_d = (

@@ -7,6 +7,8 @@
 // k/v (B,S,KV,D) in bf16, softmax(q k^T / sqrt(D)) v per head, with head h
 // reading kv head h / (H/KV) (grouped-query attention), an optional causal
 // mask, f32 running max / normaliser / accumulator, and the output in bf16.
+// It is instantiated for head dims 128 and 256 (the TPU kernel takes any
+// multiple of 128; no model of the repo goes past 256).
 //
 // What bounds it on an H100.  Causal attention does 2*B*H*S^2*D operations
 // (q k^T and p v, each 2*S^2*D per head, halved by the mask) on
@@ -30,8 +32,8 @@
 //    wrapper's strided (B,S,H,D) tensors are described by 4-D tensor maps
 //    (encoded on the host per call by cuTensorMapEncodeTiled, looked up at
 //    run time with cudaGetDriverEntryPoint, so nothing links libcuda); a
-//    64 x 128 tile is two 64 x 64 boxes, since the 128-byte swizzle allows
-//    128-byte rows.  The producer issues Q and the first two K and V tiles
+//    64 x D tile is D / 64 boxes of 64 x 64, since the 128-byte swizzle
+//    allows 128-byte rows.  The producer issues Q and the first two K and V tiles
 //    before anyone waits, then refills each stage of the two-stage K ring
 //    and V ring as soon as the consumers release it (K of tile t after tile
 //    t-2's scores, V after tile t-2's p v), so issuing copies never sits on
@@ -39,8 +41,9 @@
 //    TMA bytes and an "empty" one that counts the 4 consumer warps.
 //  * Both products are warpgroup MMAs (wgmma.mma_async, bf16 in, f32
 //    accumulate).  S = Q K^T: m64n64k16, A and B from shared memory through
-//    128-byte-swizzled descriptors (8 k-steps across the two D boxes).
-//    O += P V: m64n128k16 with P from registers (the RS form): the S
+//    128-byte-swizzled descriptors (D / 16 k-steps across the D boxes).
+//    O += P V: m64n128k16 per 128 output columns with P from registers
+//    (the RS form): the S
 //    accumulator's layout per warp is the A fragment's, so the
 //    probabilities are rounded to bf16 in registers and never touch shared
 //    memory; V is the B operand read transposed through its descriptor
@@ -54,9 +57,10 @@
 //    when no row of a warp has a new max.
 //  * The epilogue rounds the output tile into Q's buffer in the swizzled
 //    layout and writes it with two TMA stores.
-//  * Shared memory: Q 16 KB + 2 stages x (K 16 KB + V 16 KB), dynamic, so
-//    two CTAs fit on an SM and one's softmax also overlaps the other's
-//    products.
+//  * Shared memory: Q 16 KB + 2 stages x (K 16 KB + V 16 KB) at D 128,
+//    dynamic, so two CTAs fit on an SM and one's softmax also overlaps the
+//    other's products.  At D 256 every tile doubles (160 KB, one CTA per
+//    SM) and the accumulator takes 128 registers a thread.
 //  * Left for later: 128-row query tiles over two consumer warpgroups with
 //    setmaxnreg, which would share each K/V tile between twice the rows.
 
@@ -70,16 +74,25 @@
 
 namespace {
 
-constexpr int kD = 128;        // head dim (the only one the wrapper admits)
 constexpr int kBlockM = 64;    // query rows per CTA, 16 per warp
 constexpr int kBlockN = 64;    // keys per tile
 constexpr int kThreads = 128;  // the consumer warpgroup; a producer warp comes on top
 constexpr int kStages = 2;     // K/V ring depth
 constexpr int kBox = 64 * 64;  // elements of one 64 x 64 swizzled box
-constexpr int kTileElems = 2 * kBox;            // a 64 x 128 tile
-constexpr int kTileBytes = kTileElems * 2;      // 16 KB
-constexpr int kSmemBytes = (1 + 2 * kStages) * kTileBytes + 128 + 1024;  // + barriers, alignment
 static_assert(kStages == 2, "the ring's refill order below assumes two stages");
+
+// The shapes of one head dim kD (128 or 256): a 64 x kD tile of Q, K, V
+// or O is kD / 64 boxes; the accumulator is kD / 128 blocks of 64 x 128.
+template <int kD>
+struct Dims {
+  static_assert(kD == 128 || kD == 256, "instantiated for head dims 128 and 256");
+  static constexpr int kBoxes = kD / 64;
+  static constexpr int kTileElems = kBoxes * kBox;
+  static constexpr int kTileBytes = kTileElems * 2;  // 16 or 32 KB
+  static constexpr int kAccBlocks = kD / 128;
+  static constexpr int kSmemBytes =
+      (1 + 2 * kStages) * kTileBytes + 128 + 1024;  // + barriers, alignment
+};
 
 typedef __nv_bfloat16 bf16;
 
@@ -126,9 +139,10 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], uint32_t a0,
 
 #undef TPUSLO_F8
 
-// Issue s = q k^T for one key tile (not waited for): 8 k-steps of 16 over
-// D; a step moves 32 bytes inside a 128-byte swizzled row, and steps 4-7
-// read the second D box.  The first step overwrites s.
+// Issue s = q k^T for one key tile (not waited for): kD / 16 k-steps of
+// 16 over D; a step moves 32 bytes inside a 128-byte swizzled row, and
+// every fourth step starts the next D box.  The first step overwrites s.
+template <int kD>
 __device__ __forceinline__ void issue_scores(float (&s)[32], const bf16* q_s, const bf16* k_s) {
   hopper::wgmma_fence();
 #pragma unroll
@@ -142,15 +156,20 @@ __device__ __forceinline__ void issue_scores(float (&s)[32], const bf16* q_s, co
 
 // Issue acc += p v for one key tile (not waited for): the accumulator of
 // key columns [16kk, 16kk + 16) is the A fragment pa[4kk .. 4kk+3] of one
-// 16-key slice; v's 16 rows of that slice start 2048 bytes apart, its two
-// D boxes 8192 bytes apart (the leading offset).
-__device__ __forceinline__ void issue_pv(float (&acc)[64], const uint32_t (&pa)[16],
+// 16-key slice; v's 16 rows of that slice start 2048 bytes apart, and the
+// two D boxes of one 128-column accumulator block 8192 bytes apart (the
+// leading offset); block c reads boxes 2c and 2c + 1.
+template <int kD>
+__device__ __forceinline__ void issue_pv(float (&acc)[kD / 128][64], const uint32_t (&pa)[16],
                                          const bf16* v_s) {
   hopper::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kBlockN / 16; ++kk) {
-    wgmma_rs_m64n128k16(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-                        hopper::sw128_desc(v_s + kk * 16 * 64, kBox * 2, 1024));
+#pragma unroll
+    for (int c = 0; c < kD / 128; ++c) {
+      wgmma_rs_m64n128k16(acc[c], pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                          hopper::sw128_desc(v_s + 2 * c * kBox + kk * 16 * 64, kBox * 2, 1024));
+    }
   }
   hopper::wgmma_commit();
 }
@@ -219,23 +238,30 @@ __device__ __forceinline__ void pack_probs(const float (&s)[32], uint32_t (&pa)[
 }
 
 // acc *= alpha per row; skipped when no row of the warp has a new max.
-__device__ __forceinline__ void rescale(float (&acc)[64], const float (&alpha)[2]) {
+template <int kD>
+__device__ __forceinline__ void rescale(float (&acc)[kD / 128][64], const float (&alpha)[2]) {
   if (!__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) return;
 #pragma unroll
-  for (int j = 0; j < kD / 8; ++j) {
-    acc[4 * j + 0] *= alpha[0];
-    acc[4 * j + 1] *= alpha[0];
-    acc[4 * j + 2] *= alpha[1];
-    acc[4 * j + 3] *= alpha[1];
+  for (int c = 0; c < kD / 128; ++c) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      acc[c][4 * j + 0] *= alpha[0];
+      acc[c][4 * j + 1] *= alpha[0];
+      acc[c][4 * j + 2] *= alpha[1];
+      acc[c][4 * j + 3] *= alpha[1];
+    }
   }
 }
 
+template <int kD>
 __global__ void __launch_bounds__(kThreads + 32)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
                      const __grid_constant__ CUtensorMap tm_o, int S, int n_rep,
                      float scale_log2, int causal) {
+  using T = Dims<kD>;
+  constexpr int kTileElems = T::kTileElems;
   extern __shared__ unsigned char smem_raw[];
   // Swizzle atoms want 1024-byte alignment.
   unsigned char* smem =
@@ -266,14 +292,16 @@ __global__ void __launch_bounds__(kThreads + 32)
   const int warp = tid / 32;
   const int lane = tid % 32;
 
-  // Key tile `tile` of K (or V) into ring stage tile % 2, as two boxes.
+  // Key tile `tile` of K (or V) into ring stage tile % 2, box by box.
   auto load = [&](const CUtensorMap* map, bf16* ring, uint32_t full, int tile) {
     const int stage = tile % kStages;
     const uint32_t bar = full + 8 * stage;
     bf16* dst = ring + stage * kTileElems;
-    hopper::mbar_expect_tx(bar, kTileBytes);
-    hopper::tma_load_4d(dst, map, bar, 0, kvh, tile * kBlockN, b);
-    hopper::tma_load_4d(dst + kBox, map, bar, 64, kvh, tile * kBlockN, b);
+    hopper::mbar_expect_tx(bar, T::kTileBytes);
+#pragma unroll
+    for (int x = 0; x < T::kBoxes; ++x) {
+      hopper::tma_load_4d(dst + x * kBox, map, bar, 64 * x, kvh, tile * kBlockN, b);
+    }
   };
   // The (tile / 2)-th use of a stage completes phase parity (tile / 2) & 1.
   auto wait_tile = [&](uint32_t full, int tile) {
@@ -295,9 +323,10 @@ __global__ void __launch_bounds__(kThreads + 32)
       hopper::mbar_init(empty_v + 8 * st, kThreads / 32);
     }
     hopper::fence_barrier_init();
-    hopper::mbar_expect_tx(bar_q, kTileBytes);
-    hopper::tma_load_4d(q_s, &tm_q, bar_q, 0, h, q0, b);
-    hopper::tma_load_4d(q_s + kBox, &tm_q, bar_q, 64, h, q0, b);
+    hopper::mbar_expect_tx(bar_q, T::kTileBytes);
+    for (int x = 0; x < T::kBoxes; ++x) {
+      hopper::tma_load_4d(q_s + x * kBox, &tm_q, bar_q, 64 * x, h, q0, b);
+    }
     for (int tile = 0; tile < kStages && tile < n_tiles; ++tile) {
       load(&tm_k, k_s, full_k, tile);
       load(&tm_v, v_s, full_v, tile);
@@ -328,9 +357,12 @@ __global__ void __launch_bounds__(kThreads + 32)
     __syncwarp();
     if (lane == 0) hopper::mbar_arrive(empty + 8 * (tile % kStages));
   };
-  float acc[64];  // O: 64 rows x 128 columns over the warpgroup
+  float acc[T::kAccBlocks][64];  // O: 64 rows x kD columns over the warpgroup
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int c = 0; c < T::kAccBlocks; ++c) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[c][i] = 0.f;
+  }
   // Rows g and g+8 of this warp's 16: running max (log2 units) and sum.
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};
@@ -342,7 +374,7 @@ __global__ void __launch_bounds__(kThreads + 32)
   // Tile 0: scores and probabilities.
   hopper::mbar_wait(bar_q, 0);
   wait_tile(full_k, 0);
-  issue_scores(s, q_s, k_s);
+  issue_scores<kD>(s, q_s, k_s);
   hopper::wgmma_wait<0>();
   hopper::fence_regs(s);
   release(empty_k, 0);
@@ -358,25 +390,27 @@ __global__ void __launch_bounds__(kThreads + 32)
   for (int kt = 1; kt < n_tiles; ++kt) {
     wait_tile(full_k, kt);
     wait_tile(full_v, kt - 1);
-    issue_scores(s, q_s, k_s + (kt % kStages) * kTileElems);
-    rescale(acc, alpha);
-    issue_pv(acc, pa, v_s + ((kt - 1) % kStages) * kTileElems);
+    issue_scores<kD>(s, q_s, k_s + (kt % kStages) * kTileElems);
+    rescale<kD>(acc, alpha);
+    issue_pv<kD>(acc, pa, v_s + ((kt - 1) % kStages) * kTileElems);
     hopper::wgmma_wait<1>();  // the scores (the older group) are done
     hopper::fence_regs(s);
     release(empty_k, kt);
     softmax_tile(s, m_run, l_run, alpha, causal && kt == n_tiles - 1, row0, kt * kBlockN, t,
                  scale_log2);
     hopper::wgmma_wait<0>();  // p v of tile kt-1 is done
-    hopper::fence_regs(acc);
+#pragma unroll
+    for (int c = 0; c < T::kAccBlocks; ++c) hopper::fence_regs(acc[c]);
     hopper::fence_regs(pa);
     release(empty_v, kt - 1);
     pack_probs(s, pa);
   }
   wait_tile(full_v, n_tiles - 1);
-  rescale(acc, alpha);
-  issue_pv(acc, pa, v_s + ((n_tiles - 1) % kStages) * kTileElems);
+  rescale<kD>(acc, alpha);
+  issue_pv<kD>(acc, pa, v_s + ((n_tiles - 1) % kStages) * kTileElems);
   hopper::wgmma_wait<0>();
-  hopper::fence_regs(acc);
+#pragma unroll
+  for (int c = 0; c < T::kAccBlocks; ++c) hopper::fence_regs(acc[c]);
 
   // Epilogue: divide by the normaliser (guarding rows that saw nothing),
   // round to bf16 into Q's buffer in the 128-byte swizzled layout of the
@@ -391,17 +425,19 @@ __global__ void __launch_bounds__(kThreads + 32)
   for (int j = 0; j < kD / 8; ++j) {
     unsigned char* box = out_s + (j / 8) * kBox * 2;
     const int piece = j % 8;
+    const float* a = &acc[j / 16][4 * (j % 16)];
     *reinterpret_cast<uint32_t*>(box + r0 * 128 + ((piece ^ (r0 % 8)) * 16) + 4 * t) =
-        pack_bf16(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+        pack_bf16(a[0] * inv0, a[1] * inv0);
     const int r1 = r0 + 8;
     *reinterpret_cast<uint32_t*>(box + r1 * 128 + ((piece ^ (r1 % 8)) * 16) + 4 * t) =
-        pack_bf16(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+        pack_bf16(a[2] * inv1, a[3] * inv1);
   }
   hopper::fence_async_smem();
   hopper::named_barrier_sync<1, kThreads>();
   if (tid == 0) {
-    hopper::tma_store_4d(&tm_o, q_s, 0, h, q0, b);
-    hopper::tma_store_4d(&tm_o, q_s + kBox, 64, h, q0, b);
+    for (int x = 0; x < T::kBoxes; ++x) {
+      hopper::tma_store_4d(&tm_o, q_s + x * kBox, 64 * x, h, q0, b);
+    }
     hopper::bulk_commit();
     hopper::bulk_wait_read();
   }
@@ -438,8 +474,8 @@ EncodeTiled encode_tiled() {
 // the 128-byte swizzle.  A size-1 dim's stride is never used; TMA wants it
 // to be a non-zero multiple of 16 bytes.
 bool make_map(EncodeTiled encode, CUtensorMap* map, const void* base, int B, int S,
-              int heads, long long sb, long long ss, long long sh) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kD), static_cast<cuuint64_t>(heads),
+              int heads, int D, long long sb, long long ss, long long sh) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
   cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(ss) * 2,
                            static_cast<cuuint64_t>(sb) * 2};
@@ -457,41 +493,45 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* base, int B, int
 }  // namespace
 
 // C entry point, loaded with ctypes.  Pointers and the stream arrive as
-// void*, strides in elements.  The wrapper has checked: bf16, D == 128,
-// S % 128 == 0, H % KV == 0, unit inner stride, 16-byte aligned base and
-// rows (what TMA needs).  Returns cudaGetLastError() after the launch (0
-// on success), cudaErrorSymbolNotFound if cuTensorMapEncodeTiled cannot
-// be found, cudaErrorInvalidValue if a tensor map cannot
-// describe an input.
+// void*, strides in elements.  The wrapper has checked: bf16, D 128 or
+// 256, S % 128 == 0, H % KV == 0, unit inner stride, 16-byte aligned base
+// and rows (what TMA needs).  Returns cudaGetLastError() after the launch
+// (0 on success), cudaErrorSymbolNotFound if cuTensorMapEncodeTiled cannot
+// be found, cudaErrorInvalidValue for another head dim or if a tensor map
+// cannot describe an input.
 extern "C" int tpuslo_flash_attention_fwd_bf16(
     const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-    int KV, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    int KV, int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh,
     float scale, int causal, void* stream) {
+  if (D != 128 && D != 256) return static_cast<int>(cudaErrorInvalidValue);
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
-  if (!make_map(encode, &tm_q, q, B, S, H, q_sb, q_ss, q_sh) ||
-      !make_map(encode, &tm_k, k, B, S, KV, k_sb, k_ss, k_sh) ||
-      !make_map(encode, &tm_v, v, B, S, KV, v_sb, v_ss, v_sh) ||
-      !make_map(encode, &tm_o, o, B, S, H, o_sb, o_ss, o_sh)) {
+  if (!make_map(encode, &tm_q, q, B, S, H, D, q_sb, q_ss, q_sh) ||
+      !make_map(encode, &tm_k, k, B, S, KV, D, k_sb, k_ss, k_sh) ||
+      !make_map(encode, &tm_v, v, B, S, KV, D, v_sb, v_ss, v_sh) ||
+      !make_map(encode, &tm_o, o, B, S, H, D, o_sb, o_ss, o_sh)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // Above 48 KB of shared memory only after opting in (per device).
-  static unsigned opted_in = 0;
+  const bool wide = D == 256;
+  auto kernel = wide ? &flash_fwd_kernel<256> : &flash_fwd_kernel<128>;
+  const int smem_bytes = wide ? Dims<256>::kSmemBytes : Dims<128>::kSmemBytes;
+  // Above 48 KB of shared memory only after opting in (per device and
+  // instantiation).
+  static unsigned opted_in[2] = {0, 0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < 32 && !(opted_in & (1u << dev))) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemBytes);
+  if (dev < 32 && !(opted_in[wide] & (1u << dev))) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in |= 1u << dev;
+    opted_in[wide] |= 1u << dev;
   }
   const dim3 grid(H, B, S / kBlockM);
   const float scale_log2 = scale * 1.4426950408889634f;  // log2(e)
-  flash_fwd_kernel<<<grid, kThreads + 32, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads + 32, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       tm_q, tm_k, tm_v, tm_o, S, H / KV, scale_log2, causal);
   return static_cast<int>(cudaGetLastError());
 }

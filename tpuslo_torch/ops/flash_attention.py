@@ -9,9 +9,10 @@ inputs alone:
   Pallas kernel in interpret mode);
 * a CUDA tensor launches the hand-written Hopper kernel in
   ``csrc/flash_attention.cu`` (TMA loads into a two-stage K/V ring,
-  both products on ``wgmma``; built with nvcc at first use, see
-  :mod:`tpuslo_torch.ops._build`), or the call raises.  There is no
-  fallback from the card to the plain version.
+  both products on ``wgmma``, instantiated for head dims 128 and 256;
+  built with nvcc at first use, see :mod:`tpuslo_torch.ops._build`), or
+  the call raises.  There is no fallback from the card to the plain
+  version.
 
 ``flash_attention.launches`` counts kernel launches, so that a run can
 show that its path went through the kernel.  Only the forward pass is
@@ -27,7 +28,9 @@ import torch
 
 from tpuslo_torch.ops import _build
 
-HEAD_DIM = 128  # the only head dim the kernel is built for
+#: The head dims the CUDA kernel is instantiated for.  The JAX gate
+#: admits any multiple of 128; no model of the repo goes past 256.
+KERNEL_HEAD_DIMS = (128, 256)
 
 
 def flash_eligible(q_shape: tuple[int, ...], kv_heads: int) -> bool:
@@ -72,7 +75,7 @@ def _kernel():
     fn = lib.tpuslo_flash_attention_fwd_bf16
     fn.argtypes = (
         [ctypes.c_void_p] * 4
-        + [ctypes.c_int] * 4
+        + [ctypes.c_int] * 5
         + [ctypes.c_longlong] * 12
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
@@ -107,8 +110,10 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
             )
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
-    if D != HEAD_DIM:
-        raise ValueError(f"the CUDA kernel is built for head dim {HEAD_DIM}, got {D}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(
+            f"the CUDA kernel is built for head dims {KERNEL_HEAD_DIMS}, got {D}"
+        )
     if not flash_eligible(tuple(q.shape), k.shape[2]):
         raise ValueError(
             f"q {tuple(q.shape)} with {k.shape[2]} kv heads is not "
@@ -123,7 +128,7 @@ def flash_attention(
     H % KV == 0.  Returns (B, S, H, D) in q's dtype.
 
     On the CPU this is :func:`flash_attention_reference`.  On CUDA it
-    launches the Hopper kernel on the current stream (bf16, D = 128,
+    launches the Hopper kernel on the current stream (bf16, D 128 or 256,
     S % 128 == 0) and raises on anything else, including a failed build
     or a refused launch.
     """
@@ -139,7 +144,7 @@ def flash_attention(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, H, k.shape[2],
+            B, S, H, k.shape[2], D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             D**-0.5, int(causal), stream,
         )
