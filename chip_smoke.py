@@ -9,18 +9,22 @@ Phases, each printing its own lines; any failure ends the run with a
 non-zero exit and no result line:
 
 1. device: the card's name and power limit (nvidia-smi), device count;
-2. build: both kernels from ``tpuslo_torch/ops/csrc`` (flash attention,
-   K1, and paged decode attention, K2) with nvcc for sm_90a, one nvcc
-   each, started together; build seconds and one ptxas line per kernel
-   instantiation (registers, spills, static shared memory; the main
-   path's marked), and any ptxas "Performance Loss" line;
+2. build: the three sources under ``tpuslo_torch/ops/csrc`` (flash
+   attention, K1; paged decode attention, K2; the full-f32 kernels K1-f32
+   and K2-f32) with nvcc for sm_90a, one nvcc each, started together;
+   build seconds and one ptxas line per kernel instantiation (registers,
+   spills, static shared memory; the main path's marked), and any ptxas
+   "Performance Loss" line;
 3. K1 vs plain: the kernel against ``flash_attention_reference`` (f32 on
    the card) at Llama-3.2-3B's attention widths, at every shape the
    serve phase gives it and a few more, with kernel, plain and library
    (SDPA, a yardstick the port never calls) times, the card's lower
    bound for the same work, the kernel's ratio to SDPA and its share of
    the bound; then K1's head-dim-256 instantiation the same way at three
-   shapes (no model of the repo has that head dim);
+   shapes (no model of the repo has that head dim); then K1-f32 (f32 at
+   the JAX f32 model test's shape, at Llama-3.2-3B's widths and at head
+   dims 256, 384 and 512; bf16 at 384 and 512) against the same plain
+   version within 1e-4, with SDPA in f32 as its library yardstick;
 4. serve: a full-depth, full-width ``llama32_3b`` ``ServeEngine`` with
    seeded random weights answers three ``generate`` requests and one
    ``generate_batch``; K1's launch count over this phase must be one per
@@ -41,7 +45,9 @@ non-zero exit and no result line:
    each with a bf16 and an int8 pool, a parked lane and shared blocks,
    with kernel, plain and dense-SDPA times, the bound, the kernel's ratio
    to dense SDPA and its share of the bound; the kernels one K2 call
-   launches (split and combine) are learned by profiling one call;
+   launches (split and combine) are learned by profiling one call; then
+   K2-f32 at the paged phase's tables over an f32 copy of the pool,
+   within 1e-4;
 8. breakdown: one paged decode step with 8 live lanes, with K2 and with
    the plain pool attention; K2's time in the step sums every kernel one
    call launches;
@@ -69,14 +75,27 @@ non-zero exit and no result line:
     the governor held to stride 2; every window folded through the
     ledger, its buckets held to the window within 0.1% and its idle share
     to the ops lane's within 2 points, the K1 events its ops lane kept
-    against K1's launches in it), one paged step with K2 under
-    ``capture`` (the same two checks, the K2 events kept against 2 x its
-    calls, the roofline verdict of ``decode_step_cost`` at this config
-    and batch), the live HBM reading against the CUDA allocator and the
-    recording self-tracer's cycles; one ``deviceplane:`` JSON line;
-13. parity: a 2-layer full-width model's prefill logits on the card
-    (kernel path) against the same weights on the CPU (plain path);
-14. the ``kernels`` JSON line, the card line, and the result line.
+    against K1's launches in it; its launches counted by dispatch, one for
+    a steady window, equal in the ledger, its breakdown and the window;
+    its signal values attributed by ``BayesianAttributor`` and by
+    ``attribute_batch`` on the card's torch lane, which must name the same
+    domain), one paged step with K2 under ``capture`` (the same two
+    checks, the K2 events kept against 2 x its calls, the roofline verdict
+    of ``decode_step_cost`` at this config and batch), the live HBM
+    reading against the CUDA allocator and the recording self-tracer's
+    cycles; one ``deviceplane:`` JSON line;
+13. attribution: every fault-replay scenario through ``attribute_batch``
+    with numpy and with the torch f64 lane on the card (same domains,
+    confidences within 1e-9, posteriors within 1e-10), the profiler's
+    seeded sweep gate at the card's roofs, the torch lane against numpy
+    in rows/s from 4,096 to 1,048,576 rows, and the auto probe's verdict
+    per bucket; one ``attribution:`` JSON line;
+14. parity: a 2-layer full-width model's prefill logits on the card
+    (kernel path) against the same weights on the CPU (plain path); then
+    the JAX package's f32 head-dim-128 model: its prefill logits on the
+    card (K1-f32) against the CPU within 1e-4, and a paged engine on it
+    with K2-f32 against the same engine on the CPU;
+15. the ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card and imports nothing of JAX or of the JAX package.
 Every measurement also goes into one ``record:`` JSON line.
@@ -86,6 +105,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -96,8 +116,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet, dense: bf16 tensor-core rate and HBM3 rate.
+# NVIDIA H100 SXM data sheet, dense: bf16 tensor-core rate, f32 rate
+# outside the tensor cores (what K1-f32 and K2-f32 run on) and HBM3 rate.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 # Kernel vs plain, two bounds.  Absolute: the kernel rounds its output
@@ -132,6 +154,38 @@ PARITY_TOL = 0.125
 # bf16.  A dropped or misread block moves a row by O(1) of its RMS.
 PAGED_TOL = 2e-2
 PAGED_ROW_TOL = 0.025
+# K1-f32 and K2-f32 vs their plain versions: both sides compute in f32
+# (FFMA on the card, TF32 off) and differ only in the order of the sums;
+# a bf16 output (K1-f32 reading bf16 at head dims 384 and 512) adds its
+# own rounding, half an ulp: at most 2^-8 of |o|, allowed on top.
+F32_TOL = 1e-4
+F32_OUT_ULP = {"f32": 0.0, "bf16": 2.0**-8}
+# K1-f32's shapes, (B, S, H, KV, D, causal, input dtype): the JAX f32
+# model test's attention (the f32 path's prefill, the kernels line's
+# shape), Llama-3.2-3B's widths in f32, the other head dims in f32, and
+# bf16 where the wgmma kernel has no instantiation.
+F32_SHAPES = (
+    (2, 128, 2, 1, 128, True, "f32"),
+    (1, 256, 24, 8, 128, True, "f32"),
+    (1, 256, 24, 8, 256, True, "f32"),
+    (1, 256, 24, 8, 384, True, "f32"),
+    (1, 256, 24, 8, 512, True, "f32"),
+    (1, 256, 24, 8, 384, True, "bf16"),
+    (1, 256, 24, 8, 512, True, "bf16"),
+)
+F32_LINE_SHAPE = (2, 128, 2, 1, 128, True, "f32")  # the f32 model's prefill
+# The JAX package's f32 head-dim-128 model (tests/test_flash_attention.py,
+# TestModelIntegration) for the parity phase's f32 path.
+F32_MODEL = dict(vocab_size=256, dim=256, n_layers=2, n_heads=2, n_kv_heads=1,
+                 ffn_dim=512, max_seq_len=128)
+# Its paged engine reads the byte tokenizer's ids (BOS and EOS are 256 and
+# 257), so it runs the same widths over a vocab of 512.
+F32_ENGINE_VOCAB = 512
+F32_ENGINE_BLOCK = 16
+F32_MODEL_JOBS = [("The card serves an f32 model.", None),
+                  ("Every product in f32.", None),
+                  ("No tensor cores here.", None)]
+F32_MODEL_TOKENS = 8
 
 # The issue's shapes, (B, S, causal) at llama32_3b's H=24, KV=8, D=128;
 # the shapes the serve phase gives the kernel are added to these.
@@ -154,12 +208,20 @@ LINE_SHAPE = (1, 256, True)  # the kernels line reports this main-path shape
 # (Llama-3.2-3B's head dim is 128): (B, S, causal) at H=24, KV=8, D=256.
 WIDE_SHAPES = ((1, 256, True), (8, 256, True), (1, 2048, True))
 
-KERNELS = ("flash_attention", "paged_attention")  # csrc/<name>.cu
+KERNELS = ("flash_attention", "paged_attention", "attention_f32")  # csrc/<name>.cu
 # The instantiations the main path runs: K1, and K2's split and combine
 # kernels for a bf16 pool at Llama-3.2-3B's head dim 128 and 3 query heads
-# per kv head.
+# per kv head; K1-f32 and K2-f32 at the f32 model's head dim 128 and 2
+# query heads per kv head.
 PATH_INSTANTIATIONS = ("flash_fwd_kernel<128>", "paged_split_kernel<bf16,128,3>",
-                       "paged_combine_kernel<128,3>")
+                       "paged_combine_kernel<128,3>", "flash_f32_kernel<f32,128>",
+                       "paged_f32_kernel<128,2>")
+# The attribution phase: fault-replay samples per scenario, and the row
+# counts at which the torch lane is timed against numpy (the auto probe's
+# buckets, then the fleet sizes past its cap).
+ATTRIBUTION_SAMPLES = 25
+POSTERIOR_ROWS = (4096, 8192, 16384, 32768, 65536, 262144, 1048576)
+POSTERIOR_TOL = 1e-10
 BUCKETS = (32, 64, 128, 256)  # the engine's prefill buckets
 BATCH_BUCKETS = (1, 2, 4, 8)  # generate_batch's default row buckets
 # Each generate request's name says how its prompt ingests: a prefill
@@ -263,6 +325,24 @@ def _fail(msg: str) -> None:
     raise SystemExit(1)
 
 
+def _kernel_ident(mangled: str) -> tuple[str | None, str]:
+    """(kernel name, what follows it) of a mangled name: the
+    length-prefixed identifier that ends in ``kernel`` (the digits of an
+    anonymous namespace's hash may run into the length, so every suffix
+    of a run of digits is tried)."""
+    for m in re.finditer(r"\d+", mangled):
+        run = m.group()
+        for i in range(len(run)):
+            n = int(run[i:])
+            ident = mangled[m.end():m.end() + n]
+            if n and re.fullmatch(r"[a-z][a-z0-9_]*kernel", ident):
+                return ident, mangled[m.end() + n:]
+    return None, ""
+
+
+_DTYPES = (("I13__nv_bfloat16", "bf16"), ("I6__half", "f16"), ("If", "f32"), ("Ia", "int8"))
+
+
 def ptxas_entries(report: str) -> list[dict]:
     """One record per kernel instantiation of a ``ptxas -v`` report:
     name (kernel and template arguments, from the mangled name),
@@ -273,14 +353,12 @@ def ptxas_entries(report: str) -> list[dict]:
         if m:
             mangled = m.group(1)
             name = mangled
-            base = re.search(r"[a-z][a-z_]*kernel", mangled)
+            base, rest = _kernel_ident(mangled)
             if base:
-                args = mangled[base.end():]
-                args = args.split("EEv")[0] if args.startswith("I") else ""
-                dtype = ("bf16" if args.startswith("I13__nv_bfloat16")
-                         else "int8" if args.startswith("Ia") else None)
-                params = ([dtype] if dtype else []) + re.findall(r"Li(\d+)E", args)
-                name = base.group(0) + (f"<{','.join(params)}>" if params else "")
+                args = rest.split("EEv")[0] if rest.startswith("I") else ""
+                dtype = next((d for tag, d in _DTYPES if args.startswith(tag)), None)
+                params = ([dtype] if dtype else []) + re.findall(r"Li(\d+)E", args + "E")
+                name = base + (f"<{','.join(params)}>" if params else "")
             entries.append({"name": name, "registers": None, "spill_bytes": 0,
                             "smem_bytes": 0})
             continue
@@ -419,15 +497,20 @@ def _per_call_ms(torch, fn, reps: int, what: str, flush=None) -> tuple[float, fl
     _fail(f"{what}: five profiler traces held no kernel time")
 
 
-def _attention_bound(B, S, H, KV, D, causal) -> tuple[float, str]:
+def _attention_bound(B, S, H, KV, D, causal, elem_bytes=2, qk_flops=PEAK_BF16_FLOPS,
+                     pv_flops=PEAK_BF16_FLOPS) -> tuple[float, str]:
     """Least time on the card: each input read once, the output written
-    once (bf16), against the operations these inputs need (two products
-    of 2*D per visible (query, key) pair; S(S+1)/2 pairs per head when
-    causal)."""
+    once (``elem_bytes`` each: bf16 for K1), against the operations these
+    inputs need: two products of 2*D per visible (query, key) pair
+    (S(S+1)/2 pairs per head when causal), q.k at ``qk_flops`` and p.v at
+    ``pv_flops``, the card's peak for each product's operand types.  K1:
+    both bf16 on the tensor cores.  K1-f32: p is f32, so p.v runs at the
+    f32 rate; q.k too on f32 inputs, while on bf16 or f16 inputs it is
+    exact in f32 at the tensor-core rate."""
     pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 4 * B * H * D * pairs
-    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * KV * D)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    half = 2 * B * H * D * pairs
+    nbytes = elem_bytes * (2 * B * S * H * D + 2 * B * S * KV * D)
+    t_ops, t_bytes = half / qk_flops + half / pv_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
@@ -491,6 +574,61 @@ def phase_kernel(torch, fa, cfg, serve_shapes) -> dict:
               f"sdpa={library_ms:.4f}ms bound={bound_ms * 1e3:.2f}us ({bound_by}); "
               f"kernel/sdpa={row['vs_sdpa']:.3f} bound share={row['bound_share']:.3f}; "
               f"kernel back-to-back={ms_b2b:.4f}ms", flush=True)
+    return {"shapes": rows}
+
+
+def phase_kernel_f32(torch, fa) -> dict:
+    """K1-f32 against the plain version at F32_SHAPES, with kernel, plain
+    and SDPA (in the inputs' dtype) times and the bound (q.k on bf16
+    inputs at the tensor-core rate, every other product at the f32
+    rate)."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    rows = []
+    for B, S, H, KV, D, causal, dt in F32_SHAPES:
+        dtype = torch.float32 if dt == "f32" else torch.bfloat16
+        q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dtype)
+        what = f"B={B} S={S} H={H} KV={KV} D={D} causal={causal} {dt}"
+        before = (fa.flash_attention.launches, fa.flash_attention.f32_launches)
+        out = fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        if (fa.flash_attention.launches, fa.flash_attention.f32_launches) != (
+                before[0], before[1] + 1):
+            _fail(f"K1-f32 at {what} did not launch K1-f32 once")
+        ref = fa.flash_attention_reference(q.float(), k.float(), v.float(), causal)
+        diff = (out.float() - ref).abs()
+        err = float(diff.max())
+        excess = float((diff - (F32_TOL + F32_OUT_ULP[dt] * ref.abs())).max())
+        if out.dtype != dtype or not torch.isfinite(out).all() or excess > 0:
+            _fail(f"K1-f32 vs plain at {what}: max abs err {err} over the bound "
+                  f"{F32_TOL} + {F32_OUT_ULP[dt]} |o| by {excess}")
+        ms, ms_b2b = _per_call_ms(
+            torch, lambda: fa.flash_attention(q, k, v, causal=causal), 20, f"K1-f32 {what}")
+        plain_ms, _ = _per_call_ms(
+            torch, lambda: fa.flash_attention_reference(q, k, v, causal), 10, f"plain {what}")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        library_ms, _ = _per_call_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), 20, f"sdpa {what}")
+        qk_flops = PEAK_F32_FLOPS if dt == "f32" else PEAK_BF16_FLOPS
+        bound_ms, bound_by = _attention_bound(B, S, H, KV, D, causal, q.element_size(),
+                                              qk_flops, PEAK_F32_FLOPS)
+        row = {"B": B, "S": S, "H": H, "KV": KV, "D": D, "causal": causal, "dtype": dt,
+               "max_abs_err": err, "tol": F32_TOL, "out_ulp": F32_OUT_ULP[dt],
+               "bound_excess": excess, "ms": ms, "ms_back_to_back": ms_b2b,
+               "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "vs_sdpa": ms / library_ms,
+               "bound_share": bound_ms / ms}
+        rows.append(row)
+        print(f"K1-f32: {what}: err={err:.3e} (tol {F32_TOL} + {F32_OUT_ULP[dt]} |o|) "
+              f"device: kernel={ms:.4f}ms plain={plain_ms:.4f}ms sdpa={library_ms:.4f}ms "
+              f"bound={bound_ms * 1e3:.2f}us ({bound_by}); "
+              f"kernel/sdpa={row['vs_sdpa']:.3f} bound share={row['bound_share']:.3f}; "
+              f"back-to-back={ms_b2b:.4f}ms", flush=True)
     return {"shapes": rows}
 
 
@@ -842,14 +980,16 @@ def phase_paged(torch, fa, pa, paged_kv, serve, cfg, ref) -> tuple[dict, object,
     return record, engine, capture
 
 
-def _paged_bound(torch, table, lengths, BS, H, KV, HD, kv_bytes, scales) -> tuple[float, str]:
+def _paged_bound(torch, table, lengths, BS, H, KV, HD, kv_bytes, scales, q_bytes=2,
+                 peak_flops=PEAK_BF16_FLOPS) -> tuple[float, str]:
     """Least time on the card for one paged decode attention call.
 
     Bytes: every visible (block, position) pair's K and V once, over all
     kv heads (a block shared by lanes, or read twice by a parked lane, is
-    counted once), plus int8 scales, q and the bf16 output, the page
-    table and the lengths.  Operations: 4 * HD per visible (query row,
-    position) pair.  Counted from these inputs.
+    counted once), plus int8 scales, q and the output (``q_bytes`` each:
+    bf16 for K2, f32 for K2-f32), the page table and the lengths.
+    Operations: 4 * HD per visible (query row, position) pair, at
+    ``peak_flops``.  Counted from these inputs.
     """
     table, lengths = table.cpu().long(), lengths.cpu().long()
     B, MB = table.shape
@@ -861,8 +1001,8 @@ def _paged_bound(torch, table, lengths, BS, H, KV, HD, kv_bytes, scales) -> tupl
         for t in range(n):
             pairs.add((int(table[b, t // BS]), t % BS))
     per_pos = 2 * KV * (HD * kv_bytes + (4 if scales else 0))
-    nbytes = len(pairs) * per_pos + 2 * B * H * HD * 2 + table.numel() * 4 + B * 4
-    t_ops, t_bytes = ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    nbytes = len(pairs) * per_pos + 2 * B * H * HD * q_bytes + table.numel() * 4 + B * 4
+    t_ops, t_bytes = ops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
@@ -965,6 +1105,73 @@ def phase_paged_kernel(torch, pa, kv_cache, cfg, engine, capture) -> dict:
             "library_note": "no single PyTorch call computes paged "
             "decode attention; dense_sdpa_ms is SDPA over K/V gathered per lane "
             "beforehand (gather not timed), a yardstick the port never calls"}
+
+
+def _k2_f32_row(torch, pa, k, v, table, lengths, H, BS, seed: int, what: str) -> dict:
+    """K2-f32 against the plain version over an f32 pool ``k``/``v`` with
+    these tables, an f32 q drawn from ``seed``: the launch checked, the
+    error held to F32_TOL, kernel (cold and warm L2) and plain times, and
+    the bound at the f32 rate."""
+    _, _, KV, HD = k.shape
+    dev = k.device
+    B, MB = table.shape
+    q = torch.randn(B, H, HD, generator=torch.Generator().manual_seed(seed)).to(dev)
+    before = (pa.paged_decode_attention.launches, pa.paged_decode_attention.f32_launches)
+    out = pa.paged_decode_attention(q, k, v, table, lengths, block_size=BS)
+    torch.cuda.synchronize()
+    if (pa.paged_decode_attention.launches, pa.paged_decode_attention.f32_launches) != (
+            before[0], before[1] + 1):
+        _fail(f"K2-f32 at {what} did not launch K2-f32 once")
+    ref = pa.paged_decode_attention_reference(q, k, v, table, lengths, block_size=BS)
+    err = float((out - ref).abs().max())
+    if out.dtype != torch.float32 or not torch.isfinite(out).all() or err > F32_TOL:
+        _fail(f"K2-f32 vs plain at {what}: max abs err {err} (tol {F32_TOL})")
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)  # > L2
+
+    def kernel():
+        pa.paged_decode_attention(q, k, v, table, lengths, block_size=BS)
+
+    ms, ms_b2b = _per_call_ms(torch, kernel, 50, f"K2-f32 {what}", flush)
+    ms_warm, _ = _per_call_ms(torch, kernel, 50, f"K2-f32 warm {what}")
+    plain_ms, _ = _per_call_ms(
+        torch, lambda: pa.paged_decode_attention_reference(
+            q, k, v, table, lengths, block_size=BS), 10, f"plain {what}", flush)
+    bound_ms, bound_by = _paged_bound(torch, table, lengths, BS, H, KV, HD, 4, False,
+                                      q_bytes=4, peak_flops=PEAK_F32_FLOPS)
+    row = {"pool": "f32", "B": B, "MB": MB, "BS": BS, "H": H, "KV": KV,
+           "HD": HD, "lengths": lengths.tolist(), "max_abs_err": err, "tol": F32_TOL,
+           "ms": ms, "ms_warm_l2": ms_warm, "ms_back_to_back": ms_b2b,
+           "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bound_share": bound_ms / ms}
+    print(f"K2-f32: {what}: err={err:.3e} (tol {F32_TOL}) device, cold L2: "
+          f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms bound={bound_ms * 1e3:.2f}us "
+          f"({bound_by}); bound share={row['bound_share']:.4f}; kernel warm "
+          f"L2={ms_warm:.4f}ms, back-to-back={ms_b2b:.4f}ms", flush=True)
+    return row
+
+
+def phase_paged_kernel_f32(torch, pa, cfg, engine, capture) -> dict:
+    """K2-f32 at the paged phase's tables over an f32 copy of its layer-0
+    pool (Llama-3.2-3B's widths)."""
+    k = engine._cache["k"][0].float()
+    v = engine._cache["v"][0].float()
+    table, lengths = capture["page_table"], capture["length"].int()
+    B, MB = table.shape
+    row = _k2_f32_row(torch, pa, k, v, table, lengths, cfg.n_heads, PAGED_BLOCK, 4322,
+                      f"the paged step's tables B={B} MB={MB} f32 pool")
+    return {"shapes": [{"shape": "serve", **row}]}
+
+
+def phase_paged_kernel_f32_path(torch, pa, cfg, capture) -> dict:
+    """K2-f32 at the shape the f32 path gives it: the f32 paged engine's
+    own layer-0 pool, page table and lengths, captured at its first step
+    with every lane live."""
+    table, lengths = capture["page_table"], capture["length"].int()
+    B, MB = table.shape
+    row = _k2_f32_row(torch, pa, capture["k"], capture["v"], table, lengths, cfg["n_heads"],
+                      F32_ENGINE_BLOCK, 4323,
+                      f"the f32 paged engine's step B={B} MB={MB} f32 pool")
+    return {"shapes": [{"shape": "f32_path", **row}]}
 
 
 def phase_breakdown(torch, paged_kv, cfg, engine, capture) -> dict:
@@ -1495,6 +1702,7 @@ def _ledger_view(ledger, spans, dispatch_count) -> dict:
         "raw_join_rate": ledger.raw_join_rate,
         "substantive_join_rate": ledger.substantive_join_rate,
         "tier_counts": dict(ledger.tier_counts),
+        "launches_with_ops": ledger.launches_with_ops,
         "dispatches": dispatch_count(ledger),
         "module_spans": len(ledger.launches),
         "device_idle_gap_ms": ledger.idle_gap_ms(),
@@ -1505,6 +1713,9 @@ def _ledger_view(ledger, spans, dispatch_count) -> dict:
         "ops_busy_share": _ops_busy_us(ops) / total,
     }
     view["idle_minus_ops_idle"] = view["idle_share"] - (1.0 - view["ops_busy_share"])
+    if max(sum(ledger.tier_counts.values()), ledger.launches_with_ops) > view["dispatches"]:
+        _fail(f"deviceplane: tier counts {ledger.tier_counts} or launches with ops "
+              f"{ledger.launches_with_ops} exceed the window's {view['dispatches']} dispatches")
     if abs(ledger.bucket_sum_us - total) > DEVICEPLANE_SUM_TOL * total:
         _fail(f"deviceplane: ledger buckets sum to {ledger.bucket_sum_us} us against a "
               f"{total} us window (tolerance {DEVICEPLANE_SUM_TOL})")
@@ -1526,7 +1737,9 @@ def phase_deviceplane(torch, fa, pa, llama, paged_kv, frontdoor, cfg, target, dr
     step with K2 under ``capture`` and its roofline verdict, the live HBM
     reading and the recording self-tracer."""
     import tempfile
+    from datetime import datetime, timezone
 
+    from tpuslo_torch.attribution import BayesianAttributor, FaultSample
     from tpuslo_torch.collector import hbm_sampler, native
     from tpuslo_torch.deviceplane import ledger as dl
     from tpuslo_torch.deviceplane import profiler as dp
@@ -1595,6 +1808,7 @@ def phase_deviceplane(torch, fa, pa, llama, paged_kv, frontdoor, cfg, target, dr
             cost_fn=lambda ms: max(ms - work["ms"], 0.0),
         )
         windows, k1_launched, unprofiled = [], 0, []
+        attributor = BayesianAttributor()  # hard mode, the default tables
         t_loop = time.perf_counter()
         for cycle in range(DEVICEPLANE_CYCLES):
             k1_before = fa.flash_attention.launches
@@ -1607,8 +1821,35 @@ def phase_deviceplane(torch, fa, pa, llama, paged_kv, frontdoor, cfg, target, dr
                 continue
             spans = work["spans"]
             ledger = dl.build_ledger(spans)
-            view = _ledger_view(ledger, spans, dp.dispatch_count)
+            view = _ledger_view(ledger, spans, dl.dispatch_count)
             k1_kept = _kernel_events(spans, ("flash_fwd_kernel",))
+            # Launches are dispatches everywhere they are published.
+            breakdown = xla_spans.launch_match_breakdown(spans, ledger=ledger)
+            counts = {"window": w.launches, "ledger": ledger.to_dict()["launches"],
+                      "breakdown": breakdown["launches"], "dispatches": view["dispatches"]}
+            if len(set(counts.values())) != 1:
+                _fail(f"deviceplane: window {w.index} counts launches {counts}")
+            if not work["k1"] and view["dispatches"] != 1:
+                _fail(f"deviceplane: steady window {w.index} holds {view['dispatches']} "
+                      "dispatches, not 1")
+            # The window's signals through the attributor, on the host and
+            # through the torch lane on the card: the same domain.
+            values = prof.window_signal_values(w)
+            ranked = attributor.attribute(values)
+            sample = FaultSample(
+                incident_id=f"window-{w.index}", timestamp=datetime.now(timezone.utc),
+                cluster="h100", namespace="llm", service="frontdoor", fault_label="",
+                confidence=1.0, burn_rate=0.0, window_minutes=1, request_id="",
+                trace_id="", signals=values)
+            (on_card,) = attributor.attribute_batch([sample], use_torch=True)
+            if on_card.predicted_fault_domain != ranked[0].domain:
+                _fail(f"deviceplane: window {w.index} attributed to {ranked[0].domain} on "
+                      f"the host, {on_card.predicted_fault_domain} by the torch lane")
+            attribution = {"signals": values, "top_domain": ranked[0].domain,
+                           "posterior": ranked[0].posterior,
+                           "posterior_torch_lane": on_card.confidence,
+                           "runner_up": [ranked[1].domain, ranked[1].posterior],
+                           "evidence": ranked[0].evidence}
             row = {
                 **w.to_dict(), **view, "step_ms": work["ms"],
                 "module_lane_source": work["source"],
@@ -1617,6 +1858,7 @@ def phase_deviceplane(torch, fa, pa, llama, paged_kv, frontdoor, cfg, target, dr
                 "k1_launched": work["k1"], "k1_kept": k1_kept,
                 "k1_kept_ratio": k1_kept / work["k1"] if work["k1"] else None,
                 "roofline": prof.window_roofline(w.index),
+                "launch_counts": counts, "attribution": attribution,
             }
             k1_launched += work["k1"]
             windows.append(row)
@@ -1635,6 +1877,12 @@ def phase_deviceplane(torch, fa, pa, llama, paged_kv, frontdoor, cfg, target, dr
                   f"{k1_kept} of {work['k1']} launched; step {work['ms']:.1f} ms, capture "
                   f"beyond it {w.capture_cost_ms:.1f} ms, overhead EMA "
                   f"{prof.overhead_ema_pct:.2f}%", flush=True)
+            print(f"deviceplane: window {w.index} attribution: idle gap {w.idle_gap_ms:.2f} ms, "
+                  f"evictions {w.eviction_events}, unexplained {w.unexplained_share:.4f} -> "
+                  f"{ranked[0].domain} at {ranked[0].posterior:.4f} (torch lane "
+                  f"{on_card.predicted_fault_domain} at {on_card.confidence:.4f}; runner-up "
+                  f"{ranked[1].domain} {ranked[1].posterior:.4f}); launches {counts}",
+                  flush=True)
             if work["k1"] and not k1_kept:
                 _fail(f"deviceplane: window {w.index} launched K1 {work['k1']} times and its "
                       "ops lane holds no K1 event")
@@ -1689,7 +1937,7 @@ def phase_deviceplane(torch, fa, pa, llama, paged_kv, frontdoor, cfg, target, dr
         k2_calls = pa.paged_decode_attention.launches - k2_before
         spans = cap.spans
         ledger = dl.build_ledger(spans)
-        view = _ledger_view(ledger, spans, dp.dispatch_count)
+        view = _ledger_view(ledger, spans, dl.dispatch_count)
         k2_kept = _kernel_events(spans, ("paged_split_kernel", "paged_combine_kernel"))
         lengths = engine._cache["length"].tolist()
         per_pos = 2 * cfg.n_kv_heads * cfg.head_dim * 2 * cfg.n_layers
@@ -1748,6 +1996,160 @@ def phase_deviceplane(torch, fa, pa, llama, paged_kv, frontdoor, cfg, target, dr
     return out
 
 
+def _kernel_inputs(att, samples):
+    """The (values, observed) matrices ``attribute_batch`` builds for
+    ``samples`` over ``att``'s tables."""
+    import numpy as np
+
+    mat = att._matrices()
+    values = np.zeros((len(samples), len(mat.signals)))
+    observed = np.zeros(values.shape, dtype=bool)
+    for i, sample in enumerate(samples):
+        for name, value in sample.signals.items():
+            idx = mat.signal_index.get(name)
+            if idx is not None:
+                observed[i, idx] = True
+                values[i, idx] = value
+    return mat.kernel, values, observed
+
+
+def phase_attribution(torch) -> dict:
+    """The attribution spine on the card: every fault-replay scenario
+    through numpy and the torch f64 lane, the profiler's sweep gate at the
+    card's roofs, the lanes' rows/s and the auto probe's verdicts."""
+    from datetime import datetime, timezone
+
+    import numpy as np
+
+    from tpuslo_torch.attribution import BayesianAttributor
+    from tpuslo_torch.attribution.calibrate import calibrated_attributor
+    from tpuslo_torch.columnar import posterior
+    from tpuslo_torch.deviceplane import profiler as dp
+    from tpuslo_torch.faultreplay import generate_fault_samples, supported_scenarios
+
+    t_phase = time.perf_counter()
+    start = datetime(2026, 1, 1, tzinfo=timezone.utc)
+    attributors = {"default_hard": BayesianAttributor(),
+                   "calibrated_soft": calibrated_attributor()}
+    replay, worst = [], {"confidence": 0.0, "hypothesis": 0.0, "posterior": 0.0}
+    for scenario in supported_scenarios():
+        samples = generate_fault_samples(scenario, ATTRIBUTION_SAMPLES, start)
+        for name, att in attributors.items():
+            host = att.attribute_batch(samples, use_torch=False)
+            card = att.attribute_batch(samples, use_torch=True)
+            if [a.predicted_fault_domain for a in host] != [a.predicted_fault_domain
+                                                           for a in card]:
+                _fail(f"attribution: {scenario} ({name}): the lanes predict other domains")
+            conf = max(abs(a.confidence - b.confidence) for a, b in zip(host, card))
+            hyp = 0.0
+            for a, b in zip(host, card):
+                if [h.domain for h in a.fault_hypotheses] != [h.domain for h in b.fault_hypotheses]:
+                    _fail(f"attribution: {scenario} ({name}): other hypotheses")
+                hyp = max([hyp] + [abs(x.posterior - y.posterior)
+                                   for x, y in zip(a.fault_hypotheses, b.fault_hypotheses)])
+            mats, values, observed = _kernel_inputs(att, samples)
+            kw = dict(soft=att.evidence == "soft", sharpness=att.sharpness)
+            np_post = posterior.log_posterior_batch(values, observed, mats, use_torch=False,
+                                                    **kw)[0]
+            t_post = posterior.log_posterior_batch(values, observed, mats, use_torch=True,
+                                                   **kw)[0]
+            post = float(np.abs(np_post - t_post).max())
+            if conf > 1e-9 or hyp > POSTERIOR_TOL or post > POSTERIOR_TOL:
+                _fail(f"attribution: {scenario} ({name}): confidence diff {conf} (tol 1e-9), "
+                      f"hypothesis posterior diff {hyp}, posterior diff {post} (tol "
+                      f"{POSTERIOR_TOL})")
+            worst = {"confidence": max(worst["confidence"], conf),
+                     "hypothesis": max(worst["hypothesis"], hyp),
+                     "posterior": max(worst["posterior"], post)}
+            domains = sorted({a.predicted_fault_domain for a in host})
+            replay.append({"scenario": scenario, "attributor": name, "samples": len(samples),
+                           "domains": domains, "confidence_diff": conf,
+                           "hypothesis_diff": hyp, "posterior_diff": post})
+    print(f"attribution: {len(replay)} scenario x attributor batches of "
+          f"{ATTRIBUTION_SAMPLES} samples agree between numpy and the torch lane; worst "
+          f"differences {worst}", flush=True)
+
+    t0 = time.perf_counter()
+    sweep = dp.run_profiler_sweep(seed=1337)
+    sweep_s = time.perf_counter() - t0
+    print(f"attribution: profiler sweep ({sweep_s:.1f} s): {json.dumps(sweep.to_dict())}",
+          flush=True)
+    if not sweep.passed:
+        _fail(f"attribution: the profiler sweep failed: {sweep.failures}")
+
+    # numpy against the torch lane (copies in and out), rows/s.
+    att = attributors["calibrated_soft"]
+    mats = att._matrices().kernel
+    n_sig = len(att.likelihoods)
+    throughput = []
+    inputs = {}
+    for n in POSTERIOR_ROWS:
+        rng = np.random.default_rng(11)  # TestPosteriorJitAutoTuner._inputs
+        values = np.abs(rng.lognormal(2.0, 1.5, (n, n_sig)))
+        observed = rng.random((n, n_sig)) < 0.9
+        inputs[n] = (values, observed)
+        reps = 2 if n <= 65536 else 1
+        np_s = min(_wall(torch, lambda: posterior._numpy_kernel(
+            values, observed, mats, True, att.sharpness)) for _ in range(reps))
+        lane = lambda: posterior._torch_kernel(values, observed, mats, True, att.sharpness)
+        got = lane()  # warm
+        t_s = min(_wall(torch, lane) for _ in range(3))
+        want = posterior._numpy_kernel(values, observed, mats, True, att.sharpness)
+        diff = float(np.abs(want[0] - got[0]).max())
+        if diff > POSTERIOR_TOL:
+            _fail(f"attribution: the torch lane at {n} rows differs by {diff}")
+        # The same lane with its inputs already on the card, outputs left there.
+        dev = torch.device("cuda", 0)
+        up = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+            values, observed, mats.log_priors, mats.log_lik, mats.log_not_lik,
+            mats.thresholds, mats.warns, mats.errs, mats.continuous, mats.ambiguous,
+            mats.p_drop)]
+        ops = posterior._TorchOps()
+        resident = lambda: posterior._kernel(*up, soft=True, sharpness=att.sharpness, xp=ops)
+        resident()
+        dev_s = min(_wall(torch, resident) for _ in range(3))
+        del up
+        row = {"rows": n, "numpy_s": np_s, "torch_s": t_s, "torch_resident_s": dev_s,
+               "numpy_rows_per_s": n / np_s, "torch_rows_per_s": n / t_s,
+               "torch_resident_rows_per_s": n / dev_s, "speedup": np_s / t_s,
+               "max_abs_diff": diff}
+        throughput.append(row)
+        print(f"attribution: posterior at {n} rows: numpy {n / np_s:,.0f} rows/s "
+              f"({np_s * 1e3:.2f} ms), torch lane with copies {n / t_s:,.0f} rows/s "
+              f"({t_s * 1e3:.2f} ms, {np_s / t_s:.2f}x numpy), resident on the card "
+              f"{n / dev_s:,.0f} rows/s ({dev_s * 1e3:.2f} ms); max diff {diff:.2e}",
+              flush=True)
+    torch.cuda.empty_cache()
+
+    # The auto probe's verdict per bucket, on these inputs.
+    env = {k: os.environ.get(k) for k in ("TPUSLO_COLUMNAR_JIT",
+                                           "TPUSLO_COLUMNAR_JIT_MIN_ROWS")}
+    posterior._AUTO_PROBES.clear()
+    for n in POSTERIOR_ROWS:
+        if n <= posterior.JIT_PROBE_MAX_ROWS:
+            values, observed = inputs[n]
+            posterior.log_posterior_batch(values, observed, mats, soft=True,
+                                          sharpness=att.sharpness, use_torch=None)
+    report = posterior.auto_report()
+    threshold = posterior.auto_threshold()
+    print(f"attribution: auto probe (env {env}): {json.dumps(report)}; auto_threshold "
+          f"{threshold}", flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"attribution: phase took {phase_s:.1f} s", flush=True)
+    return {"replay": replay, "worst": worst, "sweep": sweep.to_dict(),
+            "sweep_s": sweep_s, "throughput": throughput, "auto_report": report,
+            "auto_threshold": threshold, "env": env, "phase_s": phase_s}
+
+
+def _wall(torch, fn) -> float:
+    """Host seconds of one call, the card synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def phase_parity(torch, fa, llama) -> dict:
     cfg = dataclasses.replace(llama.llama32_3b(max_seq_len=256), n_layers=2)
     S = 128
@@ -1785,6 +2187,95 @@ def phase_parity(torch, fa, llama) -> dict:
         _fail("greedy first token differs at a decisive margin")
     return {"S": S, "max_abs_err": err, "tol": PARITY_TOL,
             "same_token": same_token, "cpu_top2_margin": margin}
+
+
+def phase_parity_f32(torch, fa, pa, llama, paged_kv, serve) -> dict:
+    """The f32 path: the JAX package's f32 head-dim-128 model on the card.
+    Its prefill logits through K1-f32 against the same weights on the CPU
+    (1e-4), then a paged engine at its widths (vocab 512, for the byte
+    tokenizer) with K2-f32 (K2's switch on) against the same engine on the
+    CPU, streams held by the near-tie rule at the f32 bound.  Returns the
+    record and the card engine's state at its first step with every lane
+    live (layer 0's pool, the page table and the lengths)."""
+    cfg = llama.LlamaConfig(**F32_MODEL, dtype=torch.float32)
+    params = llama.init_params(8, cfg, "cuda")
+    params_cpu = {
+        "embed": params["embed"].cpu(),
+        "layers": {n: t.cpu() for n, t in params["layers"].items()},
+        "final_norm": params["final_norm"].cpu(),
+        "output": params["output"].cpu(),
+    }
+    tokens = torch.randint(0, cfg.vocab_size, (2, cfg.max_seq_len),
+                           generator=torch.Generator().manual_seed(12))
+    gpu, _ = llama.prefill(params, tokens.cuda(),
+                           llama.init_kv_cache(cfg, 2, device="cuda"), cfg)
+    gpu = gpu.cpu()
+    k1 = fa.flash_attention.f32_launches
+    cpu, _ = llama.prefill(params_cpu, tokens, llama.init_kv_cache(cfg, 2, device="cpu"), cfg)
+    err = float((gpu - cpu).abs().max())
+    print(f"parity: the JAX f32 model (head dim {cfg.head_dim}, B 2 S {cfg.max_seq_len}): "
+          f"card (K1-f32 x{k1}) vs CPU max abs logit err {err:.3e} (tol {F32_TOL})",
+          flush=True)
+    if k1 != cfg.n_layers or fa.flash_attention.launches:
+        _fail(f"the f32 model's prefill launched K1-f32 {k1} times and K1 "
+              f"{fa.flash_attention.launches} times")
+    if not torch.isfinite(gpu).all() or err > F32_TOL:
+        _fail(f"the f32 model's card vs CPU logits differ by {err} > {F32_TOL}")
+    cfg = dataclasses.replace(cfg, vocab_size=F32_ENGINE_VOCAB)
+    params = llama.init_params(9, cfg, "cuda")
+    params_cpu = {
+        "embed": params["embed"].cpu(),
+        "layers": {n: t.cpu() for n, t in params["layers"].items()},
+        "final_norm": params["final_norm"].cpu(),
+        "output": params["output"].cpu(),
+    }
+    results, steps, capture = {}, {}, None
+    for where, p in (("card", params), ("cpu", params_cpu)):
+        engine = paged_kv.PagedBatchingEngine(
+            cfg, p, max_slots=len(F32_MODEL_JOBS), block_size=F32_ENGINE_BLOCK,
+            pallas_attention=True,
+            device="cuda" if where == "card" else "cpu",
+        )
+        ids = [engine.submit(q, F32_MODEL_TOKENS, stop_at_eos=False, prefix=pre)
+               for q, pre in F32_MODEL_JOBS]
+        while engine.step():
+            if where == "card" and capture is None and all(
+                    s is not None for s in engine._slots):
+                cache = engine._cache
+                capture = {"page_table": cache["page_table"].clone(),
+                           "length": cache["length"].clone(),
+                           "k": cache["k"][0].clone(), "v": cache["v"][0].clone()}
+        results[where] = [engine.results[i] for i in ids]
+        steps[where] = engine.steps
+        del engine
+    k2 = pa.paged_decode_attention.f32_launches
+    if k2 != steps["card"] * cfg.n_layers or pa.paged_decode_attention.launches:
+        _fail(f"the f32 paged engine launched K2-f32 {k2} times ({steps['card']} steps x "
+              f"{cfg.n_layers} layers needed) and K2 {pa.paged_decode_attention.launches}")
+    single = serve.ServeEngine(cfg, params_cpu, device="cpu")
+    streams = []
+    for (prompt, pre), got, want in zip(F32_MODEL_JOBS, results["card"], results["cpu"]):
+        diverged, margin = None, None
+        if len(got) != len(want):
+            _fail(f"f32 paged engine: {len(got)} tokens on the card, {len(want)} on the CPU")
+        for i, (a, b) in enumerate(zip(want, got)):
+            if a != b:
+                logits, _ = single.ingest_ids(serve.encode_bytes(prompt, cfg.max_seq_len - 2)
+                                              + want[:i])
+                top2 = torch.topk(logits[0].float(), 2).values
+                diverged, margin = i, float(top2[0] - top2[1])
+                if margin >= 2 * F32_TOL:
+                    _fail(f"f32 paged engine: the card's stream left the CPU's at token {i} "
+                          f"where the top-2 margin is {margin}")
+                break
+        streams.append({"diverged_at": diverged, "tie_margin": margin})
+    print(f"parity: f32 paged engine with K2-f32 ({steps['card']} steps, K2-f32 x{k2}): "
+          f"streams vs the CPU engine {streams}", flush=True)
+    if capture is None:
+        _fail("the f32 paged engine never had every lane live")
+    return {"S": cfg.max_seq_len, "max_abs_err": err, "tol": F32_TOL,
+            "k1_f32_launches": k1, "k2_f32_launches": k2, "paged_steps": steps["card"],
+            "streams": streams}, capture
 
 
 def main() -> int:
@@ -1843,6 +2334,7 @@ def main() -> int:
     cfg = llama.llama32_3b(max_seq_len=2048)
     serve_shapes = serve_prefills(serve, fa, cfg)
     kernel = phase_kernel(torch, fa, cfg, serve_shapes)
+    kernel_f32 = phase_kernel_f32(torch, fa)
     # 4. serve (its engine's weights serve every later phase)
     served, engine = phase_serve(torch, fa, llama, serve, cfg, serve_shapes)
     # 5. dense continuous batching
@@ -1851,6 +2343,7 @@ def main() -> int:
     paged, paged_engine, capture = phase_paged(torch, fa, pa, paged_kv, serve, cfg, engine)
     # 7. K2 vs plain, at the paged phase's step and random tables
     k2 = phase_paged_kernel(torch, pa, kv_cache, cfg, paged_engine, capture)
+    k2_f32 = phase_paged_kernel_f32(torch, pa, cfg, paged_engine, capture)
     # 8. one paged step with K2 on and off
     breakdown = phase_breakdown(torch, paged_kv, cfg, paged_engine, capture)
     del paged_engine
@@ -1874,15 +2367,28 @@ def main() -> int:
     print(f"deviceplane: {json.dumps(device)}", flush=True)
     del engine, draft
     torch.cuda.empty_cache()
-    # 13. parity
+    # 13. the attribution spine on the card
+    attributed = phase_attribution(torch)
+    print(f"attribution: {json.dumps(attributed)}", flush=True)
+    # 14. parity: the bf16 model, then the f32 path (its launches counted
+    # from 0 just before it)
     parity = phase_parity(torch, fa, llama)
+    for counter in (fa.flash_attention, pa.paged_decode_attention):
+        counter.launches = counter.f32_launches = 0
+    parity_f32, f32_capture = phase_parity_f32(torch, fa, pa, llama, paged_kv, serve)
+    # ... and K2-f32 against plain at the shape that path gave it
+    k2_f32_path = phase_paged_kernel_f32_path(torch, pa, F32_MODEL, f32_capture)
 
-    # 14. kernels line, card line, result line
+    # 15. kernels line, card line, result line
     line_row = next(
         r for r in kernel["shapes"]
         if (r["B"], r["S"], r["causal"]) == LINE_SHAPE and r["D"] == cfg.head_dim
     )
     k2_row = next(r for r in k2["shapes"] if (r["shape"], r["pool"]) == ("serve", "bf16"))
+    f32_row = next(r for r in kernel_f32["shapes"]
+                   if tuple(r[k] for k in ("B", "S", "H", "KV", "D", "causal", "dtype"))
+                   == F32_LINE_SHAPE)
+    k2_f32_row = k2_f32_path["shapes"][0]
     kernels = {"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
@@ -1914,13 +2420,47 @@ def main() -> int:
         "ms_in_step": _in_step_ms(breakdown["k2_on"], k2["launched_kernels"]),
         "shape": f"B={k2_row['B']} MB={k2_row['MB']} BS={k2_row['BS']} H=24 KV=8 HD=128 "
                  "bf16 pool, the paged phase's step",
+    }, {
+        "name": "flash_attention_f32",
+        "route": "cuda",
+        "source": "tpuslo_torch/ops/csrc/attention_f32.cu",
+        "replaces": "tpuslo/ops/flash_attention.py:41",
+        "launches": parity_f32["k1_f32_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in kernel_f32["shapes"]
+                           if r["dtype"] == "f32"),
+        "ms": f32_row["ms"],
+        "plain_ms": f32_row["plain_ms"],
+        "bound_ms": f32_row["bound_ms"],
+        "bound_by": f32_row["bound_by"],
+        "library_ms": f32_row["library_ms"],
+        "shape": "B=2 S=128 H=2 KV=1 D=128 causal f32, the f32 model's prefill",
+    }, {
+        "name": "paged_attention_f32",
+        "route": "cuda",
+        "source": "tpuslo_torch/ops/csrc/attention_f32.cu",
+        "replaces": "tpuslo/ops/paged_attention.py:65",
+        "launches": parity_f32["k2_f32_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in k2_f32["shapes"] + k2_f32_path["shapes"]),
+        "ms": k2_f32_row["ms"],
+        "plain_ms": k2_f32_row["plain_ms"],
+        "bound_ms": k2_f32_row["bound_ms"],
+        "bound_by": k2_f32_row["bound_by"],
+        "library_ms": None,
+        "shape": f"B={k2_f32_row['B']} MB={k2_f32_row['MB']} BS={k2_f32_row['BS']} "
+                 f"H={k2_f32_row['H']} KV={k2_f32_row['KV']} HD={k2_f32_row['HD']} f32 q "
+                 "and pool, the f32 paged engine's step",
     }]}
+    idle = [k["name"] for k in kernels["kernels"] if not k["launches"]]
+    if idle:
+        _fail(f"kernels of the path launched no time in its run: {idle}")
     record = {"card": card, "kind": kind, "count": count, "torch": torch.__version__,
               "build_s": {n: b.seconds for n, b in builds.items()},
-              "ptxas": ptxas, "kernel": kernel,
+              "ptxas": ptxas, "kernel": kernel, "kernel_f32": kernel_f32,
               "serve": served, "dense": dense, "paged": paged, "paged_kernel": k2,
-              "paged_breakdown": breakdown, "spec": spec, "frontdoor": front,
-              "router": routed, "deviceplane": device, "parity": parity, **kernels}
+              "paged_kernel_f32": k2_f32,
+              "paged_kernel_f32_path": k2_f32_path, "paged_breakdown": breakdown, "spec": spec, "frontdoor": front,
+              "router": routed, "deviceplane": device, "attribution": attributed,
+              "parity": parity, "parity_f32": parity_f32, **kernels}
     print(f"record: {json.dumps(record)}")
     print(json.dumps(kernels))
     print(card)

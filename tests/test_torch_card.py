@@ -110,18 +110,100 @@ def test_kernel_reads_strided_inputs(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_tensor_never_falls_back(cuda_device):
-    """What the kernel does not take raises on the card; it is never
-    served by the plain version."""
+    """What no kernel takes raises on the card; it is never served by the
+    plain version.  (f32 and head dims 384 and 512 now have K1-f32.)"""
     q, k, v = _qkv(9, 1, 128, 4, 2, 128, cuda_device)
-    before = flash_attention.launches
-    with pytest.raises(ValueError, match="bf16"):
-        flash_attention(q.float(), k.float(), v.float())
+    before = (flash_attention.launches, flash_attention.f32_launches)
+    with pytest.raises(ValueError, match="f32, bf16 or f16"):
+        flash_attention(q.double(), k.double(), v.double())
     with pytest.raises(ValueError):
         flash_attention(q[:, :100], k[:, :100], v[:, :100])
-    wide = torch.zeros(1, 128, 2, 384, dtype=torch.bfloat16, device=cuda_device)
-    with pytest.raises(ValueError, match="built for head dims"):
+    wide = torch.zeros(1, 128, 2, 640, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim 640"):
         flash_attention(wide, wide[:, :, :1], wide[:, :, :1])
-    assert flash_attention.launches == before
+    assert (flash_attention.launches, flash_attention.f32_launches) == before
+
+
+# K1-f32 and K2-f32 against their plain versions: both sides compute in
+# f32 (FFMA on the card, no TF32) and differ only in the order of the
+# sums.  A bf16 or f16 output adds its own rounding: half an ulp, at
+# most 2^-8 (bf16) or 2^-11 (f16) of |o|, allowed on top.
+F32_TOL = 1e-4
+OUT_ULP = {torch.float32: 0.0, torch.bfloat16: 2.0**-8, torch.float16: 2.0**-11}
+
+
+def _hold_f32(out, ref):
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    bound = F32_TOL + OUT_ULP[out.dtype] * ref.abs()
+    excess = ((out.float() - ref).abs() - bound).max().item()
+    assert excess <= 0.0, excess
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,D,causal,dtype", [
+    (2, 128, 2, 1, 128, True, torch.float32),  # the JAX f32 model test's attention
+    (1, 256, 24, 8, 128, True, torch.float32),  # llama32_3b's widths in f32
+    (2, 256, 24, 8, 128, False, torch.float32),
+    (2, 256, 4, 2, 256, True, torch.float32),
+    (1, 256, 4, 2, 384, True, torch.float32),
+    (1, 256, 4, 1, 512, True, torch.float32),
+    (1, 384, 8, 2, 512, False, torch.float32),
+    (1, 256, 4, 2, 384, True, torch.bfloat16),  # no wgmma instantiation at 384/512
+    (2, 128, 4, 4, 512, False, torch.bfloat16),
+    (1, 128, 4, 2, 128, True, torch.float16),  # the wgmma kernel is bf16 only
+])
+def test_f32_kernel_matches_plain(cuda_device, B, S, H, KV, D, causal, dtype):
+    q, k, v = (t.to(dtype) for t in _qkv(17, B, S, H, KV, D, cuda_device))
+    before = (flash_attention.launches, flash_attention.f32_launches)
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.f32_launches) == (
+        before[0], before[1] + 1)
+    assert out.dtype == dtype
+    _hold_f32(out, flash_attention_reference(q.float(), k.float(), v.float(), causal))
+
+
+@pytest.mark.cuda
+def test_f32_kernel_reads_mixed_dtypes_and_strided_heads(cuda_device):
+    """An f32 q over bf16 k/v is read as f32 (exact) and written in q's
+    dtype, as the Pallas kernel casts; a strided q is read in place."""
+    q, k, v = _qkv(18, 1, 256, 8, 4, 128, cuda_device)
+    qf = q.float()
+    out = flash_attention(qf, k, v)
+    assert out.dtype == torch.float32
+    _hold_f32(out, flash_attention_reference(qf, k.float(), v.float(), True))
+    wide = torch.zeros(1, 256, 16, 128, device=cuda_device)
+    wide[:, :, ::2] = qf
+    kf, vf = k.float(), v.float()
+    strided = flash_attention(wide[:, :, ::2], kf, vf)
+    torch.cuda.synchronize()
+    assert torch.equal(strided, flash_attention(qf, kf, vf))
+
+
+@pytest.mark.cuda
+def test_f32_model_on_card_matches_cpu(cuda_device):
+    """The JAX package's f32 head-dim-128 model
+    (``tests/test_flash_attention.py::TestModelIntegration``) on the card,
+    its prefill through K1-f32, against the same weights on the CPU."""
+    cfg = llama.LlamaConfig(
+        vocab_size=256, dim=256, n_layers=2, n_heads=2, n_kv_heads=1,
+        ffn_dim=512, max_seq_len=128, dtype=torch.float32,
+    )
+    cpu_params = llama.init_params(0, cfg, "cpu")
+    card_params = {
+        "embed": cpu_params["embed"].to(cuda_device),
+        "layers": {n: t.to(cuda_device) for n, t in cpu_params["layers"].items()},
+        "final_norm": cpu_params["final_norm"].to(cuda_device),
+        "output": cpu_params["output"].to(cuda_device),
+    }
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 128)))
+    before = flash_attention.f32_launches
+    card, _ = llama.prefill(card_params, tokens.to(cuda_device),
+                            llama.init_kv_cache(cfg, 2, device=cuda_device), cfg)
+    torch.cuda.synchronize()
+    assert flash_attention.f32_launches - before == cfg.n_layers
+    cpu, _ = llama.prefill(cpu_params, tokens, llama.init_kv_cache(cfg, 2, device="cpu"), cfg)
+    assert (card.cpu() - cpu).abs().max().item() < F32_TOL
 
 
 @pytest.mark.cuda
@@ -315,6 +397,70 @@ def test_paged_kernel_never_falls_back(cuda_device):
     with pytest.raises(ValueError, match="head dims"):
         paged_decode_attention(q96, k96, k96, table, lengths, block_size=16)
     assert paged_decode_attention.launches == before
+
+
+F32_PAGED_SHAPES = {
+    "B8": (8, 4, 40, 24, 8, 128, 64),
+    "B32": (32, 8, 300, 24, 8, 128, 64),
+    "HD64-BS16": (6, 6, 30, 8, 2, 64, 16),
+    "nrep1": (4, 6, 30, 8, 8, 128, 64),
+    "nrep2-HD64": (4, 6, 30, 16, 8, 64, 64),
+    "nrep4": (4, 6, 30, 32, 8, 128, 64),
+    "nrep8": (4, 6, 30, 64, 8, 128, 64),
+    "BS128": (4, 3, 14, 24, 8, 128, 128),
+    "BS8-HD64": (5, 20, 120, 8, 2, 64, 8),
+    "nrep2-HD128-BS16": (3, 8, 30, 2, 1, 128, 16),  # the f32 model's paged engine
+}
+
+
+def _f32_paged(seed, B, MB, N, H, KV, HD, BS, device):
+    q, k, v, table, lengths = _paged_inputs(seed, B, MB, N, H, KV, HD, BS, False, device)
+    return q.float(), k.float(), v.float(), table, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(F32_PAGED_SHAPES))
+def test_paged_f32_kernel_matches_plain(cuda_device, shape):
+    q, k, v, table, lengths = _f32_paged(11, *F32_PAGED_SHAPES[shape], cuda_device)
+    BS = F32_PAGED_SHAPES[shape][-1]
+    before = (paged_decode_attention.launches, paged_decode_attention.f32_launches)
+    out = paged_decode_attention(q, k, v, table, lengths, block_size=BS)
+    torch.cuda.synchronize()
+    assert (paged_decode_attention.launches, paged_decode_attention.f32_launches) == (
+        before[0], before[1] + 1)
+    assert out.dtype == torch.float32
+    _hold_f32(out, paged_decode_attention_reference(q, k, v, table, lengths, block_size=BS))
+    half = paged_decode_attention(q, k, v, table, lengths, block_size=BS,
+                                  out_dtype=torch.bfloat16)
+    _hold_f32(half, paged_decode_attention_reference(q, k, v, table, lengths, block_size=BS))
+
+
+@pytest.mark.cuda
+def test_paged_f32_kernel_edges_and_graph_replay(cuda_device):
+    """Lengths past the table, zero and span-sized; out-of-pool entries
+    (held to the plain model of the split, which skips them); then one
+    call captured in a CUDA graph and replayed after the lengths and the
+    table change in place."""
+    q, k, v, table, lengths = _f32_paged(12, 6, 4, 30, 24, 8, 128, 64, cuda_device)
+    lengths.copy_(torch.tensor([0, 31, 32, 255, 256, 900], dtype=torch.int32))
+    _hold_f32(paged_decode_attention(q, k, v, table, lengths, block_size=64),
+              paged_decode_attention_reference(q, k, v, table, lengths, block_size=64))
+    table[0, 0] = 30
+    table[3, 2] = -1
+    out = paged_decode_attention(q, k, v, table, lengths, block_size=64)
+    _hold_f32(out, paged_decode_attention_split(q, k, v, table, lengths, block_size=64))
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged_decode_attention(q, k, v, table, lengths, block_size=64)
+    g = torch.Generator().manual_seed(13)
+    for _ in range(3):
+        lengths.copy_(torch.randint(0, 4 * 64 + 50, (6,), generator=g, dtype=torch.int32))
+        table.copy_(torch.randint(0, 30, (6, 4), generator=g, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        _hold_f32(out, paged_decode_attention_reference(q, k, v, table, lengths,
+                                                        block_size=64))
 
 
 @pytest.mark.cuda

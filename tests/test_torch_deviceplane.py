@@ -274,6 +274,96 @@ class TestBreakdown:
             assert {"module", "reason", "tier", "bucket"} <= set(entry)
 
 
+class TestCardDispatches:
+    """On a card's trace the parser cuts a dispatch range into one module
+    span per run of its kernels; every count of launches still reads one
+    launch per dispatch, as the JAX ledger's one record per program
+    execution does."""
+
+    @staticmethod
+    def card_doc():
+        """One dispatch range on device 0 whose kernels run in 4 runs
+        separated by gaps (the host's queueing), with the host's launch
+        events (``cuda_runtime``) that mark a card's trace."""
+        events = [
+            {"ph": "X", "cat": "user_annotation", "pid": 1, "tid": 1,
+             "name": "frontdoor_round(77)#5", "ts": 90.0, "dur": 300.0},
+            {"ph": "X", "cat": "gpu_user_annotation", "pid": 0, "tid": 7,
+             "name": "frontdoor_round(77)#5", "ts": 100.0, "dur": 300.0},
+        ]
+        for i, (ts, dur) in enumerate(((100.0, 10.0), (150.0, 20.0),
+                                       (250.0, 5.0), (390.0, 10.0))):
+            events.append({"ph": "X", "cat": "cuda_runtime", "pid": 1, "tid": 1,
+                           "name": "cudaLaunchKernel", "ts": ts - 20.0, "dur": 2.0})
+            events.append({"ph": "X", "cat": "kernel", "pid": 0, "tid": 7,
+                           "name": f"k{i}", "ts": ts, "dur": dur})
+        return {"traceEvents": events}
+
+    def test_a_dispatch_cut_into_runs_is_one_launch(self):
+        spans = tx.parse_trace_events(self.card_doc(), include_ops=True)
+        assert tx.module_lane_source(self.card_doc()) == "kernel_segments"
+        ledger = tl.build_ledger(spans)
+        assert len(ledger.launches) == 4  # the per-run records stay
+        assert tl.dispatch_count(ledger) == 1
+        summary = ledger.to_dict()
+        assert summary["launches"] == 1
+        assert summary["launches_with_ops"] == 1
+        assert summary["tier_counts"] == {"identity": 1}
+        assert summary["reasons"] == {}
+        assert ledger.raw_join_rate == 1.0
+        assert ledger.substantive_join_rate == 1.0
+        assert ledger.exact_substantive_join_rate == 1.0
+        breakdown = tx.launch_match_breakdown(spans, ledger=ledger)
+        assert breakdown["launches"] == 1
+        assert breakdown["launches_with_ops"] == 1
+        assert breakdown["unmatched_count"] == 0
+        assert breakdown["raw_join_rate"] == 1.0
+        # The fold is unchanged: the runs are busy, the gaps idle.
+        assert ledger.total_us == 300.0
+        assert ledger.buckets_us == {"joined": 45.0, "helper": 0.0, "compile": 0.0,
+                                     "idle_gap": 255.0, "unexplained": 0.0}
+        assert [rec.tier for rec in ledger.launches] == ["identity"] * 4
+
+    def test_raw_rate_counts_dispatches_on_both_sides(self):
+        """A second dispatch with no kernels of its own (a helper) is one
+        unjoined launch beside the joined one: 1 of 2, however many runs
+        the joined one has; an anonymous run counts alone."""
+        doc = self.card_doc()
+        doc["traceEvents"] += [
+            {"ph": "X", "cat": "gpu_user_annotation", "pid": 0, "tid": 7,
+             "name": "helper(9)#1", "ts": 420.0, "dur": 5.0},
+            {"ph": "X", "cat": "gpu_user_annotation", "pid": 0, "tid": 7,
+             "name": "warmup(8)", "ts": 430.0, "dur": 5.0},
+            {"ph": "X", "cat": "kernel", "pid": 0, "tid": 7, "name": "kw",
+             "ts": 431.0, "dur": 2.0},
+        ]
+        ledger = tl.build_ledger(tx.parse_trace_events(doc, include_ops=True))
+        # helper(9)#1 holds no kernel, so it makes no module span.
+        assert len(ledger.launches) == 5
+        assert tl.dispatch_count(ledger) == 2
+        assert ledger.raw_join_rate == 0.5
+        # Every count and rate reads dispatches: the 4 joined runs are
+        # one joined launch beside the anonymous one.
+        summary = ledger.to_dict()
+        assert summary["launches_with_ops"] == 2
+        assert summary["tier_counts"] == {"identity": 1}
+        assert summary["reasons"] == {"anonymous_launch": 1}
+        assert ledger.substantive_join_rate == 0.5
+        assert ledger.exact_substantive_join_rate == 0.5
+        breakdown = tx.launch_match_breakdown(
+            tx.parse_trace_events(doc, include_ops=True))
+        assert breakdown["launches"] == 2
+        assert breakdown["reasons"] == {"anonymous_launch": 1}
+        assert sum(breakdown["reasons"].values()) <= breakdown["launches"]
+
+    @pytest.mark.parametrize("seed,kw", list(zip((1337, 3, 21, 99, 7), ARG_SETS)))
+    def test_seeded_captures_have_one_record_per_dispatch(self, seed, kw):
+        (js, jc, _), (ts, tc, _) = both_captures(seed=seed, **kw)
+        ledger = tl.build_ledger(ts, tc)
+        assert tl.dispatch_count(ledger) == len(ledger.launches)
+        assert ledger.to_dict() == jl.build_ledger(js, jc).to_dict()
+
+
 # ---- roofline -----------------------------------------------------------
 
 H100 = "NVIDIA H100 80GB HBM3"

@@ -8,12 +8,16 @@ same numpy inputs, mirroring the forward cases of
 compute the same f32 math in another summation order), 3e-2 in bf16
 (bf16 inputs, f32 math, outputs rounded to bf16 on both sides).
 
-The CUDA kernel itself runs only on the card: ``tests/test_torch_card.py``
-holds it to the plain version there and skips elsewhere.
+The CUDA kernels themselves run only on the card:
+``tests/test_torch_card.py`` holds them to the plain version there and
+skips elsewhere.  Here: which kernel the wrapper routes a CUDA input to
+(by dtype and head dim alone), and the JAX package's f32 head-dim-128
+model on the port's plain path against JAX's logits.
 """
 
 from __future__ import annotations
 
+import importlib
 import shutil
 import stat
 
@@ -32,6 +36,9 @@ from tpuslo_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_reference,
     flash_eligible,
 )
+
+# The module (the package re-exports its function under the same name).
+tfa = importlib.import_module("tpuslo_torch.ops.flash_attention")
 
 F32_TOL = 2e-5
 BF16_TOL = 3e-2
@@ -167,11 +174,11 @@ def test_kernel_input_checks_raise(case):
 
 def test_head_dim_256_is_eligible_in_both_gates_but_refused_by_the_cuda_kernel():
     """Both eligibility gates accept any head dim that is a multiple of
-    128, and the JAX kernel computes at 256.  The CUDA kernel is
-    instantiated for head dims 128 and 256: it takes 256 now and refuses
-    the next multiple, 384, before launch (the card test holds the 256
-    instantiation to the plain version); on the CPU the plain version
-    computes."""
+    128, and the JAX kernel computes at 256.  The wgmma kernel (K1) is
+    instantiated for head dims 128 and 256: it takes 256 and refuses the
+    next multiple, 384, before launch (on the card 384 routes to K1-f32;
+    the card tests hold both to the plain version); on the CPU the plain
+    version computes."""
     shape, kv = (1, 128, 2, 256), 1
     assert flash_eligible(shape, kv) is True
     assert jfa.flash_eligible(shape, kv) is True
@@ -198,9 +205,10 @@ def test_head_dim_256_is_eligible_in_both_gates_but_refused_by_the_cuda_kernel()
     ],
 )
 def test_cuda_kernel_takes_the_instantiated_head_dims(shape, kv, takes):
-    """Every shape here passes both gates; the CUDA kernel's input check
+    """Every shape here passes both gates; the wgmma kernel's input check
     takes head dims 128 and 256 and refuses the rest before launch (a
-    CUDA tensor then raises: it never runs the plain version)."""
+    CUDA tensor at those head dims routes to K1-f32; it never runs the
+    plain version)."""
     assert flash_eligible(shape, kv) is jfa.flash_eligible(shape, kv) is True
     B, S, H, D = shape
     q = torch.zeros(*shape, dtype=torch.bfloat16)
@@ -262,6 +270,100 @@ def test_attention_block_routes_by_the_kernels_head_dim(monkeypatch, head_dim, l
     assert len(calls) == launches
     plain, _ = tl.attention_block(cfg, h, layer, cos, sin, mask, causal=False)
     assert (out - plain).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtypes,head_dim,route", [
+    ((torch.bfloat16,) * 3, 128, "wgmma"),
+    ((torch.bfloat16,) * 3, 256, "wgmma"),
+    ((torch.float32,) * 3, 128, "f32"),
+    ((torch.float32,) * 3, 256, "f32"),
+    ((torch.float16,) * 3, 128, "f32"),
+    ((torch.bfloat16,) * 3, 384, "f32"),
+    ((torch.bfloat16,) * 3, 512, "f32"),
+    ((torch.float32,) * 3, 512, "f32"),
+    ((torch.float32, torch.bfloat16, torch.bfloat16), 128, "f32"),
+    ((torch.bfloat16,) * 3, 640, "head dim 640"),
+    ((torch.float32,) * 3, 1024, "head dim 1024"),
+    ((torch.float64,) * 3, 128, "f32, bf16 or f16"),
+    ((torch.bfloat16,) * 3, 64, "K1-f32 takes"),
+])
+def test_kernel_route_by_dtype_and_head_dim(dtypes, head_dim, route):
+    """K1 serves bf16 at the head dims it is built for, K1-f32 every other
+    shape the JAX gate admits up to head dim 512; past that, or for a
+    dtype neither reads, the choice raises, naming why (a choice on
+    shapes alone, made before any launch)."""
+    if route in ("wgmma", "f32"):
+        assert tfa.kernel_route(dtypes, head_dim) == route
+    else:
+        with pytest.raises(ValueError, match=route):
+            tfa.kernel_route(dtypes, head_dim)
+
+
+def test_f32_check_refuses_what_no_kernel_reads():
+    """The shape checks both kernels share raise before any routing."""
+    q = torch.zeros(1, 128, 4, 256)[..., ::2]  # inner stride 2
+    k = v = torch.zeros(1, 128, 2, 128)
+    with pytest.raises(ValueError, match="unit inner stride"):
+        tfa._check_shapes(q, k, v)
+    with pytest.raises(ValueError, match="flash-eligible"):
+        tfa._check_shapes(*(t[:, :100] for t in (torch.zeros(1, 128, 4, 128), k, v)))
+
+
+@pytest.mark.parametrize("case,copied", [
+    ("contiguous", False),
+    ("head_slice", False),  # q[:, :, ::2]: strides stay multiples of 4
+    ("odd_offset", True),  # starts one element in: not 16-byte aligned
+    ("odd_row_stride", True),  # rows 130 elements apart
+])
+def test_f32_kernel_reads_aligned_rows_in_place(case, copied):
+    """K1-f32 reads rows four elements at a time: a tensor it can read
+    that way is passed as it is, any other as an equal contiguous copy."""
+    base = torch.arange(2 * 128 * 4 * 130, dtype=torch.float32).reshape(2, 128, 4, 130)
+    t = {
+        "contiguous": base[..., :128].contiguous(),
+        "head_slice": base[..., :128].contiguous()[:, :, ::2],
+        "odd_offset": base.reshape(-1)[1:1 + 2 * 128 * 4 * 128].reshape(2, 128, 4, 128),
+        "odd_row_stride": base[..., :128],
+    }[case]
+    got = tfa._vector_rows(t)
+    assert (got is not t) is copied
+    assert torch.equal(got, t)
+    if copied:
+        assert got.is_contiguous() and got.data_ptr() % 16 == 0
+
+
+def test_jax_f32_model_on_the_plain_path_matches_jax(monkeypatch):
+    """The JAX package's f32 head-dim-128 model
+    (``tests/test_flash_attention.py::TestModelIntegration``), same weights
+    through numpy: the port's forward on the CPU (its flash-eligible
+    attention through the plain version of K1-f32's arithmetic) against
+    the JAX forward with the Pallas kernel in interpret mode, 1e-4."""
+    import dataclasses
+
+    import jax
+
+    from tpuslo.models import llama as jl
+    from tpuslo_torch.models import bridge
+    from tpuslo_torch.models import llama as tl
+
+    kw = dict(vocab_size=256, dim=256, n_layers=2, n_heads=2, n_kv_heads=1,
+              ffn_dim=512, max_seq_len=128)
+    cj = dataclasses.replace(jl.LlamaConfig(**kw), dtype=jnp.float32)
+    ct = dataclasses.replace(tl.LlamaConfig(**kw), dtype=torch.float32)
+    assert ct.head_dim == 128
+    pj = jl.init_params(jax.random.PRNGKey(0), cj)
+    pt = bridge.params_from_numpy(jax.tree.map(np.asarray, pj), ct, "cpu")
+    tokens = np.random.default_rng(1).integers(0, 256, (2, 128))
+    monkeypatch.setenv("TPUSLO_FLASH_ATTENTION", "1")
+    want = np.asarray(jl.forward(pj, jnp.asarray(tokens), cj), np.float32)
+    calls = []
+    real = tl.flash_attention
+    monkeypatch.setattr(tl, "flash_attention",
+                        lambda *a, **k: calls.append(a[0].dtype) or real(*a, **k))
+    got = tl.forward(pt, torch.from_numpy(tokens), ct)
+    assert calls == [torch.float32] * ct.n_layers
+    assert tfa.kernel_route(calls[:1] * 3, ct.head_dim) == "f32"
+    assert np.abs(got.numpy() - want).max() < 1e-4
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

@@ -1,5 +1,7 @@
 """The port stands alone: nothing in ``tpuslo_torch/`` or ``chip_smoke.py``
-imports JAX or the JAX package (``tpuslo``), statically or at run time."""
+imports JAX or the JAX package (``tpuslo``), statically or at run time,
+nor ``jsonschema`` (the card's machine does not have it; the port's
+contract validator is its own)."""
 
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ PORT_FILES = sorted((REPO / "tpuslo_torch").rglob("*.py")) + [REPO / "chip_smoke
 
 def _forbidden(module: str) -> bool:
     root = module.split(".")[0]
-    return root in ("jax", "jaxlib", "tpuslo")
+    return root in ("jax", "jaxlib", "tpuslo", "jsonschema")
 
 
 def _imported_modules(tree: ast.AST):
@@ -45,7 +47,12 @@ def test_port_files_exist():
                 "deviceplane/ledger.py", "deviceplane/synthetic.py",
                 "deviceplane/roofline.py", "deviceplane/profiler.py",
                 "collector/hbm_sampler.py", "collector/native.py",
-                "collector/ringbuf.py"):
+                "collector/ringbuf.py", "collector/synthetic.py",
+                "schema/types.py", "schema/validator.py", "schema/fastpath.py",
+                "signals/metadata.py", "signals/mode.py", "attribution/mapper.py",
+                "attribution/bayesian.py", "attribution/pipeline.py",
+                "attribution/io.py", "attribution/calibrate.py",
+                "columnar/posterior.py", "faultreplay/generator.py"):
         assert REPO / "tpuslo_torch" / rel in PORT_FILES
 
 
@@ -64,8 +71,11 @@ def test_importing_the_port_loads_no_jax():
         "tpuslo_torch.deviceplane, tpuslo_torch.obs.tracer, tpuslo_torch.obs, "
         "tpuslo_torch.otel.xla_spans, tpuslo_torch.signals, "
         "tpuslo_torch.collector.hbm_sampler, tpuslo_torch.collector.ringbuf, "
-        "tpuslo_torch.deviceplane.profiler; "
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tpuslo')); "
+        "tpuslo_torch.deviceplane.profiler, tpuslo_torch.schema, "
+        "tpuslo_torch.attribution, tpuslo_torch.attribution.calibrate, "
+        "tpuslo_torch.columnar, tpuslo_torch.faultreplay, tpuslo_torch.signals.mode; "
+        "bad = sorted(m for m in sys.modules "
+        "if m.split('.')[0] in ('jax', 'tpuslo', 'jsonschema')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     proc = subprocess.run(

@@ -205,3 +205,56 @@ def test_pool_attention_matches_jax(quantized):
         torch.from_numpy(lens), block_size=BS,
     )
     np.testing.assert_allclose(ref[:2].numpy(), got[:2].numpy(), **INT8_TOL)
+
+
+@pytest.mark.parametrize("q_dtype,pool_dtype,int8,route", [
+    (torch.bfloat16, torch.bfloat16, False, "split"),
+    (torch.bfloat16, torch.int8, True, "split"),
+    (torch.float32, torch.float32, False, "f32"),
+    (torch.float32, torch.bfloat16, False, "no CUDA kernel"),
+    (torch.bfloat16, torch.float32, False, "no CUDA kernel"),
+    (torch.float32, torch.int8, True, "no CUDA kernel"),
+    (torch.float16, torch.float16, False, "no CUDA kernel"),
+])
+def test_kernel_route_by_dtype(q_dtype, pool_dtype, int8, route):
+    """K2 serves a bf16 q over bf16 or int8 pools, K2-f32 an f32 q over
+    f32 pools; any other pairing raises before launch (a choice on dtypes
+    alone)."""
+    if route in ("split", "f32"):
+        assert tpa.kernel_route(q_dtype, pool_dtype, int8) == route
+    else:
+        with pytest.raises(ValueError, match=route):
+            tpa.kernel_route(q_dtype, pool_dtype, int8)
+
+
+@pytest.mark.parametrize("case,ok", [
+    ("f32_hd128", True), ("f32_hd64", True), ("f32_q_bf16_pool", False),
+    ("f32_hd96", False), ("f32_group5", False), ("f32_long_table", False),
+])
+def test_kernel_input_checks_take_f32_pools(case, ok):
+    """The input checks in front of both kernels take f32 pools at the
+    head dims and group sizes K2-f32 is built for."""
+    HD = {"f32_hd64": 64, "f32_hd96": 96}.get(case, 128)
+    KV, n_rep = 2, 5 if case == "f32_group5" else 3
+    q = torch.zeros(2, KV * n_rep, HD)
+    k = torch.zeros(6, 16, KV, HD, dtype=torch.bfloat16 if case == "f32_q_bf16_pool"
+                    else torch.float32)
+    table = torch.zeros(2, 4, dtype=torch.int64 if case == "f32_long_table" else torch.int32)
+    lengths = torch.zeros(2, dtype=torch.int32)
+    args = (q, k, None, k, None, table, lengths, 16, torch.float32)
+    if ok:
+        tpa._check_kernel_inputs(*args)
+    else:
+        with pytest.raises(ValueError):
+            tpa._check_kernel_inputs(*args)
+
+
+def test_cpu_f32_pools_take_the_plain_path():
+    q, k, v, table, lens = _setup(HD=64)
+    before = (tpa.paged_decode_attention.launches, tpa.paged_decode_attention.f32_launches)
+    out = tpa.paged_decode_attention(_torch(q), _torch(k), _torch(v), _torch(table),
+                                     _torch(lens), block_size=BS)
+    assert (tpa.paged_decode_attention.launches,
+            tpa.paged_decode_attention.f32_launches) == before
+    assert torch.equal(out, tpa.paged_decode_attention_reference(
+        _torch(q), _torch(k), _torch(v), _torch(table), _torch(lens), block_size=BS))

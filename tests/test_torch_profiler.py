@@ -1,16 +1,18 @@
 """The port's continuous profiler (``tpuslo_torch.deviceplane.profiler``)
 against the JAX module's: cadence, the overhead governor, per-window /
-spliced-capture ledger parity, emission, the state round trip and
-construction (the cases of ``tests/test_profiler.py`` but its sweep
-gate, which is not ported).
+spliced-capture ledger parity, emission, the state round trip,
+construction and the seeded sweep gate (the cases of
+``tests/test_profiler.py``).
 
 Both profilers run side by side on the seeded lane (each over its own
 package's synthetic capture, which give equal spans) or under one
 injected ``capture_fn`` and ``cost_fn``; their windows, stride changes
 and payload values must be equal.  The roofline fields are held to the
 JAX fold at the H100's roofs (the JAX profiler's default roofs are
-another chip's).  The ``"torch"`` lane is driven over the port's CPU
-engines.
+another chip's).  The sweep gate runs at the JAX package's default roofs
+(its seeded step durations are drawn against them), so that the two
+sweeps see equal captures and must make equal decisions.  The ``"torch"``
+lane is driven over the port's CPU engines.
 """
 
 from __future__ import annotations
@@ -497,3 +499,71 @@ class TestTorchLane:
             names |= {s.module_name for s in load_trace_file(str(path))}
         assert {"prefill", "inject_rows", "spec_multi_round"} <= names
         assert all(w is not None and w.launches >= 1 for w in windows)
+
+
+#: The roofs the JAX sweep folds at (``tpuslo/deviceplane/roofline.py``
+#: defaults); only here, to hold the port's sweep to the JAX one.
+JAX_SWEEP_ROOFS = dict(peak_bw=jr.V5E_PEAK_HBM_BW, peak_flops=jr.V5E_PEAK_BF16_FLOPS)
+# Report fields that are measured host times, and what follows from them
+# (the governor backs off, and captures fewer windows, on a slow host).
+SWEEP_TIMING = {"overhead": ("overhead_ema_pct", "mean_capture_cost_ms", "degradations",
+                             "windows"),
+                "joins": ("windows",)}
+
+
+def _without_timing(report: dict) -> dict:
+    out = {k: (dict(v) if isinstance(v, dict) else v) for k, v in report.items()}
+    for lane, keys in SWEEP_TIMING.items():
+        for key in keys:
+            out[lane].pop(key, None)
+    return out
+
+
+class TestProfilerSweep:
+    @pytest.fixture(scope="class")
+    def sweeps(self):
+        got = tp.run_profiler_sweep(seed=1337, cycles=12, parity_windows=3,
+                                    **JAX_SWEEP_ROOFS)
+        want = jp.run_profiler_sweep(seed=1337, cycles=12, parity_windows=3)
+        return got, want
+
+    def test_sweep_passes_at_default_seed(self, sweeps):
+        report, _ = sweeps
+        assert report.passed, report.failures
+        assert report.overhead["overhead_ema_pct"] <= tp.MAX_OVERHEAD_PCT
+        assert report.joins["min_substantive_join_rate"] >= tp.MIN_WINDOW_SUBSTANTIVE_JOIN
+        assert report.governor["degradations"] >= 1
+        assert report.governor["reengagements"] >= 1
+        assert report.governor["forced_capture_evictions"] >= 1
+        assert report.parity["worst_bucket_drift_us"] <= tp.MAX_PARITY_DRIFT_US
+        assert report.preemption["top_domain"] == "tpu_preemption"
+
+    def test_sweep_makes_the_jax_decisions(self, sweeps):
+        got, want = sweeps
+        assert _without_timing(got.to_dict()) == _without_timing(want.to_dict())
+
+    @pytest.mark.parametrize("seed", [7, 2024])
+    def test_other_seeds_make_the_jax_decisions(self, seed):
+        got = tp.run_profiler_sweep(seed=seed, cycles=6, parity_windows=2, **JAX_SWEEP_ROOFS)
+        want = jp.run_profiler_sweep(seed=seed, cycles=6, parity_windows=2)
+        assert _without_timing(got.to_dict()) == _without_timing(want.to_dict())
+
+    def test_gate_floors_equal_jax(self):
+        for name in ("MAX_OVERHEAD_PCT", "MIN_WINDOW_SUBSTANTIVE_JOIN", "MAX_PARITY_DRIFT_US"):
+            assert getattr(tp, name) == getattr(jp, name)
+
+    def test_sweep_without_roofs_reads_the_card(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tp.run_profiler_sweep(seed=1, cycles=2, parity_windows=1)
+
+    def test_report_dict_shape(self):
+        report = tp.ProfilerReport(seed=7)
+        assert report.passed
+        report.failures.append("x")
+        data = report.to_dict()
+        assert data["passed"] is False
+        assert set(data) == set(jp.ProfilerReport(seed=7).to_dict()) == {
+            "seed", "passed", "overhead", "governor", "joins", "parity",
+            "preemption", "failures",
+        }

@@ -13,7 +13,8 @@
   layout the port's parser reads, so the ledger is held off the card;
 * :mod:`tpuslo_torch.deviceplane.profiler` — the continuous profiler:
   stride-gated capture windows folded through the ledger under a
-  measured-overhead governor.
+  measured-overhead governor, and its seeded sweep gate
+  (``run_profiler_sweep``).
 """
 
 from tpuslo_torch.deviceplane.dispatch import DispatchLedger
@@ -32,12 +33,15 @@ from tpuslo_torch.deviceplane.ledger import (
     DeviceWindow,
     LaunchRecord,
     build_ledger,
+    dispatch_count,
+    dispatch_records,
 )
 from tpuslo_torch.deviceplane.profiler import (
     ContinuousProfiler,
+    ProfilerReport,
     ProfilerWindow,
     concat_window_docs,
-    dispatch_count,
+    run_profiler_sweep,
     seeded_cost_model,
 )
 from tpuslo_torch.deviceplane.roofline import (
@@ -68,6 +72,7 @@ __all__ = [
     "DeviceWindow",
     "DispatchLedger",
     "LaunchRecord",
+    "ProfilerReport",
     "ProfilerWindow",
     "VERDICT_COMPUTE_BOUND",
     "VERDICT_MEMORY_BOUND",
@@ -77,8 +82,10 @@ __all__ = [
     "concat_window_docs",
     "decode_step_cost",
     "dispatch_count",
+    "dispatch_records",
     "peaks_for_chip",
     "roofline_verdict",
+    "run_profiler_sweep",
     "seeded_cost_model",
     "synthesize_xprof_trace",
     "verdict_from_ledger",

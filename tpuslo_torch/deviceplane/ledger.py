@@ -2,6 +2,17 @@
 own copy of ``tpuslo/deviceplane/ledger.py``: a pure fold, unchanged,
 over the port's :class:`~tpuslo_torch.otel.xla_spans.XLASpan`).
 
+What a launch is: on a TPU one module span is one program execution, and
+the JAX ledger makes one record per span.  On a card the port's parser
+cuts each dispatch into one module span per run of its kernels, so a
+dispatch can have thousands of records.  The records stay (the fold
+needs them for exact idle gaps and owned times), and every count of
+launches reads them by dispatch (:func:`dispatch_records`): the
+published ``launches``, ``launches_with_ops``, tier and reason counts,
+and both sides of every join rate.  On a capture where every record is
+its own dispatch (a TPU's, the seeded ones) these are the JAX ledger's
+counts.
+
 The real-chip evidence had ``xla_launch_join_rate`` at 0.556 — half of
 device time unexplained — because the only join the pipeline served was
 the exact ``(program_id, launch_id)`` identity: dispatch-only helper
@@ -216,7 +227,7 @@ class DeviceLedger:
             if rec.bucket == BUCKET_UNEXPLAINED
         ]
         return {
-            "launches": len(self.launches),
+            "launches": dispatch_count(self),
             "launches_with_ops": self.launches_with_ops,
             "devices": len(self.devices),
             "total_device_time_ms": round(self.total_us / 1000.0, 3),
@@ -239,6 +250,40 @@ class DeviceLedger:
             },
             "unexplained_examples": unexplained[:example_cap],
         }
+
+
+_TIER_RANK = {
+    TIER_IDENTITY: 0,
+    TIER_LANE_WINDOW: 1,
+    TIER_COMPILE_EVENT: 2,
+    TIER_FRAME: 3,
+    TIER_NONE: 4,
+}
+
+
+def dispatch_records(records: Iterable[LaunchRecord]) -> list[LaunchRecord]:
+    """One record per dispatch, in order of first appearance: of the
+    records of one (device, program, launch number), the one furthest up
+    the tier ladder (the earliest on a tie) stands for the dispatch, so
+    a dispatch joins when one of its runs joined.  A record without a
+    launch number stands alone."""
+    best: dict[tuple, LaunchRecord] = {}
+    for i, rec in enumerate(records):
+        key = (
+            (rec.device_pid, rec.program_id, rec.launch_id)
+            if rec.launch_id >= 0
+            else (i,)
+        )
+        held = best.get(key)
+        if held is None or _TIER_RANK[rec.tier] < _TIER_RANK[held.tier]:
+            best[key] = rec
+    return list(best.values())
+
+
+def dispatch_count(ledger: DeviceLedger) -> int:
+    """Launches in a ledger, counted by dispatch
+    (:func:`dispatch_records`)."""
+    return len(dispatch_records(ledger.launches))
 
 
 def _compile_index(
@@ -404,11 +449,6 @@ def build_ledger(
 
     by_id, ordered_compiles, compile_ends = _compile_index(compile_events)
 
-    exact_identity = 0
-    substantive = 0
-    with_own_ops = 0
-    anon_with_own_ops = 0
-
     total_unclaimed = orphan_unowned
     for pid in sorted(mods_by_dev):
         mods = sorted_mods[pid]
@@ -465,14 +505,10 @@ def build_ledger(
         for i, rec in enumerate(records):
             if rec.ops_count > 0:
                 rec.ops_source = "own"
-                with_own_ops += 1
                 if rec.launch_id >= 0:
                     rec.tier = TIER_IDENTITY
                     rec.bucket = BUCKET_JOINED
-                    exact_identity += 1
-                    substantive += 1
                     continue
-                anon_with_own_ops += 1
                 rec.reason = REASON_ANONYMOUS
                 event = _match_compile(
                     rec, by_id, ordered_compiles, compile_ends,
@@ -481,7 +517,6 @@ def build_ledger(
                 if event is not None:
                     rec.tier = TIER_COMPILE_EVENT
                     rec.bucket = BUCKET_COMPILE
-                    substantive += 1
                 continue
 
             # No ops on the launch's own lane: probe the satellite
@@ -507,7 +542,6 @@ def build_ledger(
                 if rec.launch_id >= 0:
                     rec.tier = TIER_LANE_WINDOW
                     rec.bucket = BUCKET_JOINED
-                    substantive += 1
                 else:
                     rec.reason = REASON_ANONYMOUS
                     event = _match_compile(
@@ -517,7 +551,6 @@ def build_ledger(
                     if event is not None:
                         rec.tier = TIER_COMPILE_EVENT
                         rec.bucket = BUCKET_COMPILE
-                        substantive += 1
                 continue
 
             # Dispatch-only helper (or a launch on an ops-less device).
@@ -553,36 +586,42 @@ def build_ledger(
         ledger.launches.extend(records)
         total_unclaimed += orphan_claimed.count(False)
 
-    # Ops-bearing launches after lane recovery (the substantive
-    # denominator): own-lane ops + lane-window recoveries.
-    launches_with_ops = sum(
-        1 for rec in ledger.launches if rec.ops_count > 0
-    )
-
     for rec in ledger.launches:
         ledger.buckets_us[rec.bucket] = (
             ledger.buckets_us.get(rec.bucket, 0.0) + rec.owned_us
         )
-        if rec.tier != TIER_NONE:
-            ledger.tier_counts[rec.tier] = (
-                ledger.tier_counts.get(rec.tier, 0) + 1
-            )
-        if rec.reason and rec.bucket == BUCKET_UNEXPLAINED:
-            ledger.reasons[rec.reason] = ledger.reasons.get(rec.reason, 0) + 1
     ledger.buckets_us[BUCKET_IDLE_GAP] = sum(
         d.idle_gap_us for d in ledger.devices
     )
     for bucket in ALL_BUCKETS:
         ledger.buckets_us.setdefault(bucket, 0.0)
 
-    ledger.launches_with_ops = launches_with_ops
+    # Every count below is of dispatches, numerators and denominators
+    # alike, so no rate can pass 1.
+    dispatches = dispatch_records(ledger.launches)
+    exact = with_ops = substantive = with_own_ops = anon_with_own_ops = 0
+    for rec in dispatches:
+        if rec.tier != TIER_NONE:
+            ledger.tier_counts[rec.tier] = (
+                ledger.tier_counts.get(rec.tier, 0) + 1
+            )
+        if rec.reason and rec.bucket == BUCKET_UNEXPLAINED:
+            ledger.reasons[rec.reason] = ledger.reasons.get(rec.reason, 0) + 1
+        exact += rec.tier == TIER_IDENTITY
+        if rec.ops_count > 0:
+            # Ops-bearing after lane recovery (the substantive
+            # denominator): own-lane ops + lane-window recoveries.
+            with_ops += 1
+            substantive += rec.tier != TIER_NONE
+        if rec.ops_source == "own":
+            with_own_ops += 1
+            anon_with_own_ops += rec.launch_id < 0
+
+    ledger.launches_with_ops = with_ops
     ledger.orphan_ops_unclaimed = total_unclaimed
-    total_launches = len(ledger.launches)
-    ledger.raw_join_rate = (
-        exact_identity / total_launches if total_launches else 0.0
-    )
+    ledger.raw_join_rate = exact / len(dispatches) if dispatches else 0.0
     ledger.substantive_join_rate = (
-        substantive / launches_with_ops if launches_with_ops else 0.0
+        substantive / with_ops if with_ops else 0.0
     )
     ledger.exact_substantive_join_rate = (
         (with_own_ops - anon_with_own_ops) / with_own_ops

@@ -12,13 +12,15 @@ routes by the device of its inputs alone:
 * a CPU tensor runs :func:`paged_decode_attention_reference`, the plain
   PyTorch version of the kernel's arithmetic (the CPU tests hold it to
   the Pallas kernel in interpret mode);
-* a CUDA tensor launches the hand-written Hopper kernel in
-  ``csrc/paged_attention.cu`` (built with nvcc at first use, see
-  :mod:`tpuslo_torch.ops._build`), or the call raises: on a pool that is
-  neither bf16 nor int8, a page table or lengths that are not int32, a
-  head dim other than 64 or 128, a layout the kernel does not read, a
-  failed build or a refused launch.  There is no fallback from the card
-  to the plain version.
+* a CUDA tensor launches one of two hand-written Hopper kernels (built
+  with nvcc at first use, see :mod:`tpuslo_torch.ops._build`), chosen by
+  :func:`kernel_route` from the dtypes alone: K2 (``csrc/paged_attention.cu``)
+  for a bf16 q over bf16 or int8 pools, K2-f32
+  (``csrc/attention_f32.cu``, full-f32 FFMA products) for an f32 q over
+  f32 pools; or the call raises: on other dtypes, a page table or
+  lengths that are not int32, a head dim other than 64 or 128, a layout
+  the kernel does not read, a failed build or a refused launch.  There
+  is no fallback from the card to the plain version.
 
 The kernel splits each lane's walk over its blocks into spans of at
 most :data:`SPAN` positions (flash-decoding): :func:`split_plan` sizes
@@ -28,8 +30,9 @@ model of that split-then-combine arithmetic (the CPU tests hold it to
 the reference and to the Pallas kernel).
 
 ``paged_decode_attention.launches`` counts wrapper calls that launched
-the kernel (one per call, though a call launches a split and a combine
-kernel), so that a run can show that its path went through the kernel.
+K2 (one per call, though a call launches a split and a combine kernel)
+and ``paged_decode_attention.f32_launches`` those that launched K2-f32,
+so that a run can show that its path went through the kernel.
 """
 
 from __future__ import annotations
@@ -47,6 +50,26 @@ GROUP_SIZES = (1, 2, 3, 4, 8)  # query heads per kv head it is built for
 MAX_BLOCK_SIZE = 1024  # the largest pool block the kernel is built for
 SPAN = 64  # logical positions one CTA of the kernel holds at most
 MAX_SPLITS = 65535  # spans per lane: the kernel's grid z limit
+ROUTE_SPLIT = "split"  # K2: bf16 q, bf16 or int8 pools
+ROUTE_F32 = "f32"  # K2-f32: f32 q, f32 pools
+
+
+def kernel_route(q_dtype: torch.dtype, pool_dtype: torch.dtype, int8_pool: bool) -> str:
+    """Which CUDA kernel serves a q of ``q_dtype`` over pools of
+    ``pool_dtype`` (the codes' dtype for an int8 ``{q, s}`` pool):
+    :data:`ROUTE_SPLIT` (K2) or :data:`ROUTE_F32` (K2-f32).  Raises
+    ``ValueError`` for a pairing no kernel is built for."""
+    if q_dtype == torch.bfloat16 and (
+        pool_dtype == torch.bfloat16 or (int8_pool and pool_dtype == torch.int8)
+    ):
+        return ROUTE_SPLIT
+    if q_dtype == torch.float32 and pool_dtype == torch.float32 and not int8_pool:
+        return ROUTE_F32
+    raise ValueError(
+        f"no CUDA kernel takes a {q_dtype} q over {'int8 ' if int8_pool else ''}"
+        f"{pool_dtype} pools: K2 takes a bf16 q over bf16 or int8 pools, "
+        "K2-f32 an f32 q over f32 pools"
+    )
 
 
 @dataclass(frozen=True)
@@ -233,6 +256,20 @@ def _kernel():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _kernel_f32():
+    lib = _build.load("attention_f32")
+    fn = lib.tpuslo_paged_decode_attention_f32
+    fn.argtypes = (
+        [ctypes.c_void_p] * 6
+        + [ctypes.c_int] * 7
+        + [ctypes.c_longlong] * 8
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _check_kernel_inputs(q, kq, ks, vq, vs, page_table, lengths, block_size, out_dtype):
     if q.ndim != 3:
         raise ValueError(f"q must be (B, H, HD), got {tuple(q.shape)}")
@@ -250,12 +287,7 @@ def _check_kernel_inputs(q, kq, ks, vq, vs, page_table, lengths, block_size, out
     for name, t in tensors.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"the CUDA kernel takes a bf16 q; q is {q.dtype}")
-    if ks is None and kq.dtype != torch.bfloat16:
-        raise ValueError(
-            f"the CUDA kernel takes bf16 or int8 {{q, s}} pools; the pool is {kq.dtype}"
-        )
+    kernel_route(q.dtype, kq.dtype, ks is not None)
     if ks is not None:
         if kq.dtype != torch.int8 or vq.dtype != torch.int8:
             raise ValueError("int8 pools need int8 codes")
@@ -324,9 +356,10 @@ def paged_decode_attention(
     and is visible).  Returns ``(B, H, HD)`` in ``out_dtype``.
 
     On the CPU this is :func:`paged_decode_attention_reference`.  On
-    CUDA it launches the Hopper kernel on the current stream (bf16 q,
-    bf16 or int8 pools, int32 page table and lengths, head dim 64 or
-    128) and raises on anything else.  It reads the lengths and the page
+    CUDA it launches, on the current stream, K2 (bf16 q, bf16 or int8
+    pools) or K2-f32 (f32 q and pools), as :func:`kernel_route` says,
+    with an int32 page table and lengths and head dim 64 or 128, and
+    raises on anything else.  It reads the lengths and the page
     table on the device and sizes its grid and scratch from shapes
     alone: the call never waits for the card, and it can be captured in
     a CUDA graph and replayed after the lengths and the table change in
@@ -348,6 +381,8 @@ def paged_decode_attention(
     B, H, HD = q.shape
     N, BS, KV, _ = kq.shape
     MB = page_table.shape[1]
+    if kernel_route(q.dtype, kq.dtype, ks is not None) == ROUTE_F32:
+        return _paged_f32(q, kq, vq, page_table, lengths, BS, out_dtype)
     plan = split_plan(B, KV, H // KV, HD, BS, MB)
     out = torch.empty((B, H, HD), dtype=out_dtype, device=q.device)
     scratch = torch.empty(plan.scratch_shape, dtype=torch.float32, device=q.device)
@@ -373,4 +408,26 @@ def paged_decode_attention(
     return out
 
 
+def _paged_f32(q, kq, vq, page_table, lengths, BS, out_dtype):
+    """Launch K2-f32 (checked by :func:`_check_kernel_inputs`)."""
+    B, H, HD = q.shape
+    N, _, KV, _ = kq.shape
+    out = torch.empty((B, H, HD), dtype=out_dtype, device=q.device)
+    fn = _kernel_f32()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            q.data_ptr(), kq.data_ptr(), vq.data_ptr(), page_table.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(),
+            B, KV, H // KV, HD, N, BS, page_table.shape[1],
+            *q.stride()[:2], *kq.stride()[:3], page_table.stride(0), *out.stride()[:2],
+            HD**-0.5, int(out_dtype == torch.float32), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"paged_decode_attention f32 kernel launch failed: CUDA error {err}")
+    paged_decode_attention.f32_launches += 1
+    return out
+
+
 paged_decode_attention.launches = 0
+paged_decode_attention.f32_launches = 0

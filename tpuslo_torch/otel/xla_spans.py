@@ -660,20 +660,24 @@ def launch_match_breakdown(
     ``no_contained_ops`` (a dispatch that queued no device work inside
     its window), ``ops_assigned_to_overlapping_launch``,
     ``ops_on_split_lane`` and ``anonymous_launch`` (no launch number).
-    ``reasons`` counts only launches that did NOT end up joined.  Pass a
+    ``reasons`` counts only launches that did NOT end up joined.  Every
+    count is of dispatches, each read through the record that stands for
+    it (:func:`~tpuslo_torch.deviceplane.ledger.dispatch_records`).  Pass a
     prebuilt ``ledger`` (from the same spans and compile events) to
     avoid folding twice."""
     from tpuslo_torch.deviceplane.ledger import (
         BUCKET_JOINED,
         BUCKET_UNEXPLAINED,
         build_ledger,
+        dispatch_records,
     )
 
     if ledger is None:
         ledger = build_ledger(spans, compile_events or ())
     reasons: dict[str, int] = {}
     unmatched: list[dict[str, Any]] = []
-    for rec in ledger.launches:
+    dispatches = dispatch_records(ledger.launches)
+    for rec in dispatches:
         if rec.tier == "identity":
             continue  # the exact join serves these
         if rec.reason and rec.bucket != BUCKET_JOINED:
@@ -693,7 +697,7 @@ def launch_match_breakdown(
                 }
             )
     return {
-        "launches": len(ledger.launches),
+        "launches": len(dispatches),
         "launches_with_ops": ledger.launches_with_ops,
         "unmatched_count": len(unmatched),
         "reasons": reasons,
