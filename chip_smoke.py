@@ -14,7 +14,8 @@ non-zero exit and no result line:
    and K2-f32) with nvcc for sm_90a, one nvcc each, started together;
    build seconds and one ptxas line per kernel instantiation (registers,
    spills, static shared memory; the main path's marked), and any ptxas
-   "Performance Loss" line;
+   "Performance Loss" line; fails if a K1-f32 or K2-f32 instantiation
+   spills or one the main path runs is missing;
 3. K1 vs plain: the kernel against ``flash_attention_reference`` (f32 on
    the card) at Llama-3.2-3B's attention widths, at every shape the
    serve phase gives it and a few more, with kernel, plain and library
@@ -24,7 +25,9 @@ non-zero exit and no result line:
    shapes (no model of the repo has that head dim); then K1-f32 (f32 at
    the JAX f32 model test's shape, at Llama-3.2-3B's widths and at head
    dims 256, 384 and 512; bf16 at 384 and 512) against the same plain
-   version within 1e-4, with SDPA in f32 as its library yardstick;
+   version within 1e-4, with SDPA in the inputs' dtype as its library
+   yardstick, its bound (3xTF32 on f32 inputs) and the FFMA-rate bound
+   beside it;
 4. serve: a full-depth, full-width ``llama32_3b`` ``ServeEngine`` with
    seeded random weights answers three ``generate`` requests and one
    ``generate_batch``; K1's launch count over this phase must be one per
@@ -46,8 +49,10 @@ non-zero exit and no result line:
    with kernel, plain and dense-SDPA times, the bound, the kernel's ratio
    to dense SDPA and its share of the bound; the kernels one K2 call
    launches (split and combine) are learned by profiling one call; then
-   K2-f32 at the paged phase's tables over an f32 copy of the pool,
-   within 1e-4;
+   K2-f32 at the paged phase's tables over an f32 copy of the pool, and
+   at llama_tiny's attention (head dim 16) in bf16, in f32 over int8
+   pools and in f16, each within 1e-4 (plus half an output ulp), with
+   dense SDPA over the gathered K/V beside it;
 8. breakdown: one paged decode step with 8 live lanes, with K2 and with
    the plain pool attention; K2's time in the step sums every kernel one
    call launches;
@@ -94,7 +99,10 @@ non-zero exit and no result line:
     (kernel path) against the same weights on the CPU (plain path); then
     the JAX package's f32 head-dim-128 model: its prefill logits on the
     card (K1-f32) against the CPU within 1e-4, and a paged engine on it
-    with K2-f32 against the same engine on the CPU;
+    with K2-f32 against the same engine on the CPU; then, with the K2
+    switch on, bf16 ``llama_tiny`` (head dim 16) and the f32 model over
+    int8 pools, each launching K2-f32 once per layer per step, streams
+    held to the CPU engine's;
 15. the ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card and imports nothing of JAX or of the JAX package.
@@ -116,9 +124,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet, dense: bf16 tensor-core rate, f32 rate
-# outside the tensor cores (what K1-f32 and K2-f32 run on) and HBM3 rate.
+# NVIDIA H100 SXM data sheet, dense: bf16 and TF32 tensor-core rates, f32
+# rate outside the tensor cores (what K2-f32 runs on) and HBM3 rate.  An
+# f32-accurate product on the tensor cores is three TF32 products
+# (3xTF32, what K1-f32 runs on f32 inputs).
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -154,12 +166,14 @@ PARITY_TOL = 0.125
 # bf16.  A dropped or misread block moves a row by O(1) of its RMS.
 PAGED_TOL = 2e-2
 PAGED_ROW_TOL = 0.025
-# K1-f32 and K2-f32 vs their plain versions: both sides compute in f32
-# (FFMA on the card, TF32 off) and differ only in the order of the sums;
-# a bf16 output (K1-f32 reading bf16 at head dims 384 and 512) adds its
-# own rounding, half an ulp: at most 2^-8 of |o|, allowed on top.
+# K1-f32 and K2-f32 vs their plain versions: both sides compute at f32
+# accuracy (K1-f32 in split-precision tensor-core products, K2-f32 in
+# FFMA) and differ in the order of the sums and in the ~2^-17 of p that
+# K1-f32's two-piece p leaves on 16-bit inputs; a bf16 or f16 output adds
+# its own rounding, half an ulp: at most 2^-8 (bf16) or 2^-11 (f16) of
+# |o|, allowed on top.
 F32_TOL = 1e-4
-F32_OUT_ULP = {"f32": 0.0, "bf16": 2.0**-8}
+F32_OUT_ULP = {"f32": 0.0, "bf16": 2.0**-8, "f16": 2.0**-11}
 # K1-f32's shapes, (B, S, H, KV, D, causal, input dtype): the JAX f32
 # model test's attention (the f32 path's prefill, the kernels line's
 # shape), Llama-3.2-3B's widths in f32, the other head dims in f32, and
@@ -186,6 +200,17 @@ F32_MODEL_JOBS = [("The card serves an f32 model.", None),
                   ("Every product in f32.", None),
                   ("No tensor cores here.", None)]
 F32_MODEL_TOKENS = 8
+# K2-f32 at llama_tiny's attention (H 4, KV 2, HD 16, the JAX package's
+# own Pallas engine test's model), over random tables of 8 lanes, 8 blocks
+# of 16 (its engine's block size), 40 pool blocks: (name, q dtype, pool).
+TINY_ATTENTION = dict(H=4, KV=2, HD=16, B=8, MB=8, N=40, BS=16)
+TINY_K2_CASES = (("hd16-bf16", "bf16", "bf16"), ("hd16-f32-int8", "f32", "int8"),
+                 ("hd16-f16", "f16", "f16"))
+# Phase 14's paged engines with the K2 switch on and K2-f32 under it, in
+# blocks of F32_ENGINE_BLOCK: bf16 llama_tiny (head dim 16), and the f32
+# head-dim-128 model over int8 pools.
+TINY_ENGINE_JOBS = [("pallas paged", None), ("a second longer request prompt", None),
+                    ("third", None)]
 
 # The issue's shapes, (B, S, causal) at llama32_3b's H=24, KV=8, D=128;
 # the shapes the serve phase gives the kernel are added to these.
@@ -211,11 +236,14 @@ WIDE_SHAPES = ((1, 256, True), (8, 256, True), (1, 2048, True))
 KERNELS = ("flash_attention", "paged_attention", "attention_f32")  # csrc/<name>.cu
 # The instantiations the main path runs: K1, and K2's split and combine
 # kernels for a bf16 pool at Llama-3.2-3B's head dim 128 and 3 query heads
-# per kv head; K1-f32 and K2-f32 at the f32 model's head dim 128 and 2
-# query heads per kv head.
+# per kv head; K1-f32 at the f32 model's head dim 128; K2-f32's split and
+# combine kernels for the f32 model's f32 pool and its int8 pool at head
+# dim 128, and for llama_tiny's bf16 pool at head dim 16.
 PATH_INSTANTIATIONS = ("flash_fwd_kernel<128>", "paged_split_kernel<bf16,128,3>",
                        "paged_combine_kernel<128,3>", "flash_f32_kernel<f32,128>",
-                       "paged_f32_kernel<128,2>")
+                       "paged_f32_kernel<f32,128>", "paged_f32_kernel<int8,128>",
+                       "paged_f32_combine_kernel<128>", "paged_f32_kernel<bf16,16>",
+                       "paged_f32_combine_kernel<16>")
 # The attribution phase: fault-replay samples per scenario, and the row
 # counts at which the torch lane is timed against numpy (the auto probe's
 # buckets, then the fleet sizes past its cap).
@@ -469,6 +497,23 @@ def _device_us(torch, fn, reps: int, flush) -> float:
     return sum(us * n for us, n in _per_call_kernels(kernels, reps).values())
 
 
+def _flush_us(torch, flush, reps: int) -> float:
+    """Device µs of one ``flush.zero_()`` (one kernel), the mean over the
+    launches a trace of ``reps`` calls kept; 0 for a trace without them.
+    The profiler was seen on the card to lose up to 40 of the first
+    events of such a trace late in a run, which the launches-per-call
+    rounding of _per_call_kernels would read as no kernel at all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+        torch.cuda.synchronize()
+    kernels = _device_kernels(prof)
+    launches = sum(e.count for e in kernels)
+    return sum(e.self_device_time_total for e in kernels) / launches if launches else 0.0
+
+
 def _per_call_ms(torch, fn, reps: int, what: str, flush=None) -> tuple[float, float]:
     """(ms, back-to-back ms) per call of ``fn``.
 
@@ -486,9 +531,7 @@ def _per_call_ms(torch, fn, reps: int, what: str, flush=None) -> tuple[float, fl
     for _ in range(5):
         device_us = _device_us(torch, fn, reps, flush)
         if flush is not None and device_us > 0:
-            # The flush alone is one kernel per call: over few calls the
-            # trace's lost first events are a large share, so take 50.
-            flush_us = _device_us(torch, lambda: None, max(reps, 50), flush)
+            flush_us = _flush_us(torch, flush, max(reps, 50))
             if flush_us <= 0 or device_us <= flush_us:
                 continue
             device_us -= flush_us
@@ -503,15 +546,30 @@ def _attention_bound(B, S, H, KV, D, causal, elem_bytes=2, qk_flops=PEAK_BF16_FL
     once (``elem_bytes`` each: bf16 for K1), against the operations these
     inputs need: two products of 2*D per visible (query, key) pair
     (S(S+1)/2 pairs per head when causal), q.k at ``qk_flops`` and p.v at
-    ``pv_flops``, the card's peak for each product's operand types.  K1:
-    both bf16 on the tensor cores.  K1-f32: p is f32, so p.v runs at the
-    f32 rate; q.k too on f32 inputs, while on bf16 or f16 inputs it is
-    exact in f32 at the tensor-core rate."""
+    ``pv_flops``, the card's fastest rate for each product at the
+    accuracy it needs.  K1: both bf16 on the tensor cores."""
     pairs = S * (S + 1) // 2 if causal else S * S
     half = 2 * B * H * D * pairs
     nbytes = elem_bytes * (2 * B * S * H * D + 2 * B * S * KV * D)
     t_ops, t_bytes = half / qk_flops + half / pv_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def _f32_attention_bounds(B, S, H, KV, D, causal, dtype: str) -> tuple[float, str, float]:
+    """K1-f32's bound and, beside it, the bound PR 6 stated at the FFMA
+    rate: (bound ms, bound by, FFMA-rate bound ms).  An f32-accurate
+    product of f32 inputs takes three TF32 products on the tensor cores
+    (165 TFLOP/s effective, against 67 of FFMA); on bf16 or f16 inputs
+    q.k is exact at the bf16 rate and p.v takes p in two pieces at half
+    of it (PR 6 counted that product at the FFMA rate).  The bound takes
+    the faster way of each product, so it is never above the FFMA one."""
+    elem = 4 if dtype == "f32" else 2
+    if dtype == "f32":
+        rates, ffma = (PEAK_3XTF32_FLOPS,) * 2, (PEAK_F32_FLOPS,) * 2
+    else:
+        rates, ffma = (PEAK_BF16_FLOPS, PEAK_BF16_FLOPS / 2), (PEAK_BF16_FLOPS, PEAK_F32_FLOPS)
+    bound_ms, bound_by = _attention_bound(B, S, H, KV, D, causal, elem, *rates)
+    return bound_ms, bound_by, _attention_bound(B, S, H, KV, D, causal, elem, *ffma)[0]
 
 
 def phase_kernel(torch, fa, cfg, serve_shapes) -> dict:
@@ -579,9 +637,9 @@ def phase_kernel(torch, fa, cfg, serve_shapes) -> dict:
 
 def phase_kernel_f32(torch, fa) -> dict:
     """K1-f32 against the plain version at F32_SHAPES, with kernel, plain
-    and SDPA (in the inputs' dtype) times and the bound (q.k on bf16
-    inputs at the tensor-core rate, every other product at the f32
-    rate)."""
+    and SDPA (in the inputs' dtype) times, the bound (each product at the
+    fastest f32-accurate rate, see _f32_attention_bounds) and the FFMA-rate
+    bound beside it."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda", 0)
@@ -614,21 +672,19 @@ def phase_kernel_f32(torch, fa) -> dict:
         library_ms, _ = _per_call_ms(
             torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=True), 20, f"sdpa {what}")
-        qk_flops = PEAK_F32_FLOPS if dt == "f32" else PEAK_BF16_FLOPS
-        bound_ms, bound_by = _attention_bound(B, S, H, KV, D, causal, q.element_size(),
-                                              qk_flops, PEAK_F32_FLOPS)
+        bound_ms, bound_by, ffma_bound_ms = _f32_attention_bounds(B, S, H, KV, D, causal, dt)
         row = {"B": B, "S": S, "H": H, "KV": KV, "D": D, "causal": causal, "dtype": dt,
                "max_abs_err": err, "tol": F32_TOL, "out_ulp": F32_OUT_ULP[dt],
                "bound_excess": excess, "ms": ms, "ms_back_to_back": ms_b2b,
                "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "vs_sdpa": ms / library_ms,
-               "bound_share": bound_ms / ms}
+               "bound_by": bound_by, "ffma_bound_ms": ffma_bound_ms,
+               "vs_sdpa": ms / library_ms, "bound_share": bound_ms / ms}
         rows.append(row)
         print(f"K1-f32: {what}: err={err:.3e} (tol {F32_TOL} + {F32_OUT_ULP[dt]} |o|) "
               f"device: kernel={ms:.4f}ms plain={plain_ms:.4f}ms sdpa={library_ms:.4f}ms "
-              f"bound={bound_ms * 1e3:.2f}us ({bound_by}); "
-              f"kernel/sdpa={row['vs_sdpa']:.3f} bound share={row['bound_share']:.3f}; "
-              f"back-to-back={ms_b2b:.4f}ms", flush=True)
+              f"bound={bound_ms * 1e3:.2f}us ({bound_by}; FFMA-rate bound "
+              f"{ffma_bound_ms * 1e3:.2f}us); kernel/sdpa={row['vs_sdpa']:.3f} "
+              f"bound share={row['bound_share']:.3f}; back-to-back={ms_b2b:.4f}ms", flush=True)
     return {"shapes": rows}
 
 
@@ -1019,8 +1075,6 @@ def _random_tables(torch, B, MB, N, BS, gen):
 
 
 def phase_paged_kernel(torch, pa, kv_cache, cfg, engine, capture) -> dict:
-    import torch.nn.functional as F
-
     H, KV, HD, BS = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, PAGED_BLOCK
     dev = engine.device
     gen = torch.Generator().manual_seed(4321)
@@ -1062,21 +1116,7 @@ def phase_paged_kernel(torch, pa, kv_cache, cfg, engine, capture) -> dict:
                 torch, lambda: pa.paged_decode_attention_reference(
                     q, k, v, table, lengths, block_size=BS), 10, f"plain {what}", flush,
             )
-            # Yardstick: SDPA over K/V already gathered per lane (bf16,
-            # dequantized for an int8 pool), padding masked; not timed:
-            # the gather.  The port never calls it.
-            idx = table.long()
-            kg = kv_cache.kv_load({"q": k["q"][idx], "s": k["s"][idx]}) if dtype == "int8" else k[idx]
-            vg = kv_cache.kv_load({"q": v["q"][idx], "s": v["s"][idx]}) if dtype == "int8" else v[idx]
-            T = MB * BS
-            kg = kg.reshape(B, T, KV, HD).transpose(1, 2).contiguous()
-            vg = vg.reshape(B, T, KV, HD).transpose(1, 2).contiguous()
-            mask = (torch.arange(T, device=dev)[None, :] <= lengths.long()[:, None])[:, None, None, :]
-            qs = q[:, :, None, :]
-            sdpa_ms, _ = _per_call_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    qs, kg, vg, attn_mask=mask, enable_gqa=True), 50, f"sdpa {what}", flush,
-            )
+            sdpa_ms = _dense_sdpa_ms(torch, kv_cache, q, k, v, table, lengths, BS, flush, what)
             bound_ms, bound_by = _paged_bound(
                 torch, table, lengths, BS, H, KV, HD, 1 if dtype == "int8" else 2,
                 dtype == "int8",
@@ -1107,25 +1147,58 @@ def phase_paged_kernel(torch, pa, kv_cache, cfg, engine, capture) -> dict:
             "beforehand (gather not timed), a yardstick the port never calls"}
 
 
-def _k2_f32_row(torch, pa, k, v, table, lengths, H, BS, seed: int, what: str) -> dict:
-    """K2-f32 against the plain version over an f32 pool ``k``/``v`` with
-    these tables, an f32 q drawn from ``seed``: the launch checked, the
-    error held to F32_TOL, kernel (cold and warm L2) and plain times, and
-    the bound at the f32 rate."""
-    _, _, KV, HD = k.shape
-    dev = k.device
+def _dense_sdpa_ms(torch, kv_cache, q, k, v, table, lengths, BS, flush, what: str) -> float:
+    """The yardstick beside a paged kernel: SDPA over K/V already gathered
+    per lane (dequantized for an int8 pool, in q's dtype), padding masked;
+    not timed: the gather.  The port never calls it."""
+    import torch.nn.functional as F
+
     B, MB = table.shape
-    q = torch.randn(B, H, HD, generator=torch.Generator().manual_seed(seed)).to(dev)
+    idx = table.long()
+    if isinstance(k, dict):
+        kg = kv_cache.kv_load({"q": k["q"][idx], "s": k["s"][idx]}, q.dtype)
+        vg = kv_cache.kv_load({"q": v["q"][idx], "s": v["s"][idx]}, q.dtype)
+    else:
+        kg, vg = k[idx].to(q.dtype), v[idx].to(q.dtype)
+    _, _, _, KV, HD = kg.shape
+    T = MB * BS
+    kg = kg.reshape(B, T, KV, HD).transpose(1, 2).contiguous()
+    vg = vg.reshape(B, T, KV, HD).transpose(1, 2).contiguous()
+    mask = (torch.arange(T, device=q.device)[None, :] <= lengths.long()[:, None])[:, None, None, :]
+    qs = q[:, :, None, :]
+    ms, _ = _per_call_ms(
+        torch, lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask, enable_gqa=True),
+        50, f"sdpa {what}", flush)
+    return ms
+
+
+def _k2_f32_row(torch, pa, kv_cache, k, v, table, lengths, H, BS, seed: int, what: str,
+                q_dtype: str = "f32") -> dict:
+    """K2-f32 against the plain version over the pool ``k``/``v`` (f32,
+    bf16, f16 or int8 ``{q, s}``) with these tables, a q of ``q_dtype``
+    drawn from ``seed``, the output in q's dtype: the launch checked, the
+    error held to F32_TOL plus half an output ulp, kernel (cold and warm
+    L2), plain and dense-SDPA times, and the bound at the f32 rate."""
+    codes = k["q"] if isinstance(k, dict) else k
+    _, _, KV, HD = codes.shape
+    dev = codes.device
+    B, MB = table.shape
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}[q_dtype]
+    q = torch.randn(B, H, HD, generator=torch.Generator().manual_seed(seed)).to(dev, dtype)
     before = (pa.paged_decode_attention.launches, pa.paged_decode_attention.f32_launches)
     out = pa.paged_decode_attention(q, k, v, table, lengths, block_size=BS)
     torch.cuda.synchronize()
     if (pa.paged_decode_attention.launches, pa.paged_decode_attention.f32_launches) != (
             before[0], before[1] + 1):
         _fail(f"K2-f32 at {what} did not launch K2-f32 once")
-    ref = pa.paged_decode_attention_reference(q, k, v, table, lengths, block_size=BS)
-    err = float((out - ref).abs().max())
-    if out.dtype != torch.float32 or not torch.isfinite(out).all() or err > F32_TOL:
-        _fail(f"K2-f32 vs plain at {what}: max abs err {err} (tol {F32_TOL})")
+    ref = pa.paged_decode_attention_reference(q, k, v, table, lengths, block_size=BS,
+                                              out_dtype=torch.float32)
+    diff = (out.float() - ref).abs()
+    err = float(diff.max())
+    excess = float((diff - (F32_TOL + F32_OUT_ULP[q_dtype] * ref.abs())).max())
+    if out.dtype != dtype or not torch.isfinite(out).all() or excess > 0:
+        _fail(f"K2-f32 vs plain at {what}: max abs err {err} over the bound {F32_TOL} + "
+              f"{F32_OUT_ULP[q_dtype]} |o| by {excess}")
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)  # > L2
 
     def kernel():
@@ -1136,42 +1209,71 @@ def _k2_f32_row(torch, pa, k, v, table, lengths, H, BS, seed: int, what: str) ->
     plain_ms, _ = _per_call_ms(
         torch, lambda: pa.paged_decode_attention_reference(
             q, k, v, table, lengths, block_size=BS), 10, f"plain {what}", flush)
-    bound_ms, bound_by = _paged_bound(torch, table, lengths, BS, H, KV, HD, 4, False,
-                                      q_bytes=4, peak_flops=PEAK_F32_FLOPS)
-    row = {"pool": "f32", "B": B, "MB": MB, "BS": BS, "H": H, "KV": KV,
+    sdpa_ms = _dense_sdpa_ms(torch, kv_cache, q, k, v, table, lengths, BS, flush, what)
+    pool = "int8" if isinstance(k, dict) else {
+        torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}[k.dtype]
+    bound_ms, bound_by = _paged_bound(torch, table, lengths, BS, H, KV, HD,
+                                      codes.element_size(), isinstance(k, dict),
+                                      q_bytes=q.element_size(), peak_flops=PEAK_F32_FLOPS)
+    row = {"q": q_dtype, "pool": pool, "B": B, "MB": MB, "BS": BS, "H": H, "KV": KV,
            "HD": HD, "lengths": lengths.tolist(), "max_abs_err": err, "tol": F32_TOL,
+           "out_ulp": F32_OUT_ULP[q_dtype], "bound_excess": excess,
            "ms": ms, "ms_warm_l2": ms_warm, "ms_back_to_back": ms_b2b,
-           "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
-           "bound_by": bound_by, "bound_share": bound_ms / ms}
-    print(f"K2-f32: {what}: err={err:.3e} (tol {F32_TOL}) device, cold L2: "
-          f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms bound={bound_ms * 1e3:.2f}us "
-          f"({bound_by}); bound share={row['bound_share']:.4f}; kernel warm "
-          f"L2={ms_warm:.4f}ms, back-to-back={ms_b2b:.4f}ms", flush=True)
+           "plain_ms": plain_ms, "dense_sdpa_ms": sdpa_ms, "library_ms": None,
+           "bound_ms": bound_ms, "bound_by": bound_by, "vs_dense_sdpa": ms / sdpa_ms,
+           "bound_share": bound_ms / ms}
+    print(f"K2-f32: {what}: err={err:.3e} (tol {F32_TOL} + {F32_OUT_ULP[q_dtype]} |o|) "
+          f"device, cold L2: kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
+          f"dense-sdpa={sdpa_ms:.4f}ms bound={bound_ms * 1e3:.3f}us ({bound_by}); "
+          f"bound share={row['bound_share']:.4f}; kernel warm L2={ms_warm:.4f}ms, "
+          f"back-to-back={ms_b2b:.4f}ms", flush=True)
     return row
 
 
-def phase_paged_kernel_f32(torch, pa, cfg, engine, capture) -> dict:
+def phase_paged_kernel_f32(torch, pa, kv_cache, cfg, engine, capture) -> dict:
     """K2-f32 at the paged phase's tables over an f32 copy of its layer-0
-    pool (Llama-3.2-3B's widths)."""
+    pool (Llama-3.2-3B's widths), then at llama_tiny's attention (head dim
+    16) over random tables in bf16, in f32 over int8 pools and in f16."""
     k = engine._cache["k"][0].float()
     v = engine._cache["v"][0].float()
     table, lengths = capture["page_table"], capture["length"].int()
     B, MB = table.shape
-    row = _k2_f32_row(torch, pa, k, v, table, lengths, cfg.n_heads, PAGED_BLOCK, 4322,
-                      f"the paged step's tables B={B} MB={MB} f32 pool")
-    return {"shapes": [{"shape": "serve", **row}]}
+    rows = [{"shape": "serve", **_k2_f32_row(
+        torch, pa, kv_cache, k, v, table, lengths, cfg.n_heads, PAGED_BLOCK, 4322,
+        f"the paged step's tables B={B} MB={MB} f32 pool")}]
+    t = TINY_ATTENTION
+    gen = torch.Generator().manual_seed(4324)
+    table, lengths = _random_tables(torch, t["B"], t["MB"], t["N"], t["BS"], gen)
+    table, lengths = table.to(k.device), lengths.to(k.device)
+    for name, q_dt, pool in TINY_K2_CASES:
+        kk = torch.randn(t["N"], t["BS"], t["KV"], t["HD"], generator=gen).to(k.device)
+        vv = torch.randn(t["N"], t["BS"], t["KV"], t["HD"], generator=gen).to(k.device)
+        if pool == "int8":
+            kk, vv = kv_cache.quantize_kv(kk), kv_cache.quantize_kv(vv)
+        else:
+            dt = {"bf16": torch.bfloat16, "f16": torch.float16}[pool]
+            kk, vv = kk.to(dt), vv.to(dt)
+        rows.append({"shape": name, **_k2_f32_row(
+            torch, pa, kv_cache, kk, vv, table, lengths, t["H"], t["BS"], 4325,
+            f"llama_tiny's attention B={t['B']} MB={t['MB']} {q_dt} q, {pool} pool", q_dt)})
+    return {"shapes": rows}
 
 
-def phase_paged_kernel_f32_path(torch, pa, cfg, capture) -> dict:
-    """K2-f32 at the shape the f32 path gives it: the f32 paged engine's
-    own layer-0 pool, page table and lengths, captured at its first step
-    with every lane live."""
-    table, lengths = capture["page_table"], capture["length"].int()
-    B, MB = table.shape
-    row = _k2_f32_row(torch, pa, capture["k"], capture["v"], table, lengths, cfg["n_heads"],
-                      F32_ENGINE_BLOCK, 4323,
-                      f"the f32 paged engine's step B={B} MB={MB} f32 pool")
-    return {"shapes": [{"shape": "f32_path", **row}]}
+def phase_paged_kernel_f32_path(torch, pa, kv_cache, paths) -> dict:
+    """K2-f32 at each shape a main path gives it: a paged engine's own
+    layer-0 pool, page table and lengths, captured at its first step with
+    every lane live, with a q of the engine's dtype.  ``paths`` holds
+    (name, capture, query heads, q dtype, seed) per engine."""
+    rows = []
+    for name, capture, H, q_dtype, seed in paths:
+        table, lengths = capture["page_table"], capture["length"].int()
+        B, MB = table.shape
+        pool = "int8" if isinstance(capture["k"], dict) else q_dtype
+        rows.append({"shape": name, **_k2_f32_row(
+            torch, pa, kv_cache, capture["k"], capture["v"], table, lengths, H,
+            F32_ENGINE_BLOCK, seed, f"the step of the paged engine {name} B={B} MB={MB} "
+            f"{q_dtype} q, {pool} pool", q_dtype)})
+    return {"shapes": rows}
 
 
 def phase_breakdown(torch, paged_kv, cfg, engine, capture) -> dict:
@@ -2222,60 +2324,107 @@ def phase_parity_f32(torch, fa, pa, llama, paged_kv, serve) -> dict:
     if not torch.isfinite(gpu).all() or err > F32_TOL:
         _fail(f"the f32 model's card vs CPU logits differ by {err} > {F32_TOL}")
     cfg = dataclasses.replace(cfg, vocab_size=F32_ENGINE_VOCAB)
-    params = llama.init_params(9, cfg, "cuda")
+    engine, capture = _paged_engine_pair(torch, pa, llama, paged_kv, serve, cfg, 9,
+                                         F32_MODEL_JOBS, "bf16", F32_TOL, "f32 paged engine")
+    return {"S": cfg.max_seq_len, "max_abs_err": err, "tol": F32_TOL,
+            "k1_f32_launches": k1, "k2_f32_launches": engine["k2_f32_launches"],
+            "paged_steps": engine["steps"], "streams": engine["streams"]}, capture
+
+
+def _pool_layer(side, layer: int):
+    """A copy of one layer of a paged pool side (a tensor, or int8 codes
+    with their scales)."""
+    if isinstance(side, dict):
+        return {n: t[layer].clone() for n, t in side.items()}
+    return side[layer].clone()
+
+
+def _paged_engine_pair(torch, pa, llama, paged_kv, serve, cfg, seed: int, jobs,
+                       kv_dtype: str, tol: float, what: str) -> tuple[dict, dict]:
+    """A paged engine with the K2 switch on over ``cfg`` (random weights
+    from ``seed``) on the card and the same weights on the CPU, one submit
+    script each: K2-f32 must launch once per layer per step on the card
+    (K2 never), and every card stream must equal the CPU's or leave it
+    only where the CPU single-request engine's top-2 margin is under
+    ``2 * tol``.  Returns the record and the card engine's state at its
+    first step with every lane live (layer 0's pool, the page table and
+    the lengths)."""
+    params = llama.init_params(seed, cfg, "cuda")
     params_cpu = {
         "embed": params["embed"].cpu(),
         "layers": {n: t.cpu() for n, t in params["layers"].items()},
         "final_norm": params["final_norm"].cpu(),
         "output": params["output"].cpu(),
     }
-    results, steps, capture = {}, {}, None
+    results, steps, launches, capture = {}, {}, {}, None
     for where, p in (("card", params), ("cpu", params_cpu)):
         engine = paged_kv.PagedBatchingEngine(
-            cfg, p, max_slots=len(F32_MODEL_JOBS), block_size=F32_ENGINE_BLOCK,
-            pallas_attention=True,
+            cfg, p, max_slots=len(jobs), block_size=F32_ENGINE_BLOCK,
+            pallas_attention=True, kv_dtype=kv_dtype,
             device="cuda" if where == "card" else "cpu",
         )
+        before = (pa.paged_decode_attention.launches, pa.paged_decode_attention.f32_launches)
         ids = [engine.submit(q, F32_MODEL_TOKENS, stop_at_eos=False, prefix=pre)
-               for q, pre in F32_MODEL_JOBS]
+               for q, pre in jobs]
         while engine.step():
             if where == "card" and capture is None and all(
                     s is not None for s in engine._slots):
                 cache = engine._cache
                 capture = {"page_table": cache["page_table"].clone(),
                            "length": cache["length"].clone(),
-                           "k": cache["k"][0].clone(), "v": cache["v"][0].clone()}
+                           "k": _pool_layer(cache["k"], 0), "v": _pool_layer(cache["v"], 0)}
+        launches[where] = (pa.paged_decode_attention.launches - before[0],
+                           pa.paged_decode_attention.f32_launches - before[1])
         results[where] = [engine.results[i] for i in ids]
         steps[where] = engine.steps
         del engine
-    k2 = pa.paged_decode_attention.f32_launches
-    if k2 != steps["card"] * cfg.n_layers or pa.paged_decode_attention.launches:
-        _fail(f"the f32 paged engine launched K2-f32 {k2} times ({steps['card']} steps x "
-              f"{cfg.n_layers} layers needed) and K2 {pa.paged_decode_attention.launches}")
-    single = serve.ServeEngine(cfg, params_cpu, device="cpu")
+    if launches["card"] != (0, steps["card"] * cfg.n_layers) or launches["cpu"] != (0, 0):
+        _fail(f"{what}: K2 / K2-f32 launched {launches} times ({steps['card']} steps x "
+              f"{cfg.n_layers} layers of K2-f32 needed on the card, none on the CPU)")
+    if capture is None:
+        _fail(f"{what} never had every lane live")
+    single = serve.ServeEngine(cfg, params_cpu, kv_dtype=kv_dtype, device="cpu")
     streams = []
-    for (prompt, pre), got, want in zip(F32_MODEL_JOBS, results["card"], results["cpu"]):
-        diverged, margin = None, None
+    for (prompt, _), got, want in zip(jobs, results["card"], results["cpu"]):
         if len(got) != len(want):
-            _fail(f"f32 paged engine: {len(got)} tokens on the card, {len(want)} on the CPU")
+            _fail(f"{what}: {len(got)} tokens on the card, {len(want)} on the CPU")
+        diverged, margin = None, None
         for i, (a, b) in enumerate(zip(want, got)):
             if a != b:
-                logits, _ = single.ingest_ids(serve.encode_bytes(prompt, cfg.max_seq_len - 2)
-                                              + want[:i])
+                logits, _ = single.ingest_ids(
+                    serve.encode_bytes(prompt, cfg.max_seq_len - 2) + want[:i])
                 top2 = torch.topk(logits[0].float(), 2).values
                 diverged, margin = i, float(top2[0] - top2[1])
-                if margin >= 2 * F32_TOL:
-                    _fail(f"f32 paged engine: the card's stream left the CPU's at token {i} "
-                          f"where the top-2 margin is {margin}")
+                if margin >= 2 * tol:
+                    _fail(f"{what}: the card's stream left the CPU's at token {i} where the "
+                          f"top-2 margin is {margin}")
                 break
         streams.append({"diverged_at": diverged, "tie_margin": margin})
-    print(f"parity: f32 paged engine with K2-f32 ({steps['card']} steps, K2-f32 x{k2}): "
-          f"streams vs the CPU engine {streams}", flush=True)
-    if capture is None:
-        _fail("the f32 paged engine never had every lane live")
-    return {"S": cfg.max_seq_len, "max_abs_err": err, "tol": F32_TOL,
-            "k1_f32_launches": k1, "k2_f32_launches": k2, "paged_steps": steps["card"],
+    print(f"parity: {what} with the K2 switch on ({steps['card']} steps, K2-f32 "
+          f"x{launches['card'][1]}): streams vs the CPU engine {streams}", flush=True)
+    return {"steps": steps["card"], "k2_f32_launches": launches["card"][1],
             "streams": streams}, capture
+
+
+def phase_parity_tiny(torch, pa, llama, paged_kv, serve) -> tuple[dict, list]:
+    """The inputs K2 refused before K2-f32 took them, on paged engines with
+    the switch on: bf16 ``llama_tiny`` (head dim 16; the JAX package's own
+    Pallas engine test, ``tests/test_paged_attention_kernel.py``) and the
+    JAX f32 head-dim-128 model's widths (vocab 512) over int8 pools.
+    Returns the records and, for phase_paged_kernel_f32_path, each
+    engine's state at its first step with every lane live."""
+    tiny = llama.llama_tiny(max_seq_len=128)
+    f32 = llama.LlamaConfig(**{**F32_MODEL, "vocab_size": F32_ENGINE_VOCAB},
+                            dtype=torch.float32)
+    tiny_rec, tiny_capture = _paged_engine_pair(
+        torch, pa, llama, paged_kv, serve, tiny, 10, TINY_ENGINE_JOBS, "bf16",
+        PARITY_TOL, "llama_tiny bf16 paged engine")
+    int8_rec, int8_capture = _paged_engine_pair(
+        torch, pa, llama, paged_kv, serve, f32, 11, TINY_ENGINE_JOBS, "int8", F32_TOL,
+        "f32 head-dim-128 paged engine over int8 pools")
+    return {"llama_tiny_bf16": tiny_rec, "f32_int8": int8_rec}, [
+        ("llama_tiny_bf16", tiny_capture, tiny.n_heads, "bf16", 4326),
+        ("f32_int8", int8_capture, f32.n_heads, "f32", 4327)]
 
 
 def main() -> int:
@@ -2329,6 +2478,12 @@ def main() -> int:
                   f"{' (on the path)' if on_path else ''}", flush=True)
         if not ptxas[name]:
             _fail(f"no ptxas report for {name}")
+    spilled = [e["name"] for e in ptxas["attention_f32"] if e["spill_bytes"]]
+    if spilled:
+        _fail(f"K1-f32 / K2-f32 instantiations spill registers: {spilled}")
+    missing = set(PATH_INSTANTIATIONS) - {e["name"] for v in ptxas.values() for e in v}
+    if missing:
+        _fail(f"the main path's instantiations are not in the ptxas report: {sorted(missing)}")
 
     # 3. K1 vs plain, at the fixed shapes and the serve path's
     cfg = llama.llama32_3b(max_seq_len=2048)
@@ -2343,7 +2498,7 @@ def main() -> int:
     paged, paged_engine, capture = phase_paged(torch, fa, pa, paged_kv, serve, cfg, engine)
     # 7. K2 vs plain, at the paged phase's step and random tables
     k2 = phase_paged_kernel(torch, pa, kv_cache, cfg, paged_engine, capture)
-    k2_f32 = phase_paged_kernel_f32(torch, pa, cfg, paged_engine, capture)
+    k2_f32 = phase_paged_kernel_f32(torch, pa, kv_cache, cfg, paged_engine, capture)
     # 8. one paged step with K2 on and off
     breakdown = phase_breakdown(torch, paged_kv, cfg, paged_engine, capture)
     del paged_engine
@@ -2376,8 +2531,13 @@ def main() -> int:
     for counter in (fa.flash_attention, pa.paged_decode_attention):
         counter.launches = counter.f32_launches = 0
     parity_f32, f32_capture = phase_parity_f32(torch, fa, pa, llama, paged_kv, serve)
-    # ... and K2-f32 against plain at the shape that path gave it
-    k2_f32_path = phase_paged_kernel_f32_path(torch, pa, F32_MODEL, f32_capture)
+    # then the inputs F6 repaired, on the paged engines that give them
+    for counter in (fa.flash_attention, pa.paged_decode_attention):
+        counter.launches = counter.f32_launches = 0
+    parity_tiny, tiny_paths = phase_parity_tiny(torch, pa, llama, paged_kv, serve)
+    # ... and K2-f32 against plain at the shape each of these engines gave it
+    k2_f32_path = phase_paged_kernel_f32_path(torch, pa, kv_cache, [
+        ("f32_path", f32_capture, F32_MODEL["n_heads"], "f32", 4323), *tiny_paths])
 
     # 15. kernels line, card line, result line
     line_row = next(
@@ -2388,7 +2548,10 @@ def main() -> int:
     f32_row = next(r for r in kernel_f32["shapes"]
                    if tuple(r[k] for k in ("B", "S", "H", "KV", "D", "causal", "dtype"))
                    == F32_LINE_SHAPE)
-    k2_f32_row = k2_f32_path["shapes"][0]
+    k2_f32_rows = {r["shape"]: r for r in k2_f32_path["shapes"]}
+    k2_f32_row = k2_f32_rows["f32_path"]
+    k2_f32_launches = {"f32_path": parity_f32["k2_f32_launches"],
+                       **{n: r["k2_f32_launches"] for n, r in parity_tiny.items()}}
     kernels = {"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
@@ -2432,6 +2595,7 @@ def main() -> int:
         "plain_ms": f32_row["plain_ms"],
         "bound_ms": f32_row["bound_ms"],
         "bound_by": f32_row["bound_by"],
+        "ffma_bound_ms": f32_row["ffma_bound_ms"],
         "library_ms": f32_row["library_ms"],
         "shape": "B=2 S=128 H=2 KV=1 D=128 causal f32, the f32 model's prefill",
     }, {
@@ -2439,16 +2603,27 @@ def main() -> int:
         "route": "cuda",
         "source": "tpuslo_torch/ops/csrc/attention_f32.cu",
         "replaces": "tpuslo/ops/paged_attention.py:65",
-        "launches": parity_f32["k2_f32_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in k2_f32["shapes"] + k2_f32_path["shapes"]),
+        "launches": sum(k2_f32_launches.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in k2_f32["shapes"] + k2_f32_path["shapes"]
+                           if r["q"] == "f32"),
         "ms": k2_f32_row["ms"],
         "plain_ms": k2_f32_row["plain_ms"],
         "bound_ms": k2_f32_row["bound_ms"],
         "bound_by": k2_f32_row["bound_by"],
         "library_ms": None,
+        "dense_sdpa_ms": k2_f32_row["dense_sdpa_ms"],
         "shape": f"B={k2_f32_row['B']} MB={k2_f32_row['MB']} BS={k2_f32_row['BS']} "
                  f"H={k2_f32_row['H']} KV={k2_f32_row['KV']} HD={k2_f32_row['HD']} f32 q "
-                 "and pool, the f32 paged engine's step",
+                 "and pool, the f32 paged engine's step; launches summed over the paths "
+                 "below, each with its own numbers",
+        "paths": [{
+            "shape": f"B={r['B']} MB={r['MB']} BS={r['BS']} H={r['H']} KV={r['KV']} "
+                     f"HD={r['HD']} {r['q']} q, {r['pool']} pool, at the step of "
+                     f"the paged engine {name}",
+            "launches": k2_f32_launches[name],
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "dense_sdpa_ms")},
+        } for name, r in k2_f32_rows.items()],
     }]}
     idle = [k["name"] for k in kernels["kernels"] if not k["launches"]]
     if idle:
@@ -2460,7 +2635,8 @@ def main() -> int:
               "paged_kernel_f32": k2_f32,
               "paged_kernel_f32_path": k2_f32_path, "paged_breakdown": breakdown, "spec": spec, "frontdoor": front,
               "router": routed, "deviceplane": device, "attribution": attributed,
-              "parity": parity, "parity_f32": parity_f32, **kernels}
+              "parity": parity, "parity_f32": parity_f32, "parity_tiny": parity_tiny,
+              **kernels}
     print(f"record: {json.dumps(record)}")
     print(json.dumps(kernels))
     print(card)

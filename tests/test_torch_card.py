@@ -151,6 +151,14 @@ def _hold_f32(out, ref):
     (1, 256, 4, 2, 384, True, torch.bfloat16),  # no wgmma instantiation at 384/512
     (2, 128, 4, 4, 512, False, torch.bfloat16),
     (1, 128, 4, 2, 128, True, torch.float16),  # the wgmma kernel is bf16 only
+    # Shapes that choose each row count per CTA, in every input type: 32
+    # rows (RG 2, where every SM still gets a CTA; f32 D512 with its
+    # 16-key tiles) and 16 rows (RG 1: B1 S128 H1 gives too few CTAs).
+    (4, 512, 32, 8, 128, True, torch.float32),
+    (2, 256, 16, 4, 512, True, torch.float32),
+    (1, 128, 1, 1, 256, False, torch.float16),
+    (4, 256, 8, 2, 384, True, torch.float16),
+    (2, 512, 16, 16, 512, True, torch.bfloat16),
 ])
 def test_f32_kernel_matches_plain(cuda_device, B, S, H, KV, D, causal, dtype):
     q, k, v = (t.to(dtype) for t in _qkv(17, B, S, H, KV, D, cuda_device))
@@ -386,17 +394,29 @@ def test_paged_kernel_skips_blocks_past_length(cuda_device):
 
 @pytest.mark.cuda
 def test_paged_kernel_never_falls_back(cuda_device):
+    """What neither kernel is built for raises on the card, naming it; it
+    is never served by the plain version.  (A bf16 q over f32 pools now
+    has K2-f32, which reads both as f32.)"""
     q, k, v, table, lengths = _paged_inputs(3, 2, 2, 6, 8, 2, 128, 16, False, cuda_device)
-    before = paged_decode_attention.launches
-    with pytest.raises(ValueError, match="bf16 or int8"):
-        paged_decode_attention(q, k.float(), v.float(), table, lengths, block_size=16)
+    before = (paged_decode_attention.launches, paged_decode_attention.f32_launches)
+    with pytest.raises(ValueError, match="float64 pool"):
+        paged_decode_attention(q, k.double(), v.double(), table, lengths, block_size=16)
     with pytest.raises(ValueError, match="int32"):
         paged_decode_attention(q, k, v, table.long(), lengths, block_size=16)
     q96 = torch.zeros(2, 8, 96, dtype=torch.bfloat16, device=cuda_device)
     k96 = torch.zeros(6, 16, 2, 96, dtype=torch.bfloat16, device=cuda_device)
     with pytest.raises(ValueError, match="head dims"):
         paged_decode_attention(q96, k96, k96, table, lengths, block_size=16)
-    assert paged_decode_attention.launches == before
+    q5 = torch.zeros(2, 10, 128, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="query heads per kv head"):
+        paged_decode_attention(q5, k, v, table, lengths, block_size=16)
+    assert (paged_decode_attention.launches, paged_decode_attention.f32_launches) == before
+    out = paged_decode_attention(q, k.float(), v.float(), table, lengths, block_size=16)
+    torch.cuda.synchronize()
+    assert (paged_decode_attention.launches, paged_decode_attention.f32_launches) == (
+        before[0], before[1] + 1)
+    _hold_f32(out, paged_decode_attention_reference(q, k.float(), v.float(), table, lengths,
+                                                    block_size=16, out_dtype=torch.float32))
 
 
 F32_PAGED_SHAPES = {
@@ -461,6 +481,154 @@ def test_paged_f32_kernel_edges_and_graph_replay(cuda_device):
         torch.cuda.synchronize()
         _hold_f32(out, paged_decode_attention_reference(q, k, v, table, lengths,
                                                         block_size=64))
+
+
+# K2-f32 on every input the Pallas kernel takes that K2 is not built for:
+# (B, MB, N, H, KV, HD, BS, q dtype, pool dtype, output dtype).
+F6_PAGED_SHAPES = {
+    "llama_tiny-bf16": (3, 8, 30, 4, 2, 16, 16, "bf16", "bf16", "bf16"),
+    "llama_tiny-f32": (3, 8, 30, 4, 2, 16, 16, "f32", "f32", "f32"),
+    "hd16-f32-int8": (4, 8, 30, 4, 2, 16, 16, "f32", "int8", "f32"),
+    "hd128-f32-int8": (3, 8, 30, 2, 1, 128, 16, "f32", "int8", "f32"),
+    "hd128-f32-int8-nrep3": (8, 4, 40, 24, 8, 128, 64, "f32", "int8", "f32"),
+    "hd32-f16": (4, 6, 30, 16, 8, 32, 32, "f16", "f16", "f16"),
+    "hd64-f16-bf16-out": (4, 6, 30, 8, 2, 64, 64, "f16", "f16", "bf16"),
+    "hd256-bf16": (4, 4, 20, 8, 2, 256, 64, "bf16", "bf16", "bf16"),
+    "hd256-f32": (2, 4, 20, 8, 1, 256, 64, "f32", "f32", "f32"),
+    "hd128-bf16-f16-out": (4, 6, 30, 24, 8, 128, 64, "bf16", "bf16", "f16"),
+    "hd64-bf16-q-f32-pool": (4, 6, 30, 24, 8, 64, 64, "bf16", "f32", "bf16"),
+    "hd128-f16-q-int8": (4, 6, 30, 32, 4, 128, 128, "f16", "int8", "f16"),
+    "hd16-nrep1-bs8": (5, 20, 120, 4, 4, 16, 8, "bf16", "bf16", "f32"),
+    "hd32-nrep8-bs100": (3, 3, 12, 16, 2, 32, 100, "f32", "bf16", "f32"),
+}
+_DT = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+
+
+def _f6_paged(seed, B, MB, N, H, KV, HD, BS, q_dt, pool_dt, device):
+    q, k, v, table, lengths = _paged_inputs(seed, B, MB, N, H, KV, HD, BS, False, device)
+    if pool_dt == "int8":
+        k, v = kv_cache.quantize_kv(k.float()), kv_cache.quantize_kv(v.float())
+    else:
+        k, v = k.to(_DT[pool_dt]), v.to(_DT[pool_dt])
+    return q.to(_DT[q_dt]), k, v, table, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(F6_PAGED_SHAPES))
+def test_paged_f32_kernel_takes_every_pallas_input(cuda_device, shape):
+    """Every q / pool / output type pairing, head dims 16-256 and group
+    sizes 1-8 that K2 does not take launch K2-f32 once and hold the plain
+    version within 1e-4 (plus half an output ulp)."""
+    *geometry, q_dt, pool_dt, out_dt = F6_PAGED_SHAPES[shape]
+    B, MB, N, H, KV, HD, BS = geometry
+    q, k, v, table, lengths = _f6_paged(14, *geometry, q_dt, pool_dt, cuda_device)
+    before = (paged_decode_attention.launches, paged_decode_attention.f32_launches)
+    out = paged_decode_attention(q, k, v, table, lengths, block_size=BS, out_dtype=_DT[out_dt])
+    torch.cuda.synchronize()
+    assert (paged_decode_attention.launches, paged_decode_attention.f32_launches) == (
+        before[0], before[1] + 1)
+    assert out.dtype == _DT[out_dt] and out.shape == (B, H, HD)
+    _hold_f32(out, paged_decode_attention_reference(q, k, v, table, lengths, block_size=BS,
+                                                    out_dtype=torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["llama_tiny-bf16", "hd128-f32-int8"])
+def test_paged_f32_kernel_f6_inputs_replay_in_a_cuda_graph(cuda_device, shape):
+    """K2-f32 at llama_tiny's head dim 16 in bf16 and over int8 pools,
+    captured in a CUDA graph and replayed after the lengths and the table
+    change in place."""
+    *geometry, q_dt, pool_dt, _ = F6_PAGED_SHAPES[shape]
+    B, MB, N, H, KV, HD, BS = geometry
+    q, k, v, table, lengths = _f6_paged(15, *geometry, q_dt, pool_dt, cuda_device)
+    paged_decode_attention(q, k, v, table, lengths, block_size=BS)  # build, warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged_decode_attention(q, k, v, table, lengths, block_size=BS)
+    g = torch.Generator().manual_seed(16)
+    for _ in range(3):
+        lengths.copy_(torch.randint(0, MB * BS + 20, (B,), generator=g, dtype=torch.int32))
+        table.copy_(torch.randint(0, N, (B, MB), generator=g, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        _hold_f32(out, paged_decode_attention_reference(q, k, v, table, lengths,
+                                                        block_size=BS, out_dtype=torch.float32))
+
+
+def _tiny_paged_engines(cfg, cuda_device, kv_dtype="bf16"):
+    """The same weights as a card and a CPU ``PagedBatchingEngine`` with
+    the K2 switch on, each run over one submit script; returns the
+    streams, the card's steps and its K2 / K2-f32 launches."""
+    cpu_params = llama.init_params(0, cfg, "cpu")
+    card_params = {
+        "embed": cpu_params["embed"].to(cuda_device),
+        "layers": {n: t.to(cuda_device) for n, t in cpu_params["layers"].items()},
+        "final_norm": cpu_params["final_norm"].to(cuda_device),
+        "output": cpu_params["output"].to(cuda_device),
+    }
+    prompts = ["pallas paged", "a second longer request prompt", "third"]
+    results, steps, launches = {}, {}, None
+    for where, params in (("card", card_params), ("cpu", cpu_params)):
+        engine = paged_kv.PagedBatchingEngine(
+            cfg, params, max_slots=3, block_size=16, pallas_attention=True, kv_dtype=kv_dtype,
+            device=cuda_device if where == "card" else "cpu",
+        )
+        before = (paged_decode_attention.launches, paged_decode_attention.f32_launches)
+        ids = [engine.submit(p, max_new_tokens=8, stop_at_eos=False) for p in prompts]
+        engine.run()
+        after = (paged_decode_attention.launches, paged_decode_attention.f32_launches)
+        if where == "card":
+            launches = (after[0] - before[0], after[1] - before[1])
+        else:
+            assert after == before
+        results[where] = [engine.results[i] for i in ids]
+        steps[where] = engine.steps
+    return prompts, results, steps["card"], launches, cpu_params
+
+
+def _hold_streams(cfg, cpu_params, prompts, results, tol, kv_dtype="bf16"):
+    """Card streams equal the CPU engine's, or leave them only where the
+    CPU single-request engine's top-2 margin is under ``2 * tol``."""
+    single = serve.ServeEngine(cfg, cpu_params, kv_dtype=kv_dtype, device="cpu")
+    for prompt, got, want in zip(prompts, results["card"], results["cpu"]):
+        assert len(got) == len(want)
+        for i, (a, b) in enumerate(zip(want, got)):
+            if a != b:
+                ids = serve.encode_bytes(prompt, cfg.max_seq_len - 2) + want[:i]
+                logits, _ = single.ingest_ids(ids)
+                top2 = torch.topk(logits[0].float(), 2).values
+                assert float(top2[0] - top2[1]) < 2 * tol, (prompt, i, want, got)
+                break
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, LOGIT_TOL), (torch.float32, F32_TOL)],
+                         ids=["bf16", "f32"])
+def test_llama_tiny_paged_engine_with_the_switch_on(cuda_device, dtype, tol):
+    """The JAX package's own Pallas engine test
+    (``tests/test_paged_attention_kernel.py::test_engine_pallas_path_token_parity``)
+    on the card: ``llama_tiny`` (head dim 16) with ``pallas_attention=True``
+    takes K2-f32 once per layer per step, and its streams equal the CPU
+    engine's by the near-tie rule."""
+    cfg = dataclasses.replace(llama.llama_tiny(max_seq_len=128), dtype=dtype)
+    prompts, results, steps, launches, cpu_params = _tiny_paged_engines(cfg, cuda_device)
+    assert launches == (0, steps * cfg.n_layers)
+    _hold_streams(cfg, cpu_params, prompts, results, tol)
+
+
+@pytest.mark.cuda
+def test_f32_hd128_paged_engine_over_int8_pools(cuda_device):
+    """The JAX f32 head-dim-128 model's widths with ``kv_dtype="int8"``
+    and the switch on: an f32 q over int8 pools takes K2-f32, once per
+    layer per step, and the streams equal the CPU engine's by the
+    near-tie rule."""
+    cfg = llama.LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=2, n_kv_heads=1,
+                            ffn_dim=512, max_seq_len=128, dtype=torch.float32)
+    prompts, results, steps, launches, cpu_params = _tiny_paged_engines(
+        cfg, cuda_device, kv_dtype="int8")
+    assert launches == (0, steps * cfg.n_layers)
+    _hold_streams(cfg, cpu_params, prompts, results, F32_TOL, kv_dtype="int8")
 
 
 @pytest.mark.cuda

@@ -1,0 +1,102 @@
+"""``chip_smoke.py``'s arithmetic that needs no card: K1-f32's restated
+bound and the ptxas report's instantiation names.
+
+K1-f32 computes f32-accurate products on the tensor cores (3xTF32 on f32
+inputs, p in two 16-bit pieces on bf16 or f16 inputs), so its bound takes
+each product at the fastest rate that keeps f32 accuracy; the FFMA-rate
+bound that PR 6 stated stays beside it.  The expected values are the
+bound's own arithmetic at B1 S256 H24 KV8 causal and at the f32 path's
+prefill, worked out by hand from the H100's published rates (989 TFLOP/s
+bf16, 495 TF32, 67 f32, 3.35 TB/s).
+"""
+
+from __future__ import annotations
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+_SPEC = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_SPEC)
+_SPEC.loader.exec_module(chip_smoke)
+
+
+@pytest.mark.parametrize("shape,dtype,ops_us,bytes_us,ffma_us", [
+    ((1, 256, 24, 8, 128, True), "f32", 2.4499, 2.5041, 6.0332),
+    ((1, 256, 24, 8, 512, True), "f32", 9.7994, 10.0162, 24.1329),
+    ((1, 256, 24, 8, 512, True), "bf16", 2.4523, 5.0081, 12.8839),
+    ((1, 256, 24, 8, 384, True), "bf16", 1.8392, 3.7561, 9.6629),
+    ((2, 128, 2, 1, 128, True), "f32", 0.10247, 0.23476, 0.25236),
+])
+def test_f32_attention_bound_is_restated(shape, dtype, ops_us, bytes_us, ffma_us):
+    """The bound is the larger of the operations time (3xTF32 on f32
+    inputs; q.k at 989 and p.v at 989 / 2 on 16-bit ones) and the bytes
+    time, and the FFMA-rate bound is PR 6's."""
+    bound_ms, bound_by, ffma_ms = chip_smoke._f32_attention_bounds(*shape, dtype)
+    assert bound_ms * 1e3 == pytest.approx(max(ops_us, bytes_us), rel=1e-4)
+    assert bound_by == ("operations" if ops_us > bytes_us else "bytes")
+    assert ffma_ms * 1e3 == pytest.approx(ffma_us, rel=1e-4)
+
+
+@pytest.mark.parametrize("D", [128, 256, 384, 512])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_attention_bound_never_exceeds_the_ffma_bound(D, dtype, causal):
+    for B, S, H, KV in ((1, 128, 2, 1), (1, 256, 24, 8), (8, 2048, 32, 8)):
+        bound_ms, _, ffma_ms = chip_smoke._f32_attention_bounds(B, S, H, KV, D, causal, dtype)
+        assert 0 < bound_ms <= ffma_ms
+
+
+def _report(mangled: str, registers: int = 40, spill: int = 0) -> str:
+    return (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+            f"ptxas info    : Function properties for {mangled}\n"
+            f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads\n"
+            f"ptxas info    : Used {registers} registers, used 1 barriers, 512 bytes smem\n")
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN12_GLOBAL__N_116flash_f32_kernelIfLi128EEEvNS_9FlashArgsE",
+     "flash_f32_kernel<f32,128>"),
+    ("_ZN12_GLOBAL__N_116paged_f32_kernelIfLi128EEEvNS_9PagedArgsE",
+     "paged_f32_kernel<f32,128>"),
+    ("_ZN12_GLOBAL__N_116paged_f32_kernelIaLi128EEEvNS_9PagedArgsE",
+     "paged_f32_kernel<int8,128>"),
+    ("_ZN12_GLOBAL__N_116paged_f32_kernelI13__nv_bfloat16Li16EEEvNS_9PagedArgsE",
+     "paged_f32_kernel<bf16,16>"),
+    ("_ZN12_GLOBAL__N_116paged_f32_kernelI6__halfLi32EEEvNS_9PagedArgsE",
+     "paged_f32_kernel<f16,32>"),
+    ("_ZN12_GLOBAL__N_124paged_f32_combine_kernelILi128EEEvNS_9PagedArgsE",
+     "paged_f32_combine_kernel<128>"),
+    ("_ZN12_GLOBAL__N_124paged_f32_combine_kernelILi16EEEvNS_9PagedArgsE",
+     "paged_f32_combine_kernel<16>"),
+])
+def test_ptxas_names_of_the_f32_instantiations(mangled, name):
+    """The names chip_smoke reads off a ptxas report (and holds the main
+    path's instantiations and the spill check to)."""
+    [entry] = chip_smoke.ptxas_entries(_report(mangled, spill=8))
+    assert entry == {"name": name, "registers": 40, "spill_bytes": 16, "smem_bytes": 512}
+
+
+def test_path_instantiations_name_k2_f32s_builds():
+    assert {"paged_f32_kernel<f32,128>", "paged_f32_kernel<int8,128>",
+            "paged_f32_kernel<bf16,16>", "paged_f32_combine_kernel<128>",
+            "paged_f32_combine_kernel<16>", "flash_f32_kernel<f32,128>"} <= set(
+                chip_smoke.PATH_INSTANTIATIONS)
+
+
+@pytest.mark.parametrize("kv_bytes,scales,nbytes", [(2, False, 664), (1, True, 520)])
+def test_paged_bound_counts_a_shared_block_once(kv_bytes, scales, nbytes):
+    """The paged kernels' bound reads each visible (block, position) pair
+    once: lane 1's three positions lie in block 1, which lane 0 reads
+    too, so 6 pairs of K and V (plus int8 scales), q and the output in
+    bf16, the table and the lengths; worked out by hand."""
+    import torch
+
+    table = torch.tensor([[1, 2], [1, 3]], dtype=torch.int32)
+    lengths = torch.tensor([5, 2], dtype=torch.int32)
+    bound_ms, bound_by = chip_smoke._paged_bound(torch, table, lengths, 4, 2, 1, 16,
+                                                 kv_bytes, scales)
+    assert bound_by == "bytes"
+    assert bound_ms == pytest.approx(nbytes / chip_smoke.PEAK_BYTES * 1e3, rel=1e-12)

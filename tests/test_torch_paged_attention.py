@@ -207,46 +207,112 @@ def test_pool_attention_matches_jax(quantized):
     np.testing.assert_allclose(ref[:2].numpy(), got[:2].numpy(), **INT8_TOL)
 
 
-@pytest.mark.parametrize("q_dtype,pool_dtype,int8,route", [
-    (torch.bfloat16, torch.bfloat16, False, "split"),
-    (torch.bfloat16, torch.int8, True, "split"),
-    (torch.float32, torch.float32, False, "f32"),
-    (torch.float32, torch.bfloat16, False, "no CUDA kernel"),
-    (torch.bfloat16, torch.float32, False, "no CUDA kernel"),
-    (torch.float32, torch.int8, True, "no CUDA kernel"),
-    (torch.float16, torch.float16, False, "no CUDA kernel"),
+BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
+
+
+@pytest.mark.parametrize("q_dtype,pool_dtype,int8,head_dim,out_dtype,route", [
+    (BF16, BF16, False, 128, None, "split"),
+    (BF16, torch.int8, True, 128, None, "split"),
+    (F32, F32, False, 128, None, "f32"),
+    # The pairings below raised before K2-f32 took every input the
+    # Pallas kernel takes; they are read as f32, as Pallas casts.
+    (F32, BF16, False, 128, None, "f32"),
+    (BF16, F32, False, 128, None, "f32"),
+    (F32, torch.int8, True, 128, None, "f32"),
+    (F16, F16, False, 128, None, "f32"),
+    # Head dims K2 is not built for, and outputs it does not write.
+    (BF16, BF16, False, 16, None, "f32"),  # llama_tiny
+    (BF16, torch.int8, True, 32, None, "f32"),
+    (F32, F32, False, 256, None, "f32"),
+    (BF16, BF16, False, 64, F16, "f32"),
+    (BF16, BF16, False, 64, F32, "split"),
+    (F16, torch.int8, True, 16, BF16, "f32"),
+    # What neither kernel is built for raises, naming it.
+    (F32, F32, False, 96, None, "head dim 96"),
+    (torch.float64, F32, False, 128, None, "float64 q"),
+    (F32, torch.float64, False, 128, None, "float64 pool"),
+    (F32, F32, False, 128, torch.float64, "float64 output"),
+    (BF16, BF16, True, 128, None, "int8 codes"),
 ])
-def test_kernel_route_by_dtype(q_dtype, pool_dtype, int8, route):
-    """K2 serves a bf16 q over bf16 or int8 pools, K2-f32 an f32 q over
-    f32 pools; any other pairing raises before launch (a choice on dtypes
-    alone)."""
+def test_kernel_route_by_dtype(q_dtype, pool_dtype, int8, head_dim, out_dtype, route):
+    """K2 serves a bf16 q over bf16 or int8 pools at head dims 64 and 128
+    with a bf16 or f32 output; K2-f32 every other f32, bf16 or f16 q over
+    f32, bf16, f16 or int8 pools at head dims 16-256; anything else raises
+    before launch (a choice on dtypes and head dim alone)."""
     if route in ("split", "f32"):
-        assert tpa.kernel_route(q_dtype, pool_dtype, int8) == route
+        assert tpa.kernel_route(q_dtype, pool_dtype, int8, head_dim, out_dtype) == route
     else:
         with pytest.raises(ValueError, match=route):
-            tpa.kernel_route(q_dtype, pool_dtype, int8)
+            tpa.kernel_route(q_dtype, pool_dtype, int8, head_dim, out_dtype)
 
 
 @pytest.mark.parametrize("case,ok", [
-    ("f32_hd128", True), ("f32_hd64", True), ("f32_q_bf16_pool", False),
+    ("f32_hd128", True), ("f32_hd64", True), ("f32_q_bf16_pool", True),
     ("f32_hd96", False), ("f32_group5", False), ("f32_long_table", False),
+    ("f32_hd16", True), ("f32_hd32", True), ("f32_hd256", True),
+    ("f32_q_int8_pool", True), ("f16_q_f16_pool", True), ("bf16_hd16_f16_out", True),
+    ("f32_hd16_misaligned_rows", False),
 ])
 def test_kernel_input_checks_take_f32_pools(case, ok):
-    """The input checks in front of both kernels take f32 pools at the
-    head dims and group sizes K2-f32 is built for."""
-    HD = {"f32_hd64": 64, "f32_hd96": 96}.get(case, 128)
+    """The input checks in front of both kernels take what K2-f32 is built
+    for (every pairing of f32, bf16 and f16 q over f32, bf16, f16 or int8
+    pools, head dims 16-256, groups of 1, 2, 3, 4 or 8) and raise, naming
+    it, on what it is not: head dim 96, group 5, an int64 table, pool rows
+    that are not 16-byte aligned."""
+    HD = {"f32_hd64": 64, "f32_hd96": 96, "f32_hd16": 16, "f32_hd32": 32,
+          "f32_hd256": 256, "bf16_hd16_f16_out": 16, "f32_hd16_misaligned_rows": 18}.get(case, 128)
     KV, n_rep = 2, 5 if case == "f32_group5" else 3
-    q = torch.zeros(2, KV * n_rep, HD)
-    k = torch.zeros(6, 16, KV, HD, dtype=torch.bfloat16 if case == "f32_q_bf16_pool"
-                    else torch.float32)
+    q_dtype = {"f16_q_f16_pool": F16, "bf16_hd16_f16_out": BF16}.get(case, F32)
+    q = torch.zeros(2, KV * n_rep, HD, dtype=q_dtype)
+    pool_dtype = {"f32_q_bf16_pool": BF16, "f16_q_f16_pool": F16, "bf16_hd16_f16_out": BF16,
+                  "f32_q_int8_pool": torch.int8}.get(case, F32)
+    k = torch.zeros(6, 16, KV, HD, dtype=pool_dtype)
+    if case == "f32_hd16_misaligned_rows":  # 16-element rows 18 elements apart
+        k = k[..., :16]
+        q = q[..., :16]
+    scales = torch.ones(6, 16, KV) if pool_dtype == torch.int8 else None
     table = torch.zeros(2, 4, dtype=torch.int64 if case == "f32_long_table" else torch.int32)
     lengths = torch.zeros(2, dtype=torch.int32)
-    args = (q, k, None, k, None, table, lengths, 16, torch.float32)
+    out_dtype = F16 if case == "bf16_hd16_f16_out" else F32
+    args = (q, k, scales, k, scales, table, lengths, 16, out_dtype)
     if ok:
-        tpa._check_kernel_inputs(*args)
+        assert tpa._check_kernel_inputs(*args) == "f32"
     else:
         with pytest.raises(ValueError):
             tpa._check_kernel_inputs(*args)
+
+
+@pytest.mark.parametrize("case", ["f32_q_int8_pool", "bf16_hd16", "f16"])
+def test_f6_inputs_match_pallas_interpret(case):
+    """The inputs the CUDA route refused before K2-f32 took them, through
+    the plain version against the Pallas kernel in interpret mode: an f32
+    q over int8 pools, bf16 q and pools at llama_tiny's head dim 16, and
+    f16 q and pools.  Both sides cast to f32 (Pallas in the kernel, the
+    plain version on its inputs): in f32 out, the f32 tolerance (int8's
+    for int8 pools); in the inputs' dtype, half an output ulp more."""
+    quantized = case == "f32_q_int8_pool"
+    q, k, v, table, lens = _setup(quantized=quantized)
+    dtype = {"bf16_hd16": (jnp.bfloat16, BF16), "f16": (jnp.float16, F16)}.get(case)
+    jq, tq = _jax(q), _torch(q)
+    jk, jv, tk, tv = _jax(k), _jax(v), _torch(k), _torch(v)
+    if dtype:
+        jq, jk, jv = (x.astype(dtype[0]) for x in (jq, jk, jv))
+        tq, tk, tv = (torch.from_numpy(np.array(x.astype(jnp.float32))).to(dtype[1])
+                      for x in (jq, jk, jv))
+    tol = INT8_TOL if quantized else F32_TOL
+    for out in ("f32", "input"):
+        out_dtype = F32 if out == "f32" or not dtype else dtype[1]
+        want = jpa.paged_decode_attention(
+            jq, jk, jv, _jax(table), _jax(lens), block_size=BS, interpret=True,
+            out_dtype=jnp.float32 if out == "f32" else None)
+        got = tpa.paged_decode_attention(tq, tk, tv, _torch(table), _torch(lens),
+                                         block_size=BS, out_dtype=F32 if out == "f32" else None)
+        assert got.dtype == out_dtype
+        want = np.asarray(want.astype(jnp.float32))
+        # Each side rounds its f32 result once to the output type.
+        half_ulp = {BF16: 2.0**-8, F16: 2.0**-11}.get(out_dtype, 0.0)
+        bound = tol["atol"] + (tol["rtol"] + 2 * half_ulp) * np.abs(want)
+        assert (np.abs(got.float().numpy() - want) <= bound).all()
 
 
 def test_cpu_f32_pools_take_the_plain_path():

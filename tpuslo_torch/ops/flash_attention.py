@@ -14,9 +14,12 @@ inputs alone:
   - K1, ``csrc/flash_attention.cu``: bf16 at head dims 128 and 256 (TMA
     loads into a two-stage K/V ring, both products on ``wgmma``);
   - K1-f32, ``csrc/attention_f32.cu``: everything else the JAX gate
-    admits up to head dim 512 (f32, bf16 or f16 inputs, full-f32 FFMA
-    products, no TF32; inputs of mixed dtypes are read as f32, exactly,
-    as the Pallas kernel casts every input to f32);
+    admits up to head dim 512 (f32, bf16 or f16 inputs; both products on
+    the tensor cores in split precision, 3xTF32 for f32 inputs and p in
+    two bf16 or f16 pieces for the others, so that the result holds f32
+    accuracy; K/V tiles in a two-stage ``cp.async`` ring; inputs of mixed
+    dtypes are read as f32, exactly, as the Pallas kernel casts every
+    input to f32);
 
   a head dim past 512 raises, naming it.  There is no fallback from the
   card to the plain version, and the choice is never a ``try``.
@@ -229,11 +232,11 @@ def flash_attention(
 
 
 def _vector_rows(t: torch.Tensor) -> torch.Tensor:
-    """K1-f32 reads rows four elements at a time, 16-byte aligned: a
-    tensor whose start or outer strides would break that is copied to a
+    """K1-f32 copies rows into shared memory 16 bytes at a time: a tensor
+    whose start or outer strides are not 16-byte aligned is copied to a
     fresh contiguous tensor (the allocator aligns it); any other is read
     in place."""
-    if t.data_ptr() % 16 or any(s % 4 for s in t.stride()[:3]):
+    if t.data_ptr() % 16 or any((s * t.element_size()) % 16 for s in t.stride()[:3]):
         return t.clone(memory_format=torch.contiguous_format)
     return t
 

@@ -14,15 +14,20 @@ routes by the device of its inputs alone:
   the Pallas kernel in interpret mode);
 * a CUDA tensor launches one of two hand-written Hopper kernels (built
   with nvcc at first use, see :mod:`tpuslo_torch.ops._build`), chosen by
-  :func:`kernel_route` from the dtypes alone: K2 (``csrc/paged_attention.cu``)
-  for a bf16 q over bf16 or int8 pools, K2-f32
-  (``csrc/attention_f32.cu``, full-f32 FFMA products) for an f32 q over
-  f32 pools; or the call raises: on other dtypes, a page table or
-  lengths that are not int32, a head dim other than 64 or 128, a layout
-  the kernel does not read, a failed build or a refused launch.  There
-  is no fallback from the card to the plain version.
+  :func:`kernel_route` from the dtypes and the head dim alone: K2
+  (``csrc/paged_attention.cu``, scores on ``mma.sync``) for a bf16 q over
+  bf16 or int8 pools at head dims 64 and 128 with a bf16 or f32 output,
+  K2-f32 (``csrc/attention_f32.cu``, f32 FFMA products) for every other
+  input the Pallas kernel takes in the repo's configs: an f32, bf16 or
+  f16 q over f32, bf16, f16 or int8 pools at head dims
+  :data:`F32_HEAD_DIMS`, an f32, bf16 or f16 output (mixed types are read
+  as f32, exactly, as the Pallas kernel casts).  Anything else raises,
+  naming it: another dtype or head dim, a group size outside
+  :data:`GROUP_SIZES`, a page table or lengths that are not int32, a
+  layout the kernel does not read, a failed build or a refused launch.
+  There is no fallback from the card to the plain version.
 
-The kernel splits each lane's walk over its blocks into spans of at
+Both kernels split each lane's walk over its blocks into spans of at
 most :data:`SPAN` positions (flash-decoding): :func:`split_plan` sizes
 the spans, the grid and the f32 scratch of partial results from shapes
 alone, and :func:`paged_decode_attention_split` is the plain PyTorch
@@ -31,8 +36,9 @@ the reference and to the Pallas kernel).
 
 ``paged_decode_attention.launches`` counts wrapper calls that launched
 K2 (one per call, though a call launches a split and a combine kernel)
-and ``paged_decode_attention.f32_launches`` those that launched K2-f32,
-so that a run can show that its path went through the kernel.
+and ``paged_decode_attention.f32_launches`` those that launched K2-f32
+(likewise a split and a combine kernel), so that a run can show that its
+path went through the kernel.
 """
 
 from __future__ import annotations
@@ -45,31 +51,51 @@ import torch
 
 from tpuslo_torch.ops import _build
 
-HEAD_DIMS = (64, 128)  # the head dims the kernel is built for
-GROUP_SIZES = (1, 2, 3, 4, 8)  # query heads per kv head it is built for
-MAX_BLOCK_SIZE = 1024  # the largest pool block the kernel is built for
-SPAN = 64  # logical positions one CTA of the kernel holds at most
-MAX_SPLITS = 65535  # spans per lane: the kernel's grid z limit
-ROUTE_SPLIT = "split"  # K2: bf16 q, bf16 or int8 pools
-ROUTE_F32 = "f32"  # K2-f32: f32 q, f32 pools
+HEAD_DIMS = (64, 128)  # the head dims K2 is built for
+F32_HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims K2-f32 is built for
+GROUP_SIZES = (1, 2, 3, 4, 8)  # query heads per kv head both are built for
+MAX_BLOCK_SIZE = 1024  # the largest pool block the kernels are built for
+SPAN = 64  # logical positions one CTA of the kernels holds at most
+MAX_SPLITS = 65535  # spans per lane: the kernels' grid z limit
+ROUTE_SPLIT = "split"  # K2: bf16 q over bf16 or int8 pools, HD 64/128
+ROUTE_F32 = "f32"  # K2-f32: every other input it is built for
+#: q and output dtypes K2-f32 reads and writes (code passed to the kernel).
+F32_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: Pool element types K2-f32 reads (int8: codes with f32 scales).
+F32_POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3}
 
 
-def kernel_route(q_dtype: torch.dtype, pool_dtype: torch.dtype, int8_pool: bool) -> str:
+def kernel_route(q_dtype: torch.dtype, pool_dtype: torch.dtype, int8_pool: bool,
+                 head_dim: int, out_dtype: torch.dtype | None = None) -> str:
     """Which CUDA kernel serves a q of ``q_dtype`` over pools of
-    ``pool_dtype`` (the codes' dtype for an int8 ``{q, s}`` pool):
-    :data:`ROUTE_SPLIT` (K2) or :data:`ROUTE_F32` (K2-f32).  Raises
-    ``ValueError`` for a pairing no kernel is built for."""
-    if q_dtype == torch.bfloat16 and (
-        pool_dtype == torch.bfloat16 or (int8_pool and pool_dtype == torch.int8)
-    ):
+    ``pool_dtype`` (the codes' dtype for an int8 ``{q, s}`` pool) at
+    ``head_dim``, writing ``out_dtype`` (default q's): :data:`ROUTE_SPLIT`
+    (K2) for a bf16 q over bf16 or int8 pools at a head dim in
+    :data:`HEAD_DIMS` with a bf16 or f32 output, else :data:`ROUTE_F32`
+    (K2-f32).  Raises ``ValueError``, naming it, for what neither kernel
+    is built for."""
+    out_dtype = out_dtype or q_dtype
+    if int8_pool != (pool_dtype == torch.int8):
+        raise ValueError(
+            f"no CUDA kernel takes {'int8 ' if int8_pool else 'dense '}pools of "
+            f"{pool_dtype}: int8 pools hold int8 codes with f32 scales"
+        )
+    if (q_dtype == torch.bfloat16 and pool_dtype in (torch.bfloat16, torch.int8)
+            and head_dim in HEAD_DIMS and out_dtype in (torch.bfloat16, torch.float32)):
         return ROUTE_SPLIT
-    if q_dtype == torch.float32 and pool_dtype == torch.float32 and not int8_pool:
-        return ROUTE_F32
-    raise ValueError(
-        f"no CUDA kernel takes a {q_dtype} q over {'int8 ' if int8_pool else ''}"
-        f"{pool_dtype} pools: K2 takes a bf16 q over bf16 or int8 pools, "
-        "K2-f32 an f32 q over f32 pools"
-    )
+    for what, dtype, table in (("q", q_dtype, F32_DTYPES), ("pool", pool_dtype, F32_POOL_DTYPES),
+                               ("output", out_dtype, F32_DTYPES)):
+        if dtype not in table:
+            raise ValueError(
+                f"no CUDA kernel takes a {dtype} {what}: K2-f32 takes "
+                f"{sorted(str(d) for d in table)}"
+            )
+    if head_dim not in F32_HEAD_DIMS:
+        raise ValueError(
+            f"no CUDA kernel is built for head dim {head_dim}: K2 takes head dims "
+            f"{HEAD_DIMS}, K2-f32 head dims {F32_HEAD_DIMS}"
+        )
+    return ROUTE_F32
 
 
 @dataclass(frozen=True)
@@ -261,16 +287,18 @@ def _kernel_f32():
     lib = _build.load("attention_f32")
     fn = lib.tpuslo_paged_decode_attention_f32
     fn.argtypes = (
-        [ctypes.c_void_p] * 6
-        + [ctypes.c_int] * 7
-        + [ctypes.c_longlong] * 8
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_void_p] * 9
+        + [ctypes.c_int] * 14
+        + [ctypes.c_longlong] * 11
+        + [ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_kernel_inputs(q, kq, ks, vq, vs, page_table, lengths, block_size, out_dtype):
+def _check_kernel_inputs(q, kq, ks, vq, vs, page_table, lengths, block_size, out_dtype) -> str:
+    """Check what the kernels read and return the route
+    (:func:`kernel_route`); raise ``ValueError`` on anything else."""
     if q.ndim != 3:
         raise ValueError(f"q must be (B, H, HD), got {tuple(q.shape)}")
     B, H, HD = q.shape
@@ -287,24 +315,19 @@ def _check_kernel_inputs(q, kq, ks, vq, vs, page_table, lengths, block_size, out
     for name, t in tensors.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    kernel_route(q.dtype, kq.dtype, ks is not None)
+    if vq.dtype != kq.dtype:
+        raise ValueError("k and v pools must share one dtype")
+    if pool_hd != HD:
+        raise ValueError(f"q has head dim {HD}, the pool {pool_hd}")
+    route = kernel_route(q.dtype, kq.dtype, ks is not None, HD, out_dtype)
     if ks is not None:
-        if kq.dtype != torch.int8 or vq.dtype != torch.int8:
-            raise ValueError("int8 pools need int8 codes")
         if ks.dtype != torch.float32 or ks.shape != (N, BS, KV) or vs.shape != ks.shape:
             raise ValueError("int8 pools need f32 scales of shape (N, BS, KV)")
         if ks.stride() != vs.stride():
             raise ValueError("k and v scales must share one layout")
-    if vq.dtype != kq.dtype:
-        raise ValueError("k and v pools must share one dtype")
-    if pool_hd != HD or HD not in HEAD_DIMS:
-        raise ValueError(
-            f"the CUDA kernel is built for head dims {HEAD_DIMS}; q has {HD}, "
-            f"the pool {pool_hd}"
-        )
     if H % KV or H // KV not in GROUP_SIZES:
         raise ValueError(
-            f"{H} query heads over {KV} kv heads: the kernel takes "
+            f"{H} query heads over {KV} kv heads: the kernels take "
             f"{GROUP_SIZES} query heads per kv head"
         )
     if block_size != BS or not 1 <= BS <= MAX_BLOCK_SIZE:
@@ -323,9 +346,13 @@ def _check_kernel_inputs(q, kq, ks, vq, vs, page_table, lengths, block_size, out
         raise ValueError(f"lengths must be a contiguous ({B},) tensor")
     if kq.stride() != vq.stride():
         raise ValueError("k and v pools must share one layout")
-    # Loads of 8 elements: 16 bytes of bf16, 8 bytes of int8 codes.
-    for name, t in (("q", q), ("k_pool", kq), ("v_pool", vq)):
-        align = 8 * t.element_size()
+    # K2 loads 8 elements at a time (16 bytes of bf16, 8 of int8 codes) from
+    # q and the pools; K2-f32 copies pool rows 16 bytes at a time and reads
+    # q element by element.
+    checked = (("q", q, 8), ("k_pool", kq, 8), ("v_pool", vq, 8)) if route == ROUTE_SPLIT else (
+        ("k_pool", kq, 16 // kq.element_size()), ("v_pool", vq, 16 // vq.element_size()))
+    for name, t, elems in checked:
+        align = elems * t.element_size()
         if t.stride(-1) != 1 or any((s * t.element_size()) % align for s in t.stride()[:-1]):
             raise ValueError(
                 f"{name} needs a unit inner stride and rows aligned to "
@@ -333,8 +360,9 @@ def _check_kernel_inputs(q, kq, ks, vq, vs, page_table, lengths, block_size, out
             )
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"the CUDA kernel writes bf16 or f32, not {out_dtype}")
+    if q.stride(-1) != 1:
+        raise ValueError(f"q needs a unit inner stride, got strides {q.stride()}")
+    return route
 
 
 def paged_decode_attention(
@@ -353,17 +381,17 @@ def paged_decode_attention(
     ``{"q": (N, BS, KV, HD), "s": (N, BS, KV) f32}``; page_table:
     ``(B, MB)`` int32 physical block indices (0 = null block); lengths:
     ``(B,)`` current positions (the step's token sits at ``lengths[b]``
-    and is visible).  Returns ``(B, H, HD)`` in ``out_dtype``.
+    and is visible).  Returns ``(B, H, HD)`` in ``out_dtype`` (default
+    q's).
 
     On the CPU this is :func:`paged_decode_attention_reference`.  On
-    CUDA it launches, on the current stream, K2 (bf16 q, bf16 or int8
-    pools) or K2-f32 (f32 q and pools), as :func:`kernel_route` says,
-    with an int32 page table and lengths and head dim 64 or 128, and
-    raises on anything else.  It reads the lengths and the page
-    table on the device and sizes its grid and scratch from shapes
-    alone: the call never waits for the card, and it can be captured in
-    a CUDA graph and replayed after the lengths and the table change in
-    place.
+    CUDA it launches, on the current stream, K2 or K2-f32 as
+    :func:`kernel_route` says, with an int32 page table and lengths, and
+    raises on anything neither kernel is built for.  It reads the lengths
+    and the page table on the device and sizes its grid and scratch from
+    shapes alone: the call never waits for the card, and it can be
+    captured in a CUDA graph and replayed after the lengths and the table
+    change in place.
     """
     out_dtype = out_dtype or q.dtype
     if q.device.type == "cpu":
@@ -377,55 +405,46 @@ def paged_decode_attention(
     vq, vs = _pool_leaves(v_pool)
     if (ks is None) != (vs is None):
         raise ValueError("k and v pools must both be int8 or both dense")
-    _check_kernel_inputs(q, kq, ks, vq, vs, page_table, lengths, block_size, out_dtype)
+    route = _check_kernel_inputs(q, kq, ks, vq, vs, page_table, lengths, block_size, out_dtype)
     B, H, HD = q.shape
     N, BS, KV, _ = kq.shape
     MB = page_table.shape[1]
-    if kernel_route(q.dtype, kq.dtype, ks is not None) == ROUTE_F32:
-        return _paged_f32(q, kq, vq, page_table, lengths, BS, out_dtype)
     plan = split_plan(B, KV, H // KV, HD, BS, MB)
     out = torch.empty((B, H, HD), dtype=out_dtype, device=q.device)
     scratch = torch.empty(plan.scratch_shape, dtype=torch.float32, device=q.device)
     scale_strides = ks.stride() if ks is not None else (0, 0, 0)
-    fn = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
+        pointers = (
             q.data_ptr(), kq.data_ptr(), vq.data_ptr(),
             ks.data_ptr() if ks is not None else None,
             vs.data_ptr() if vs is not None else None,
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             scratch.data_ptr(),
-            B, KV, H // KV, HD, N, BS, MB, int(ks is not None),
-            plan.n_split, plan.blocks_per_split, plan.chunks_per_block, plan.chunk,
-            *q.stride()[:2], *kq.stride()[:3], *scale_strides,
-            page_table.stride(0), *out.stride()[:2],
-            HD**-0.5, int(out_dtype == torch.float32), stream,
         )
+        geometry = (B, KV, H // KV, HD, N, BS, MB)
+        split = (plan.n_split, plan.blocks_per_split, plan.chunks_per_block, plan.chunk)
+        strides = (*q.stride()[:2], *kq.stride()[:3], *scale_strides,
+                   page_table.stride(0), *out.stride()[:2])
+        if route == ROUTE_F32:
+            err = _kernel_f32()(
+                *pointers, F32_DTYPES[q.dtype], F32_POOL_DTYPES[kq.dtype],
+                F32_DTYPES[out_dtype], *geometry, *split, *strides, HD**-0.5, stream,
+            )
+        else:
+            err = _kernel()(
+                *pointers, *geometry, int(ks is not None), *split, *strides,
+                HD**-0.5, int(out_dtype == torch.float32), stream,
+            )
     if err != 0:
-        raise RuntimeError(f"paged_decode_attention kernel launch failed: CUDA error {err}")
-    paged_decode_attention.launches += 1
-    return out
-
-
-def _paged_f32(q, kq, vq, page_table, lengths, BS, out_dtype):
-    """Launch K2-f32 (checked by :func:`_check_kernel_inputs`)."""
-    B, H, HD = q.shape
-    N, _, KV, _ = kq.shape
-    out = torch.empty((B, H, HD), dtype=out_dtype, device=q.device)
-    fn = _kernel_f32()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
-            q.data_ptr(), kq.data_ptr(), vq.data_ptr(), page_table.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(),
-            B, KV, H // KV, HD, N, BS, page_table.shape[1],
-            *q.stride()[:2], *kq.stride()[:3], page_table.stride(0), *out.stride()[:2],
-            HD**-0.5, int(out_dtype == torch.float32), stream,
+        raise RuntimeError(
+            f"paged_decode_attention {'f32 ' if route == ROUTE_F32 else ''}kernel "
+            f"launch failed: CUDA error {err}"
         )
-    if err != 0:
-        raise RuntimeError(f"paged_decode_attention f32 kernel launch failed: CUDA error {err}")
-    paged_decode_attention.f32_launches += 1
+    if route == ROUTE_F32:
+        paged_decode_attention.f32_launches += 1
+    else:
+        paged_decode_attention.launches += 1
     return out
 
 

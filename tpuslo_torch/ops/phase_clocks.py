@@ -10,12 +10,15 @@ and prints per phase the median and maximum cycles over the CTAs that
 did work, with the heaviest CTA's phases and the kernel's span on the
 global timer:
 
-    python -m tpuslo_torch.ops.phase_clocks                  # both kernels
-    python -m tpuslo_torch.ops.phase_clocks paged_attention
+    python -m tpuslo_torch.ops.phase_clocks                  # every kernel
+    python -m tpuslo_torch.ops.phase_clocks paged_attention attention_f32
 
 K1 runs at the serve shapes and S 2048 (Llama-3.2-3B's attention
 widths), K2 at a paged step of 8 lanes (lengths 49-729, one 64-position
-pool block per span) with a cold and a warm L2.  The insertion points
+pool block per span) with a cold and a warm L2, K1-f32 at the f32 path's
+prefill (B2 S128 H2 KV1 D128) and at B1 S256 H24 KV8 in f32 at D 128 and
+512 and in bf16 at D 512 (its phases summed over the tiles of the CTA's
+first warp).  The insertion points
 are text anchors in the committed sources; a probe whose anchor is gone
 raises instead of measuring something else.  The clocks add a few
 instructions per phase to each CTA.
@@ -99,12 +102,48 @@ PAGED_EDITS = (
 PAGED_PHASES = ("length and table reads", "row offsets", "copy issue and wait for K",
                 "scores, softmax, wait for V", "p.v and partial write", "whole CTA")
 
+F32_EDITS = (
+    ("  float scale_log2;  // D^-0.5 * log2(e)\n  int causal;\n};",
+     "  float scale_log2;  // D^-0.5 * log2(e)\n  int causal;\n  unsigned long long* probe;\n};"),
+    _after("  const int side = warp & 1, kg = (warp >> 1) & 1, rg = warp >> 2;\n",
+           _GTIME.format("pc_t0") + _CLOCK.format("pc0")
+           + "long long pc_wait = 0, pc_qk = 0, pc_sm = 0, pc_pv = 0; int pc_n = 0;\n"
+           + f"unsigned long long* pc_rec = a.probe + {RECORD}ull * "
+           "((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x);\n"),
+    _after("  load_tile(0);\n  hopper::cp_async_commit();\n", _CLOCK.format("pc1")),
+    _after("  for (int j = 0; j < n_tiles; ++j) {\n", _CLOCK.format("pc_a")),
+    _after("    __syncthreads();             // and for every thread\n",
+           _CLOCK.format("pc_b") + "pc_wait += pc_b - pc_a;\n"),
+    _after("      tile_scores<T, D>(s, qw, kt, c0, lane);\n",
+           _CLOCK.format("pc_c") + "pc_qk += pc_c - pc_b;\n"),
+    ("      tile_pv<T, D>(o, s, vt, c0, lane);\n",
+     _CLOCK.format("pc_d") + "pc_sm += pc_d - pc_c;\n"
+     "      tile_pv<T, D>(o, s, vt, c0, lane);\n"
+     "pc_pv += clock64() - pc_d; ++pc_n;\n"),
+    _after("      store2(at + 8 * nn, x0 / denom, x1 / denom);\n    }\n  }\n",
+           _CLOCK.format("pc9") + _GTIME.format("pc_t1")
+           + "if (tid == 0) { pc_rec[0] = pc_t0; pc_rec[1] = pc_t1;"
+           " pc_rec[2] = pc1 - pc0; pc_rec[3] = pc_wait; pc_rec[4] = pc_qk;"
+           " pc_rec[5] = pc_sm; pc_rec[6] = pc_pv; pc_rec[7] = pc9 - pc0;"
+           " pc_rec[8] = 1; pc_rec[9] = pc_n; }\n"),
+    ("    long long o_sb, long long o_ss, long long o_sh, float scale, int causal, void* stream) {",
+     "    long long o_sb, long long o_ss, long long o_sh, float scale, int causal, void* stream,"
+     " void* probe_buf) {"),
+    ("v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale * kLog2e, causal};",
+     "v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale * kLog2e, causal,"
+     " static_cast<unsigned long long*>(probe_buf)};"),
+)
+F32_PHASES = ("setup and copy issue", "tile issue and wait", "scores (q.k)",
+              "pair exchange and softmax", "p.v", "whole CTA")
+EDITS = {"flash_attention": FLASH_EDITS, "paged_attention": PAGED_EDITS,
+         "attention_f32": F32_EDITS}
+
 
 def build_probe(name: str) -> ctypes.CDLL:
     """The instrumented copy of ``csrc/<name>.cu``, built and loaded; its
     entry point takes one more argument, the record buffer."""
     src = (_build.CSRC / f"{name}.cu").read_text()
-    for anchor, replacement in FLASH_EDITS if name == "flash_attention" else PAGED_EDITS:
+    for anchor, replacement in EDITS[name]:
         if src.count(anchor) != 1:
             raise RuntimeError(f"probe anchor not found once in {name}.cu: {anchor[:60]!r}")
         src = src.replace(anchor, replacement)
@@ -119,14 +158,15 @@ def build_probe(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
-def _route(module, lib, symbol: str) -> list:
-    """Send ``module``'s wrapper through the probe's entry point, which
-    gets the record buffer whose pointer is in the returned holder."""
+def _route(module, lib, symbol: str, attr: str = "_kernel") -> list:
+    """Send ``module``'s wrapper through the probe's entry point (the one
+    its ``attr`` returns), which gets the record buffer whose pointer is
+    in the returned holder."""
     fn = getattr(lib, symbol)
-    fn.argtypes = list(module._kernel().argtypes) + [ctypes.c_void_p]
+    fn.argtypes = list(getattr(module, attr)().argtypes) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     holder = [None]
-    module._kernel = lambda: (lambda *args: fn(*args, holder[0]))
+    setattr(module, attr, lambda: (lambda *args: fn(*args, holder[0])))
     return holder
 
 
@@ -190,14 +230,38 @@ def probe_paged(dev) -> None:
                 PAGED_PHASES)
 
 
+def probe_f32(dev) -> None:
+    fa = importlib.import_module("tpuslo_torch.ops.flash_attention")
+    holder = _route(fa, build_probe("attention_f32"), "tpuslo_flash_attention_fwd_f32",
+                    "_kernel_f32")
+    for B, S, H, KV, D, dtype in ((2, 128, 2, 1, 128, torch.float32),
+                                  (1, 256, 24, 8, 128, torch.float32),
+                                  (1, 256, 24, 8, 512, torch.float32),
+                                  (1, 256, 24, 8, 512, torch.bfloat16)):
+        g = torch.Generator(device=dev).manual_seed(0)
+        q = torch.randn(B, S, H, D, device=dev, generator=g).to(dtype)
+        k = torch.randn(B, S, KV, D, device=dev, generator=g).to(dtype)
+        v = torch.randn(B, S, KV, D, device=dev, generator=g).to(dtype)
+        records = torch.zeros(H * B * (S // 16) * RECORD, dtype=torch.int64, device=dev)
+        holder[0] = records.data_ptr()
+        for _ in range(3):
+            fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        heavy = max((r for r in records.view(-1, RECORD).cpu().tolist() if r[8]),
+                    key=lambda r: r[7])
+        _report(f"K1-f32 B{B} S{S} H{H} KV{KV} D{D} {str(dtype)[6:]} causal "
+                f"(heaviest CTA: {heavy[9]} tiles)", records, F32_PHASES)
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("phase_clocks: needs a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    names = argv or ["flash_attention", "paged_attention"]
-    for name in names:
-        {"flash_attention": probe_flash, "paged_attention": probe_paged}[name](dev)
+    probes = {"flash_attention": probe_flash, "paged_attention": probe_paged,
+              "attention_f32": probe_f32}
+    for name in argv or list(probes):
+        probes[name](dev)
     return 0
 
 
