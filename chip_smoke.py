@@ -95,7 +95,20 @@ non-zero exit and no result line:
     seeded sweep gate at the card's roofs, the torch lane against numpy
     in rows/s from 4,096 to 1,048,576 rows, and the auto probe's verdict
     per bucket; one ``attribution:`` JSON line;
-14. parity: a 2-layer full-width model's prefill logits on the card
+14. the process entry: ``python -m tpuslo_torch frontdoor`` (``llama_tiny``,
+    two tenants, the remediation loop, the crash-safe runtime) run as a
+    subprocess for 40 cycles on the card and on the CPU: cycle 0 must admit
+    the burning tenant first and every later cycle the healthy one, the
+    demotion must apply from cycle 0, the card's status rows must equal the
+    CPU's in every key but ``ts`` and the summaries must be equal; then the
+    entry is killed with SIGKILL once a flipped row and a snapshot holding
+    the demotion exist, restarted with the same argv, and held to the chaos
+    lane's audit (resumed from the snapshot, the demotion kept, applied
+    once); then a 5-cycle in-process run reads the kernels' counters
+    (expected 0: head dim 16 takes the plain attention); one ``entry:``
+    JSON line with the orders, the summary, the cycle wall times and the
+    resume;
+15. parity: a 2-layer full-width model's prefill logits on the card
     (kernel path) against the same weights on the CPU (plain path); then
     the JAX package's f32 head-dim-128 model: its prefill logits on the
     card (K1-f32) against the CPU within 1e-4, and a paged engine on it
@@ -103,7 +116,7 @@ non-zero exit and no result line:
     switch on, bf16 ``llama_tiny`` (head dim 16) and the f32 model over
     int8 pools, each launching K2-f32 once per layer per step, streams
     held to the CPU engine's;
-15. the ``kernels`` JSON line, the card line, and the result line.
+16. the ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card and imports nothing of JAX or of the JAX package.
 Every measurement also goes into one ``record:`` JSON line.
@@ -2243,6 +2256,242 @@ def phase_attribution(torch) -> dict:
             "auto_threshold": threshold, "env": env, "phase_s": phase_s}
 
 
+# ---- the process entry (phase 14) ------------------------------------------
+
+ENTRY_CYCLES = 40  # the fresh run's cycles, on the card and on the CPU
+ENTRY_TENANTS = ("burny", "steady")  # the entry's burning and healthy tenants
+ENTRY_COUNT_CYCLES = 5  # the in-process run that reads the kernels' counters
+ENTRY_TIMEOUT_S = 300.0  # each subprocess, and each wait of the kill/resume run
+ENTRY_KILL_INTERVAL_S = 0.05  # the chaos lane's --interval-s ...
+ENTRY_KILL_SNAPSHOT_S = 0.2  # ... and --snapshot-interval-s
+ENTRY_RESUME_CYCLES = 10  # the restart runs this many cycles past the last row
+
+
+def entry_argv(workdir: Path, device: str, cycles: int, interval_s: float = 0.0,
+               snapshot_s: float = 0.0) -> list[str]:
+    """``python -m tpuslo_torch frontdoor``'s argv over ``workdir``'s
+    status file and state dir."""
+    return [sys.executable, "-m", "tpuslo_torch", "frontdoor", "--device", device,
+            "--cycles", str(cycles), "--interval-s", str(interval_s),
+            "--snapshot-interval-s", str(snapshot_s),
+            "--status-out", str(workdir / "status.jsonl"), "--state-dir", str(workdir),
+            "--json"]
+
+
+def read_rows(path: Path) -> list[dict]:
+    """The status rows a run appended (a torn last row, from a kill
+    mid-write, is left out)."""
+    rows = []
+    if path.exists():
+        for line in path.read_text().splitlines():
+            try:
+                rows.append(json.loads(line))
+            except json.JSONDecodeError:
+                continue
+    return rows
+
+
+def entry_orders(rows: list[dict]) -> tuple[list, list]:
+    """The admission order before and after the demotion; fails unless
+    cycle 0 admits the burning tenant first, every later cycle the
+    healthy one first, and the demotion applied from cycle 0."""
+    burny, steady = ENTRY_TENANTS
+    if not rows or rows[0]["cycle"] != 0:
+        _fail(f"entry: no status row for cycle 0: {rows[:1]}")
+    if rows[0]["admitted"] != [burny, steady]:
+        _fail(f"entry: cycle 0 admitted {rows[0]['admitted']}, not [{burny}, {steady}]")
+    late = [r["cycle"] for r in rows[1:] if r["admitted"] != [steady, burny]]
+    if late:
+        _fail(f"entry: cycles {late[:5]} did not admit [{steady}, {burny}]")
+    off = [r["cycle"] for r in rows if not r["remediation_applied"]]
+    if off:
+        _fail(f"entry: remediation not applied at cycles {off[:5]}")
+    return rows[0]["admitted"], rows[-1]["admitted"]
+
+
+def rows_mismatch(got: list[dict], want: list[dict]) -> list[str]:
+    """Where two runs' status rows differ in any key but ``ts``."""
+    if len(got) != len(want):
+        return [f"{len(got)} rows against {len(want)}"]
+    return [f"cycle {b.get('cycle')}: {a} != {b}" for a, b in zip(got, want)
+            if {k: v for k, v in a.items() if k != "ts"}
+            != {k: v for k, v in b.items() if k != "ts"}]
+
+
+def audit_resume(rows: list[dict], kill_ts: float, stderr: str) -> list[str]:
+    """The chaos lane's front-door audit (``_audit_frontdoor`` of the JAX
+    package's live lane), written out: the demotion applied and flipped
+    the order, the restart resumed from its snapshot and kept the
+    demotion, and no action was applied twice."""
+    failures = []
+    if not any(r.get("remediation_applied") for r in rows):
+        failures.append("front door never applied a live remediation")
+    if not any(r.get("order_flipped") for r in rows):
+        failures.append("demote_tenant never flipped the live admission order")
+    post = [r for r in rows if r.get("ts", 0) > kill_ts]
+    if not any(r.get("restored") == "restored" for r in post):
+        failures.append("restarted front door did not resume from its snapshot")
+    if not any(r.get("order_flipped") and r.get("restored") == "restored" for r in post):
+        failures.append("the demotion did not survive the front door restart")
+    if "runtime: snapshot restored" not in stderr:
+        failures.append("front door stderr carries no snapshot-restored line")
+    applied = stderr.count("remediation demote_tenant")
+    if applied != 1:
+        failures.append(f"demote_tenant applied {applied} times over both incarnations")
+    return failures
+
+
+def run_entry(argv: list[str], workdir: Path, env=None) -> dict:
+    """Run the entry to its end; its status rows, summary and stderr."""
+    t0 = time.perf_counter()
+    out = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, env=env,
+                         timeout=ENTRY_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        _fail(f"entry: {' '.join(argv[1:])} exited {out.returncode}: {out.stderr[-2000:]}")
+    return {"rows": read_rows(workdir / "status.jsonl"), "summary": json.loads(out.stdout),
+            "stderr": out.stderr, "seconds": seconds}
+
+
+def _demotion_snapshotted(state_file: Path) -> bool:
+    try:
+        doc = json.loads(state_file.read_text())
+    except (OSError, json.JSONDecodeError):
+        return False
+    records = doc.get("components", {}).get("remediation", {}).get("records", [])
+    return any(r.get("kind") == "demote_tenant" and r.get("phase") == "verifying"
+               for r in records)
+
+
+def kill_and_resume(workdir: Path, device: str, env=None) -> dict:
+    """Start the entry with the chaos lane's intervals, wait for a
+    flipped row and a snapshot that holds the demotion, SIGKILL it,
+    restart it with the same argv for ``ENTRY_RESUME_CYCLES`` more
+    cycles, and audit both incarnations' rows and stderr."""
+    import signal
+
+    workdir.mkdir(parents=True, exist_ok=True)
+    status, state = workdir / "status.jsonl", workdir / "frontdoor-state.json"
+    argv = entry_argv(workdir, device, 0, ENTRY_KILL_INTERVAL_S, ENTRY_KILL_SNAPSHOT_S)
+    t0 = time.perf_counter()
+    with open(workdir / "first.err", "w") as err:
+        proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.DEVNULL, stderr=err,
+                                env=env)
+    try:
+        deadline = time.monotonic() + ENTRY_TIMEOUT_S
+        while time.monotonic() < deadline and proc.poll() is None:
+            if any(r.get("order_flipped") for r in read_rows(status)) and \
+                    _demotion_snapshotted(state):
+                break
+            time.sleep(0.05)
+        else:
+            _fail(f"entry: no flipped row and snapshotted demotion within "
+                  f"{ENTRY_TIMEOUT_S:.0f} s (exit {proc.poll()}): "
+                  f"{(workdir / 'first.err').read_text()[-2000:]}")
+        wait_s = time.perf_counter() - t0
+        kill_ts = time.time()
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    before = read_rows(status)
+    snapshot = json.loads(state.read_text())
+    last = before[-1]["cycle"]
+    restart = argv[:]
+    restart[restart.index("--cycles") + 1] = str(last + ENTRY_RESUME_CYCLES)
+    t1 = time.perf_counter()
+    out = subprocess.run(restart, cwd=ROOT, capture_output=True, text=True, env=env,
+                         timeout=ENTRY_TIMEOUT_S)
+    restart_s = time.perf_counter() - t1
+    stderr = (workdir / "first.err").read_text() + out.stderr
+    if out.returncode != 0:
+        _fail(f"entry: the restart exited {out.returncode}: {out.stderr[-2000:]}")
+    rows = read_rows(status)
+    after = [r for r in rows if r["ts"] > kill_ts]
+    return {"killed_after_cycle": last,
+            "snapshot_cycle": snapshot["components"]["progress"]["next_cycle"],
+            "resumed_at": after[0]["cycle"] if after else None,
+            "cycles": after[-1]["cycle"] + 1 if after else None,
+            "rows_before": len(before), "rows_after": len(after),
+            "wait_s": wait_s, "restart_s": restart_s,
+            "summary": json.loads(out.stdout), "failures": audit_resume(rows, kill_ts, stderr),
+            "rows": rows, "stderr": stderr}
+
+
+def _cycle_ms(rows: list[dict]) -> dict:
+    """Wall time per cycle from consecutive rows' ``ts`` (the run has no
+    sleep between cycles): the first cycle apart, then the median and
+    p90 of the rest."""
+    walls = sorted((b["ts"] - a["ts"]) * 1e3 for a, b in zip(rows[1:], rows[2:]))
+    return {"first": (rows[1]["ts"] - rows[0]["ts"]) * 1e3,
+            "median": walls[len(walls) // 2], "p90": walls[int(0.9 * (len(walls) - 1))],
+            "n": len(walls)}
+
+
+def phase_entry(torch, fa, pa, workdir: Path) -> dict:
+    """``python -m tpuslo_torch frontdoor`` on the card: a fresh run held
+    row for row to the same run on the CPU, then a kill -9 and a resume;
+    and an in-process run of a few cycles that reads the kernels'
+    counters (``llama_tiny``'s head dim 16 takes the plain attention, so
+    each is expected at 0)."""
+    import contextlib
+    import io
+
+    from tpuslo_torch.cli import frontdoor as entry
+
+    t_phase = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        where = workdir / f"fresh-{device}"
+        where.mkdir(parents=True)
+        runs[device] = run_entry(entry_argv(where, device, ENTRY_CYCLES), where)
+        print(f"entry: {device} run: {runs[device]['seconds']:.1f} s, "
+              f"summary {json.dumps(runs[device]['summary'])}", flush=True)
+    card, cpu = runs["cuda"], runs["cpu"]
+    if kind not in card["stderr"]:
+        _fail(f"entry: the card run's stderr does not name {kind}: {card['stderr'][-500:]}")
+    order_before, order_after = entry_orders(card["rows"])
+    entry_orders(cpu["rows"])
+    diff = rows_mismatch(card["rows"], cpu["rows"])
+    if diff:
+        _fail(f"entry: the card's status rows differ from the CPU's: {diff[:3]}")
+    if card["summary"] != cpu["summary"]:
+        _fail(f"entry: summaries differ: card {card['summary']}, cpu {cpu['summary']}")
+    resume = kill_and_resume(workdir / "kill", "cuda")
+    if resume["failures"]:
+        _fail(f"entry: kill -9 and resume: {resume['failures']}")
+    print(f"entry: kill -9 after cycle {resume['killed_after_cycle']} (snapshot at "
+          f"{resume['snapshot_cycle']}), resumed at cycle {resume['resumed_at']}", flush=True)
+
+    counters = (fa.flash_attention, pa.paged_decode_attention)
+    for counter in counters:
+        counter.launches = counter.f32_launches = 0
+    where = workdir / "counted"
+    where.mkdir()
+    argv = entry_argv(where, "cuda", ENTRY_COUNT_CYCLES)[4:]
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        rc = entry.main(argv)
+    if rc != 0:
+        _fail(f"entry: the in-process run exited {rc}")
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "paged_attention": pa.paged_decode_attention.launches,
+                "flash_attention_f32": fa.flash_attention.f32_launches,
+                "paged_attention_f32": pa.paged_decode_attention.f32_launches}
+    print(f"entry: kernel launches over {ENTRY_COUNT_CYCLES} in-process cycles: "
+          f"{json.dumps(launches)}", flush=True)
+    seconds = time.perf_counter() - t_phase
+    out = {"order_before": order_before, "order_after": order_after,
+           "summary": card["summary"], "cycle_ms": _cycle_ms(card["rows"]),
+           "cpu_cycle_ms": _cycle_ms(cpu["rows"]),
+           "run_s": {"cuda": card["seconds"], "cpu": cpu["seconds"]},
+           "resume": {k: v for k, v in resume.items() if k not in ("rows", "stderr")},
+           "launches": launches, "seconds": seconds}
+    return out
+
+
 def _wall(torch, fn) -> float:
     """Host seconds of one call, the card synchronized before and after."""
     torch.cuda.synchronize()
@@ -2525,7 +2774,14 @@ def main() -> int:
     # 13. the attribution spine on the card
     attributed = phase_attribution(torch)
     print(f"attribution: {json.dumps(attributed)}", flush=True)
-    # 14. parity: the bf16 model, then the f32 path (its launches counted
+    # 14. the process entry: python -m tpuslo_torch frontdoor, a kill -9 and
+    # a resume (its launches counted from 0 just before its in-process run)
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="entry-") as workdir:
+        entry = phase_entry(torch, fa, pa, Path(workdir))
+    print(f"entry: {json.dumps(entry)}", flush=True)
+    # 15. parity: the bf16 model, then the f32 path (its launches counted
     # from 0 just before it)
     parity = phase_parity(torch, fa, llama)
     for counter in (fa.flash_attention, pa.paged_decode_attention):
@@ -2539,7 +2795,7 @@ def main() -> int:
     k2_f32_path = phase_paged_kernel_f32_path(torch, pa, kv_cache, [
         ("f32_path", f32_capture, F32_MODEL["n_heads"], "f32", 4323), *tiny_paths])
 
-    # 15. kernels line, card line, result line
+    # 16. kernels line, card line, result line
     line_row = next(
         r for r in kernel["shapes"]
         if (r["B"], r["S"], r["causal"]) == LINE_SHAPE and r["D"] == cfg.head_dim
@@ -2559,7 +2815,8 @@ def main() -> int:
         "replaces": "tpuslo/ops/flash_attention.py:41",
         "launches": (served["launches"] + dense["k1_launches"] + paged["k1_launches"]
                      + spec["draft_1b"]["k1_launches"] + spec["self_draft"]["k1_launches"]
-                     + front["k1_launches"] + routed["k1_launches"] + device_k1),
+                     + front["k1_launches"] + routed["k1_launches"] + device_k1
+                     + entry["launches"]["flash_attention"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel["shapes"]),
         "ms": line_row["ms"],
         "plain_ms": line_row["plain_ms"],
@@ -2572,7 +2829,7 @@ def main() -> int:
         "route": "cuda",
         "source": "tpuslo_torch/ops/csrc/paged_attention.cu",
         "replaces": "tpuslo/ops/paged_attention.py:65",
-        "launches": paged["k2_launches"] + device_k2,
+        "launches": paged["k2_launches"] + device_k2 + entry["launches"]["paged_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in k2["shapes"]),
         "ms": k2_row["ms"],
         "plain_ms": k2_row["plain_ms"],
@@ -2588,7 +2845,7 @@ def main() -> int:
         "route": "cuda",
         "source": "tpuslo_torch/ops/csrc/attention_f32.cu",
         "replaces": "tpuslo/ops/flash_attention.py:41",
-        "launches": parity_f32["k1_f32_launches"],
+        "launches": parity_f32["k1_f32_launches"] + entry["launches"]["flash_attention_f32"],
         "max_abs_err": max(r["max_abs_err"] for r in kernel_f32["shapes"]
                            if r["dtype"] == "f32"),
         "ms": f32_row["ms"],
@@ -2603,7 +2860,7 @@ def main() -> int:
         "route": "cuda",
         "source": "tpuslo_torch/ops/csrc/attention_f32.cu",
         "replaces": "tpuslo/ops/paged_attention.py:65",
-        "launches": sum(k2_f32_launches.values()),
+        "launches": sum(k2_f32_launches.values()) + entry["launches"]["paged_attention_f32"],
         "max_abs_err": max(r["max_abs_err"] for r in k2_f32["shapes"] + k2_f32_path["shapes"]
                            if r["q"] == "f32"),
         "ms": k2_f32_row["ms"],
@@ -2635,7 +2892,8 @@ def main() -> int:
               "paged_kernel_f32": k2_f32,
               "paged_kernel_f32_path": k2_f32_path, "paged_breakdown": breakdown, "spec": spec, "frontdoor": front,
               "router": routed, "deviceplane": device, "attribution": attributed,
-              "parity": parity, "parity_f32": parity_f32, "parity_tiny": parity_tiny,
+              "entry": entry, "parity": parity, "parity_f32": parity_f32,
+              "parity_tiny": parity_tiny,
               **kernels}
     print(f"record: {json.dumps(record)}")
     print(json.dumps(kernels))

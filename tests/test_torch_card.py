@@ -971,3 +971,30 @@ def test_annotated_round_graphs_and_profiles(cuda_device, tmp_path):
     inside = [s for s in cap.spans if s.lane == xla_spans.OPS_LANE
               and any(r.start_us <= s.start_us < r.start_us + r.duration_us for r in runs)]
     assert len(inside) > 10
+
+
+@pytest.mark.cuda
+def test_the_entry_serves_five_cycles_on_the_card(cuda_device, tmp_path):
+    """``python -m tpuslo_torch frontdoor`` on the card (its default
+    device): five cycles, the demotion from cycle 0 and the healthy
+    tenant admitted first from cycle 1, the card named on stderr."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    status = tmp_path / "status.jsonl"
+    out = subprocess.run(
+        [sys.executable, "-m", "tpuslo_torch", "frontdoor", "--cycles", "5",
+         "--interval-s", "0", "--status-out", str(status), "--state-dir", str(tmp_path),
+         "--json"],
+        cwd=Path(__file__).resolve().parents[1], capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert torch.cuda.get_device_name(0) in out.stderr
+    rows = [json.loads(line) for line in status.read_text().splitlines()]
+    assert [r["cycle"] for r in rows] == list(range(5))
+    assert rows[0]["admitted"] == ["burny", "steady"]
+    assert all(r["admitted"] == ["steady", "burny"] for r in rows[1:])
+    assert all(r["remediation_applied"] for r in rows)
+    assert json.loads(out.stdout) == {"cycles": 5, "burn_state": "fast_burn", "priority": 10,
+                                      "remediation_phase": "verifying", "order_flips": 4}

@@ -1,5 +1,7 @@
 """``chip_smoke.py``'s arithmetic that needs no card: K1-f32's restated
-bound and the ptxas report's instantiation names.
+bound and the ptxas report's instantiation names; and the process
+entry's phase helpers (admission orders, the row comparison, the chaos
+lane's resume audit, cycle wall times) on recorded rows.
 
 K1-f32 computes f32-accurate products on the tensor cores (3xTF32 on f32
 inputs, p in two 16-bit pieces on bf16 or f16 inputs), so its bound takes
@@ -13,6 +15,7 @@ bf16, 495 TF32, 67 f32, 3.35 TB/s).
 from __future__ import annotations
 
 import importlib.util
+import json
 from pathlib import Path
 
 import pytest
@@ -100,3 +103,102 @@ def test_paged_bound_counts_a_shared_block_once(kv_bytes, scales, nbytes):
                                                  kv_bytes, scales)
     assert bound_by == "bytes"
     assert bound_ms == pytest.approx(nbytes / chip_smoke.PEAK_BYTES * 1e3, rel=1e-12)
+
+
+# ---- phase 14, the process entry: its helpers on recorded rows -------------
+
+def _row(cycle, admitted, ts, applied=True, restored="cold"):
+    return {"ts": ts, "cycle": cycle, "burn_state": "fast_burn", "priority": 10,
+            "admitted": admitted, "remediation_applied": applied,
+            "order_flipped": admitted == ["steady", "burny"], "restored": restored}
+
+
+FIRST, FLIPPED = ["burny", "steady"], ["steady", "burny"]
+
+
+def _rows(n=4, t0=100.0):
+    return [_row(i, FIRST if i == 0 else FLIPPED, t0 + i) for i in range(n)]
+
+
+def test_entry_orders_reads_the_order_before_and_after():
+    assert chip_smoke.entry_orders(_rows()) == (FIRST, FLIPPED)
+
+
+@pytest.mark.parametrize("break_it", [
+    lambda rows: rows.__setitem__(0, {**rows[0], "admitted": FLIPPED}),
+    lambda rows: rows.__setitem__(2, {**rows[2], "admitted": FIRST}),
+    lambda rows: rows.__setitem__(1, {**rows[1], "remediation_applied": False}),
+    lambda rows: rows.pop(0),
+    lambda rows: rows.clear(),
+], ids=["cycle0_flipped", "late_cycle_unflipped", "not_applied", "no_cycle0", "no_rows"])
+def test_entry_orders_fails_a_wrong_run(break_it):
+    rows = _rows()
+    break_it(rows)
+    with pytest.raises(SystemExit):
+        chip_smoke.entry_orders(rows)
+
+
+def test_rows_mismatch_ignores_only_ts():
+    card, cpu = _rows(t0=100.0), _rows(t0=5.0)
+    assert chip_smoke.rows_mismatch(card, cpu) == []
+    cpu[2] = {**cpu[2], "priority": 100}
+    assert len(chip_smoke.rows_mismatch(card, cpu)) == 1
+    assert chip_smoke.rows_mismatch(card, cpu[:3]) == ["4 rows against 3"]
+
+
+def _killed_run():
+    """Rows of a run killed after cycle 2 (snapshot at 2) and restarted
+    to cycle 5, and both incarnations' stderr."""
+    rows = _rows(3, t0=100.0) + [_row(i, FLIPPED, 200.0 + i, restored="restored")
+                                 for i in range(2, 6)]
+    stderr = ("frontdoor: remediation demote_tenant -> burny phase=verifying\n"
+              "frontdoor: runtime: snapshot restored (age 1.0s, components: "
+              "progress,burn,frontdoor,remediation); resuming at cycle 2\n")
+    return rows, 150.0, stderr
+
+
+def test_audit_resume_passes_a_good_restart():
+    assert chip_smoke.audit_resume(*_killed_run()) == []
+
+
+@pytest.mark.parametrize("break_it,failure", [
+    (lambda rows, s: ([{**r, "restored": "cold"} for r in rows], s),
+     "restarted front door did not resume from its snapshot"),
+    (lambda rows, s: ([{**r, "order_flipped": r["ts"] < 150.0} for r in rows], s),
+     "the demotion did not survive the front door restart"),
+    (lambda rows, s: (rows, s.replace("snapshot restored", "snapshot cold")),
+     "front door stderr carries no snapshot-restored line"),
+    (lambda rows, s: (rows, s + "frontdoor: remediation demote_tenant -> burny\n"),
+     "demote_tenant applied 2 times over both incarnations"),
+    (lambda rows, s: ([{**r, "remediation_applied": False} for r in rows], s),
+     "front door never applied a live remediation"),
+], ids=["not_restored", "demotion_lost", "no_restore_line", "applied_twice", "never_applied"])
+def test_audit_resume_names_each_failure(break_it, failure):
+    rows, kill_ts, stderr = _killed_run()
+    rows, stderr = break_it(rows, stderr)
+    assert failure in chip_smoke.audit_resume(rows, kill_ts, stderr)
+
+
+def test_read_rows_drops_a_torn_row(tmp_path):
+    path = tmp_path / "status.jsonl"
+    path.write_text("".join(json.dumps(r) + "\n" for r in _rows(3)) + '{"ts": 1.0, "cyc')
+    assert chip_smoke.read_rows(path) == _rows(3)
+    assert chip_smoke.read_rows(tmp_path / "missing.jsonl") == []
+
+
+def test_cycle_ms_from_row_timestamps():
+    rows = [_row(i, FLIPPED, t) for i, t in enumerate((0.0, 0.5, 0.6, 0.8, 0.9, 1.3))]
+    got = chip_smoke._cycle_ms(rows)
+    assert got["first"] == pytest.approx(500.0)
+    assert got["n"] == 4  # cycles 1-4: 100, 200, 100, 400 ms
+    assert got["median"] == pytest.approx(200.0)
+    assert got["p90"] == pytest.approx(200.0)
+
+
+def test_entry_argv_is_the_chaos_lanes():
+    argv = chip_smoke.entry_argv(Path("/w"), "cuda", 0, 0.05, 0.2)
+    assert argv[1:4] == ["-m", "tpuslo_torch", "frontdoor"]
+    flags = dict(zip(argv[4::2], argv[5::2]))
+    assert flags["--device"] == "cuda"
+    assert flags["--interval-s"] == "0.05" and flags["--snapshot-interval-s"] == "0.2"
+    assert argv[-1] == "--json"

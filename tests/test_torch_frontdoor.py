@@ -25,12 +25,20 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from tpuslo import remediation as jrem  # noqa: E402
+from tpuslo import runtime as jruntime  # noqa: E402
+from tpuslo.attribution.bayesian import BayesianAttributor as JBayesianAttributor  # noqa: E402
+from tpuslo.faultreplay.generator import generate_fault_samples as jreplay  # noqa: E402
 from tpuslo.models import frontdoor as jfd  # noqa: E402
 from tpuslo.models import llama as jl  # noqa: E402
 from tpuslo.models import serve as js  # noqa: E402
 from tpuslo.models import speculative as jsp  # noqa: E402
 from tpuslo.sloengine import engine as jslo  # noqa: E402
 from tpuslo.sloengine.stream import RequestOutcome as JRequestOutcome  # noqa: E402
+from tpuslo_torch import remediation as trem  # noqa: E402
+from tpuslo_torch import runtime as truntime  # noqa: E402
+from tpuslo_torch.attribution.bayesian import BayesianAttributor as TBayesianAttributor  # noqa: E402
+from tpuslo_torch.faultreplay.generator import generate_fault_samples as treplay  # noqa: E402
 from tpuslo_torch.models import bridge  # noqa: E402
 from tpuslo_torch.models import frontdoor as tfd  # noqa: E402
 from tpuslo_torch.models import llama as tl  # noqa: E402
@@ -68,12 +76,14 @@ def sides():
     target_j, target_t = mk_j0(), mk_t0()
     jax_side = SimpleNamespace(
         name="jax", mod=jfd, slo=jslo, RequestOutcome=JRequestOutcome,
-        SpeculativeEngine=jsp.SpeculativeEngine,
+        SpeculativeEngine=jsp.SpeculativeEngine, runtime=jruntime, rem=jrem,
+        replay=jreplay, BayesianAttributor=JBayesianAttributor,
         engines=(target_j, mk_j0()), real=(target_j, mk_j7()),
     )
     port_side = SimpleNamespace(
         name="port", mod=tfd, slo=tslo, RequestOutcome=TRequestOutcome,
-        SpeculativeEngine=tsp.SpeculativeEngine,
+        SpeculativeEngine=tsp.SpeculativeEngine, runtime=truntime, rem=trem,
+        replay=treplay, BayesianAttributor=TBayesianAttributor,
         engines=(target_t, mk_t0()), real=(target_t, mk_t7()),
     )
     return jax_side, port_side
@@ -564,8 +574,8 @@ class TestSnapshotRestore:
     def test_restart_mid_serve_on_a_fresh_engine(self, sides):
         """Kill mid-serve, restore a JSON snapshot into a fresh engine,
         finish: per-request streams equal the uninterrupted reference.
-        (The JAX test goes through the agent runtime's state store, which
-        the port does not have yet; the snapshot surface is the same.)"""
+        (The agent runtime's state store carries the same snapshot in
+        ``test_restart_mid_serve_through_agent_runtime``.)"""
         def scenario(s):
             fd = s.mod.FrontDoorEngine(*s.engines, k=3, max_slots=2)
             prompts = [f"restart stream {i}" for i in range(4)]
@@ -577,6 +587,33 @@ class TestSnapshotRestore:
             fd2 = s.mod.FrontDoorEngine(*s.engines, k=3, max_slots=2)
             fd2.restore_state(json.loads(blob))
             results = fd2.run()
+            for prompt, rid in zip(prompts, ids):
+                assert results[rid] == spec_reference(s, s.engines, prompt, 18)
+            return observe(fd2)
+
+        assert both(sides, scenario)["snapshot_resumes"] >= 1
+
+    def test_restart_mid_serve_through_agent_runtime(self, sides, tmp_path):
+        """Kill mid-serve, restore through the side's own ``StateStore``
+        and ``AgentRuntime``, finish: per-request streams equal the
+        uninterrupted reference, and equal on both sides."""
+        def scenario(s):
+            store_path = tmp_path / s.name / "state.json"
+            runtime = s.runtime.AgentRuntime(s.runtime.StateStore(store_path, interval_s=0.0))
+            fd = s.mod.FrontDoorEngine(*s.engines, k=3, max_slots=2)
+            runtime.register("frontdoor", fd.export_state, fd.restore_state)
+            prompts = [f"restart stream {i}" for i in range(4)]
+            ids = [fd.submit(p, max_new_tokens=18, stop_at_eos=False) for p in prompts]
+            for _ in range(2):
+                fd.step()
+            assert runtime.snapshot_now()
+            del fd  # the "crash"
+            runtime2 = s.runtime.AgentRuntime(s.runtime.StateStore(store_path))
+            fd2 = s.mod.FrontDoorEngine(*s.engines, k=3, max_slots=2)
+            runtime2.register("frontdoor", fd2.export_state, fd2.restore_state)
+            assert runtime2.restore() == "restored"
+            results = fd2.run()
+            assert fd2.snapshot_resumes >= 1
             for prompt, rid in zip(prompts, ids):
                 assert results[rid] == spec_reference(s, s.engines, prompt, 18)
             return observe(fd2)
@@ -605,6 +642,61 @@ class TestSnapshotRestore:
         assert fd._queue == []
         fd.restore_state("not a dict")
         assert fd._queue == []
+
+
+# ---- remediation end to end ---------------------------------------------
+
+
+def test_hbm_attribution_demotes_tenant_in_live_admission(sides):
+    """fault replay → ``BayesianAttributor`` → remediation policy →
+    ``DemoteTenantAction`` → the live admission order flips, on both
+    packages (the JAX package runs this chain only as a slow test).
+    Nothing is scripted: the posterior comes from a real hbm_pressure
+    fault profile, the policy gates on it and on real fast-burn state,
+    the action mutates the real ``BurnEngine``, and the front door, which
+    reads that engine live, admits the demoted tenant last."""
+    from datetime import datetime, timezone
+
+    def scenario(s):
+        tenant, now_s = "burny", 10_000.0
+        burn = make_burning_engine(s, tenant, now_s)
+        order: list[str] = []
+
+        class Obs(s.mod.FrontDoorObserver):
+            def admitted(self, t: str) -> None:
+                order.append(t)
+
+        fd = s.mod.FrontDoorEngine(*s.engines, k=3, max_slots=1, burn_engine=burn,
+                                   observer=Obs())
+        # Before remediation: fast burn already deprioritizes, but the
+        # remediation surface itself is untouched.
+        assert burn.admission_priority(tenant) == s.slo.DEFAULT_ADMISSION_PRIORITY
+
+        sample = s.replay("hbm_pressure", 1,
+                          start=datetime.fromtimestamp(now_s, tz=timezone.utc))[0]
+        attribution = s.BayesianAttributor().attribute_sample(sample)
+        assert attribution.predicted_fault_domain == "tpu_hbm"
+        engine = s.rem.RemediationEngine(bindings=s.rem.ActionBindings(burn_engine=burn))
+        record = engine.consider(s.rem.AttributionContext(
+            incident_id="inc-e2e-hbm", domain=attribution.predicted_fault_domain,
+            confidence=attribution.confidence, burn_state=burn.tenant_burn_state(tenant),
+            burn_rate=burn.max_active_burn(), tenant=tenant, at_s=now_s), now_s)
+        assert record is not None and record.phase == "verifying"
+        assert burn.admission_priority(tenant) == s.slo.DEMOTED_ADMISSION_PRIORITY
+
+        # The live scheduling change: the demoted tenant queued first
+        # still serves last.
+        fd.submit("demoted tenant request", tenant=tenant, max_new_tokens=3,
+                  stop_at_eos=False)
+        fd.submit("healthy tenant request", tenant="healthy", max_new_tokens=3,
+                  stop_at_eos=False)
+        fd.run()
+        assert order == ["healthy", tenant]
+        return {"order": list(order), "record": record.to_dict(),
+                "confidence": attribution.confidence, "priority": burn.admission_priority(tenant),
+                "fd": observe(fd)}
+
+    both(sides, scenario)
 
 
 # ---- parked state across the bridge --------------------------------------
