@@ -998,3 +998,154 @@ def test_the_entry_serves_five_cycles_on_the_card(cuda_device, tmp_path):
     assert all(r["remediation_applied"] for r in rows)
     assert json.loads(out.stdout) == {"cycles": 5, "burn_state": "fast_burn", "priority": 10,
                                       "remediation_phase": "verifying", "order_flips": 4}
+
+
+# ---- one CUDA graph per speculative dispatch --------------------------------
+
+
+def _buffers(*caches_and_tensors):
+    out = []
+    for x in caches_and_tensors:
+        if isinstance(x, dict):
+            for side in ("k", "v", "length"):
+                leaf = x[side]
+                if isinstance(leaf, torch.Tensor):
+                    out.append(leaf)
+        else:
+            out.append(x)
+    return out
+
+
+def _replay_equals_eager(dispatch, buffers):
+    """Replay ``dispatch``'s graph, then put every buffer back and run its
+    eager body on the same inputs: the packed outputs and every buffer
+    after the dispatch must be equal bit for bit."""
+    assert dispatch.graph is not None
+    saved = [b.clone() for b in buffers]
+    got = dispatch().clone()
+    after = [b.clone() for b in buffers]
+    for b, s in zip(buffers, saved):
+        b.copy_(s)
+    want = dispatch._body()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for a, b in zip(after, buffers):
+        assert torch.equal(a, b)
+    return got
+
+
+@pytest.mark.cuda
+def test_front_door_replay_equals_the_eager_chain(cuda_device):
+    """The front door's dispatch (3 chained rounds over 4 slots) replayed
+    from its graph equals its eager body on the same buffers, with one
+    slot free (inactive), one row that finishes in the dispatch's first
+    round and rows of different frontiers."""
+    target, draft = _spec_pair(cuda_device)
+    fd = frontdoor.FrontDoorEngine(target, draft, k=3, max_slots=4, rounds_per_step=3)
+    assert fd._dispatch.graph is not None and target.compile_events
+    fd.submit("a long stream that keeps going", max_new_tokens=60, stop_at_eos=False)
+    fd.submit("short", max_new_tokens=2, stop_at_eos=False)
+    fd.submit("x" * 140, max_new_tokens=40, stop_at_eos=False)
+    fd._fill_slots()
+    mask = np.asarray([s is not None for s in fd._slots])
+    assert mask.tolist() == [True, True, True, False]
+    fd._start_in.write(fd._start)
+    fd._active_in.write(mask)
+    packed = _replay_equals_eager(fd._dispatch, _buffers(
+        fd._cache_t, fd._cache_d, fd._tokens, fd._start_in.tensor, fd._active_in.tensor))
+    assert packed.shape == (4, 3, 2 * 3 + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [None, 4], ids=["stream", "batch"])
+def test_speculative_replay_equals_the_eager_round(cuda_device, batch):
+    """The single-stream round (0-d frontier) and the batched round at
+    bucket 4 (one inactive row) replayed from their graphs equal their
+    eager bodies on the same buffers; the graphs were captured at first
+    use and recorded as compile events."""
+    target, draft = _spec_pair(cuda_device)
+    spec = speculative.SpeculativeEngine(target, draft, k=3)
+    if batch is None:
+        spec.generate("one stream to capture", max_new_tokens=8, stop_at_eos=False)
+    else:
+        spec.generate_batch(["a", "bb", "ccc"], max_new_tokens=8, stop_at_eos=False)
+    state = spec._states[batch]
+    captures = [e for e in target.compile_events if e.get("module_name")]
+    assert [e["bucket"] for e in captures] == [state.dispatch.key]
+    rows = [[serve.BOS, 5, 6, 7, 8], [serve.BOS, 9, 10], [serve.BOS, 3, 4, 5], [serve.BOS, 2]]
+    cur, cache_t, cache_d = _round_state(target, draft, rows[:1] if batch is None else rows)
+    state.load(cache_t, cache_d, cur)
+    if batch is None:
+        state.frontier.fill_(len(rows[0]))
+        buffers = _buffers(state.cache_t, state.cache_d, state.current, state.frontier)
+    else:
+        state.start.write(np.asarray([len(r) for r in rows]))
+        state.active.write(np.asarray([True, False, True, True]))
+        buffers = _buffers(state.cache_t, state.cache_d, state.current, state.start.tensor,
+                           state.active.tensor)
+    _replay_equals_eager(state.dispatch, buffers)
+
+
+@pytest.mark.cuda
+def test_twenty_steady_front_door_steps_never_recapture(cuda_device):
+    """Under the benches' audit: the engine captures once, when it is
+    built; each of 20 steady steps then makes no synchronizing call, one
+    host read and no capture, and the buffers never move."""
+    from tpuslo_torch.analysis import jitaudit
+
+    target, draft = _spec_pair(cuda_device)
+    jitaudit.install()
+    audit = jitaudit.registry()
+    audit.reset()
+    try:
+        fd = frontdoor.FrontDoorEngine(target, draft, k=3, max_slots=2, rounds_per_step=2)
+        assert audit.capture_count() == 1 and audit.steady_compile_count() == 0
+        for i in range(2):
+            fd.submit(f"steady graph {i}", max_new_tokens=200, stop_at_eos=False)
+        fd.step()
+        fd.step()
+        ptrs = [b.data_ptr() for b in _buffers(fd._cache_t, fd._cache_d, fd._tokens)]
+        for _ in range(20):
+            before = (audit.syncs, audit.host_reads, audit.capture_count())
+            assert fd.step()
+            torch.cuda.synchronize()
+            assert (audit.syncs - before[0], audit.host_reads - before[1],
+                    audit.capture_count() - before[2]) == (0, 1, 0)
+        assert [b.data_ptr() for b in _buffers(fd._cache_t, fd._cache_d, fd._tokens)] == ptrs
+        assert audit.steady_compile_count() == 0
+    finally:
+        jitaudit.uninstall()
+        audit.reset()
+
+
+@pytest.mark.cuda
+def test_one_dispatch_range_per_replay_and_the_capture_reads_as_compile(cuda_device, tmp_path):
+    """Under ``capture``: an engine built in the window reads its capture's
+    warm-up as a launch of the ``compile`` bucket (its compile event joins
+    it by program id); three steady steps are three launches of the
+    dispatch's program, each holding the graph's kernels, and the ledger
+    counts three dispatches."""
+    from tpuslo_torch.deviceplane import ledger as dl
+    from tpuslo_torch.otel import xla_spans
+
+    target, draft = _spec_pair(cuda_device)
+    with xla_spans.capture(str(tmp_path), include_ops=True) as cap:
+        fd = frontdoor.FrontDoorEngine(target, draft, k=3, max_slots=2, rounds_per_step=2)
+    ledger = dl.build_ledger(cap.spans, target.compile_events)
+    assert ledger.buckets_us["compile"] > 0
+    assert ledger.tier_counts.get("compile_event", 0) >= 1
+    for i in range(2):
+        fd.submit(f"ranged {i}", max_new_tokens=200, stop_at_eos=False)
+    fd.step()
+    with xla_spans.capture(str(tmp_path), include_ops=True) as cap:
+        for _ in range(3):
+            fd.step()
+    runs = [s for s in cap.launches() if s.module_name == "spec_multi_round"]
+    assert len({(s.program_id, s.launch_id) for s in runs}) == 3
+    ledger = dl.build_ledger(cap.spans)
+    assert dl.dispatch_count(ledger) == 3
+    for launch in {s.launch_id for s in runs}:
+        spans = [s for s in runs if s.launch_id == launch]
+        inside = [o for o in cap.spans if o.lane == xla_spans.OPS_LANE and any(
+            r.start_us <= o.start_us < r.start_us + r.duration_us for r in spans)]
+        assert len(inside) > 50

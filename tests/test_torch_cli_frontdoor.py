@@ -286,7 +286,8 @@ class TestDispatcher:
     def test_usage_lists_the_ported_binaries(self, capsys):
         assert tdispatch.main([]) == 2
         out = capsys.readouterr().out
-        assert out == "usage: python -m tpuslo_torch <binary> [flags]\n\nbinaries:\n  frontdoor\n"
+        assert out == ("usage: python -m tpuslo_torch <binary> [flags]\n\nbinaries:\n"
+                       "  frontdoor\n  loadgen\n")
         assert tdispatch.main(["--help"]) == 0
         assert capsys.readouterr().out == out
 

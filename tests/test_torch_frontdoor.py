@@ -763,3 +763,85 @@ def test_parked_rows_are_copies_not_views_of_the_pool(sides):
     assert all(torch.equal(a, b) for a, b in zip(before, after))
     assert not torch.equal(fd._cache_t["k"][:, 0, :frontier], row_t["k"][:, 0, :frontier])
     fd.run()
+
+
+# ---- fixed storage: what the dispatch's CUDA graph rests on ---------------
+
+
+def _fixed_storage(fd) -> dict:
+    """data_ptr() of every buffer a front door's graph reads or writes:
+    each cache leaf (K/V and lengths) of both pools, the current tokens,
+    the staged frontiers and mask, and the captured output (a card
+    only)."""
+    ptrs = {}
+    for name, pool in (("t", fd._cache_t), ("d", fd._cache_d)):
+        for side in ("k", "v", "length"):
+            leaves = pool[side] if isinstance(pool[side], dict) else {"": pool[side]}
+            for leaf, t in leaves.items():
+                ptrs[f"{name}.{side}{leaf}"] = t.data_ptr()
+    ptrs["tokens"] = fd._tokens.data_ptr()
+    ptrs["start"] = fd._start_in.tensor.data_ptr()
+    ptrs["active"] = fd._active_in.tensor.data_ptr()
+    if fd._dispatch.outputs is not None:
+        ptrs["packed"] = fd._dispatch.outputs.data_ptr()
+    return ptrs
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_storage_stays_fixed_across_steps_admissions_parks_resumes_and_a_drain(sides, paged):
+    """Admission (batched and prefix), preemption into a park, the resume,
+    steady steps and a kill-drain onto a sibling all write the pools in
+    place: no buffer of either engine is ever rebound, and the streams
+    still equal the per-stream reference."""
+    _, s = sides
+    burn = s.slo.BurnEngine()
+    burn.demote_tenant("lowly")
+    make = lambda: s.mod.FrontDoorEngine(*s.engines, k=3, max_slots=2, burn_engine=burn,  # noqa: E731
+                                         paged=paged, block_size=32)
+    fd, sibling = make(), make()
+    fixed, fixed_sibling = _fixed_storage(fd), _fixed_storage(sibling)
+    low = [fd.submit(f"fixed low {i}", tenant="lowly", max_new_tokens=24, stop_at_eos=False)
+           for i in range(2)]
+    fd.step()  # a batched admission
+    assert _fixed_storage(fd) == fixed
+    hi = fd.submit("fixed vip", tenant="vip", max_new_tokens=8, stop_at_eos=False,
+                   prefix="a shared preamble")
+    fd.step()  # a park and a prefix admission
+    assert fd.preemptions == 1 and _fixed_storage(fd) == fixed
+    results = {}
+    while fd.resumes == 0:
+        fd.step()
+    assert _fixed_storage(fd) == fixed
+    results[hi] = fd.results[hi]
+    fd.submit("drained later", tenant="vip", max_new_tokens=12, stop_at_eos=False)
+    fd.step()
+    moved = {req.prompt: sibling.adopt(req) for req in fd.drain()}
+    assert _fixed_storage(fd) == fixed
+    finished = sibling.run()
+    assert _fixed_storage(sibling) == fixed_sibling
+    for i, rid in enumerate(low):
+        got = fd.results.get(rid) or finished[moved[f"fixed low {i}"]]
+        assert got == spec_reference(s, s.engines, f"fixed low {i}", 24)
+    assert results[hi] == spec_reference(s, s.engines, "fixed vip", 8, prefix="a shared preamble")
+    assert finished[moved["drained later"]] == spec_reference(s, s.engines, "drained later", 12)
+
+
+def test_restore_state_readmits_into_the_engines_own_storage(sides):
+    """``restore_state`` fills in host state on an engine that already
+    exists; the requests it re-queues are re-admitted by teacher forcing
+    through the same in-place injection, so the buffers its dispatch
+    reads (its graph on a card) stay the ones it was built with."""
+    _, s = sides
+    fd = s.mod.FrontDoorEngine(*s.engines, k=3, max_slots=2)
+    prompts = [f"restored in place {i}" for i in range(4)]
+    ids = [fd.submit(p, max_new_tokens=30, stop_at_eos=False) for p in prompts]
+    for _ in range(2):
+        fd.step()
+    blob = json.dumps(fd.export_state())
+    fresh = s.mod.FrontDoorEngine(*s.engines, k=3, max_slots=2)
+    fixed = _fixed_storage(fresh)
+    fresh.restore_state(json.loads(blob))
+    results = fresh.run()
+    assert fresh.snapshot_resumes >= 1 and _fixed_storage(fresh) == fixed
+    for prompt, rid in zip(prompts, ids):
+        assert results[rid] == spec_reference(s, s.engines, prompt, 30)

@@ -52,7 +52,9 @@ def test_port_files_exist():
                 "signals/metadata.py", "signals/mode.py", "attribution/mapper.py",
                 "attribution/bayesian.py", "attribution/pipeline.py",
                 "attribution/io.py", "attribution/calibrate.py",
-                "columnar/posterior.py", "faultreplay/generator.py"):
+                "columnar/posterior.py", "faultreplay/generator.py",
+                "analysis/jitaudit.py", "benchmark/frontdoor_bench.py",
+                "benchmark/router_bench.py", "cli/loadgen.py"):
         assert REPO / "tpuslo_torch" / rel in PORT_FILES
 
 
@@ -73,7 +75,9 @@ def test_importing_the_port_loads_no_jax():
         "tpuslo_torch.collector.hbm_sampler, tpuslo_torch.collector.ringbuf, "
         "tpuslo_torch.deviceplane.profiler, tpuslo_torch.schema, "
         "tpuslo_torch.attribution, tpuslo_torch.attribution.calibrate, "
-        "tpuslo_torch.columnar, tpuslo_torch.faultreplay, tpuslo_torch.signals.mode; "
+        "tpuslo_torch.columnar, tpuslo_torch.faultreplay, tpuslo_torch.signals.mode, "
+        "tpuslo_torch.analysis.jitaudit, tpuslo_torch.benchmark.frontdoor_bench, "
+        "tpuslo_torch.benchmark.router_bench, tpuslo_torch.cli.loadgen; "
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'tpuslo', 'jsonschema')); "
         "print(bad); sys.exit(1 if bad else 0)"

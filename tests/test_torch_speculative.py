@@ -350,3 +350,75 @@ def test_engines_take_their_device_from_their_serve_engines_and_refuse_a_mesh():
 
     with pytest.raises(NotImplementedError, match="mesh"):
         tsp._rehome_draft_cache(Meshed(), dt, {})
+
+
+def _state_storage(spec) -> dict:
+    """data_ptr() of every buffer of every dispatch shape the engine has
+    built: both caches' leaves, ``current``, the frontier or the staged
+    frontiers and mask."""
+    ptrs = {}
+    for batch, st in spec._states.items():
+        for name, cache in (("t", st.cache_t), ("d", st.cache_d)):
+            for side in ("k", "v"):
+                ptrs[(batch, name, side)] = cache[side].data_ptr()
+        ptrs[(batch, "current")] = st.current.data_ptr()
+        if batch is None:
+            ptrs[(batch, "frontier")] = st.frontier.data_ptr()
+            assert st.cache_t["length"] is st.frontier is st.cache_d["length"]
+        else:
+            ptrs[(batch, "start")] = st.start.tensor.data_ptr()
+            ptrs[(batch, "active")] = st.active.tensor.data_ptr()
+    return ptrs
+
+
+def test_streams_and_batches_reuse_the_engines_storage():
+    """Every stream copies its freshly ingested caches into the engine's
+    one pair of single-row caches, and every batch of a bucket into that
+    bucket's: the buffers a round's graph reads never move, from the
+    first request to the last, near capacity too (the eager tail runs on
+    the same caches); the streams stay the target-only greedy streams."""
+    _, _, tt, dt = _engines(128, 7)
+    spec = tsp.SpeculativeEngine(tt, dt, k=3)
+    first = spec.generate("the first stream", max_new_tokens=9, stop_at_eos=False)
+    batch = spec.generate_batch(["row one", "row two", "row three"], max_new_tokens=7,
+                                stop_at_eos=False)
+    fixed = _state_storage(spec)
+    assert set(k[0] for k in fixed) == {None, 4}
+    again = spec.generate("the first stream", max_new_tokens=9, stop_at_eos=False)
+    tail = spec.generate("q" * 110, max_new_tokens=12, stop_at_eos=False)
+    batch_again = spec.generate_batch(["row one", "row two", "row three"], max_new_tokens=7,
+                                      stop_at_eos=False)
+    assert _state_storage(spec) == fixed
+    assert first == again == _greedy(tt, "the first stream", 9)
+    assert tail == _greedy(tt, "q" * 110, 12)
+    assert batch == batch_again
+    for prompt, row in zip(["row one", "row two", "row three"], batch):
+        assert row == _greedy(tt, prompt, 7)
+
+
+def test_engines_and_their_dispatches_form_no_reference_cycle():
+    """A dropped engine is freed by reference counting alone: its
+    dispatches hold their bodies weakly, so the cyclic collector never has
+    to free an engine (and, on a card, its graph) at an arbitrary moment,
+    such as in the middle of another engine's capture."""
+    import gc
+    import weakref
+
+    from tpuslo_torch.models import frontdoor as tfd
+
+    _, _, tt, dt = _engines(128, 7)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        fd = tfd.FrontDoorEngine(tt, dt, k=3, max_slots=2)
+        fd.submit("freed promptly", max_new_tokens=6, stop_at_eos=False)
+        fd.run()
+        spec = tsp.SpeculativeEngine(tt, dt, k=3)
+        spec.generate("freed promptly", max_new_tokens=6, stop_at_eos=False)
+        spec.generate_batch(["a", "bb"], max_new_tokens=6, stop_at_eos=False)
+        refs = [weakref.ref(fd), weakref.ref(spec), weakref.ref(spec._states[None])]
+        del fd, spec
+        assert [r() for r in refs] == [None, None, None]
+    finally:
+        if collecting:
+            gc.enable()

@@ -249,6 +249,38 @@ class TestParse:
         assert [(s.module_name, s.start_us, s.duration_us) for s in mods] == [
             ("prefill", 30.0, 8.0), ("suffix_prefill", 50.0, 8.0), ("prefill", 80.0, 5.0)]
 
+    def test_a_graph_replay_cut_short_keeps_its_kernels_by_correlation(self):
+        """Kineto may end a CUDA graph replay's device extent long before
+        its last kernel (graph kernels carry no external id).  A kernel
+        outside every extent goes to the range whose host range made the
+        launch its correlation id names; a copy launched outside every
+        range stays outside."""
+        from tpuslo_torch.deviceplane.ledger import build_ledger
+
+        name = "spec_multi_round(77)#4"
+        graph = [{"ph": "X", "cat": "kernel", "pid": 0, "tid": 7, "name": f"g{i}",
+                  "ts": 200.0 + 10.0 * i, "dur": 10.0, "args": {"correlation": 900}}
+                 for i in range(6)]
+        doc = self.card_doc(extra=(
+            {"ph": "X", "cat": "user_annotation", "pid": 1, "tid": 1, "name": name,
+             "ts": 150.0, "dur": 30.0},
+            {"ph": "X", "cat": "cuda_runtime", "pid": 1, "tid": 1, "name": "cudaGraphLaunch",
+             "ts": 160.0, "dur": 15.0, "args": {"correlation": 900}},
+            {"ph": "X", "cat": "cuda_runtime", "pid": 1, "tid": 1, "name": "cudaMemcpyAsync",
+             "ts": 190.0, "dur": 1.0, "args": {"correlation": 901}},
+            {"ph": "X", "cat": "gpu_user_annotation", "pid": 0, "tid": 7, "name": name,
+             "ts": 200.0, "dur": 20.0},
+            *graph,
+            {"ph": "X", "cat": "gpu_memcpy", "pid": 0, "tid": 7, "name": "Memcpy DtoH",
+             "ts": 260.0, "dur": 2.0, "args": {"correlation": 901}},
+        ))
+        spans = tx.parse_trace_events(doc, include_ops=True)
+        mods = [s for s in spans if s.lane == tx.MODULES_LANE and s.module_name == "spec_multi_round"]
+        assert [(s.start_us, s.duration_us, s.launch_id) for s in mods] == [(200.0, 60.0, 4)]
+        ledger = build_ledger(spans)
+        assert ledger.buckets_us["joined"] == 21.0 + 60.0
+        assert ledger.buckets_us["idle_gap"] == ledger.total_us - 81.0  # the two copies
+
     def test_card_trace_without_device_extents_raises(self):
         """Kernels and dispatch ranges but no ``gpu_user_annotation``: the
         module lane cannot be read, and nothing stands in for it."""

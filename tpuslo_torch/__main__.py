@@ -10,6 +10,7 @@ import sys
 
 BINARIES = {
     "frontdoor": "tpuslo_torch.cli.frontdoor",
+    "loadgen": "tpuslo_torch.cli.loadgen",
 }
 
 def main(argv: list[str] | None = None) -> int:

@@ -44,16 +44,22 @@ resume by teacher-forcing ``prompt + emitted[:-1]`` back through
 prefill; greedy decoding makes the continuation identical to the
 uninterrupted stream.
 
-What differs from the JAX engine: there is no jit, so its memoized
-``_SHARED_*`` splice programs and its retrace audit have no
-counterpart; caches are written in place, so a parked row is a clone
-and never a view of the pool; the per-step frontiers and mask reach a
-card through pinned memory (no synchronizing call), and the step's one
-read goes through :class:`tpuslo_torch.models.serve._HostRead`.  On a
-card the host queues the rounds' kernels while the device runs them,
-so the dispatch ledger's ``dispatch`` share is the host's queueing time
-and its ``device wait`` share only what the device still owed after
-that.  Serving over a mesh belongs to the multi-device slice.
+What differs from the JAX engine: there is no jit.  On a card the
+engine's dispatch is one CUDA graph, captured when the engine is built
+(:class:`tpuslo_torch.models.speculative.GraphedDispatch`), so the
+capture stays out of a bench's timer as XLA's compile does; each
+``step()`` replays it.  The graph reads and writes buffers whose storage
+never changes over the engine's life: the two slot pools (admission,
+parks and resumes copy rows in and out of them in place), the current
+tokens, the frontiers and the mask (refilled from pinned host memory:
+no synchronizing call) and the packed output, which the step's one read
+takes through :class:`tpuslo_torch.models.serve._HostRead`.  On the CPU
+the same buffers are used and the dispatch runs eagerly.  The memoized
+``_SHARED_*`` splice programs and the retrace audit of JAX have no
+counterpart; a parked row is a clone and never a view of the pool.  The
+dispatch ledger's ``dispatch`` share is the host's time to stage and
+launch the dispatch and its ``device wait`` share what the device still
+owed after that.  Serving over a mesh belongs to the multi-device slice.
 """
 
 from __future__ import annotations
@@ -84,12 +90,15 @@ from tpuslo_torch.models.serve import (
     _upload,
 )
 from tpuslo_torch.models.speculative import (
+    GraphedDispatch,
+    StagedInput,
     _check_pair,
     _rehome_draft_cache,
     _shared_spec_multi_round_fn,
     joint_prompt_ids,
     pack_round,
     unpack_round,
+    zero_cache,
 )
 from tpuslo_torch.obs.tracer import _NULL_CYCLE
 
@@ -274,6 +283,8 @@ class FrontDoorEngine:
         self._tokens = torch.full(
             (max_slots,), BOS, dtype=torch.long, device=self.device
         )
+        self._start_in = StagedInput((max_slots,), torch.long, self.device)
+        self._active_in = StagedInput((max_slots,), torch.bool, self.device)
         # Host mirrors of the device-side frontiers/current tokens —
         # maintained from values the emission loop already reads, so
         # parking a slot needs no extra device sync.
@@ -352,6 +363,23 @@ class FrontDoorEngine:
         self.results: dict[int, list[int]] = {}
         self._finished: dict[int, FrontDoorRequest] = {}
 
+        # The dispatch, captured now on a card (its warm-up runs every
+        # lane inactive; the pools, tokens and lengths are then put back
+        # to their initial state).
+        self._dispatch = GraphedDispatch(
+            self._dispatch_body, "spec_multi_round",
+            (self._tokens, k, rounds_per_step), self.device,
+            f"spec_multi_round:{max_slots}x{rounds_per_step}", owner=self,
+            pool=(torch.cuda.graph_pool_handle()
+                  if self.device.type == "cuda" else None),
+            compile_events=target.compile_events,
+        )
+        if self._dispatch.graph is not None:
+            for pool in (self._cache_t, self._cache_d):
+                zero_cache(pool)
+                pool["length"].fill_(1)
+            self._tokens.fill_(BOS)
+
     # ---- construction helpers -----------------------------------------
 
     def _init_pool(self, engine: ServeEngine) -> Cache:
@@ -366,6 +394,19 @@ class FrontDoorEngine:
             (self.max_slots,), dtype=torch.long, device=self.device
         )
         return pool
+
+    def _dispatch_body(self) -> torch.Tensor:
+        """The step's dispatch over the engine's fixed buffers: the chained
+        rounds, their carries written back in place, the packed output."""
+        draft_toks, preds, accepted, current, cache_t, cache_d = self._round(
+            self.target.params, self.draft.params,
+            self._tokens, self._cache_t, self._cache_d,
+            self._start_in.tensor, self._active_in.tensor,
+        )
+        self._tokens.copy_(current)
+        self._cache_t["length"].copy_(cache_t["length"])
+        self._cache_d["length"].copy_(cache_d["length"])
+        return pack_round(draft_toks, preds, accepted)
 
     def _now_ns(self) -> int:
         return self._epoch_ns + int(
@@ -656,8 +697,8 @@ class FrontDoorEngine:
             slots[i] if i < len(reqs) else slots[0]
             for i in range(bucket)
         ]
-        self._cache_t = _inject_rows(self._cache_t, rows_t, assignment)
-        self._cache_d = _inject_rows(self._cache_d, rows_d, assignment)
+        _inject_rows(self._cache_t, rows_t, assignment)
+        _inject_rows(self._cache_d, rows_d, assignment)
         real_slots = _upload(slots[: len(reqs)], torch.long, self.device)
         self._tokens[real_slots] = first_tokens[: len(reqs)]
         firsts = [int(v) for v in first_read.values()]
@@ -687,8 +728,8 @@ class FrontDoorEngine:
         current: int,
         start: int,
     ) -> None:
-        self._cache_t = _inject_row(self._cache_t, row_t, slot)
-        self._cache_d = _inject_row(self._cache_d, row_d, slot)
+        _inject_row(self._cache_t, row_t, slot)
+        _inject_row(self._cache_d, row_d, slot)
         self._tokens[slot] = int(current)
         self._start[slot] = start
         self._current[slot] = current
@@ -772,11 +813,11 @@ class FrontDoorEngine:
         parked = req.parked
         req.parked = None
         bucket = len(parked.phys)
-        self._cache_t = resume_slot_blocks(
+        resume_slot_blocks(
             self._cache_t, self._paged_pool_t, slot, parked.phys,
             parked.frontier, self.target.cfg, self.block_size, bucket,
         )
-        self._cache_d = resume_slot_blocks(
+        resume_slot_blocks(
             self._cache_d, self._paged_pool_d, slot, parked.phys,
             parked.frontier, self.draft.cfg, self.block_size, bucket,
         )
@@ -925,22 +966,14 @@ class FrontDoorEngine:
             return bool(self._queue)
         t0 = time.perf_counter_ns()
         with cycle.stage("dispatch"):
-            draft_toks, preds, accepted, current, cache_t, cache_d = (
-                self._round(
-                    self.target.params, self.draft.params,
-                    self._tokens, self._cache_t, self._cache_d,
-                    _upload(self._start, torch.long, self.device),
-                    _upload(mask, torch.bool, self.device),
-                )
-            )
-            read = _HostRead(pack_round(draft_toks, preds, accepted))
+            self._start_in.write(self._start)
+            self._active_in.write(mask)
+            read = _HostRead(self._dispatch())
         t1 = time.perf_counter_ns()
         with cycle.stage("read"):
             rows = read.values()  # (slots, rounds, 2k + 2)
         t2 = time.perf_counter_ns()
         k = self.k
-        self._cache_t, self._cache_d = cache_t, cache_d
-        self._tokens = current
         self.rounds += 1
         now_s = self._clock()
         appended = 0

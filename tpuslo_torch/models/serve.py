@@ -209,9 +209,13 @@ class _HostRead:
     difference over a round to show one read per dispatch."""
 
     reads = 0
+    #: Called at every read when set (the serving benches' audit).
+    on_read = None
 
     def __init__(self, t: torch.Tensor):
         _HostRead.reads += 1
+        if _HostRead.on_read is not None:
+            _HostRead.on_read()
         if t.device.type == "cuda":
             self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             self._host.copy_(t, non_blocking=True)

@@ -22,10 +22,10 @@ What differs from the JAX module, and why:
 
 * The JAX round is one ``jax.jit`` program with donated caches, memoized
   per ``(cfg_t, cfg_d, k[, rounds])``.  Here the round is a plain
-  function on tensors that queues its kernels eagerly and writes both
-  caches in place.  The memoized ``_shared_*`` functions keep their
-  names, so that a reader finds the counterpart; what they memoize is a
-  closure.
+  function on tensors that queues its kernels and writes both caches in
+  place.  The memoized ``_shared_*`` functions keep their names, so that
+  a reader finds the counterpart; what they memoize is a closure, and it
+  is the eager body the CPU runs.
 * The structure that matters is kept: inside a round there is **no host
   read** and no control flow that depends on device data.  ``current``,
   the frontiers, the active mask and the accepted counts are device
@@ -33,9 +33,17 @@ What differs from the JAX module, and why:
   (:func:`tpuslo_torch.models.llama.init_kv_cache` says how the model
   functions take it).  Per round the host reads one packed
   ``(drafts, preds, accepted)`` tensor through
-  :class:`tpuslo_torch.models.serve._HostRead`.  A round can therefore be
-  captured in a CUDA graph later; eagerly, its cost on a card is the
-  host's time to queue ``k + 2`` forward passes' kernels.
+  :class:`tpuslo_torch.models.serve._HostRead`.
+* On a card every dispatch is **one CUDA graph replay**, as it is one
+  jitted program in JAX (:class:`GraphedDispatch`).  A graph bakes in
+  addresses, so the engines own buffers whose storage never changes:
+  the caches, ``current``, the frontiers and the mask (refilled from
+  pinned host memory, :class:`StagedInput`), and the packed output.
+  A request's prefill writes fresh caches, which are copied into the
+  engine's; the single-token tail near capacity stays eager.  Each
+  capture is the port's compile: it lands in the target
+  ``ServeEngine``'s ``compile_events``.  On the CPU the same buffers are
+  used and the round runs eagerly.
 * A draft on another mesh than the target belongs to the multi-device
   slice: :func:`_rehome_draft_cache` keeps its name and returns the
   cache; the engines refuse a mesh on construction.
@@ -43,12 +51,18 @@ What differs from the JAX module, and why:
 
 from __future__ import annotations
 
+import gc
+import inspect
+import time
+import weakref
 from functools import lru_cache
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
-from tpuslo_torch.models.llama import decode_chunk, decode_step, verify_chunk
+from tpuslo_torch.models.kv_cache import kv_leaf_pairs
+from tpuslo_torch.models.llama import decode_chunk, decode_step, init_kv_cache, verify_chunk
 from tpuslo_torch.models.serve import (
     EOS,
     ServeEngine,
@@ -58,7 +72,7 @@ from tpuslo_torch.models.serve import (
     encode_bytes,
     prefix_prompt_ids,
 )
-from tpuslo_torch.otel.xla_spans import dispatch_range
+from tpuslo_torch.otel.xla_spans import capture_range, dispatch_range, program_fingerprint
 
 
 def _spec_round_core(
@@ -223,6 +237,184 @@ def _shared_spec_multi_round_fn(cfg_t, cfg_d, k: int, rounds: int):
     return spec_multi_round
 
 
+class StagedInput:
+    """A device buffer of fixed storage that the host refills before each
+    dispatch: on a card through a pinned host buffer and a copy that does
+    not make the host wait.  The previous dispatch's read has waited for
+    the previous copy, so the host buffer is free when it is refilled."""
+
+    def __init__(self, shape, dtype: torch.dtype, device: torch.device):
+        self.tensor = torch.zeros(shape, dtype=dtype, device=device)
+        self._host = torch.zeros(shape, dtype=dtype, pin_memory=device.type == "cuda")
+
+    def write(self, values) -> None:
+        self._host.numpy()[...] = values
+        self.tensor.copy_(self._host, non_blocking=True)
+
+
+class GraphedDispatch:
+    """One dispatch over buffers of fixed storage.
+
+    ``body()`` queues the dispatch's work, reads and writes only buffers
+    whose storage never changes, and returns its outputs.  On the CPU
+    each call runs ``body`` eagerly.  On a card the constructor runs
+    ``body`` once on a side stream (the warm-up), captures a second run
+    in a CUDA graph inside ``pool`` (the owner's graphs share one) and
+    records the capture as a compile event in ``compile_events``; each
+    call then replays the graph inside one dispatch range named as the
+    eager round names its own, and returns the captured outputs, whose
+    storage is the graph's.  A capture that fails raises: nothing falls
+    back to the eager body on a card.  The warm-up changes the buffers,
+    so the owner resets them after construction.
+
+    A bound-method ``body`` is held weakly, so that an engine and its
+    graph form no reference cycle: a dropped engine (and its graph) is
+    freed at once, never by the cyclic collector in the middle of another
+    engine's capture, where freeing a graph or pinned memory invalidates
+    the capture.  The collector is also off while a capture runs.
+    """
+
+    #: ``on_capture(owner, key, ms)`` after every capture, when set
+    #: (:mod:`tpuslo_torch.analysis.jitaudit` sets it).
+    on_capture: Callable[[Any, str, float], None] | None = None
+
+    def __init__(
+        self,
+        body: Callable[[], Any],
+        module: str,
+        inputs: tuple,
+        device: torch.device,
+        key: str,
+        owner: Any = None,
+        pool=None,
+        compile_events: list | None = None,
+    ):
+        self._body_ref = (
+            weakref.WeakMethod(body) if inspect.ismethod(body) else (lambda: body)
+        )
+        self.module = module
+        self._inputs = inputs
+        self.key = key
+        self.graph = None
+        self.outputs = None
+        self.capture_ms: float | None = None
+        if device.type == "cuda":
+            self._capture(device, owner, pool, compile_events)
+
+    def _body(self):
+        """Run the dispatch's eager body once."""
+        return self._body_ref()()
+
+    def _capture(self, device, owner, pool, compile_events) -> None:
+        t0 = time.perf_counter()
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with capture_range(self.module, *self._inputs):
+                with torch.cuda.stream(side):
+                    self._body()
+                current.wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=pool):
+                    self.outputs = self._body()
+        finally:
+            if collecting:
+                gc.enable()
+        torch.cuda.synchronize(device)
+        self.graph = graph
+        self.capture_ms = (time.perf_counter() - t0) * 1000.0
+        if compile_events is not None:
+            compile_events.append({
+                "bucket": self.key,
+                "compile_ms": self.capture_ms,
+                "program_id": program_fingerprint(self.module, *self._inputs),
+                "module_name": self.module,
+                "duration_ms": self.capture_ms,
+            })
+        if GraphedDispatch.on_capture is not None:
+            GraphedDispatch.on_capture(owner, self.key, self.capture_ms)
+
+    def __call__(self):
+        if self.graph is None:
+            return self._body()
+        with dispatch_range(self.module, *self._inputs):
+            self.graph.replay()
+        return self.outputs
+
+
+def copy_cache(dst: dict, src: dict) -> None:
+    """Copy ``src``'s K/V into ``dst``'s storage (same shape and
+    representation), leaving ``dst``'s ``length`` alone."""
+    for side in ("k", "v"):
+        for d, s in kv_leaf_pairs(dst[side], src[side]):
+            d.copy_(s)
+
+
+def zero_cache(cache: dict) -> None:
+    """Put a cache's K/V back to the zeros it was allocated with."""
+    for side in ("k", "v"):
+        for leaf, _ in kv_leaf_pairs(cache[side], cache[side]):
+            leaf.zero_()
+
+
+class _RoundState:
+    """A speculative engine's buffers for one dispatch shape: caches of
+    ``batch`` rows on both models, ``current``, and for the batched round
+    the staged frontiers and mask; ``dispatch`` runs the round over them.
+    Every request loads whole caches, so the capture's warm-up leaves
+    nothing behind that a round could read."""
+
+    def __init__(self, engine: "SpeculativeEngine", batch: int | None):
+        t, d = engine.target, engine.draft
+        dev = engine.device
+        rows = 1 if batch is None else batch
+        self.cache_t = init_kv_cache(t.cfg, rows, kv_dtype=t.kv_dtype, device=dev)
+        self.cache_d = init_kv_cache(d.cfg, rows, kv_dtype=d.kv_dtype, device=dev)
+        self.current = torch.zeros((rows,), dtype=torch.long, device=dev)
+        if batch is None:
+            # One stream: the frontier rides the caches as a 0-d tensor.
+            self.frontier = torch.ones((), dtype=torch.long, device=dev)
+            self.cache_t["length"] = self.frontier
+            self.cache_d["length"] = self.frontier
+            module, key, body = "spec_round", "spec_round:1", self._stream_body
+        else:
+            self.start = StagedInput((rows,), torch.long, dev)
+            self.active = StagedInput((rows,), torch.bool, dev)
+            module, key, body = "spec_round_batch", f"spec_round_batch:{rows}", self._batch_body
+        self._engine = weakref.proxy(engine)  # the engine holds the state
+        self.dispatch = GraphedDispatch(
+            body, module, (self.current, engine.k), dev, key, owner=engine,
+            pool=engine._graph_pool, compile_events=t.compile_events,
+        )
+
+    def _stream_body(self) -> torch.Tensor:
+        e = self._engine
+        d, p, a, cur, ct, _cd = e._round(
+            e.target.params, e.draft.params, self.current, self.cache_t, self.cache_d
+        )
+        self.current.copy_(cur)
+        self.frontier.copy_(ct["length"])
+        return pack_round(d, p, a)[0]
+
+    def _batch_body(self) -> torch.Tensor:
+        e = self._engine
+        d, p, a, cur, _ct, _cd = e._round_batch(
+            e.target.params, e.draft.params, self.current, self.cache_t,
+            self.cache_d, self.start.tensor, self.active.tensor,
+        )
+        self.current.copy_(cur)
+        return pack_round(d, p, a)
+
+    def load(self, cache_t: dict, cache_d: dict, current: torch.Tensor) -> None:
+        """Take a request's freshly ingested caches and first tokens."""
+        copy_cache(self.cache_t, cache_t)
+        copy_cache(self.cache_d, cache_d)
+        self.current.copy_(current)
+
+
 def joint_prompt_ids(
     target: ServeEngine, draft: ServeEngine, prompt: str,
     prefix: str | None = None,
@@ -293,6 +485,22 @@ class SpeculativeEngine:
         self.rounds = 0
         self.accepted_draft_tokens = 0
         self.emitted_tokens = 0
+        # Buffers and graphs per dispatch shape (None: one stream; B: a
+        # batch bucket), built at their first use, like a jit's compile.
+        self._states: dict[int | None, _RoundState] = {}
+        self._graph_pool = (
+            torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        )
+
+    def _state(self, batch: int | None) -> _RoundState:
+        state = self._states.get(batch)
+        if state is None:
+            state = self._states[batch] = _RoundState(self, batch)
+        return state
+
+    def _dispatch(self, state: _RoundState) -> torch.Tensor:
+        """One round over ``state``'s buffers: its packed output."""
+        return state.dispatch()
 
     def _target_step(self, params, token, cache):
         return decode_step(params, token, cache, self.target.cfg)
@@ -365,6 +573,8 @@ class SpeculativeEngine:
         )
 
         current = logits_t.argmax(dim=-1)  # (1,)
+        state = self._state(None)
+        state.load(cache_t, cache_d, current)
         first = int(_HostRead(current).values()[0])
         emitted_count = 1
         self.emitted_tokens += 1
@@ -375,23 +585,18 @@ class SpeculativeEngine:
         # Budget: each round writes k+1 target KV slots from `start`.
         # The host tracks a MIRROR of the frontier (from the accepted
         # counts it already reads) purely for loop bounds; the device
-        # carries the real one in the caches' 0-d `length`, uploaded
-        # once here, so steady-state rounds upload nothing and read one
+        # carries the real one in the state's 0-d frontier, set once
+        # here, so steady-state rounds upload nothing and read one
         # packed tensor.
         start = len(ids)
-        frontier = _device_frontier(start, self.device)
-        cache_t = {**cache_t, "length": frontier}
-        cache_d = {**cache_d, "length": frontier}
+        state.frontier.fill_(start)
         limit = min(t.cfg.max_seq_len, d.cfg.max_seq_len) - (self.k + 1)
         k = self.k
         while emitted_count < max_new_tokens and start < limit:
-            draft_toks, preds, accepted, current, cache_t, cache_d = (
-                self._round(t.params, d.params, current, cache_t, cache_d)
-            )
             # One device read per round: proposals, target picks and
             # the device-computed accepted count, packed.
             drafts, picks, n = unpack_round(
-                _HostRead(pack_round(draft_toks, preds, accepted)[0]).values(), k
+                _HostRead(self._dispatch(state)).values(), k
             )
             emitted = [int(x) for x in drafts[:n]] + [int(picks[n])]
 
@@ -410,6 +615,9 @@ class SpeculativeEngine:
         # Tail: fewer than k+1 free KV slots left; finish with plain
         # single-token target decode so near-capacity requests still
         # match the target-only greedy stream instead of stopping early.
+        # It runs eagerly on the state's cache from the device frontier.
+        current = state.current
+        cache_t = {**state.cache_t, "length": state.frontier}
         while (
             emitted_count < max_new_tokens
             and start < t.cfg.max_seq_len - 1
@@ -490,6 +698,8 @@ class SpeculativeEngine:
         )
 
         current = logits_t.argmax(dim=-1)
+        state = self._state(B)
+        state.load(cache_t, cache_d, current)
         first = _HostRead(current).values()
         outputs = [[int(v)] for v in first]
         done = [
@@ -511,21 +721,16 @@ class SpeculativeEngine:
         # Loop guards range over ACTIVE rows only, and finished rows'
         # frontiers freeze: a fast-accepting (or done) row must not burn
         # the shared budget and truncate slow rows below their granted
-        # max_new_tokens.  Per round the host uploads only the
+        # max_new_tokens.  Per round the host stages only the
         # re-imposed frontiers and the active mask and reads one packed
         # (drafts, preds, accepted) tensor.
         while True:
             mask = active_mask()
             if not mask.any() or int(start[mask].max()) >= limit:
                 break
-            draft_toks, preds, accepted, current, cache_t, cache_d = (
-                self._round_batch(
-                    t.params, d.params, current, cache_t, cache_d,
-                    _upload(start, torch.long, self.device),
-                    _upload(mask, torch.bool, self.device),
-                )
-            )
-            rows = _HostRead(pack_round(draft_toks, preds, accepted)).values()
+            state.start.write(start)
+            state.active.write(mask)
+            rows = _HostRead(self._dispatch(state)).values()
             acc = np.zeros(B, np.int64)
             for r in range(B):
                 drafts, picks, n = unpack_round(rows[r], k)
@@ -541,14 +746,16 @@ class SpeculativeEngine:
                         done[r] = True
                 self.rounds += 1
                 self.accepted_draft_tokens += n
-    
+
             # Frontiers advance for active rows only, mirroring the
             # device-side update (frozen rows keep re-decoding their
             # frozen window; outputs ignored).
             start = start + np.where(mask, acc + 1, 0).astype(np.int64)
 
         # Tail: finish near-capacity rows with plain batched target
-        # steps at per-row frontiers.
+        # steps at per-row frontiers, eagerly on the state's cache.
+        current = state.current
+        cache_t = state.cache_t
         while True:
             mask = active_mask() & (start < t.cfg.max_seq_len - 1)
             if not mask.any():

@@ -58,6 +58,7 @@ kernels to the CPU-side ranges.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import glob
 import gzip
 import hashlib
@@ -197,13 +198,37 @@ def dispatch_range(module: str, *inputs: Any):
     """Context manager around one dispatch: a ``record_function`` range
     ``<module>(<fingerprint>)#<launch>`` while a profiler is active, else
     a shared no-op (the unprofiled path costs one flag read and queues
-    nothing)."""
-    if not torch._C._autograd._profiler_enabled():
+    nothing).  Inside :func:`capture_range` it opens nothing."""
+    if not torch._C._autograd._profiler_enabled() or _CAPTURING[0]:
         return _NULL_RANGE
     fp = program_fingerprint(module, *inputs)
     run = _RUNS.get(fp, 0) + 1
     _RUNS[fp] = run
     return torch.profiler.record_function(f"{module}({fp})#{run}")
+
+
+_CAPTURING = [0]  # depth of open capture ranges
+
+
+@contextlib.contextmanager
+def capture_range(module: str, *inputs: Any):
+    """Context manager around a CUDA-graph capture of one dispatch, the
+    port's counterpart of an XLA compile: while a profiler is active, a
+    ``record_function`` range ``<module>(<fingerprint>)`` with no launch
+    number, so the work it holds (the capture's warm-up run) is an
+    anonymous launch that the ledger's compile tier gives to the compile
+    event of the same program id; :func:`dispatch_range` opens nothing
+    inside it.  Without a profiler it only marks the depth."""
+    _CAPTURING[0] += 1
+    try:
+        if torch._C._autograd._profiler_enabled():
+            fp = program_fingerprint(module, *inputs)
+            with torch.profiler.record_function(f"{module}({fp})"):
+                yield
+        else:
+            yield
+    finally:
+        _CAPTURING[0] -= 1
 
 
 # ---- the parser ---------------------------------------------------------
@@ -234,15 +259,53 @@ def _module_span(
     return span
 
 
+def _launch_owners(
+    events: list[dict[str, Any]], ranges: list[dict[str, Any]]
+) -> dict[Any, dict[str, Any]]:
+    """{correlation id: the device range whose host range launched it}:
+    each host launch call (``cuda_runtime``) goes to the innermost
+    CPU-side range on its thread that contains its start, and that range
+    to the device range of the same name."""
+    by_name = {str(r.get("name", "")): r for r in ranges}
+    cpu: dict[tuple[Any, Any], list[dict[str, Any]]] = {}
+    for e in events:
+        if e.get("cat") == CAT_CPU_ANNOTATION and str(e.get("name", "")) in by_name:
+            cpu.setdefault((e.get("pid"), e.get("tid")), []).append(e)
+    owners: dict[Any, dict[str, Any]] = {}
+    for e in events:
+        if e.get("cat") not in LAUNCH_CATEGORIES:
+            continue
+        corr = (e.get("args") or {}).get("correlation")
+        ts = float(e.get("ts", 0.0))
+        best = None
+        for r in cpu.get((e.get("pid"), e.get("tid")), ()):
+            start = float(r.get("ts", 0.0))
+            if start <= ts < start + float(r.get("dur", 0.0)) and (
+                best is None or start >= float(best.get("ts", 0.0))
+            ):
+                best = r
+        if corr is not None and best is not None:
+            owners[corr] = by_name[str(best.get("name", ""))]
+    return owners
+
+
 def _kernel_segments(
-    ranges: list[dict[str, Any]], ops: list[dict[str, Any]], shift_us: float
+    ranges: list[dict[str, Any]], ops: list[dict[str, Any]], shift_us: float,
+    events: list[dict[str, Any]],
 ) -> list[XLASpan]:
     """Module spans of a card's trace: each op goes to the innermost
     range (the latest-starting ``gpu_user_annotation`` extent on its
     device that contains its start), and each range yields one span per
     run of its ops, merged where they touch or overlap.  A range that
     holds no op of its own (all its kernels are in nested ranges)
-    yields none."""
+    yields none.
+
+    Kineto may cut a range's device extent short: the kernels of a CUDA
+    graph replay carry no external id, and a large replay's extent can
+    end long before its last kernel (seen on an H100 with torch 2.11: 17
+    ms of a 116 ms replay).  An op outside every extent therefore goes
+    to the range whose host range made the launch call its correlation
+    id names (:func:`_launch_owners`), when there is one."""
     by_dev: dict[int, list[dict[str, Any]]] = {}
     for r in ranges:
         by_dev.setdefault(int(r.get("pid", -1)), []).append(r)
@@ -256,21 +319,27 @@ def _kernel_segments(
             far = max(far, float(r.get("ts", 0.0)) + float(r.get("dur", 0.0)))
             reach[pid].append(far)
     owned: dict[int, list[tuple[float, float]]] = {}
+    launchers = None
     for op in ops:
         pid = int(op.get("pid", -1))
         if pid not in by_dev:
             continue
         group = by_dev[pid]
         ts = float(op.get("ts", 0.0))
+        run = (ts, ts + float(op.get("dur", 0.0)))
         i = bisect.bisect_right(starts[pid], ts) - 1
         while i >= 0 and reach[pid][i] > ts:
             r = group[i]
             if ts < float(r.get("ts", 0.0)) + float(r.get("dur", 0.0)):
-                owned.setdefault(id(r), []).append(
-                    (ts, ts + float(op.get("dur", 0.0)))
-                )
+                owned.setdefault(id(r), []).append(run)
                 break
             i -= 1
+        else:
+            if launchers is None:
+                launchers = _launch_owners(events, ranges)
+            r = launchers.get((op.get("args") or {}).get("correlation"))
+            if r is not None and int(r.get("pid", -1)) == pid:
+                owned.setdefault(id(r), []).append(run)
     spans: list[XLASpan] = []
     for pid, group in by_dev.items():
         for r in group:
@@ -335,7 +404,7 @@ def parse_trace_events(
     gpu_ranges = [e for e in xs if e.get("cat") == CAT_GPU_ANNOTATION]
     if source == "kernel_segments":
         ops = [e for e in xs if e.get("cat") in OPS_CATEGORIES]
-        spans.extend(_kernel_segments(gpu_ranges, ops, shift_us))
+        spans.extend(_kernel_segments(gpu_ranges, ops, shift_us, xs))
     elif source == "gpu_user_annotation":
         for e in gpu_ranges:
             spans.append(
