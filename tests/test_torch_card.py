@@ -20,7 +20,7 @@ import numpy as np  # noqa: E402
 
 from tpuslo_torch.models import frontdoor, kv_cache, llama, paged_kv, serve  # noqa: E402
 from tpuslo_torch.models import speculative  # noqa: E402
-from tpuslo_torch.ops import flash_attention  # noqa: E402
+from tpuslo_torch.ops import flash_attention, launch_counts  # noqa: E402
 from tpuslo_torch.ops.flash_attention import flash_attention_reference  # noqa: E402
 from tpuslo_torch.ops.paged_attention import (  # noqa: E402
     paged_decode_attention,
@@ -656,12 +656,15 @@ def test_paged_engine_on_card_matches_cpu(cuda_device):
             cfg, params, max_slots=3, block_size=16, pallas_attention=True,
             device=cuda_device if where == "card" else "cpu",
         )
-        before = paged_decode_attention.launches
+        before, lanes = paged_decode_attention.launches, launch_counts.cached_layers
         ids = [engine.submit(p, max_new_tokens=8, stop_at_eos=False, prefix=pre)
                for p, pre in jobs]
         engine.run()
         launches = paged_decode_attention.launches - before
-        assert launches == (engine.steps * cfg.n_layers if where == "card" else 0)
+        # The paged steps, plus the prefix suffixes' verify passes over the
+        # dense caches (K2's lanes, once per layer).
+        lanes = launch_counts.cached_layers - lanes
+        assert launches == (engine.steps * cfg.n_layers + lanes if where == "card" else 0)
         assert engine.prefix_reuse_hits >= 1
         results[where] = [engine.results[i] for i in ids]
     single = serve.ServeEngine(cfg, cpu_params, device="cpu")
@@ -879,11 +882,16 @@ def test_capture_finds_k1_and_k2_and_the_ledger_closes(cuda_device, tmp_path):
     prompt = "x" * 100  # a 128-bucket prefill: K1
     list(engine.generate(prompt, max_new_tokens=5, stop_at_eos=False))  # warm
     k1, k2 = flash_attention.launches, paged_decode_attention.launches
+    lanes = launch_counts.cached_layers
     with xla_spans.capture(str(tmp_path), include_ops=True) as cap:
         list(engine.generate(prompt, max_new_tokens=5, stop_at_eos=False))
         paged.step()
     assert flash_attention.launches - k1 == cfg.n_layers
-    assert paged_decode_attention.launches - k2 == cfg.n_layers
+    # The paged step's layers, and the decode chunk's (the dense cache as
+    # K2's lanes).
+    lanes = launch_counts.cached_layers - lanes
+    assert lanes == 4 * cfg.n_layers
+    assert paged_decode_attention.launches - k2 == cfg.n_layers + lanes
     assert cap.module_source == "kernel_segments"
     ops = [s for s in cap.spans if s.lane == xla_spans.OPS_LANE]
     names = " ".join(s.name for s in ops)
@@ -1149,3 +1157,255 @@ def test_one_dispatch_range_per_replay_and_the_capture_reads_as_compile(cuda_dev
         inside = [o for o in cap.spans if o.lane == xla_spans.OPS_LANE and any(
             r.start_us <= o.start_us < r.start_us + r.duration_us for r in spans)]
         assert len(inside) > 50
+
+
+# ---- batch invariance: a row's bits whatever its batch -----------------------
+
+# Row r alone against row r inside each of these batches, the other rows
+# random; the RMSNorm kernel within one bf16 ulp of ``rms_norm``'s plain
+# version, K2's lanes within K2's bound of the plain attention.
+INVARIANCE_BATCHES = (2, 5, 8, 16, 40, 80, 200)
+
+
+def _rows_checked(n):
+    return sorted({0, n // 2, n - 1})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,dtype", [(3072, torch.bfloat16), (2048, torch.bfloat16),
+                                     (64, torch.bfloat16), (3072, torch.float32),
+                                     (256, torch.float16)])
+def test_rms_norm_kernel_is_batch_invariant(cuda_device, D, dtype):
+    from tpuslo_torch.ops import rms_norm as rn
+
+    gen = torch.Generator(device=cuda_device).manual_seed(D)
+    big = max(INVARIANCE_BATCHES)
+    x = (3 * torch.randn((big, D), generator=gen, device=cuda_device)).to(dtype)
+    w = (1 + 0.1 * torch.randn((D,), generator=gen, device=cuda_device)).to(dtype)
+    before = rn.rms_norm.launches
+    alone = [rn.rms_norm(x[r:r + 1], w, 1e-5)[0] for r in range(big)]
+    for n in INVARIANCE_BATCHES:
+        y = rn.rms_norm(x[:n], w, 1e-5)
+        for r in _rows_checked(n):
+            assert torch.equal(y[r], alone[r]), (n, r)
+    got = rn.rms_norm(x.reshape(8, 25, D), w, 1e-5)
+    torch.cuda.synchronize()
+    assert rn.rms_norm.launches == before + big + len(INVARIANCE_BATCHES) + 1
+    assert got.shape == (8, 25, D) and got.dtype == dtype
+    ref = rn.rms_norm_reference(x, w, 1e-5).float()
+    bf16_ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+    assert ((got.reshape(big, D).float() - ref).abs() <= bf16_ulp).all()
+
+
+@pytest.mark.cuda
+def test_rms_norm_kernel_never_falls_back(cuda_device):
+    from tpuslo_torch.ops import rms_norm as rn
+
+    x = torch.ones((4, 64), dtype=torch.bfloat16, device=cuda_device)
+    before = rn.rms_norm.launches
+    with pytest.raises(ValueError, match="one dtype"):
+        rn.rms_norm(x, torch.ones(64, dtype=torch.float32, device=cuda_device), 1e-5)
+    with pytest.raises(ValueError, match="one dtype"):
+        rn.rms_norm(x.double(), torch.ones(64, dtype=torch.float64, device=cuda_device), 1e-5)
+    with pytest.raises(ValueError, match="weight"):
+        rn.rms_norm(x, torch.ones(32, dtype=torch.bfloat16, device=cuda_device), 1e-5)
+    assert rn.rms_norm.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,H,KV,HD,K,cache", [
+    (192, 24, 8, 128, 5, "bf16"),   # the 3B target's verify at S 192
+    (2048, 24, 8, 128, 5, "bf16"),  # ... at S 2048 (two blocks of 1024)
+    (2048, 32, 8, 64, 1, "bf16"),   # the 1B draft's decode
+    (192, 32, 8, 64, 5, "int8"),
+    (128, 4, 2, 16, 5, "bf16"),     # llama_tiny: K2-f32
+    (192, 2, 1, 128, 5, "f32"),     # an f32 model: K2-f32
+])
+def test_dense_lanes_are_batch_invariant(cuda_device, T, H, KV, HD, K, cache):
+    from tpuslo_torch.ops import dense_lanes as dl
+
+    gen = torch.Generator(device=cuda_device).manual_seed(T + HD)
+    big = max(INVARIANCE_BATCHES)
+    dtype = torch.float32 if cache == "f32" else torch.bfloat16
+    k = torch.randn((big, T, KV, HD), generator=gen, device=cuda_device).to(dtype)
+    v = torch.randn((big, T, KV, HD), generator=gen, device=cuda_device).to(dtype)
+    q = torch.randn((big, K, H, HD), generator=gen, device=cuda_device).to(dtype)
+    pos = torch.randint(0, T + 4, (big, K), generator=gen, device=cuda_device)
+    if cache == "int8":
+        k, v = kv_cache.quantize_kv(k.float()), kv_cache.quantize_kv(v.float())
+
+    def rows(side, a, b):
+        return {n: t[a:b] for n, t in side.items()} if isinstance(side, dict) else side[a:b]
+
+    before = (paged_decode_attention.launches, paged_decode_attention.f32_launches)
+    alone = [dl.dense_lane_attention(q[r:r + 1], rows(k, r, r + 1), rows(v, r, r + 1),
+                                     pos[r:r + 1])[0] for r in range(big)]
+    for n in INVARIANCE_BATCHES:
+        out = dl.dense_lane_attention(q[:n], rows(k, 0, n), rows(v, 0, n), pos[:n])
+        for r in _rows_checked(n):
+            assert torch.equal(out[r], alone[r]), (n, r)
+    torch.cuda.synchronize()
+    calls = big + len(INVARIANCE_BATCHES)
+    f32_route = HD == 16 or cache == "f32"
+    assert (paged_decode_attention.launches - before[0],
+            paged_decode_attention.f32_launches - before[1]) == (
+        (0, calls) if f32_route else (calls, 0))
+    n = 16
+    mask = torch.arange(T, device=cuda_device)[None, None, :] <= pos[:n, :, None]
+    kd, vd = kv_cache.kv_load(rows(k, 0, n), torch.float32), kv_cache.kv_load(rows(v, 0, n),
+                                                                              torch.float32)
+    ref = llama.attention(q[:n].float(), kd.float(), vd.float(), mask, H // KV)
+    got = torch.stack(alone[:n]).float()
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() < (F32_TOL if cache == "f32" else PAGED_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_in,d_out,int8", [
+    (3072, 3072, False), (3072, 1024, False), (3072, 8192, False), (8192, 3072, False),
+    (3072, 128256, False), (2048, 2048, False), (2048, 512, False), (8192, 2048, False),
+    (256, 512, True),
+])
+def test_weight_products_are_batch_invariant(cuda_device, d_in, d_out, int8):
+    """``llama._matmul`` on the card: every product runs as pieces of one
+    shape (cuBLAS at ``GEMM_ROWS`` rows), so a row alone and inside 2 to
+    200 rows (two pieces) gets the same bits; the values are the one
+    product's."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d_in + d_out)
+    big = max(INVARIANCE_BATCHES)
+    W = (torch.randn((d_in, d_out), generator=gen, device=cuda_device) * d_in**-0.5)
+    W = llama._quantize_leaf(W) if int8 else W.bfloat16()
+    X = torch.randn((big, d_in), generator=gen, device=cuda_device).bfloat16()
+    alone = [llama._matmul(X[r:r + 1], W)[0] for r in range(big)]
+    for n in INVARIANCE_BATCHES:
+        y = llama._matmul(X[:n], W)
+        for r in _rows_checked(n):
+            assert torch.equal(y[r], alone[r]), (n, r)
+    want = llama._product(X.float(), W if int8 else W.float())
+    got = torch.stack(alone).float()
+    assert (got - want.float()).abs().max().item() <= 2**-6 * want.abs().max().item()
+
+
+def _pass_model(cuda_device):
+    """A 2-layer model at llama32_3b's widths (bf16, S 192) and caches of 8
+    rows holding random K/V."""
+    cfg = dataclasses.replace(llama.llama32_3b(max_seq_len=192), n_layers=2)
+    params = llama.init_params(0, cfg, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    cache = llama.init_kv_cache(cfg, 8, device=cuda_device)
+    for side in ("k", "v"):
+        cache[side].copy_(torch.randn(cache[side].shape, generator=gen, device=cuda_device))
+    return cfg, params, cache
+
+
+def _rows_of(cache, n):
+    return {side: cache[side][:, :n].clone() for side in ("k", "v")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pass_", ["verify", "decode"])
+def test_a_pass_gives_row_0_the_same_logits_in_any_batch(cuda_device, pass_):
+    """A verify pass (k + 1 = 5 positions) and a decode pass: row 0's
+    logits have the same bits at B 1 (the single stream's 0-d frontier)
+    as at B 2 and B 8 (per-row frontiers, the other rows other tokens),
+    and the pass reads the caches through K2 once per layer, with the
+    RMSNorm kernel for each norm."""
+    from tpuslo_torch.ops import rms_norm as rn
+
+    cfg, params, cache = _pass_model(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    K = 5 if pass_ == "verify" else 1
+    tokens = torch.randint(0, cfg.vocab_size, (8, K), generator=gen, device=cuda_device)
+    fronts = torch.tensor([100, 40, 150, 7, 120, 60, 186, 90], device=cuda_device)
+    logits = {}
+    for n in (1, 2, 8):
+        c = _rows_of(cache, n)
+        c["length"] = fronts[0].clone() if n == 1 else fronts[:n].clone()
+        k2, norms, lanes = (paged_decode_attention.launches, rn.rms_norm.launches,
+                            launch_counts.cached_layers)
+        if pass_ == "verify":
+            out, _ = llama.verify_chunk(params, tokens[:n], c, cfg)
+        else:
+            out, _ = llama.decode_step(params, tokens[:n, 0], c, cfg)
+        torch.cuda.synchronize()
+        assert paged_decode_attention.launches - k2 == cfg.n_layers
+        assert launch_counts.cached_layers - lanes == cfg.n_layers
+        assert rn.rms_norm.launches - norms == 2 * cfg.n_layers + 1
+        logits[n] = out[0]
+    assert torch.isfinite(logits[1]).all()
+    assert torch.equal(logits[1], logits[2]) and torch.equal(logits[1], logits[8])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [64, 128])
+def test_a_batched_prefill_gives_each_row_a_lone_prefills_bits(cuda_device, S):
+    """A batched admission's prefill (4 rows at one bucket, each its own
+    true length) gives every row the logits and cache bits of that row's
+    lone prefill, at a bucket the plain attention takes (64) and at one
+    K1 takes (128): each row's weight products run at the lone
+    prefill's shape."""
+    cfg, params, _ = _pass_model(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (4, S), generator=gen, device=cuda_device)
+    lengths = torch.tensor([S, S - 5, S // 2, 3], device=cuda_device)
+    batch, cache = llama.prefill(params, tokens, llama.init_kv_cache(cfg, 4, device=cuda_device),
+                                 cfg, true_length=lengths)
+    for r in range(4):
+        lone, one = llama.prefill(params, tokens[r:r + 1],
+                                  llama.init_kv_cache(cfg, 1, device=cuda_device), cfg,
+                                  true_length=lengths[r:r + 1])
+        assert torch.isfinite(lone).all()
+        assert torch.equal(batch[r], lone[0]), r
+        for side in ("k", "v"):
+            assert torch.equal(cache[side][:, r, :S], one[side][:, 0, :S]), (r, side)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [32, 64])
+def test_a_batched_prompt_chunk_gives_each_row_a_lone_chunks_bits(cuda_device, K):
+    """A prompt chunk appended to 4 rows' caches (each its own frontier)
+    gives every row the logits and cache bits of that row's chunk
+    appended alone: each row's weight products run at the lone chunk's
+    shape, and K2 reads the caches once per layer."""
+    cfg, params, cache = _pass_model(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    tokens = torch.randint(0, cfg.vocab_size, (4, K), generator=gen, device=cuda_device)
+    fronts = torch.tensor([100, 7, 150 - K, 60], device=cuda_device)
+    c = _rows_of(cache, 4)
+    c["length"] = fronts.clone()
+    k2 = paged_decode_attention.launches
+    batch, _ = llama.verify_chunk(params, tokens, c, cfg, prompt_chunk=True)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches - k2 == cfg.n_layers
+    for r in range(4):
+        one = {side: cache[side][:, r:r + 1].clone() for side in ("k", "v")}
+        one["length"] = fronts[r:r + 1].clone()
+        lone, _ = llama.verify_chunk(params, tokens[r:r + 1], one, cfg, prompt_chunk=True)
+        assert torch.isfinite(lone).all()
+        assert torch.equal(batch[r], lone[0]), r
+        for side in ("k", "v"):
+            assert torch.equal(c[side][:, r], one[side][:, 0]), (r, side)
+
+
+@pytest.mark.cuda
+def test_replays_count_the_kernels_they_launch(cuda_device):
+    """A graphed dispatch's kernels are counted where they run: the
+    capture's warm-up launches them once, the capture itself (recording)
+    adds nothing, and every replay adds what it launches: K2 once per
+    layer of each of a round's cached passes (the target's verify, the
+    draft's k steps and its fill), two rounds per dispatch."""
+    target, draft = _spec_pair(cuda_device)
+    k, rounds = 3, 2
+    per_dispatch = rounds * (target.cfg.n_layers + (k + 1) * draft.cfg.n_layers)
+    k2, lanes = paged_decode_attention.launches, launch_counts.cached_layers
+    fd = frontdoor.FrontDoorEngine(target, draft, k=k, max_slots=4, rounds_per_step=rounds)
+    assert fd._dispatch.graph is not None
+    assert paged_decode_attention.launches - k2 == per_dispatch
+    assert launch_counts.cached_layers - lanes == per_dispatch
+    fd.submit("a stream that keeps going", max_new_tokens=40, stop_at_eos=False)
+    fd.submit("another one", max_new_tokens=40, stop_at_eos=False)
+    for _ in range(3):
+        k2, lanes = paged_decode_attention.launches, launch_counts.cached_layers
+        fd.step()
+        assert paged_decode_attention.launches - k2 == per_dispatch
+        assert launch_counts.cached_layers - lanes == per_dispatch

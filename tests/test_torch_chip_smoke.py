@@ -202,3 +202,79 @@ def test_entry_argv_is_the_chaos_lanes():
     assert flags["--device"] == "cuda"
     assert flags["--interval-s"] == "0.05" and flags["--snapshot-interval-s"] == "0.2"
     assert argv[-1] == "--json"
+
+
+# ---- batch invariance: the new build, the exactness and upcast checks -------
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN51_GLOBAL__N__b8d85e21_18_batch_invariant_cu_17c3d05a15rms_norm_kernelI13__nv_bfloat16"
+     "EEvPKT_S4_PS2_ixxff", "rms_norm_kernel<bf16>"),
+    ("_ZN51_GLOBAL__N__b8d85e21_18_batch_invariant_cu_17c3d05a15rms_norm_kernelIfEEvPKT_S3_PS1_"
+     "ixxff", "rms_norm_kernel<f32>"),
+    ("_ZN51_GLOBAL__N__848908c5_18_paged_attention_cu_f6a6c6d318paged_split_kernelI13__nv_"
+     "bfloat16Li64ELi4EEEvNS_4ArgsE", "paged_split_kernel<bf16,64,4>"),
+])
+def test_ptxas_names_of_the_lane_path(mangled, name):
+    """The names of the instantiations the batch-invariant path adds, as
+    a card's ptxas report spells them (the RMSNorm kernel; K2 at the 1B
+    draft's head dim 64 and 4 query heads per kv head)."""
+    [entry] = chip_smoke.ptxas_entries(_report(mangled, spill=0))
+    assert entry["name"] == name
+    assert name in chip_smoke.PATH_INSTANTIATIONS
+
+
+def test_the_build_lists_every_source():
+    assert set(chip_smoke.KERNELS) == {p.stem for p in chip_smoke.ROOT.glob(
+        "tpuslo_torch/ops/csrc/*.cu")}
+
+
+def test_bench_ii_serves_the_models_dtype():
+    assert chip_smoke.BENCH_3B_DTYPE == "bfloat16"
+
+
+def test_hold_exact_fails_only_a_held_stream():
+    ok = chip_smoke._hold_exact("t", [[1, 2, 3], [1, 9, 3]], [[1, 2, 3], [1, 2, 3]],
+                                [True, False])
+    assert ok["held"] == 1 and ok["held_equal"] == 1 and ok["parted_at"] == [None, 1]
+    with pytest.raises(SystemExit):
+        chip_smoke._hold_exact("t", [[1, 2, 3], [1, 9, 3]], [[1, 2, 3], [1, 2, 3]],
+                               [True, True])
+    with pytest.raises(SystemExit):
+        chip_smoke._hold_exact("t", [[1, 2]], [[1, 2, 3]], [True])
+
+
+@pytest.mark.parametrize("n,bucket", [(1, 32), (32, 32), (33, 64), (129, 256), (256, 256),
+                                      (257, None)])
+def test_own_bucket(n, bucket):
+    from tpuslo_torch.models import serve
+
+    assert chip_smoke._own_bucket(serve, None, list(range(n))) == bucket
+
+
+def test_ulps_reads_bf16_ulps():
+    import torch
+
+    ref = torch.tensor([1.0, 3.0, -0.5])
+    got = ref + torch.tensor([2.0**-7, 0.0, -(2.0**-9)])
+    assert chip_smoke._ulps(torch, got, ref, 7) == pytest.approx(1.0)
+
+
+def test_cache_upcasts_sees_the_plain_paths_copies(monkeypatch):
+    """The check that no pass copies a whole cache: the plain attention
+    over the cache upcasts each side (found, at the cache's length), and
+    a conversion of the step's own rows is not such a copy (the card's
+    lanes read the cache in place, which only a card run shows)."""
+    import torch
+
+    from tpuslo_torch.models import kv_cache, llama
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    T = 160
+    k = torch.randn(2, T, 2, 16).bfloat16()
+    q = torch.randn(2, 3, 4, 16).bfloat16()
+    mask = torch.arange(T)[None, None, :] <= torch.tensor([[5, 6, 7], [90, 91, 92]])[:, :, None]
+    plain = chip_smoke._cache_upcasts(
+        torch, lambda: llama.attention(q, kv_cache.kv_load(k), kv_cache.kv_load(k), mask, 2), T)
+    assert len(plain) >= 2 and all(u["shape"][-3] == T for u in plain)
+    assert chip_smoke._cache_upcasts(torch, lambda: q.float(), T) == []

@@ -54,7 +54,8 @@ def test_port_files_exist():
                 "attribution/io.py", "attribution/calibrate.py",
                 "columnar/posterior.py", "faultreplay/generator.py",
                 "analysis/jitaudit.py", "benchmark/frontdoor_bench.py",
-                "benchmark/router_bench.py", "cli/loadgen.py"):
+                "benchmark/router_bench.py", "cli/loadgen.py", "benchmark/probes.py",
+                "ops/dense_lanes.py", "ops/rms_norm.py", "ops/launch_counts.py"):
         assert REPO / "tpuslo_torch" / rel in PORT_FILES
 
 
@@ -77,7 +78,8 @@ def test_importing_the_port_loads_no_jax():
         "tpuslo_torch.attribution, tpuslo_torch.attribution.calibrate, "
         "tpuslo_torch.columnar, tpuslo_torch.faultreplay, tpuslo_torch.signals.mode, "
         "tpuslo_torch.analysis.jitaudit, tpuslo_torch.benchmark.frontdoor_bench, "
-        "tpuslo_torch.benchmark.router_bench, tpuslo_torch.cli.loadgen; "
+        "tpuslo_torch.benchmark.router_bench, tpuslo_torch.cli.loadgen, "
+        "tpuslo_torch.benchmark.probes, tpuslo_torch.ops.rms_norm; "
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'tpuslo', 'jsonschema')); "
         "print(bad); sys.exit(1 if bad else 0)"

@@ -19,13 +19,36 @@ PyTorch's idiom:
   :func:`tpuslo_torch.ops.flash_attention.flash_attention`, which runs
   the Hopper kernel for CUDA tensors and its plain version for CPU
   tensors.  The routing depends on the tensors' device and the shape
-  only.  Decode and verify attend over the whole preallocated cache
-  with the plain :func:`attention`, as the JAX module leaves them to
-  XLA.
+  only.  On the CPU, decode and verify attend over the whole
+  preallocated cache with the plain :func:`attention`, as the JAX module
+  leaves them to XLA.
+
+On the card every pass is batch-invariant: a row's output bits do not
+depend on how many rows share its batch or on what they hold, so a
+front door's slots decode exactly as a single stream does (the JAX
+package's guarantee, held in bf16).  Each op whose bits would
+otherwise depend on the batch takes a path whose arithmetic is fixed
+per row:
+
+* the cached passes' attention reads the dense cache as K2's lanes, one
+  query per lane (:func:`tpuslo_torch.ops.dense_lanes.dense_lane_attention`),
+  in the cache's own dtype: no pass copies a whole cache to f32;
+* :func:`rms_norm` launches the batch-invariant RMSNorm kernel
+  (:mod:`tpuslo_torch.ops.rms_norm`);
+* :func:`_matmul` runs every weight product of a cached pass as pieces
+  of :data:`GEMM_ROWS` rows, the last one zero-padded, so that cuBLAS
+  runs one kernel, chosen for one shape, whatever the number of rows;
+* a full-sequence pass (prefill, forward) runs each batch row's weight
+  products (:func:`_seq_matmul`) and, where it is not flash-eligible,
+  its attention at a lone prefill's shape, so that a batched admission
+  gives every request a lone prefill's bits and a lone prefill runs as
+  one product per weight (K1 computes each row in CTAs of its own
+  already).
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any
 
@@ -34,7 +57,10 @@ import torch.nn.functional as F
 
 from tpuslo_torch.device import resolve_device
 from tpuslo_torch.models import kv_cache as kvc
+from tpuslo_torch.ops import launch_counts
+from tpuslo_torch.ops.dense_lanes import dense_lane_attention
 from tpuslo_torch.ops.flash_attention import flash_attention, flash_eligible
+from tpuslo_torch.ops.rms_norm import rms_norm as ops_rms_norm
 
 Params = dict[str, Any]
 
@@ -225,10 +251,9 @@ def quantized_bytes(cfg: LlamaConfig) -> int:
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     """RMSNorm in f32, cast back to x's dtype, then scaled by the weight
-    (in that order, as the JAX module does)."""
-    x32 = x.float()
-    rms = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
-    return (x32 * rms).to(x.dtype) * weight
+    (in that order, as the JAX module does): the plain version on the
+    CPU, the batch-invariant kernel on the card."""
+    return ops_rms_norm(x, weight, eps)
 
 
 def rope_frequencies(
@@ -251,6 +276,18 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat((x1 * cos - x2 * sin, x2 * cos + x1 * sin), dim=-1).to(x.dtype)
 
 
+#: Rows of every weight product on the card: 128 covers the widest
+#: dispatch (16 slots x (k + 1) = 80 query rows at k 4).
+GEMM_ROWS = 128
+
+
+def _product(x: torch.Tensor, w, wq=None) -> torch.Tensor:
+    if isinstance(w, dict):
+        out = torch.matmul(x.float(), w["q"].float() if wq is None else wq)
+        return (out * w["s"]).to(x.dtype)
+    return torch.matmul(x, w)
+
+
 def _matmul(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w`` accumulated in f32 and rounded once to x's dtype.
 
@@ -259,11 +296,54 @@ def _matmul(x: torch.Tensor, w) -> torch.Tensor:
     product is taken in f32 (int8 codes and bf16 activations are exact
     in f32), scaled per output channel, and rounded once, which is the
     JAX module's dequantize-in-the-accumulator arithmetic.
+
+    On the card the rows run as pieces of :data:`GEMM_ROWS` rows, the
+    last one zero-padded: cuBLAS picks its kernel by the shape and the
+    alignment of a product, and with one shape for every call a row's
+    bits do not depend on how many rows the call has.  A full piece is a
+    view of the rows (at a multiple of ``GEMM_ROWS`` rows from a fresh
+    tensor, aligned as a padded piece is: 256 bytes or more, the most
+    cuBLASLt tells apart), a short one a fresh padded tensor.
     """
-    if isinstance(w, dict):
-        out = torch.matmul(x.float(), w["q"].float())
-        return (out * w["s"]).to(x.dtype)
-    return torch.matmul(x, w)
+    if x.device.type != "cuda":
+        return _product(x, w)
+    return _matmul_fixed(x, w)
+
+
+def _seq_matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """:func:`_matmul` of a full-sequence pass: on the card one product
+    per batch row, each at a lone prefill's shape."""
+    if x.device.type != "cuda" or x.shape[0] == 1:
+        return _product(x, w)
+    return _matmul_rows(x, w)
+
+
+def _matmul_rows(x: torch.Tensor, w) -> torch.Tensor:
+    """:func:`_seq_matmul` on the card: ``x[b:b + 1] @ w`` for each
+    batch row ``b`` (any device runs it)."""
+    wq = w["q"].float() if isinstance(w, dict) else None
+    return torch.cat([_product(x[b:b + 1], w, wq) for b in range(x.shape[0])])
+
+
+def _matmul_fixed(x: torch.Tensor, w) -> torch.Tensor:
+    """:func:`_matmul` as pieces of :data:`GEMM_ROWS` rows (the card's
+    path; any device runs it)."""
+    lead, d_in = x.shape[:-1], x.shape[-1]
+    rows = x.reshape(-1, d_in)
+    if rows.data_ptr() % 256:  # full pieces are views: keep them 256-byte aligned
+        rows = rows.clone()
+    wq = w["q"].float() if isinstance(w, dict) else None
+    pieces = []
+    for r0 in range(0, rows.shape[0], GEMM_ROWS):
+        piece = rows[r0:r0 + GEMM_ROWS]
+        n = piece.shape[0]
+        if n < GEMM_ROWS:
+            piece = F.pad(piece, (0, 0, 0, GEMM_ROWS - n))
+        pieces.append(_product(piece, w, wq)[:n])
+    if not pieces:
+        return _product(rows, w, wq).reshape(*lead, -1)
+    out = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+    return out.reshape(*lead, out.shape[-1])
 
 
 def _embed_lookup(params: Params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -324,23 +404,33 @@ def attention_block(
     H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     x = rms_norm(h, layer["attn_norm"], cfg.norm_eps)
-    q = _matmul(x, layer["wq"]).reshape(B, S, H, HD)
-    k = _matmul(x, layer["wk"]).reshape(B, S, KV, HD)
-    v = _matmul(x, layer["wv"]).reshape(B, S, KV, HD)
+    q = _seq_matmul(x, layer["wq"]).reshape(B, S, H, HD)
+    k = _seq_matmul(x, layer["wk"]).reshape(B, S, KV, HD)
+    v = _seq_matmul(x, layer["wv"]).reshape(B, S, KV, HD)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if causal and flash_eligible(tuple(q.shape), KV):
         attn = flash_attention(q, k, v, causal=True)
+    elif h.device.type == "cuda" and B > 1:
+        # One row at a time: the batched products would pick their
+        # kernels by the batch.
+        attn = torch.cat([attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                    mask if mask.ndim == 2 else mask[b:b + 1], H // KV)
+                          for b in range(B)])
     else:
         attn = attention(q, k, v, mask, H // KV)
-    return h + _matmul(attn.reshape(B, S, H * HD), layer["wo"]), (k, v)
+    return h + _seq_matmul(attn.reshape(B, S, H * HD), layer["wo"]), (k, v)
 
 
-def _dense_mlp(cfg, layer: Params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP on normalized hidden states."""
-    gate = F.silu(_matmul(x, layer["w1"]).float())
-    up = _matmul(x, layer["w3"]).float()
-    return _matmul((gate * up).to(cfg.dtype), layer["w2"])
+def _dense_mlp(cfg, layer: Params, x: torch.Tensor, i: int | None = None,
+               matmul=_matmul) -> torch.Tensor:
+    """SwiGLU MLP on normalized hidden states (``i``: the layer index
+    that :func:`trace_ops` records the products under; ``matmul``:
+    :func:`_seq_matmul` in a full-sequence pass)."""
+    gate = F.silu(_traced("w1", i, matmul(x, layer["w1"])).float())
+    up = _traced("w3", i, matmul(x, layer["w3"])).float()
+    act = _traced("silu_mul", i, (gate * up).to(cfg.dtype))
+    return _traced("w2", i, matmul(act, layer["w2"]))
 
 
 def _layer_body(
@@ -355,7 +445,7 @@ def _layer_body(
     """One transformer layer; returns (hidden, (rotated_k, v))."""
     h, kv = attention_block(cfg, h, layer, cos, sin, mask, causal=causal)
     x = rms_norm(h, layer["mlp_norm"], cfg.norm_eps)
-    return h + _dense_mlp(cfg, layer, x), kv
+    return h + _dense_mlp(cfg, layer, x, matmul=_seq_matmul), kv
 
 
 def _at(leaf, i: int):
@@ -380,7 +470,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Ten
     for i in range(cfg.n_layers):
         h, _kv = _layer_body(cfg, h, _layer(params, i), cos, sin, mask, causal=True)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return _matmul(h, params["output"]).float()
+    return _seq_matmul(h, params["output"]).float()
 
 
 # --- KV-cache decode path ----------------------------------------------
@@ -469,7 +559,32 @@ def prefill(
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     last = _row_lengths(length, B, dev) - 1
     h_last = h[torch.arange(B, device=dev), last]
-    return _matmul(h_last, params["output"]).float(), cache
+    return _seq_matmul(h_last, params["output"]).float(), cache
+
+
+_TRACE = None  # the recorder trace_ops installs: fn(op, layer, tensor)
+
+
+@contextmanager
+def trace_ops(record):
+    """Call ``record(op, layer, tensor)`` with the output of every op of
+    the cached passes (decode, verify, draft) while the block runs: per
+    layer ``attn_norm``, ``q``, ``k``, ``v``, ``rope_q``, ``rope_k``,
+    ``attention``, ``wo``, ``mlp_norm``, ``w1``, ``w3``, ``silu_mul``,
+    ``w2``, then ``final_norm`` and ``logits`` (layer ``None``).  A
+    probe's tool for finding which op's bits depend on the batch."""
+    global _TRACE
+    before, _TRACE = _TRACE, record
+    try:
+        yield
+    finally:
+        _TRACE = before
+
+
+def _traced(op: str, layer: int | None, t: torch.Tensor) -> torch.Tensor:
+    if _TRACE is not None and (layer is not None or op in ("final_norm", "logits")):
+        _TRACE(op, layer, t)
+    return t
 
 
 def _cached_layers(
@@ -477,36 +592,53 @@ def _cached_layers(
     cfg: LlamaConfig,
     h: torch.Tensor,
     cache: dict,
-    cos: torch.Tensor,
-    sin: torch.Tensor,
-    mask: torch.Tensor,
+    positions: torch.Tensor,
     write,
+    matmul=_matmul,
 ) -> torch.Tensor:
     """The layer loop shared by decode and verify: each layer writes its
-    new K/V with ``write(layer_cache_side, new)`` and attends over the
-    whole preallocated cache under ``mask``."""
+    new K/V with ``write(layer_cache_side, new)``, then query ``(b, j)``
+    at position ``positions[b, j]`` attends over the cache positions
+    ``<= positions[b, j]`` of its row: on the card through K2's lanes,
+    on the CPU through the plain :func:`attention` under the causal mask.
+    ``launch_counts.cached_layers`` counts the layers the card ran, so
+    that a run can show K2 launched once per layer per pass.  ``matmul``
+    takes every weight product (:func:`_seq_matmul` in a prompt chunk's
+    pass)."""
     B, K, _ = h.shape
     H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cos, sin = rope_frequencies(cfg, positions)
+    lanes = h.device.type == "cuda"
+    if lanes:
+        launch_counts.cached_layers += cfg.n_layers
+    else:
+        key_pos = torch.arange(cfg.max_seq_len, device=h.device)
+        mask = key_pos[None, None, :] <= positions[:, :, None]  # (B, K, T)
     for i in range(cfg.n_layers):
         layer = _layer(params, i)
         k_cache = _at(cache["k"], i)
         v_cache = _at(cache["v"], i)
-        x = rms_norm(h, layer["attn_norm"], cfg.norm_eps)
-        q = _matmul(x, layer["wq"]).reshape(B, K, H, HD)
-        k = _matmul(x, layer["wk"]).reshape(B, K, KV, HD)
-        v = _matmul(x, layer["wv"]).reshape(B, K, KV, HD)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        x = _traced("attn_norm", i, rms_norm(h, layer["attn_norm"], cfg.norm_eps))
+        q = _traced("q", i, matmul(x, layer["wq"])).reshape(B, K, H, HD)
+        k = _traced("k", i, matmul(x, layer["wk"])).reshape(B, K, KV, HD)
+        v = _traced("v", i, matmul(x, layer["wv"])).reshape(B, K, KV, HD)
+        q = _traced("rope_q", i, apply_rope(q, cos, sin))
+        k = _traced("rope_k", i, apply_rope(k, cos, sin))
         write(k_cache, k)
         write(v_cache, v)
-        attn = attention(
-            q, kvc.kv_load(k_cache, cfg.dtype), kvc.kv_load(v_cache, cfg.dtype),
-            mask, H // KV,
-        )
-        h = h + _matmul(attn.reshape(B, K, H * HD), layer["wo"])
-        x = rms_norm(h, layer["mlp_norm"], cfg.norm_eps)
-        h = h + _dense_mlp(cfg, layer, x)
-    return rms_norm(h, params["final_norm"], cfg.norm_eps)
+        if lanes:
+            attn = dense_lane_attention(q, k_cache, v_cache, positions)
+        else:
+            attn = attention(
+                q, kvc.kv_load(k_cache, cfg.dtype), kvc.kv_load(v_cache, cfg.dtype),
+                mask, H // KV,
+            )
+        attn = _traced("attention", i, attn)
+        h = h + _traced("wo", i, matmul(attn.reshape(B, K, H * HD), layer["wo"]))
+        x = _traced("mlp_norm", i, rms_norm(h, layer["mlp_norm"], cfg.norm_eps))
+        h = h + _dense_mlp(cfg, layer, x, i, matmul=matmul)
+    return _traced("final_norm", None, rms_norm(h, params["final_norm"], cfg.norm_eps))
+
 
 
 def decode_step(
@@ -528,16 +660,14 @@ def decode_step(
         return logits[:, 0], {**cache, "length": pos + 1}
     row_pos = pos.expand(B)  # a 0-d shared frontier, broadcast
     h = _embed_lookup(params, token[:, None], cfg.dtype)
-    cos, sin = rope_frequencies(cfg, row_pos[:, None])
-    visible = torch.arange(cfg.max_seq_len, device=dev)[None, :] <= row_pos[:, None]
     rows = torch.arange(B, device=dev)
 
     def write(side, new):
         kvc.kv_write_rows(side, new[:, 0], rows, row_pos)
 
-    h = _cached_layers(params, cfg, h, cache, cos, sin, visible[:, None, :], write)
+    h = _cached_layers(params, cfg, h, cache, row_pos[:, None], write)
     cache = {"k": cache["k"], "v": cache["v"], "length": pos + 1}
-    return _matmul(h[:, 0, :], params["output"]).float(), cache
+    return _traced("logits", None, _matmul(h[:, 0, :], params["output"])).float(), cache
 
 
 @dataclass(frozen=True)
@@ -596,7 +726,8 @@ def sample_from_logits(
 
 
 def verify_chunk(
-    params: Params, tokens: torch.Tensor, cache: dict, cfg: LlamaConfig
+    params: Params, tokens: torch.Tensor, cache: dict, cfg: LlamaConfig,
+    prompt_chunk: bool = False,
 ) -> tuple[torch.Tensor, dict]:
     """Score K tokens in one pass: f32 logits at every position.
 
@@ -608,22 +739,24 @@ def verify_chunk(
     (each row verifies K positions from its own frontier; a position
     past the cache end is dropped) or a 0-d tensor (one device-side
     frontier, broadcast over the rows).
+
+    ``prompt_chunk`` marks a prompt's chunk appended to its cache (a
+    suffix prefill), which no dispatch batches: its weight products run
+    as a prefill's do (:func:`_seq_matmul`), each row at a lone chunk's
+    shape, instead of as :data:`GEMM_ROWS`-row pieces.
     """
     B, K = tokens.shape
     dev = tokens.device
     start = _as_length(cache["length"], B, dev)
-    key_pos = torch.arange(cfg.max_seq_len, device=dev)
     offs = torch.arange(K, device=dev)
     if isinstance(start, int):
         positions = (start + offs).expand(B, K)
-        mask = key_pos[None, :] <= (start + offs)[:, None]  # (K, T)
 
         def write(side, new):
             kvc.kv_write_seq(side, new, start)
     else:
         row_start = start.expand(B)
         positions = row_start[:, None] + offs[None, :]  # (B, K)
-        mask = key_pos[None, None, :] <= positions[:, :, None]  # (B, K, T)
         rows = torch.arange(B, device=dev)
         index = kvc.rows_seq_index(row_start, K, cfg.max_seq_len)
 
@@ -631,10 +764,10 @@ def verify_chunk(
             kvc.kv_write_rows_seq(side, new, rows, row_start, index)
 
     h = _embed_lookup(params, tokens, cfg.dtype)
-    cos, sin = rope_frequencies(cfg, positions)
-    h = _cached_layers(params, cfg, h, cache, cos, sin, mask, write)
+    matmul = _seq_matmul if prompt_chunk else _matmul
+    h = _cached_layers(params, cfg, h, cache, positions, write, matmul)
     cache = {"k": cache["k"], "v": cache["v"], "length": start}
-    return _matmul(h, params["output"]).float(), cache
+    return _traced("logits", None, matmul(h, params["output"])).float(), cache
 
 
 def decode_chunk(

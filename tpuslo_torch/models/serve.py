@@ -57,7 +57,8 @@ def suffix_prefill(params, tokens, kv, start: int, true_length, cfg):
     """Append a (padded) suffix to KV already holding ``start`` tokens.
 
     ``verify_chunk`` scores the suffix against the whole cache (prefix
-    KV included) and writes its KV at ``start`` in place; the next-token
+    KV included), with a prefill's weight products, and writes its KV at
+    ``start`` in place; the next-token
     logits are gathered at the suffix's true last position and the
     returned cache has ``length = start + true_length`` (``true_length``
     an int or a per-row tensor).  The write raises if the padded chunk
@@ -65,7 +66,8 @@ def suffix_prefill(params, tokens, kv, start: int, true_length, cfg):
     """
     B = tokens.shape[0]
     logits, cache = verify_chunk(
-        params, tokens, {"k": kv["k"], "v": kv["v"], "length": int(start)}, cfg
+        params, tokens, {"k": kv["k"], "v": kv["v"], "length": int(start)}, cfg,
+        prompt_chunk=True,
     )
     dev = tokens.device
     if isinstance(true_length, torch.Tensor):

@@ -72,6 +72,7 @@ from tpuslo_torch.models.serve import (
     encode_bytes,
     prefix_prompt_ids,
 )
+from tpuslo_torch.ops import launch_counts
 from tpuslo_torch.otel.xla_spans import capture_range, dispatch_range, program_fingerprint
 
 
@@ -267,6 +268,10 @@ class GraphedDispatch:
     back to the eager body on a card.  The warm-up changes the buffers,
     so the owner resets them after construction.
 
+    The kernels' launch counters (:mod:`tpuslo_torch.ops.launch_counts`)
+    count what ran on the card: the capture's own increments are taken
+    back (recording is not launching) and each replay adds them.
+
     A bound-method ``body`` is held weakly, so that an engine and its
     graph form no reference cycle: a dropped engine (and its graph) is
     freed at once, never by the cyclic collector in the middle of another
@@ -297,6 +302,7 @@ class GraphedDispatch:
         self.key = key
         self.graph = None
         self.outputs = None
+        self._launches: list = []
         self.capture_ms: float | None = None
         if device.type == "cuda":
             self._capture(device, owner, pool, compile_events)
@@ -318,8 +324,12 @@ class GraphedDispatch:
                     self._body()
                 current.wait_stream(side)
                 graph = torch.cuda.CUDAGraph()
+                counted = launch_counts.snapshot()
                 with torch.cuda.graph(graph, pool=pool):
                     self.outputs = self._body()
+                # What the capture recorded is launched by each replay.
+                self._launches = launch_counts.since(counted)
+                launch_counts.add(self._launches, -1)
         finally:
             if collecting:
                 gc.enable()
@@ -342,6 +352,7 @@ class GraphedDispatch:
             return self._body()
         with dispatch_range(self.module, *self._inputs):
             self.graph.replay()
+        launch_counts.add(self._launches)
         return self.outputs
 
 

@@ -1,5 +1,7 @@
-"""Attention kernels of the port: each a hand-written Hopper kernel with
-its plain PyTorch version beside it."""
+"""Kernels of the port: each a hand-written Hopper kernel with its plain
+PyTorch version beside it (attention here; the batch-invariant RMSNorm in
+:mod:`tpuslo_torch.ops.rms_norm`), plus the dense cache read as K2's
+lanes."""
 
 from tpuslo_torch.ops.flash_attention import (
     flash_attention,
@@ -10,8 +12,10 @@ from tpuslo_torch.ops.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_reference,
 )
+from tpuslo_torch.ops.dense_lanes import dense_lane_attention
 
 __all__ = [
+    "dense_lane_attention",
     "flash_attention",
     "flash_attention_reference",
     "flash_eligible",

@@ -37,7 +37,7 @@ import functools
 
 import torch
 
-from tpuslo_torch.ops import _build
+from tpuslo_torch.ops import _build, launch_counts
 
 #: The head dims the bf16 ``wgmma`` kernel (K1) is instantiated for.
 KERNEL_HEAD_DIMS = (128, 256)
@@ -267,3 +267,4 @@ def _flash_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool):
 
 flash_attention.launches = 0
 flash_attention.f32_launches = 0
+launch_counts.register(flash_attention, "launches", "f32_launches")

@@ -49,7 +49,7 @@ from dataclasses import dataclass
 
 import torch
 
-from tpuslo_torch.ops import _build
+from tpuslo_torch.ops import _build, launch_counts
 
 HEAD_DIMS = (64, 128)  # the head dims K2 is built for
 F32_HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims K2-f32 is built for
@@ -450,3 +450,4 @@ def paged_decode_attention(
 
 paged_decode_attention.launches = 0
 paged_decode_attention.f32_launches = 0
+launch_counts.register(paged_decode_attention, "launches", "f32_launches")
