@@ -5,6 +5,16 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py probe {admission,bench,norm} [--tree DIR]
+[--runs N]`` measures one part of the path instead, on this checkout or
+on another one (an older commit unpacked with ``git archive``), whose own
+``tpuslo_torch`` (and, for ``admission`` and ``bench``, its own
+``chip_smoke.py`` phases) it imports: phase 12's profiled windows with
+each admitting window's device time by dispatch range and each capture's
+cost; the serving benches under one harness (the heap collected and
+frozen before every bench, whatever the tree does); the RMSNorm kernels
+at phase 18's shapes.  One JSON line per measurement (:func:`probe_main`).
+
 Phases, each printing its own lines; any failure ends the run with a
 non-zero exit and no result line:
 
@@ -149,9 +159,11 @@ non-zero exit and no result line:
     cached pass; a bench whose gates fail runs once more, as the JAX
     package's ``bench.py`` runs its bench lanes, and its second run must
     pass; one ``bench:`` JSON line;
-18. batch invariance per op: the RMSNorm kernel against its plain version
-    (one bf16 ulp) at the main path's rows and widths, with kernel and
-    plain times and the bound; K2 over the dense cache's lanes against the
+18. batch invariance per op: the RMSNorm kernel and the fused add +
+    RMSNorm kernel against their plain versions at the main path's rows
+    and widths (the sum bit for bit; T(h' x rms) within one bf16 ulp; the
+    output within one ulp, the fused kernel's but at counted rounding
+    ties), with kernel, plain and library times and the bound; K2 over the dense cache's lanes against the
     plain attention at the front door's lane shapes (T 2048 and 192, head
     dims 128 and 64), with dense SDPA over the gathered K/V beside it;
     then for the RMSNorm kernel, the lanes and the fixed-shape GEMM, row r
@@ -164,7 +176,11 @@ Every measurement also goes into one ``record:`` JSON line.
 
 from __future__ import annotations
 
+import argparse
+import bisect
 import dataclasses
+import gc
+import importlib.util
 import json
 import os
 import re
@@ -294,14 +310,16 @@ KERNELS = ("flash_attention", "paged_attention", "attention_f32",
 # combine kernels for the f32 model's f32 pool and its int8 pool at head
 # dim 128, and for llama_tiny's bf16 pool at head dim 16; K2 at the 1B
 # draft's head dim 64 and 4 query heads per kv head (its lanes); the
-# RMSNorm kernel in bf16 and in f32.
+# RMSNorm kernel and the fused add + RMSNorm kernel in bf16 and in f32,
+# on 16-byte packs (8 and 4 elements).
 PATH_INSTANTIATIONS = ("flash_fwd_kernel<128>", "paged_split_kernel<bf16,128,3>",
                        "paged_combine_kernel<128,3>", "flash_f32_kernel<f32,128>",
                        "paged_f32_kernel<f32,128>", "paged_f32_kernel<int8,128>",
                        "paged_f32_combine_kernel<128>", "paged_f32_kernel<bf16,16>",
                        "paged_f32_combine_kernel<16>", "paged_split_kernel<bf16,64,4>",
-                       "paged_combine_kernel<64,4>", "rms_norm_kernel<bf16>",
-                       "rms_norm_kernel<f32>")
+                       "paged_combine_kernel<64,4>", "rms_norm_kernel<bf16,8>",
+                       "add_norm_kernel<bf16,8>", "rms_norm_kernel<f32,4>",
+                       "add_norm_kernel<f32,4>")
 # The attribution phase: fault-replay samples per scenario, and the row
 # counts at which the torch lane is timed against numpy (the auto probe's
 # buckets, then the fleet sizes past its cap).
@@ -404,6 +422,11 @@ DEVICEPLANE_SUM_TOL = 1e-3
 DEVICEPLANE_IDLE_TOL = 0.02
 # The governor may back the profiler off to this stride and no further.
 DEVICEPLANE_MAX_STRIDE = 2
+# Spin kernels queued at the start of a step's trace, ahead of the step.
+LEAD_IN_KERNELS = 8
+# The dispatch ranges of an admission's graphs (their capture keys'
+# module names).
+ADMISSION_MODULES = ("prefill", "suffix_prefill")
 
 
 def _fail(msg: str) -> None:
@@ -785,6 +808,31 @@ def _norm_launches() -> int:
     return rn.rms_norm.launches
 
 
+def _fused_launches() -> int:
+    """Fused add + RMSNorm kernel calls that launched (graph replays
+    included)."""
+    from tpuslo_torch.ops import rms_norm as rn
+
+    return rn.add_rms_norm.launches
+
+
+def _admission_line(what: str, fd) -> dict:
+    """Print and return what a front door's construction captured for its
+    admissions, and the admission chunks no graph served so far."""
+    adms = fd._adms
+    row = {"captures": fd.admission_captures, "capture_ms": fd.admission_capture_ms,
+           "eager_admissions": fd.eager_admissions,
+           "staged_bytes": sum(a.staged_bytes for a in adms),
+           "pool_bytes": sum(a.pool_bytes for a in adms),
+           "graphs_held": sum(a.captures for a in adms)}
+    print(f"{what}: admission graphs captured by this front door {row['captures']} in "
+          f"{row['capture_ms']:.0f} ms (held by its engines {row['graphs_held']}; staged "
+          f"caches {row['staged_bytes'] / 1e9:.3f} GB, graph pools "
+          f"{row['pool_bytes'] / 1e9:.3f} GB); eager admission chunks "
+          f"{row['eager_admissions']}", flush=True)
+    return row
+
+
 def _hold_lanes(what: str, k2: int, lanes: int, extra: int = 0) -> None:
     """K2 (or K2-f32) once per layer of every cached pass, plus ``extra``
     paged-step calls: a pass that attended any other way fails."""
@@ -832,10 +880,14 @@ def _device_breakdown(torch, fn) -> dict:
     fn()
     wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # The profiler was seen to drop the first few kernel events of a
+        # trace: a lead-in of spin kernels takes the loss, and is left out.
+        for _ in range(LEAD_IN_KERNELS):
+            torch.cuda._sleep(1000)
         t0 = time.perf_counter()
         fn()
         profiled_ms = (time.perf_counter() - t0) * 1e3
-    kernels = _device_kernels(prof)
+    kernels = [e for e in _device_kernels(prof) if "spin_kernel" not in e.key]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     return {
@@ -1491,19 +1543,32 @@ def _in_step_ms(breakdown: dict, kernels: dict[str, int]) -> float | None:
 
 
 def _record_prefills(serve, log: list):
-    """Replace ``serve.prefill`` (the function every engine's head
-    prefill goes through) by one that also logs (cfg, B, S); returns the
-    function that puts the original back."""
+    """Replace ``serve.prefill`` (the function every engine's eager head
+    prefill goes through) by one that also logs (cfg, B, S), and log each
+    replay of an admission's prefill graph the same way; returns the
+    function that puts the originals back."""
     original = serve.prefill
+    piece_call = serve._PrefillPiece.__call__
 
     def logged(params, tokens, cache, cfg, true_length=None):
-        log.append((cfg, int(tokens.shape[0]), int(tokens.shape[1])))
+        import torch
+
+        # A graph's capture records its kernels without launching them.
+        if not (tokens.is_cuda and torch.cuda.is_current_stream_capturing()):
+            log.append((cfg, int(tokens.shape[0]), int(tokens.shape[1])))
         return original(params, tokens, cache, cfg, true_length=true_length)
 
+    def replayed(self, tokens, lengths):
+        if self.run.graph is not None:  # an eager body logs through serve.prefill
+            log.append((self.cfg, self.B, self.S))
+        return piece_call(self, tokens, lengths)
+
     serve.prefill = logged
+    serve._PrefillPiece.__call__ = replayed
 
     def undo():
         serve.prefill = original
+        serve._PrefillPiece.__call__ = piece_call
 
     return undo
 
@@ -1787,7 +1852,7 @@ def phase_frontdoor(torch, fa, pa, serve, frontdoor, sloengine, cfg, target, dra
     undo_admits = _record_admission_buckets(frontdoor, admitted)
     fa.flash_attention.launches = 0
     pa.paged_decode_attention.launches = 0
-    lanes_0, norms_0 = _lane_layers(), _norm_launches()
+    lanes_0, norms_0, fused_0 = _lane_layers(), _norm_launches(), _fused_launches()
     try:
         ids = [
             fd.submit(p, tenant="tenant-a" if i in FRONT_TENANT_A else "tenant-b",
@@ -1800,7 +1865,11 @@ def phase_frontdoor(torch, fa, pa, serve, frontdoor, sloengine, cfg, target, dra
         undo_admits()
     k1, k2 = fa.flash_attention.launches, pa.paged_decode_attention.launches
     lanes, norms = _lane_layers() - lanes_0, _norm_launches() - norms_0
+    fused = _fused_launches() - fused_0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    admission = _admission_line("frontdoor", fd)
+    if admission["eager_admissions"]:
+        _fail(f"frontdoor: {admission['eager_admissions']} admission chunks ran eagerly")
     stats = fd.stats()
     eligible = _eligible_logged(fa, log, cfg)
     expected_k1 = cfg.n_layers * len(eligible)
@@ -1817,8 +1886,8 @@ def phase_frontdoor(torch, fa, pa, serve, frontdoor, sloengine, cfg, target, dra
     print(f"frontdoor: shed {fd.shed_requests}; burn engine recorded {burn.recorded} outcomes; "
           f"K1 launches {k1} (eligible target prefills (B, S) {eligible} x {cfg.n_layers} "
           f"layers need {expected_k1}); K2 launches {k2} ({lanes} layers of verify, draft and "
-          f"suffix passes over the dense caches); RMSNorm kernel launches {norms}; first steady "
-          f"step: {run['steady']}", flush=True)
+          f"suffix passes over the dense caches); RMSNorm kernel launches {norms}, fused add + "
+          f"RMSNorm {fused}; first steady step: {run['steady']}", flush=True)
     timings = fd.request_timings()
     rows = []
     for (prompt, _pre), rid in served:
@@ -1850,8 +1919,9 @@ def phase_frontdoor(torch, fa, pa, serve, frontdoor, sloengine, cfg, target, dra
         _fail(f"frontdoor: K1 launched {k1} times, the eligible prefills {eligible} need "
               f"{expected_k1} (one with B > 1 expected)")
     _hold_lanes("frontdoor", k2, lanes)
-    if norms == 0:
-        _fail("frontdoor: the RMSNorm kernel never launched")
+    if norms == 0 or fused == 0:
+        _fail(f"frontdoor: the RMSNorm kernel launched {norms} times, the fused add + RMSNorm "
+              f"{fused}")
     unchecked = [bs for bs in eligible if (*bs, True) not in kernel_shapes]
     if unchecked:
         _fail(f"frontdoor: K1 ran at {unchecked}, which the kernel phase did not hold to plain")
@@ -1885,41 +1955,60 @@ def phase_frontdoor(torch, fa, pa, serve, frontdoor, sloengine, cfg, target, dra
         target, draft, k=SPEC_K, max_slots=FRONT_SLOTS, rounds_per_step=FRONT_ROUNDS,
         paged=True, block_size=FRONT_BLOCK,
     )
+    if _admission_line("frontdoor (a second front door over the engines)", probe)["captures"]:
+        _fail("frontdoor: a second front door over the same engines captured admission graphs")
     for p, pre in FRONT_JOBS[4 : 4 + FRONT_SLOTS]:
         probe.submit(p, max_new_tokens=NEW_TOKENS, stop_at_eos=False, prefix=pre)
     for _ in range(2):
         probe.step()
     full_house = list(probe._slots)
-    credited: list[tuple[int, int]] = []  # (K2, RMSNorm) counted in each step
+    credited: list[tuple[int, int, int]] = []  # (K2, RMSNorm, add + RMSNorm) in each step
 
     def one_step():
-        k2_0, norms_0 = _k2_all(), _norm_launches()
+        k2_0, norms_0, fused_0 = _k2_all(), _norm_launches(), _fused_launches()
         probe.step()
         torch.cuda.synchronize()
-        credited.append((_k2_all() - k2_0, _norm_launches() - norms_0))
+        credited.append((_k2_all() - k2_0, _norm_launches() - norms_0,
+                         _fused_launches() - fused_0))
 
     b = _device_breakdown(torch, one_step)
     if None in full_house or probe._slots != full_house:
         _fail("frontdoor: the step that was broken down was not a steady one at a full house")
     b["k2_in_step"] = _kernel_share(b, ("paged_split_kernel", "paged_combine_kernel"))
     b["norm_in_step"] = _kernel_share(b, ("rms_norm_kernel",))
+    b["fused_in_step"] = _kernel_share(b, ("add_norm_kernel",))
     # The counters credit a replay with what its capture recorded; the
     # trace of the same (profiled, last) step says what really ran.
     traced = {"paged_split": _kernel_share(b, ("paged_split_kernel",))["launches"],
               "paged_combine": _kernel_share(b, ("paged_combine_kernel",))["launches"],
-              "rms_norm": b["norm_in_step"]["launches"]}
-    b["counted_in_step"] = {"k2": credited[-1][0], "rms_norm": credited[-1][1]}
+              "rms_norm": b["norm_in_step"]["launches"],
+              "add_rms_norm": b["fused_in_step"]["launches"]}
+    b["counted_in_step"] = {"k2": credited[-1][0], "rms_norm": credited[-1][1],
+                            "add_rms_norm": credited[-1][2]}
+    # Per round one verify of the target and k + 1 draft passes; each pass
+    # fuses two adds into norms per layer and runs its first norm alone.
+    cfg_d = draft.cfg
+    passes = {"target": FRONT_ROUNDS, "draft": FRONT_ROUNDS * (SPEC_K + 1)}
+    b["expected_in_step"] = {
+        "add_rms_norm": 2 * (passes["target"] * cfg.n_layers + passes["draft"] * cfg_d.n_layers),
+        "rms_norm": passes["target"] + passes["draft"]}
     print(f"frontdoor: the profiled step's trace ran {traced}; the counters credited it "
-          f"{b['counted_in_step']}", flush=True)
+          f"{b['counted_in_step']}; a step's passes need {b['expected_in_step']}", flush=True)
     if (traced["paged_split"] != credited[-1][0] or traced["paged_combine"] != credited[-1][0]
-            or traced["rms_norm"] != credited[-1][1]):
+            or traced["rms_norm"] != credited[-1][1]
+            or traced["add_rms_norm"] != credited[-1][2]
+            or traced["add_rms_norm"] != b["expected_in_step"]["add_rms_norm"]
+            or traced["rms_norm"] != b["expected_in_step"]["rms_norm"]):
         _fail(f"frontdoor: the traced step launched {traced}, the counters credited "
-              f"{b['counted_in_step']} (K2 split and combine each once per K2 call)")
+              f"{b['counted_in_step']}, the passes need {b['expected_in_step']} (K2 split and "
+              "combine each once per K2 call)")
     b["cache_upcasts"] = _cache_upcasts(torch, probe._dispatch._body, cfg.max_seq_len)
     upcasts = b["cache_upcasts"]
     print(f"frontdoor: in the step, K2 {b['k2_in_step']['ms']:.3f} ms over "
           f"{b['k2_in_step']['launches']} kernel launches (split + combine), the RMSNorm kernel "
-          f"{b['norm_in_step']['ms']:.3f} ms over {b['norm_in_step']['launches']} launches; "
+          f"{b['norm_in_step']['ms']:.3f} ms over {b['norm_in_step']['launches']} launches, the "
+          f"fused add + RMSNorm {b['fused_in_step']['ms']:.3f} ms over "
+          f"{b['fused_in_step']['launches']}; "
           f"dtype copies of a cache in the dispatch's eager body: {len(upcasts)} {upcasts[:2]}",
           flush=True)
     if not b["k2_in_step"]["launches"] or not b["norm_in_step"]["launches"] or upcasts:
@@ -1952,6 +2041,9 @@ def phase_frontdoor(torch, fa, pa, serve, frontdoor, sloengine, cfg, target, dra
                                        rounds_per_step=FRONT_ROUNDS)
     second.restore_state(json.loads(blob))
     restored = second.run()
+    restore_admission = _admission_line("frontdoor restore", second)
+    if restore_admission["eager_admissions"]:
+        _fail("frontdoor restore: admission chunks ran eagerly")
     if second.snapshot_resumes != len(RESTORE_JOBS) or any(
         len(restored[rid]) != NEW_TOKENS for rid in rids
     ):
@@ -1974,7 +2066,7 @@ def phase_frontdoor(torch, fa, pa, serve, frontdoor, sloengine, cfg, target, dra
         "acceptance": fd.acceptance_rate, "stats": stats, "shed_requests": fd.shed_requests,
         "burn_recorded": burn.recorded, "k1_launches": k1, "k1_needed": expected_k1,
         "k2_launches": k2, "lane_layers": lanes, "norm_launches": norms,
-        "prefill_shapes": eligible, "left_generate": _left(parity),
+        "fused_launches": fused, "admission": admission, "prefill_shapes": eligible, "left_generate": _left(parity),
         "per_stream": per_stream, "admission_buckets": admitted,
         "steady_step": {"syncs": len(run["steady"]["syncs"]), "reads": run["steady"]["reads"],
                         "captures": run["steady"]["captures"]},
@@ -1991,6 +2083,8 @@ def phase_router(torch, fa, serve, frontdoor, router_mod, cfg, target, draft) ->
                                   rounds_per_step=FRONT_ROUNDS, paged=True, block_size=FRONT_BLOCK)
         for _ in range(2)
     ]
+    for i, fd in enumerate(fleet):
+        _admission_line(f"router engine {i} (built)", fd)
     router = router_mod.SLORouter(fleet, seed=0)
     log: list = []
     undo = _record_prefills(serve, log)
@@ -2028,6 +2122,9 @@ def phase_router(torch, fa, serve, frontdoor, router_mod, cfg, target, draft) ->
           f"{list(rehomed.values())}; K1 launches {k1} (eligible prefills {eligible} need "
           f"{expected_k1})", flush=True)
     print(f"router: stats {stats}", flush=True)
+    admissions = [_admission_line(f"router engine {i}", fd) for i, fd in enumerate(fleet)]
+    if any(a["eager_admissions"] for a in admissions):
+        _fail("router: admission chunks ran eagerly")
     if None in gids or router.shed or sorted(results) != sorted(gids) or any(
         len(results[g]) != NEW_TOKENS for g in gids
     ):
@@ -2107,6 +2204,40 @@ def _ledger_view(ledger, spans, dispatch_count) -> dict:
     return view
 
 
+def _range_breakdown(spans, modules_lane: str, ops_lane: str) -> dict:
+    """Device ms and kernels of one window by dispatch range: the module
+    spans (each a run of a range's kernels) summed per module, the
+    admission ranges split into the target's (the first half, in start
+    order) and the draft's, and the ops outside every module span."""
+    mods = [s for s in spans if s.lane == modules_lane]
+    ops = sorted((s for s in spans if s.lane == ops_lane), key=lambda s: s.start_us)
+    starts = [o.start_us for o in ops]
+    ranges: dict[tuple, list] = {}
+    for s in mods:
+        ranges.setdefault((s.module_name, s.program_id, s.launch_id), []).append(s)
+    admits = sorted((k for k in ranges if k[0] in ADMISSION_MODULES),
+                    key=lambda k: min(s.start_us for s in ranges[k]))
+    target = set(admits[: len(admits) // 2])
+    out: dict[str, dict] = {}
+    inside = [False] * len(ops)
+    for key, group in ranges.items():
+        module = key[0]
+        if module in ADMISSION_MODULES:
+            module = f"{'target' if key in target else 'draft'}.{module}"
+        row = out.setdefault(module, {"ms": 0.0, "ranges": 0, "kernels": 0})
+        row["ranges"] += 1
+        for s in group:
+            row["ms"] += s.duration_us / 1e3
+            lo = bisect.bisect_left(starts, s.start_us)
+            hi = bisect.bisect_left(starts, s.start_us + s.duration_us)
+            row["kernels"] += hi - lo
+            inside[lo:hi] = [True] * (hi - lo)
+    outside = [o for o, held in zip(ops, inside) if not held]
+    out["outside_ranges"] = {"ms": sum(o.duration_us for o in outside) / 1e3, "ranges": 0,
+                             "kernels": len(outside)}
+    return out
+
+
 def _kernel_events(spans, names: tuple[str, ...]) -> int:
     return sum(1 for s in spans if s.lane == "XLA Ops" and any(n in s.name for n in names))
 
@@ -2142,6 +2273,7 @@ def phase_deviceplane(torch, fa, pa, llama, paged_kv, frontdoor, cfg, target, dr
             target, draft, k=SPEC_K, max_slots=FRONT_SLOTS, rounds_per_step=FRONT_ROUNDS,
             paged=True, block_size=FRONT_BLOCK, self_tracer=tracer,
         )
+        _admission_line("deviceplane", fd)
         for i in range(DEVICEPLANE_WAVES * FRONT_SLOTS):
             prompt, _ = DENSE_JOBS[i % len(DENSE_JOBS)]
             fd.submit(f"{prompt} ({i})", tenant="tenant-a",
@@ -2165,7 +2297,7 @@ def phase_deviceplane(torch, fa, pa, llama, paged_kv, frontdoor, cfg, target, dr
         round_flops = FRONT_ROUNDS * ((SPEC_K + 1) * d_flops + v_flops)
         program = xla_spans.program_fingerprint(
             "spec_multi_round", torch.empty(B, dtype=torch.long), SPEC_K, FRONT_ROUNDS)
-        work = {"k1": 0, "ms": 0.0, "spans": None, "source": None}
+        work = {"k1": 0, "ms": 0.0, "spans": None, "source": None, "stages": None}
 
         def capture_step(_index):
             """One front-door step under ``capture``; its spans are kept
@@ -2177,6 +2309,7 @@ def phase_deviceplane(torch, fa, pa, llama, paged_kv, frontdoor, cfg, target, dr
                 work["ms"] = (time.perf_counter() - t0) * 1e3
                 work["k1"] = fa.flash_attention.launches - k1
             work["spans"], work["source"] = cap.spans, cap.module_source
+            work["stages"] = cap.stages_ms
             return cap.spans, []
 
         # The governor is charged what a capture costs beyond the step it
@@ -2240,7 +2373,18 @@ def phase_deviceplane(torch, fa, pa, llama, paged_kv, frontdoor, cfg, target, dr
                 "k1_kept_ratio": k1_kept / work["k1"] if work["k1"] else None,
                 "roofline": prof.window_roofline(w.index),
                 "launch_counts": counts, "attribution": attribution,
+                "capture_stages_ms": work["stages"],
             }
+            if work["k1"]:  # an admitting window: its device time by dispatch range
+                row["by_range"] = _range_breakdown(spans, xla_spans.MODULES_LANE,
+                                                   xla_spans.OPS_LANE)
+                print(f"deviceplane: window {w.index} (admitting) device ms by range "
+                      + ", ".join(f"{k} {v['ms']:.2f} ({v['kernels']} kernels, "
+                                  f"{v['ranges']} ranges)" for k, v in row["by_range"].items()),
+                      flush=True)
+            print(f"deviceplane: window {w.index} capture stages (ms) "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in work["stages"].items()),
+                  flush=True)
             k1_launched += work["k1"]
             windows.append(row)
             b = {k: round(v, 2) for k, v in view["buckets_ms"].items()}
@@ -2969,6 +3113,8 @@ def phase_exactness(torch) -> dict:
 
     t0 = time.perf_counter()
     engines = probes.build_engines("bfloat16", "cuda")
+    for engine in engines[:2]:  # the admission graphs of the largest front door, once
+        engine.admission_graphs(tuple(1 << i for i in range(EXACT_SLOTS.bit_length())))
     rows = probes.exactness("bfloat16", EXACT_PROMPTS, EXACT_TOKENS, "cuda",
                             first_diff=True, engines=engines)
     rows += probes.exactness_batched("bfloat16", EXACT_SLOTS, EXACT_TOKENS, "cuda",
@@ -3011,7 +3157,12 @@ LANE_SHAPES = (("fd-verify-3b", 8, 5, 2048, 24, 8, 128, 64, 320),
 INVARIANCE_BATCHES = (2, 5, 8, 16, 40, 80, 200)
 GEMM_WIDTHS = ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072), (3072, 128256),
                (2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
-NORM_TOL_ULPS = 1.0  # the RMSNorm kernel vs rms_norm, in output ulps
+NORM_TOL_ULPS = 1.0  # the RMSNorm kernels vs their plain versions, in output ulps
+# T(h' x rms) (the norm at a unit weight) is held to NORM_TOL_ULPS
+# everywhere; y = T(T(h' x rms) x w) may leave it only at rounding ties
+# of T(h' x rms) (:func:`_rounding_ties`), at most this share of one
+# row's elements in a call.
+NORM_MAX_TIES_PER_ROW = 1 / 16
 
 
 def _ulps(torch, got, ref, mantissa_bits: int) -> float:
@@ -3020,6 +3171,105 @@ def _ulps(torch, got, ref, mantissa_bits: int) -> float:
     ref = ref.float()
     ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30)))) * 2.0**-mantissa_bits
     return float(((got.float() - ref).abs() / ulp).max())
+
+
+def _rounding_ties(torch, h, w, got, ref, eps: float) -> tuple[int, int]:
+    """(elements of ``got`` more than NORM_TOL_ULPS from ``ref``, how many
+    of them are rounding ties).  y = T(T(h * rms) * w) rounds twice: where
+    the exact h * rms (rms from an f64 mean) lies within four f32 ulps of
+    a midpoint between two bf16 values, an f32 rms one or two ulps from
+    another order of summation's rounds it to the other neighbour, and
+    the weight can turn that one ulp into two of y.  A tie counts only if
+    ``got`` is that neighbour times the weight, rounded."""
+    ref32 = ref.float()
+    ulp = torch.exp2(torch.floor(torch.log2(ref32.abs().clamp_min(1e-30)))) * 2.0**-7
+    far = ((got.float() - ref32).abs() / ulp > NORM_TOL_ULPS).nonzero()
+    if not len(far):
+        return 0, 0
+    h64 = h.double()
+    rms = torch.rsqrt((h64 * h64).mean(-1, keepdim=True) + eps)
+    ties = 0
+    for r, c in far.tolist():
+        p = float(h64[r, c] * rms[r, 0])
+        lo = float(torch.tensor(p, dtype=torch.float64).to(torch.bfloat16))
+        step = 2.0 ** (int(torch.floor(torch.log2(torch.tensor(abs(p))))) - 7)
+        hi = lo + step if lo <= p else lo - step
+        mid = (lo + hi) / 2
+        tie = abs(p - mid) <= 4 * 2.0**-23 * abs(p)
+        made = {float(torch.tensor(n * float(w[c]), dtype=torch.float32).to(torch.bfloat16))
+                for n in (lo, hi)}
+        ties += tie and float(got[r, c]) in made
+    return len(far), ties
+
+
+def _hold_norm(torch, what: str, h, w, got_y, ref_y, got_n, ref_n) -> dict:
+    """Hold a norm kernel's output ``got_y`` to the plain version's
+    ``ref_y`` over the (rounded) input ``h``: T(h x rms) (``got_n``, the
+    kernel at a unit weight, against ``ref_n``) within NORM_TOL_ULPS
+    everywhere, y within NORM_TOL_ULPS but at rounding ties, at most
+    NORM_MAX_TIES_PER_ROW of one row."""
+    err_ulps = _ulps(torch, got_y, ref_y, 7)
+    pre_ulps = _ulps(torch, got_n, ref_n, 7)
+    far, ties = _rounding_ties(torch, h, w, got_y, ref_y, 1e-5)
+    max_ties = int(h.shape[-1] * NORM_MAX_TIES_PER_ROW)
+    if (not torch.isfinite(got_y).all() or pre_ulps > NORM_TOL_ULPS or far != ties
+            or ties > max_ties):
+        _fail(f"{what}: T(h' x rms) is {pre_ulps} ulps from the plain version's (tol "
+              f"{NORM_TOL_ULPS}); the norm is {err_ulps} ulps from the plain norm (tol "
+              f"{NORM_TOL_ULPS}) at {far} elements, {ties} of them rounding ties (at most "
+              f"{max_ties})")
+    return {"max_err_ulps": err_ulps, "pre_weight_err_ulps": pre_ulps,
+            "over_tol_elements": far, "rounding_ties": ties,
+            "max_abs_err": float((got_y.float() - ref_y.float()).abs().max())}
+
+
+def _fused_row(torch, rn, gen, flush, rows: int, D: int) -> dict:
+    """The fused add + RMSNorm kernel against the plain add and norm at
+    (rows, D) bf16: the sum bit for bit, T(h' x rms) (the norm at a unit
+    weight) within NORM_TOL_ULPS, the norm within NORM_TOL_ULPS but at
+    rounding ties (:func:`_rounding_ties`, at most NORM_MAX_TIES_PER_ROW of
+    a row); timed (cold L2) beside
+    the plain version, the library's add and ``F.rms_norm`` (two calls:
+    no one PyTorch call computes the pair), the norm kernel alone and the
+    bytes bound."""
+    dev = torch.device("cuda", 0)
+    h = (3 * torch.randn((rows, D), generator=gen, device=dev)).bfloat16()
+    d = torch.randn((rows, D), generator=gen, device=dev).bfloat16()
+    w = (1 + 0.1 * torch.randn((D,), generator=gen, device=dev)).bfloat16()
+    got_h, got_y = rn.add_rms_norm(h, d, w, 1e-5)
+    ref_h, ref_y = rn.add_rms_norm_reference(h, d, w, 1e-5)
+    ones = torch.ones_like(w)
+    got_n = rn.add_rms_norm(h, d, ones, 1e-5)[1]
+    ref_n = rn.add_rms_norm_reference(h, d, ones, 1e-5)[1]
+    torch.cuda.synchronize()
+    what = f"add + RMSNorm rows {rows} D {D} bf16"
+    if not torch.equal(got_h, ref_h):
+        _fail(f"{what}: the sum is not h + d bit for bit")
+    held = _hold_norm(torch, what, ref_h, w, got_y, ref_y, got_n, ref_n)
+    ms, ms_b2b = _per_call_ms(torch, lambda: rn.add_rms_norm(h, d, w, 1e-5), 50, what, flush)
+    plain_ms, _ = _per_call_ms(torch, lambda: rn.add_rms_norm_reference(h, d, w, 1e-5), 50,
+                               f"plain {what}", flush)
+    library_ms, _ = _per_call_ms(
+        torch, lambda: torch.nn.functional.rms_norm(torch.add(h, d), (D,), w, 1e-5), 50,
+        f"torch.add + F.rms_norm {what}", flush)
+    norm_ms, _ = _per_call_ms(torch, lambda: rn.rms_norm(h, w, 1e-5), 50, f"norm {what}",
+                              flush)
+    nbytes = 2 * (4 * rows * D + D)  # h, d read; h', y written; the weight
+    t_bytes, t_ops = nbytes / PEAK_BYTES, 6 * rows * D / PEAK_F32_FLOPS
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    row = {"rows": rows, "D": D, "dtype": "bf16", "sum_bitwise": True, **held, "ms": ms, "ms_back_to_back": ms_b2b, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": library_ms, "library": "torch.add + F.rms_norm (two calls)",
+           "norm_kernel_ms": norm_ms}
+    print(f"invariance: {what}: the sum bit for bit, T(h' x rms) "
+          f"{held['pre_weight_err_ulps']:.2f} ulps and the norm {held['max_err_ulps']:.2f} "
+          f"ulps from the plain version ({held['over_tol_elements']} elements over "
+          f"{NORM_TOL_ULPS}, all rounding ties); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.add + F.rms_norm "
+          f"{library_ms:.4f} ms, the norm kernel alone {norm_ms:.4f} ms (cold L2), bound "
+          f"{bound_ms * 1e3:.2f} us ({row['bound_by']}), back-to-back {ms_b2b:.4f} ms",
+          flush=True)
+    return row
 
 
 def phase_invariance(torch, llama, kv_cache) -> dict:
@@ -3033,17 +3283,17 @@ def phase_invariance(torch, llama, kv_cache) -> dict:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(2024)
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)  # > L2
-    out = {"norm": [], "lanes": [], "invariant": {}}
+    out = {"norm": [], "fused": [], "lanes": [], "invariant": {}}
     for rows, D in NORM_SHAPES:
         x = (3 * torch.randn((rows, D), generator=gen, device=dev)).bfloat16()
         w = (1 + 0.1 * torch.randn((D,), generator=gen, device=dev)).bfloat16()
         got = rn.rms_norm(x, w, 1e-5)
         ref = rn.rms_norm_reference(x, w, 1e-5)
+        ones = torch.ones_like(w)
+        got_n, ref_n = rn.rms_norm(x, ones, 1e-5), rn.rms_norm_reference(x, ones, 1e-5)
         torch.cuda.synchronize()
-        err_ulps = _ulps(torch, got, ref, 7)
         what = f"RMSNorm rows {rows} D {D} bf16"
-        if not torch.isfinite(got).all() or err_ulps > NORM_TOL_ULPS:
-            _fail(f"{what}: {err_ulps} ulps from rms_norm (tol {NORM_TOL_ULPS})")
+        held = _hold_norm(torch, what, x, w, got, ref, got_n, ref_n)
         ms, ms_b2b = _per_call_ms(torch, lambda: rn.rms_norm(x, w, 1e-5), 50, what, flush)
         plain_ms, _ = _per_call_ms(torch, lambda: rn.rms_norm_reference(x, w, 1e-5), 50,
                                    f"plain {what}", flush)
@@ -3056,17 +3306,19 @@ def phase_invariance(torch, llama, kv_cache) -> dict:
         nbytes = 2 * (2 * rows * D + D)
         t_bytes, t_ops = nbytes / PEAK_BYTES, 4 * rows * D / PEAK_F32_FLOPS
         bound_ms = max(t_bytes, t_ops) * 1e3
-        row = {"rows": rows, "D": D, "dtype": "bf16", "max_err_ulps": err_ulps,
-               "max_abs_err": float((got.float() - ref.float()).abs().max()), "ms": ms,
+        row = {"rows": rows, "D": D, "dtype": "bf16", **held, "ms": ms,
                "ms_back_to_back": ms_b2b, "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "library_ms": library_ms, "library_err_ulps": library_ulps}
         out["norm"].append(row)
-        print(f"invariance: {what}: {err_ulps:.2f} ulps from rms_norm (F.rms_norm "
-              f"{library_ulps:.2f}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.rms_norm "
+        print(f"invariance: {what}: {held['max_err_ulps']:.2f} ulps from rms_norm (F.rms_norm "
+              f"{library_ulps:.2f}; {held['rounding_ties']} rounding ties, T(x x rms) "
+              f"{held['pre_weight_err_ulps']:.2f} ulps); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.rms_norm "
               f"{library_ms:.4f} ms (cold L2), bound "
               f"{bound_ms * 1e3:.2f} us "
               f"({row['bound_by']}), back-to-back {ms_b2b:.4f} ms", flush=True)
+    for rows, D in NORM_SHAPES:
+        out["fused"].append(_fused_row(torch, rn, gen, flush, rows, D))
     for name, B, K, T, H, KV, HD, lo, hi in LANE_SHAPES:
         k = torch.randn((B, T, KV, HD), generator=gen, device=dev).bfloat16()
         v = torch.randn((B, T, KV, HD), generator=gen, device=dev).bfloat16()
@@ -3110,6 +3362,17 @@ def phase_invariance(torch, llama, kv_cache) -> dict:
     checks["rms_norm"] = [
         (n, r) for n in INVARIANCE_BATCHES for r in (0, n - 1)
         if not torch.equal(rn.rms_norm(x[:n], w, 1e-5)[r], rn.rms_norm(x[r:r + 1], w, 1e-5)[0])]
+    checks["add_rms_norm"] = []
+    for D in sorted({D for _, D in NORM_SHAPES}):
+        h = (3 * torch.randn((big, D), generator=gen, device=dev)).bfloat16()
+        d = torch.randn((big, D), generator=gen, device=dev).bfloat16()
+        w = (1 + 0.1 * torch.randn((D,), generator=gen, device=dev)).bfloat16()
+        alone = [rn.add_rms_norm(h[r:r + 1], d[r:r + 1], w, 1e-5) for r in range(big)]
+        for n in INVARIANCE_BATCHES:
+            hs, ys = rn.add_rms_norm(h[:n], d[:n], w, 1e-5)
+            checks["add_rms_norm"] += [
+                (D, n, r) for r in (0, n - 1)
+                if not (torch.equal(hs[r], alone[r][0][0]) and torch.equal(ys[r], alone[r][1][0]))]
     T, H, KV, HD = 192, 24, 8, 128
     k = torch.randn((big, T, KV, HD), generator=gen, device=dev).bfloat16()
     v = torch.randn((big, T, KV, HD), generator=gen, device=dev).bfloat16()
@@ -3175,17 +3438,20 @@ def _bench_gated(report: dict) -> dict:
     return out
 
 
-def _time_admissions(frontdoor, spent: list):
+def _time_admissions(frontdoor, spent: list, eager: list):
     """Make every front door's admission (``_fill_slots``) add its host
-    seconds to ``spent``; returns the function that puts it back."""
+    seconds to ``spent`` and the admission chunks it ran eagerly to
+    ``eager``; returns the function that puts it back."""
     original = frontdoor.FrontDoorEngine._fill_slots
 
     def timed(self):
         t0 = time.perf_counter()
+        eager0 = self.eager_admissions
         try:
             return original(self)
         finally:
             spent.append(time.perf_counter() - t0)
+            eager.append(self.eager_admissions - eager0)
 
     frontdoor.FrontDoorEngine._fill_slots = timed
 
@@ -3220,9 +3486,15 @@ def _bench_attempt(torch, fa, pa, serve, audit, what: str, run) -> dict:
     time is summed alongside."""
     from tpuslo_torch.models import frontdoor
 
+    # The heap earlier work left is collected and frozen, so that the
+    # cyclic collector's passes over it do not land inside a timed pass
+    # (the gates read host wall time).
+    gc.collect()
+    gc.freeze()
     log: list = []
     admits: list = []
-    undo_admits = _time_admissions(frontdoor, admits)
+    eager: list = []
+    undo_admits = _time_admissions(frontdoor, admits, eager)
     undo = _record_prefills(serve, log)
     for counter in (fa.flash_attention, pa.paged_decode_attention):
         counter.launches = counter.f32_launches = 0
@@ -3235,6 +3507,7 @@ def _bench_attempt(torch, fa, pa, serve, audit, what: str, run) -> dict:
     finally:
         undo()
         undo_admits()
+        gc.unfreeze()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     k1, k1_f32 = fa.flash_attention.launches, fa.flash_attention.f32_launches
@@ -3244,6 +3517,7 @@ def _bench_attempt(torch, fa, pa, serve, audit, what: str, run) -> dict:
                 if fa.flash_eligible((B, S, c.n_heads, c.head_dim), c.n_kv_heads)]
     k1_needed = sum(c.n_layers for c, _, _ in eligible)
     captures = [{"key": e.key, "ms": e.capture_ms} for e in audit.captures]
+    admission_captures = [c for c in captures if c["key"].split(":")[0] in ADMISSION_MODULES]
     out = {"seconds": seconds, **_bench_gated(report),
            "captures": len(captures), "capture_ms_total": sum(c["ms"] for c in captures),
            "capture_ms_max": max((c["ms"] for c in captures), default=0.0),
@@ -3252,7 +3526,10 @@ def _bench_attempt(torch, fa, pa, serve, audit, what: str, run) -> dict:
            "k1_launches": k1, "k1_f32_launches": k1_f32, "k1_needed": k1_needed,
            "k1_eligible_prefills": sorted({(B, S) for _, B, S in eligible}),
            "k1_eligible_count": len(eligible), "k2_launches": k2, "lane_layers": lanes,
-           "admission_s": sum(admits), "admission_calls": len(admits)}
+           "admission_s": sum(admits), "admission_calls": len(admits),
+           "admission_captures": len(admission_captures),
+           "admission_capture_ms": sum(c["ms"] for c in admission_captures),
+           "eager_admissions": sum(eager)}
     print(f"bench {what}: {seconds:.1f} s, passed {report['passed']} {report['failures']}; "
           f"captures {len(captures)} ({out['capture_ms_total']:.0f} ms, at most "
           f"{out['capture_ms_max']:.0f} ms), recaptures {out['recaptures']}; host reads "
@@ -3261,7 +3538,9 @@ def _bench_attempt(torch, fa, pa, serve, audit, what: str, run) -> dict:
           f"{out['k1_eligible_prefills']}), K2 and K2-f32 {k2} for {lanes} cached-pass "
           f"layers; admission host time "
           f"{out['admission_s']:.2f} s over {len(admits)} "
-          "boundaries", flush=True)
+          f"boundaries; admission graphs captured {out['admission_captures']} in "
+          f"{out['admission_capture_ms']:.0f} ms (of the captures above), eager admission "
+          f"chunks {out['eager_admissions']}", flush=True)
     if out["recaptures"] or k1 + k1_f32 != k1_needed:
         _fail(f"bench {what}: recaptures {out['recaptures']}, K1 and K1-f32 {k1} + {k1_f32} "
               f"launches for {k1_needed} needed")
@@ -3311,7 +3590,189 @@ def phase_bench(torch, fa, pa, serve, llama) -> dict:
     return out
 
 
+def _load_tree(tree: Path):
+    """The tree's ``chip_smoke`` module, with its ``tpuslo_torch`` first
+    on the path."""
+    sys.path.insert(0, str(tree))
+    spec = importlib.util.spec_from_file_location("tree_chip_smoke", tree / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def _probe_norm(torch, tree: Path, runs: int) -> None:
+    """The tree's RMSNorm kernel (and its fused add + RMSNorm kernel,
+    where it has one) at phase 18's shapes and inputs, cold L2, beside the
+    plain version and the bytes bound."""
+    sys.path.insert(0, str(tree))
+    from tpuslo_torch.ops import rms_norm as rn
+
+    dev = torch.device("cuda", 0)
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
+    fused = getattr(rn, "add_rms_norm", None)
+    for run in range(runs):
+        gen = torch.Generator(device=dev).manual_seed(2024)
+        for rows, D in NORM_SHAPES:
+            x = (3 * torch.randn((rows, D), generator=gen, device=dev)).bfloat16()
+            w = (1 + 0.1 * torch.randn((D,), generator=gen, device=dev)).bfloat16()
+            d = torch.randn((rows, D), generator=gen, device=dev).bfloat16()
+            what = f"rows {rows} D {D}"
+            row = {"probe": "norm", "tree": str(tree), "run": run, "rows": rows, "D": D,
+                   "norm_ms": _per_call_ms(torch, lambda: rn.rms_norm(x, w, 1e-5), 50,
+                                           f"norm {what}", flush)[0],
+                   "norm_plain_ms": _per_call_ms(
+                       torch, lambda: rn.rms_norm_reference(x, w, 1e-5), 50,
+                       f"plain norm {what}", flush)[0],
+                   "norm_bound_ms": 2 * (2 * rows * D + D) / PEAK_BYTES * 1e3}
+            if fused is not None:
+                row["fused_ms"] = _per_call_ms(torch, lambda: fused(x, d, w, 1e-5), 50,
+                                               f"fused {what}", flush)[0]
+                row["fused_bound_ms"] = 2 * (4 * rows * D + D) / PEAK_BYTES * 1e3
+            print(json.dumps(row), flush=True)
+
+
+def _probe_admission(torch, cs, tree: Path, runs: int) -> None:
+    """The tree's phase 12 ``runs`` times, one line per profiled window of
+    the front door: wall, device time, idle shares, the capture's cost
+    beyond the step and the overhead EMA, the capture's stage split where
+    the tree times it, and an admitting window's device time by dispatch
+    range (:func:`_range_breakdown`)."""
+    import importlib
+
+    from tpuslo_torch.models import frontdoor, llama, paged_kv, serve
+    from tpuslo_torch.otel import xla_spans
+
+    fa = importlib.import_module("tpuslo_torch.ops.flash_attention")
+    pa = importlib.import_module("tpuslo_torch.ops.paged_attention")
+    cfg = llama.llama32_3b(max_seq_len=2048)
+    target = serve.ServeEngine(cfg, rng_seed=0, prefill_buckets=cs.BUCKETS,
+                               decode_chunk_size=cs.NEW_TOKENS, device="cuda")
+    draft = serve.ServeEngine(llama.llama32_1b(max_seq_len=2048), rng_seed=1,
+                              prefill_buckets=cs.BUCKETS, decode_chunk_size=cs.NEW_TOKENS,
+                              device="cuda")
+    target.warmup()
+    draft.warmup()
+    kept: list[dict] = []
+    exit_ = xla_spans.capture.__exit__
+
+    def keep(self, exc_type, exc, tb):
+        t0 = time.perf_counter()
+        exit_(self, exc_type, exc, tb)
+        kept.append({"spans": self.spans, "exit_ms": (time.perf_counter() - t0) * 1e3,
+                     "stages_ms": getattr(self, "stages_ms", None),
+                     "source": self.module_source})
+
+    xla_spans.capture.__exit__ = keep
+    try:
+        for run in range(runs):
+            kept.clear()
+            t0 = time.perf_counter()
+            try:
+                out = cs.phase_deviceplane(torch, fa, pa, llama, paged_kv, frontdoor, cfg,
+                                           target, draft)
+            except SystemExit as exc:  # a phase's _fail
+                print(json.dumps({"probe": "admission", "tree": str(tree), "run": run,
+                                  "failed": repr(exc)}), flush=True)
+                continue
+            windows = out["frontdoor"]["windows"]
+            for w, cap in zip(windows, kept):  # the front door's captures come first
+                row = {"probe": "admission", "tree": str(tree), "run": run,
+                       "window": w["index"], "admitting": bool(w["k1_launched"]),
+                       "step_ms": w["step_ms"], "window_ms": w.get("window_ms"),
+                       "idle_share": w.get("idle_share"),
+                       "ops_idle_share": 1.0 - w["ops_busy_share"]
+                       if "ops_busy_share" in w else None,
+                       "ops": w.get("ops"), "ops_ms": w.get("ops_ms"),
+                       "capture_ms_beyond_step": w["capture_ms_beyond_step"],
+                       "overhead_ema_pct": w["overhead_ema_pct"],
+                       "stride": w.get("stride_cycles"), "exit_ms": cap["exit_ms"],
+                       "stages_ms": cap["stages_ms"], "module_source": cap["source"]}
+                if row["admitting"]:
+                    row["by_range"] = _range_breakdown(cap["spans"], xla_spans.MODULES_LANE,
+                                                       xla_spans.OPS_LANE)
+                print(json.dumps(row), flush=True)
+            print(json.dumps({"probe": "admission", "tree": str(tree), "run": run,
+                              "phase_s": time.perf_counter() - t0,
+                              "stats": out["frontdoor"]["stats"]}), flush=True)
+    finally:
+        xla_spans.capture.__exit__ = exit_
+
+
+def _probe_bench(torch, cs, tree: Path, runs: int, names: list[str]) -> None:
+    """The tree's serving benches (its ``_run_bench``: one rerun of a
+    failed bench), each under one harness whatever the tree does: the
+    heap collected and frozen before the bench, unfrozen after it."""
+    import importlib
+
+    from tpuslo_torch.analysis import jitaudit
+    from tpuslo_torch.benchmark import frontdoor_bench, router_bench
+    from tpuslo_torch.models import llama, serve
+
+    fa = importlib.import_module("tpuslo_torch.ops.flash_attention")
+    pa = importlib.import_module("tpuslo_torch.ops.paged_attention")
+    cfg_3b = dataclasses.replace(llama.llama32_3b(max_seq_len=cs.BENCH_3B_SEQ),
+                                 dtype=getattr(torch, cs.BENCH_3B_DTYPE))
+    benches = {
+        "frontdoor_tiny": lambda log: frontdoor_bench.run_frontdoor_bench(log=log),
+        "frontdoor_3b": lambda log: frontdoor_bench.run_frontdoor_bench(
+            cfg=cfg_3b, streams=cs.BENCH_3B_STREAMS, log=log),
+        "router": lambda log: router_bench.run_router_bench(log=log),
+    }
+    jitaudit.install()
+    audit = jitaudit.registry()
+    try:
+        for run in range(runs):
+            for name in names:
+                gc.collect()
+                gc.freeze()
+                try:
+                    b = cs._run_bench(torch, fa, pa, serve, audit, name, benches[name])
+                except SystemExit as exc:
+                    b = {"failed": repr(exc)}
+                finally:
+                    gc.unfreeze()
+                    torch.cuda.empty_cache()
+                print(json.dumps({
+                    "probe": "bench", "tree": str(tree), "run": run, "bench": name,
+                    **{k: b.get(k) for k in ("failed", "passed", "attempts", "admission_s",
+                                             "admission_calls", "seconds", "recaptures",
+                                             "slo", "failures")},
+                    **{k: v for k, v in b.items() if "ttft" in k or "speedup" in k}}),
+                    flush=True)
+    finally:
+        jitaudit.uninstall()
+        audit.reset()
+
+
+def probe_main(argv: list[str]) -> int:
+    """``python3 chip_smoke.py probe ...``: see the module's docstring."""
+    p = argparse.ArgumentParser(prog="chip_smoke.py probe")
+    p.add_argument("what", choices=("admission", "bench", "norm"))
+    p.add_argument("--tree", default=str(ROOT), help="the checkout whose code runs")
+    p.add_argument("--runs", type=int, default=1)
+    p.add_argument("--benches", nargs="+", default=["frontdoor_tiny", "frontdoor_3b", "router"],
+                   choices=("frontdoor_tiny", "frontdoor_3b", "router"))
+    args = p.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the probes run on a GPU only", file=sys.stderr)
+        return 2
+    tree = Path(args.tree).resolve()
+    if args.what == "norm":
+        _probe_norm(torch, tree, args.runs)
+        return 0
+    cs = _load_tree(tree)
+    if args.what == "admission":
+        _probe_admission(torch, cs, tree, args.runs)
+    else:
+        _probe_bench(torch, cs, tree, args.runs, args.benches)
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["probe"]:
+        return probe_main(sys.argv[2:])
     import torch
 
     if not torch.cuda.is_available():
@@ -3395,6 +3856,18 @@ def main() -> int:
     front = phase_frontdoor(torch, fa, pa, serve, frontdoor, sloengine, cfg, engine, draft,
                             kernel_shapes)
     torch.cuda.empty_cache()
+    # 18. batch invariance per op: the RMSNorm and fused add + RMSNorm
+    # kernels, K2's lanes, the GEMM; and 17. the serving benches (K1 and
+    # K2 counted from 0 before each bench).  Both run right after the
+    # main path's step trace: every profiler session makes the later
+    # traces lose more kernel events (late in a run phase 18 lost nearly
+    # all of a trace's, phase 10 one of its norms), and the benches'
+    # gates read host wall time, which a large heap spreads.
+    invariance = phase_invariance(torch, llama, kv_cache)
+    benches = phase_bench(torch, fa, pa, serve, llama)
+    print(f"bench: {json.dumps(benches)}", flush=True)
+    bench_k1 = {k: sum(benches[b][k] for b in ("frontdoor_tiny", "frontdoor_3b", "router"))
+                for k in ("k1_launches", "k1_f32_launches")}
     # 11. the router over two front doors, across a kill
     routed = phase_router(torch, fa, serve, frontdoor, router, cfg, engine, draft)
     torch.cuda.empty_cache()
@@ -3433,13 +3906,6 @@ def main() -> int:
     # per-stream engine, and no op whose bits depend on the batch
     exactness = phase_exactness(torch)
     print(f"exactness: {json.dumps(exactness)}", flush=True)
-    # 17. the serving benches (K1 and K2 counted from 0 before each bench)
-    benches = phase_bench(torch, fa, pa, serve, llama)
-    print(f"bench: {json.dumps(benches)}", flush=True)
-    bench_k1 = {k: sum(benches[b][k] for b in ("frontdoor_tiny", "frontdoor_3b", "router"))
-                for k in ("k1_launches", "k1_f32_launches")}
-    # 18. batch invariance per op: the RMSNorm kernel, K2's lanes, the GEMM
-    invariance = phase_invariance(torch, llama, kv_cache)
 
     # 19. kernels line, card line, result line
     line_row = next(
@@ -3452,6 +3918,7 @@ def main() -> int:
                    == F32_LINE_SHAPE)
     k2_f32_rows = {r["shape"]: r for r in k2_f32_path["shapes"]}
     norm_row = invariance["norm"][0]
+    fused_row = invariance["fused"][0]
     k2_f32_row = k2_f32_rows["f32_path"]
     k2_f32_launches = {"f32_path": parity_f32["k2_f32_launches"],
                        **{n: r["k2_f32_launches"] for n, r in parity_tiny.items()}}
@@ -3557,6 +4024,22 @@ def main() -> int:
         "shape": f"rows={norm_row['rows']} D={norm_row['D']} bf16, the front door's target "
                  "verify; replaces names the JAX rms_norm (XLA ops, no Pallas kernel): a "
                  "port-internal kernel of batch invariance",
+    }, {
+        "name": "add_rms_norm",
+        "route": "cuda",
+        "source": "tpuslo_torch/ops/csrc/batch_invariant.cu",
+        "replaces": "tpuslo/models/llama.py:739",
+        "launches": front["fused_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in invariance["fused"]),
+        "ms": fused_row["ms"],
+        "plain_ms": fused_row["plain_ms"],
+        "bound_ms": fused_row["bound_ms"],
+        "bound_by": fused_row["bound_by"],
+        "library_ms": fused_row["library_ms"],
+        "shape": f"rows={fused_row['rows']} D={fused_row['D']} bf16, the front door's target "
+                 "verify; the residual add and the RMSNorm after it in one launch (replaces "
+                 "names the JAX residual add, XLA ops, no Pallas kernel); library_ms is "
+                 "torch.add + F.rms_norm, two calls: no one PyTorch call computes the pair",
     }]}
     idle = [k["name"] for k in kernels["kernels"] if not k["launches"]]
     if idle:

@@ -26,8 +26,8 @@ from tpuslo_torch.models import llama, serve, speculative  # noqa: E402
 from tpuslo_torch.ops import launch_counts  # noqa: E402
 from tpuslo_torch.ops import rms_norm as rn  # noqa: E402
 
-LAYER_OPS = ["attn_norm", "q", "k", "v", "rope_q", "rope_k", "attention", "wo", "mlp_norm",
-             "w1", "w3", "silu_mul", "w2"]
+LAYER_OPS = ["attn_norm", "q", "k", "v", "rope_q", "rope_k", "attention", "wo", "wo_residual",
+             "mlp_norm", "w1", "w3", "silu_mul", "w2", "w2_residual"]
 
 
 def _tiny(dtype=torch.float32):
@@ -176,7 +176,8 @@ def test_the_port_registers_its_counters():
     for owner, attr in ((fa.flash_attention, "launches"), (fa.flash_attention, "f32_launches"),
                         (pa.paged_decode_attention, "launches"),
                         (pa.paged_decode_attention, "f32_launches"),
-                        (rn.rms_norm, "launches"), (launch_counts, "cached_layers")):
+                        (rn.rms_norm, "launches"), (rn.add_rms_norm, "launches"),
+                        (launch_counts, "cached_layers")):
         assert (id(owner), attr) in registered
 
 
@@ -197,4 +198,28 @@ def test_rms_norm_plain_version_is_the_models(dtype):
     want = jl.rms_norm(jnp.asarray(xt.float().numpy()).astype(jdt),
                        jnp.asarray(wt.float().numpy()).astype(jdt), 1e-5)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=1e-6 if dtype == torch.float32 else 2**-6, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_add_rms_norm_plain_version_is_the_models(dtype):
+    """On the CPU the fused wrapper is the eager add and the plain norm:
+    the sum equals the JAX module's ``h + d`` bit for bit, the norm its
+    rms_norm of that sum, and nothing launches."""
+    rng = np.random.default_rng(4)
+    h, d = (rng.standard_normal((2, 3, 256)).astype(np.float32) * 3 for _ in range(2))
+    w = 1 + 0.1 * rng.standard_normal(256).astype(np.float32)
+    ht, dt, wt = (torch.from_numpy(a).to(dtype) for a in (h, d, w))
+    before = rn.add_rms_norm.launches
+    got_h, got_y = rn.add_rms_norm(ht, dt, wt, 1e-5)
+    assert rn.add_rms_norm.launches == before
+    assert torch.equal(got_h, ht + dt)
+    assert torch.equal(got_y, rn.rms_norm_reference(ht + dt, wt, 1e-5))
+    model_h, model_y = llama.add_rms_norm(ht, dt, wt, 1e-5)
+    assert torch.equal(model_h, got_h) and torch.equal(model_y, got_y)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jh = jnp.asarray(ht.float().numpy()).astype(jdt) + jnp.asarray(dt.float().numpy()).astype(jdt)
+    np.testing.assert_array_equal(got_h.float().numpy(), np.asarray(jh, np.float32))
+    want = jl.rms_norm(jh, jnp.asarray(wt.float().numpy()).astype(jdt), 1e-5)
+    np.testing.assert_allclose(got_y.float().numpy(), np.asarray(want, np.float32),
                                atol=1e-6 if dtype == torch.float32 else 2**-6, rtol=0)

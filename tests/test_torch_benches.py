@@ -153,3 +153,28 @@ def test_the_exactness_probe_holds_a_front_door_to_the_stream(monkeypatch):
                         lambda max_seq_len=192: llama.llama_tiny(max_seq_len=max_seq_len))
     rows = probes.exactness("float32", 2, 12, "cpu")
     assert [(r["tokens"], r["parted_at"]) for r in rows] == [(12, None), (12, None)]
+
+
+def test_the_router_probe_splits_ttft_by_prefix_state_and_depth(monkeypatch):
+    """``python -m tpuslo_torch.benchmark.probes router`` on the CPU at the
+    cut router bench: the paced affinity and random passes' TTFTs split by
+    the prefix state met at routing and by the replica's queue depth, each
+    split counting every timed request of its pass once, and the router's
+    methods put back after the run."""
+    from tpuslo_torch.benchmark import probes
+    from tpuslo_torch.models import router as router_mod
+
+    run = trb.run_router_bench
+    monkeypatch.setattr(probes.router_bench, "run_router_bench",
+                        lambda device: run(**ROUTER_ARGS, device=device))
+    route = router_mod.SLORouter.route
+    (row,) = probes.router(1, "cpu")
+    assert router_mod.SLORouter.route is route
+    assert set(row["split"]) == {"affinity", "random"}
+    for side, split in row["split"].items():
+        n = sum(s["n"] for s in split["ttft_by_state"].values())
+        assert n == sum(s["n"] for s in split["ttft_by_depth"].values())
+        assert n == sum(split["requests_by_engine"]) > 0
+        assert set(split["ttft_by_state"]) <= {"warm", "cold", "plain"}
+        assert all(s["p50_ms"] <= s["p99_ms"] for s in split["ttft_by_state"].values())
+        assert split["slowest_1pct"]["n"] == sum(split["slowest_1pct"]["states"].values())

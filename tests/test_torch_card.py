@@ -11,6 +11,7 @@ the decision is taken inside a fixture, never at import.
 from __future__ import annotations
 
 import dataclasses
+import json
 
 import pytest
 
@@ -1107,7 +1108,9 @@ def test_twenty_steady_front_door_steps_never_recapture(cuda_device):
     audit.reset()
     try:
         fd = frontdoor.FrontDoorEngine(target, draft, k=3, max_slots=2, rounds_per_step=2)
-        assert audit.capture_count() == 1 and audit.steady_compile_count() == 0
+        # The dispatch, and the admission graphs of both engines.
+        assert audit.capture_count() == 1 + fd.admission_captures
+        assert fd.admission_captures > 0 and audit.steady_compile_count() == 0
         for i in range(2):
             fd.submit(f"steady graph {i}", max_new_tokens=200, stop_at_eos=False)
         fd.step()
@@ -1309,7 +1312,8 @@ def test_a_pass_gives_row_0_the_same_logits_in_any_batch(cuda_device, pass_):
     logits have the same bits at B 1 (the single stream's 0-d frontier)
     as at B 2 and B 8 (per-row frontiers, the other rows other tokens),
     and the pass reads the caches through K2 once per layer, with the
-    RMSNorm kernel for each norm."""
+    RMSNorm kernel for the first norm and the fused add + RMSNorm kernel
+    for every residual add and the norm after it."""
     from tpuslo_torch.ops import rms_norm as rn
 
     cfg, params, cache = _pass_model(cuda_device)
@@ -1321,8 +1325,8 @@ def test_a_pass_gives_row_0_the_same_logits_in_any_batch(cuda_device, pass_):
     for n in (1, 2, 8):
         c = _rows_of(cache, n)
         c["length"] = fronts[0].clone() if n == 1 else fronts[:n].clone()
-        k2, norms, lanes = (paged_decode_attention.launches, rn.rms_norm.launches,
-                            launch_counts.cached_layers)
+        k2, norms, fused, lanes = (paged_decode_attention.launches, rn.rms_norm.launches,
+                                   rn.add_rms_norm.launches, launch_counts.cached_layers)
         if pass_ == "verify":
             out, _ = llama.verify_chunk(params, tokens[:n], c, cfg)
         else:
@@ -1330,7 +1334,8 @@ def test_a_pass_gives_row_0_the_same_logits_in_any_batch(cuda_device, pass_):
         torch.cuda.synchronize()
         assert paged_decode_attention.launches - k2 == cfg.n_layers
         assert launch_counts.cached_layers - lanes == cfg.n_layers
-        assert rn.rms_norm.launches - norms == 2 * cfg.n_layers + 1
+        assert rn.rms_norm.launches - norms == 1  # the first attn_norm
+        assert rn.add_rms_norm.launches - fused == 2 * cfg.n_layers
         logits[n] = out[0]
     assert torch.isfinite(logits[1]).all()
     assert torch.equal(logits[1], logits[2]) and torch.equal(logits[1], logits[8])
@@ -1397,11 +1402,13 @@ def test_replays_count_the_kernels_they_launch(cuda_device):
     target, draft = _spec_pair(cuda_device)
     k, rounds = 3, 2
     per_dispatch = rounds * (target.cfg.n_layers + (k + 1) * draft.cfg.n_layers)
+    # Each admission suffix graph's warm-up: one pass over its engine's layers.
+    suffixes = len(target.prefill_buckets) * (target.cfg.n_layers + draft.cfg.n_layers)
     k2, lanes = paged_decode_attention.launches, launch_counts.cached_layers
     fd = frontdoor.FrontDoorEngine(target, draft, k=k, max_slots=4, rounds_per_step=rounds)
     assert fd._dispatch.graph is not None
-    assert paged_decode_attention.launches - k2 == per_dispatch
-    assert launch_counts.cached_layers - lanes == per_dispatch
+    assert paged_decode_attention.launches - k2 == per_dispatch + suffixes
+    assert launch_counts.cached_layers - lanes == per_dispatch + suffixes
     fd.submit("a stream that keeps going", max_new_tokens=40, stop_at_eos=False)
     fd.submit("another one", max_new_tokens=40, stop_at_eos=False)
     for _ in range(3):
@@ -1409,3 +1416,272 @@ def test_replays_count_the_kernels_they_launch(cuda_device):
         fd.step()
         assert paged_decode_attention.launches - k2 == per_dispatch
         assert launch_counts.cached_layers - lanes == per_dispatch
+
+
+# ---- the fused add + RMSNorm kernel ------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,dtype", [(3072, torch.bfloat16), (2048, torch.bfloat16),
+                                     (64, torch.bfloat16), (256, torch.float32),
+                                     (3072, torch.float32), (256, torch.float16),
+                                     (100, torch.bfloat16), (16384, torch.bfloat16),
+                                     (1100, torch.bfloat16)])
+def test_fused_add_rms_norm_against_the_plain_add_and_norm(cuda_device, D, dtype):
+    """The fused kernel's sum equals the eager ``h + d`` bit for bit and
+    its norm is within one bf16 ulp of the plain norm of that sum, at the
+    models' widths, on 16-byte packs and on the scalar path (D 100), and
+    on rows too wide for the registers (D 16,384 on packs, 1,100 off
+    them), with one launch per call."""
+    from tpuslo_torch.ops import rms_norm as rn
+
+    gen = torch.Generator(device=cuda_device).manual_seed(D)
+    h = (3 * torch.randn((3, 7, D), generator=gen, device=cuda_device)).to(dtype)
+    d = torch.randn((3, 7, D), generator=gen, device=cuda_device).to(dtype)
+    w = (1 + 0.1 * torch.randn((D,), generator=gen, device=cuda_device)).to(dtype)
+    before = rn.add_rms_norm.launches
+    got_h, got_y = rn.add_rms_norm(h, d, w, 1e-5)
+    torch.cuda.synchronize()
+    assert rn.add_rms_norm.launches == before + 1
+    ref_h, ref_y = rn.add_rms_norm_reference(h, d, w, 1e-5)
+    assert got_h.shape == got_y.shape == h.shape and got_y.dtype == dtype
+    assert torch.equal(got_h, ref_h)
+    ref = ref_y.float()
+    bf16_ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+    assert ((got_y.float() - ref).abs() <= bf16_ulp).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [3072, 2048, 16384])
+def test_fused_add_rms_norm_is_batch_invariant(cuda_device, D):
+    """Row r of the fused kernel alone and inside batches of 2 to 200
+    rows: both outputs bit for bit, the other rows random."""
+    from tpuslo_torch.ops import rms_norm as rn
+
+    gen = torch.Generator(device=cuda_device).manual_seed(D + 1)
+    big = max(INVARIANCE_BATCHES)
+    h = (3 * torch.randn((big, D), generator=gen, device=cuda_device)).bfloat16()
+    d = torch.randn((big, D), generator=gen, device=cuda_device).bfloat16()
+    w = (1 + 0.1 * torch.randn((D,), generator=gen, device=cuda_device)).bfloat16()
+    alone = [rn.add_rms_norm(h[r:r + 1], d[r:r + 1], w, 1e-5) for r in range(big)]
+    for n in INVARIANCE_BATCHES:
+        hs, ys = rn.add_rms_norm(h[:n], d[:n], w, 1e-5)
+        for r in _rows_checked(n):
+            assert torch.equal(hs[r], alone[r][0][0]) and torch.equal(ys[r], alone[r][1][0]), (
+                n, r)
+
+
+@pytest.mark.cuda
+def test_fused_add_rms_norm_never_falls_back(cuda_device):
+    from tpuslo_torch.ops import rms_norm as rn
+
+    h = torch.ones((4, 64), dtype=torch.bfloat16, device=cuda_device)
+    w = torch.ones(64, dtype=torch.bfloat16, device=cuda_device)
+    before = rn.add_rms_norm.launches
+    with pytest.raises(ValueError, match="one dtype"):
+        rn.add_rms_norm(h, h.float(), w, 1e-5)
+    with pytest.raises(ValueError, match="update"):
+        rn.add_rms_norm(h, h[:2], w, 1e-5)
+    with pytest.raises(ValueError, match="weight"):
+        rn.add_rms_norm(h, h, w[:32], 1e-5)
+    assert rn.add_rms_norm.launches == before
+
+
+# ---- admissions as graph replays ---------------------------------------------
+
+
+def _tiny_pair(device, max_seq_len=1024):
+    cfg = llama.llama_tiny(max_seq_len=max_seq_len)
+    return (serve.ServeEngine(cfg, rng_seed=0, device=device),
+            serve.ServeEngine(cfg, rng_seed=1, device=device))
+
+
+def _same_rows(got: dict, want: dict, lengths) -> None:
+    """Two caches' K/V equal bit for bit on each row's first
+    ``lengths[b]`` positions (above them a row holds nothing it reads)."""
+    for side in ("k", "v"):
+        for b, n in enumerate(lengths):
+            assert torch.equal(got[side][:, b, :n], want[side][:, b, :n]), (side, b)
+
+
+def _prompts(seed, lengths):
+    rng = np.random.default_rng(seed)
+    return [[serve.BOS] + rng.integers(0, 256, n - 1).tolist() for n in lengths]
+
+
+@pytest.mark.cuda
+def test_graphed_admissions_equal_their_eager_bodies_at_every_key(cuda_device):
+    """Every key of an 8-slot llama_tiny front door's admission graphs,
+    replayed, gives the eager path's logits and cache rows bit for bit:
+    each (batch bucket, prefill bucket) cold prefill, each suffix chunk
+    of a warm prefix admission, a batched admission whose longest row
+    runs two chunks past its head, and a snapshot-restored teacher
+    forcing; every admission chunk went through a graph."""
+    target, draft = _tiny_pair(cuda_device)
+    fd = frontdoor.FrontDoorEngine(target, draft, k=3, max_slots=8)
+    adm = target._admission
+    assert fd.admission_captures == 2 * (4 * 4 + 4) and adm.captures == 4 * 4 + 4
+    buckets = target.prefill_buckets
+    for B in (1, 2, 4, 8):
+        for i, S in enumerate(buckets):
+            lo = buckets[i - 1] + 1 if i else 2
+            lengths = [S] + list(np.random.default_rng(B * S).integers(lo - 1, S, B - 1) + 1)
+            rows = _prompts(B * 1000 + S, lengths)
+            want_logits, want = target._prefill_rows(rows, 0)
+            got_logits, got = adm.prefill_rows(rows)
+            torch.cuda.synchronize()
+            assert torch.equal(got_logits, want_logits), (B, S)
+            assert torch.equal(got["length"], want["length"])
+            _same_rows(got, want, lengths)
+    # A batch whose longest row runs two chunks past the head (600 ids).
+    rows = _prompts(5, [600, 40, 300, 9])
+    want_logits, want = target._prefill_rows(rows, 0)
+    got_logits, got = adm.prefill_rows(rows)
+    assert torch.equal(got_logits, want_logits)
+    _same_rows(got, want, [600, 40, 300, 9])
+    # Warm prefix admissions: a tail at each suffix bucket.
+    prefix = "You are the serving team's assistant. "
+    prefix_ids, _ = serve.prefix_prompt_ids(prefix, "", target.cfg.max_seq_len)
+    for S in buckets:
+        ids = prefix_ids + _prompts(S, [S + 1])[0][1:]
+        want_logits, want = target.ingest_ids(ids, prefix, prefix_ids)
+        got_logits, got = adm.ingest_ids(ids, prefix, prefix_ids)
+        assert torch.equal(got_logits, want_logits), S
+        assert got["length"] == want["length"] == len(ids)
+        _same_rows(got, want, [len(ids)])
+    # A snapshot-restored request: the prompt and its emitted tokens.
+    context = _prompts(9, [330])[0]
+    want_logits, want = target.ingest_ids(context)
+    got_logits, got = adm.ingest_ids(context)
+    assert torch.equal(got_logits, want_logits)
+    _same_rows(got, want, [len(context)])
+    assert adm.eager_chunks == 0
+
+
+@pytest.mark.cuda
+def test_a_graphed_admission_equals_its_eager_body_at_3b_widths(cuda_device):
+    """One key at llama32_3b's widths (4 of its 28 layers): an 8-row cold
+    admission at bucket 256 and a 256-bucket suffix chunk, replayed, give
+    the eager path's bits."""
+    cfg = dataclasses.replace(llama.llama32_3b(max_seq_len=1024), n_layers=4)
+    engine = serve.ServeEngine(cfg, rng_seed=0, device=cuda_device)
+    adm = engine.admission_graphs((1, 8))
+    assert adm.prefills[(8, 256)].run.graph is not None
+    lengths = [256, 200, 129, 250, 131, 256, 180, 140]
+    rows = _prompts(3, lengths)
+    want_logits, want = engine._prefill_rows(rows, 0)
+    got_logits, got = adm.prefill_rows(rows)
+    assert torch.equal(got_logits, want_logits)
+    _same_rows(got, want, lengths)
+    ids = _prompts(4, [256 + 250])[0]
+    want_logits, want = engine.ingest_ids(ids)
+    got_logits, got = adm.ingest_ids(ids)
+    assert torch.equal(got_logits, want_logits)
+    _same_rows(got, want, [len(ids)])
+
+
+@pytest.mark.cuda
+def test_two_front_doors_over_the_same_engines_capture_once(cuda_device):
+    """Under the benches' audit: the first front door over a pair of
+    engines captures its dispatch and both engines' admission graphs; a
+    second one captures its dispatch only, and nothing is a recapture.
+    Its admissions replay the first one's graphs with no eager chunk."""
+    from tpuslo_torch.analysis import jitaudit
+
+    target, draft = _tiny_pair(cuda_device, max_seq_len=512)
+    jitaudit.install()
+    audit = jitaudit.registry()
+    audit.reset()
+    try:
+        first = frontdoor.FrontDoorEngine(target, draft, k=3, max_slots=8)
+        second = frontdoor.FrontDoorEngine(target, draft, k=3, max_slots=4)
+        assert first.admission_captures > 0 and second.admission_captures == 0
+        assert audit.capture_count() == 2 + first.admission_captures
+        for i in range(6):
+            second.submit(f"request {i} " * (i + 1), max_new_tokens=4, stop_at_eos=False,
+                          prefix="shared system prompt. " if i % 2 else None)
+        second.run()
+        assert audit.steady_compile_count() == 0 and second.eager_admissions == 0
+    finally:
+        jitaudit.uninstall()
+        audit.reset()
+
+
+@pytest.mark.cuda
+def test_an_admission_leaves_what_an_earlier_one_kept_unchanged(cuda_device):
+    """The prefix cache's snapshot and logits, kept from a first
+    admission, are copies: a second admission's replays (a batch of
+    plain prompts and another prefix) leave them bit for bit."""
+    target, draft = _tiny_pair(cuda_device, max_seq_len=512)
+    fd = frontdoor.FrontDoorEngine(target, draft, k=3, max_slots=4)
+    fd.submit("first question", max_new_tokens=3, stop_at_eos=False, prefix="kept prefix. ")
+    fd.run()
+    entry = target._prefix_cache["kept prefix. "]
+    kept = [entry.cache["k"].clone(), entry.cache["v"].clone(), entry.logits.clone()]
+    for i in range(4):
+        fd.submit(f"plain {i} " * 20, max_new_tokens=3, stop_at_eos=False)
+    fd.submit("another", max_new_tokens=3, stop_at_eos=False, prefix="another prefix. ")
+    fd.run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(
+        kept, [entry.cache["k"], entry.cache["v"], entry.logits]))
+
+
+@pytest.mark.cuda
+def test_the_capture_prints_its_stage_split(cuda_device, tmp_path, capsys):
+    """A capture over a front-door step times each stage of its exit, and
+    the spans it reads from the profiler's in-memory events equal those
+    read back from the trace it exported (times to a nanosecond: the two
+    round differently)."""
+    from tpuslo_torch.otel import xla_spans
+
+    target, draft = _spec_pair(cuda_device)
+    fd = frontdoor.FrontDoorEngine(target, draft, k=3, max_slots=2, rounds_per_step=2)
+    for i in range(2):
+        fd.submit(f"split {i}", max_new_tokens=100, stop_at_eos=False)
+    fd.step()
+    with xla_spans.capture(str(tmp_path), include_ops=True) as cap:
+        fd.step()
+    with capsys.disabled():
+        print(f"capture: stages (ms) {({k: round(v, 2) for k, v in cap.stages_ms.items()})}, "
+              f"{len(cap.spans)} spans, module lane from {cap.module_source}")
+    assert list(cap.stages_ms) == ["synchronize", "stop", "export", "events", "source", "parse"]
+    assert cap.module_source == "kernel_segments"
+    assert {s.module_name for s in cap.launches()} == {"spec_multi_round"}
+    exported = xla_spans.load_trace_file(cap.trace_path, include_ops=True,
+                                         anchor_unix_ns=cap.anchor_unix_ns)
+
+    def key(spans):
+        return sorted((s.lane, s.name, s.launch_id, s.start_us, s.duration_us) for s in spans)
+
+    got, want = key(cap.spans), key(exported)
+    assert [g[:3] for g in got] == [w[:3] for w in want]
+    assert all(abs(g[3] - w[3]) < 1e-3 and abs(g[4] - w[4]) < 1e-3 for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_activity_alone_records_no_dispatch_range(cuda_device, tmp_path):
+    """Why the capture keeps CPU activity: profiled with CUDA activity
+    alone, a front-door step's trace holds its kernels but no
+    ``record_function`` range, on the host or on the device, so no
+    module lane can be read from it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuslo_torch.otel import xla_spans
+
+    target, draft = _spec_pair(cuda_device)
+    fd = frontdoor.FrontDoorEngine(target, draft, k=3, max_slots=2, rounds_per_step=2)
+    fd.submit("cuda only", max_new_tokens=100, stop_at_eos=False)
+    fd.step()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fd.step()
+        torch.cuda.synchronize()
+    path = str(tmp_path / "cuda_only.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        doc = json.load(fh)
+    cats = {e.get("cat") for e in doc["traceEvents"] if e.get("ph") == "X"}
+    assert "kernel" in cats
+    assert not cats & {xla_spans.CAT_CPU_ANNOTATION, xla_spans.CAT_GPU_ANNOTATION}
+    assert xla_spans.module_lane_source(doc) == "cpu_annotation"
+    assert not [s for s in xla_spans.parse_trace_events(doc) if s.lane == xla_spans.MODULES_LANE]

@@ -209,16 +209,21 @@ def test_entry_argv_is_the_chaos_lanes():
 
 @pytest.mark.parametrize("mangled,name", [
     ("_ZN51_GLOBAL__N__b8d85e21_18_batch_invariant_cu_17c3d05a15rms_norm_kernelI13__nv_bfloat16"
-     "EEvPKT_S4_PS2_ixxff", "rms_norm_kernel<bf16>"),
-    ("_ZN51_GLOBAL__N__b8d85e21_18_batch_invariant_cu_17c3d05a15rms_norm_kernelIfEEvPKT_S3_PS1_"
-     "ixxff", "rms_norm_kernel<f32>"),
+     "Li8ELb1EEEvPKT_S4_PS2_ixxff", "rms_norm_kernel<bf16,8>"),
+    ("_ZN51_GLOBAL__N__b8d85e21_18_batch_invariant_cu_17c3d05a15rms_norm_kernelIfLi4ELb1EEEvPKT_S3_"
+     "PS1_ixxff", "rms_norm_kernel<f32,4>"),
+    ("_ZN51_GLOBAL__N__b8d85e21_18_batch_invariant_cu_17c3d05a15add_norm_kernelI13__nv_bfloat16"
+     "Li8ELb0EEEvPKT_S4_S4_PS2_S5_ixxxxff", "add_norm_kernel<bf16,8>"),
+    ("_ZN51_GLOBAL__N__b8d85e21_18_batch_invariant_cu_17c3d05a15add_norm_kernelIfLi4ELb1EEEvPKT_S3_"
+     "S3_PS1_S4_ixxxxff", "add_norm_kernel<f32,4>"),
     ("_ZN51_GLOBAL__N__848908c5_18_paged_attention_cu_f6a6c6d318paged_split_kernelI13__nv_"
      "bfloat16Li64ELi4EEEvNS_4ArgsE", "paged_split_kernel<bf16,64,4>"),
 ])
 def test_ptxas_names_of_the_lane_path(mangled, name):
     """The names of the instantiations the batch-invariant path adds, as
-    a card's ptxas report spells them (the RMSNorm kernel; K2 at the 1B
-    draft's head dim 64 and 4 query heads per kv head)."""
+    a card's ptxas report spells them (the RMSNorm kernel and the fused
+    add + RMSNorm kernel on 16-byte packs; K2 at the 1B draft's head dim
+    64 and 4 query heads per kv head)."""
     [entry] = chip_smoke.ptxas_entries(_report(mangled, spill=0))
     assert entry["name"] == name
     assert name in chip_smoke.PATH_INSTANTIATIONS
@@ -278,3 +283,75 @@ def test_cache_upcasts_sees_the_plain_paths_copies(monkeypatch):
         torch, lambda: llama.attention(q, kv_cache.kv_load(k), kv_cache.kv_load(k), mask, 2), T)
     assert len(plain) >= 2 and all(u["shape"][-3] == T for u in plain)
     assert chip_smoke._cache_upcasts(torch, lambda: q.float(), T) == []
+
+
+def test_rounding_ties_counts_only_ties():
+    """A norm output two ulps off the plain version is a rounding tie only
+    where the exact pre-weight product sits on a bf16 midpoint: a row of
+    one value v (rms 1/|v|, the product exactly 1.0 or -1.0) has none;
+    an output bumped off by two ulps there is counted far, not a tie."""
+    import torch
+
+    from tpuslo_torch.ops import rms_norm as rn
+
+    h = torch.full((2, 64), 3.0).bfloat16()
+    w = torch.full((64,), 0.9).bfloat16()
+    ref = rn.rms_norm_reference(h, w, 0.0)
+    assert chip_smoke._rounding_ties(torch, h, w, ref.clone(), ref, 0.0) == (0, 0)
+    got = ref.clone()
+    got[1, 5] = float(ref[1, 5]) * (1 + 2 * 2.0**-7)
+    assert chip_smoke._rounding_ties(torch, h, w, got, ref, 0.0) == (1, 0)
+
+
+def test_hold_norm_holds_the_pre_weight_value_and_y():
+    """Phase 18's rule for a norm kernel: the same bits pass; T(h x rms)
+    two ulps off fails even where y agrees; y two ulps off where no
+    rounding tie explains it fails."""
+    import torch
+
+    from tpuslo_torch.ops import rms_norm as rn
+
+    h = torch.full((2, 64), 3.0).bfloat16()
+    w = torch.full((64,), 0.9).bfloat16()
+    ref = rn.rms_norm_reference(h, w, 1e-5)
+    ref_n = rn.rms_norm_reference(h, torch.ones_like(w), 1e-5)
+    held = chip_smoke._hold_norm(torch, "same", h, w, ref.clone(), ref, ref_n.clone(), ref_n)
+    assert held["max_err_ulps"] == held["pre_weight_err_ulps"] == 0.0
+    assert held["rounding_ties"] == held["over_tol_elements"] == 0
+    off = ref_n.clone()
+    off[0, 3] = float(ref_n[0, 3]) * (1 + 2 * 2.0**-7)
+    with pytest.raises(SystemExit):
+        chip_smoke._hold_norm(torch, "pre-weight", h, w, ref.clone(), ref, off, ref_n)
+    got = ref.clone()
+    got[1, 5] = float(ref[1, 5]) * (1 + 2 * 2.0**-7)
+    with pytest.raises(SystemExit):
+        chip_smoke._hold_norm(torch, "y", h, w, got, ref, ref_n.clone(), ref_n)
+
+
+def test_range_breakdown_splits_an_admitting_window_by_range():
+    """Phase 12's breakdown of a window: the admission ranges split into
+    the target's (the first half in start order) and the draft's, each
+    range's device ms and the ops inside its spans counted, the ops
+    outside every span kept apart."""
+    from types import SimpleNamespace as S
+
+    def span(lane, start, dur, module="", launch=0):
+        return S(lane=lane, start_us=start, duration_us=dur, module_name=module,
+                 program_id="p", launch_id=launch)
+
+    mods, ops = "modules", "ops"
+    spans = [span(mods, 0, 10, "prefill", 1), span(mods, 20, 10, "prefill", 2),
+             span(mods, 40, 5, "spec_multi_round", 3)]
+    spans += [span(ops, t, 1) for t in (1, 2, 21, 41, 42, 60)]
+    got = chip_smoke._range_breakdown(spans, mods, ops)
+    assert got["target.prefill"] == {"ms": 0.01, "ranges": 1, "kernels": 2}
+    assert got["draft.prefill"] == {"ms": 0.01, "ranges": 1, "kernels": 1}
+    assert got["spec_multi_round"]["kernels"] == 2
+    assert got["outside_ranges"] == {"ms": 0.001, "ranges": 0, "kernels": 1}
+
+
+def test_the_probe_mode_needs_a_card(monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.probe_main(["norm", "--tree", str(chip_smoke.ROOT)]) == 2

@@ -320,23 +320,27 @@ class TestPrefixPlacement:
     def test_warm_prefix_is_reused_after_the_first_admission(self, sides):
         """The second same-prefix request reuses the KV snapshot: the
         prefix is ingested once per engine, the later admissions prefill
-        only their suffix."""
+        only their suffix.  The front door admits through each engine's
+        admission pieces, whose ``ingest`` is the engine's full ingestion
+        there; both are counted."""
         _, s = sides
         target, draft = s.engines
         prefix = "[system] a fresh prefix never cached before this test."
         fd = s.mod.FrontDoorEngine(target, draft, k=3, max_slots=1)
         assert not fd._prefix_warm(prefix)
         heads = []
-        for eng in (target, draft):
-            orig = eng._ingest_ids
-            eng._ingest_ids = lambda ids, _orig=orig: heads.append(len(ids)) or _orig(ids)
+        spied = [(eng, "_ingest_ids") for eng in (target, draft)]
+        spied += [(adm, "ingest") for adm in fd._adms]
+        for owner, name in spied:
+            orig = getattr(owner, name)
+            setattr(owner, name, lambda ids, _orig=orig: heads.append(len(ids)) or _orig(ids))
         try:
             for i in range(3):
                 fd.submit(f" ask {i}?", max_new_tokens=2, stop_at_eos=False, prefix=prefix)
                 fd.run()
         finally:
-            for eng in (target, draft):
-                del eng._ingest_ids
+            for owner, name in spied:
+                delattr(owner, name)
         assert fd._prefix_warm(prefix)
         assert len(heads) == 2  # one full ingestion per engine, for the cold request
 

@@ -495,7 +495,7 @@ class TestTorchLane:
                                      work_fn=door.step, stride_cycles=1)
         windows = [prof.tick() for _ in range(3)]
         names = set()
-        for path in sorted(tmp_path.rglob("*.trace.json.gz")):
+        for path in sorted(tmp_path.rglob("*.trace.json*")):
             names |= {s.module_name for s in load_trace_file(str(path))}
         assert {"prefill", "inject_rows", "spec_multi_round"} <= names
         assert all(w is not None and w.launches >= 1 for w in windows)

@@ -268,3 +268,134 @@ def test_stream_parity_of_two_port_engines():
 def test_warmup_runs():
     _, et = _engines()
     assert et.warmup() > 0.0
+
+
+# ---- admissions through staged storage (the front door's path) --------------
+
+
+def _admission_engine():
+    """The port engine with its admission pieces for batches of 1-8 rows
+    (on the CPU every piece runs its eager body over staged storage)."""
+    _ej, et = _engines()
+    return et, et.admission_graphs((1, 2, 4, 8))
+
+
+def _ids(seed: int, n: int) -> list[int]:
+    rng = np.random.default_rng(seed)
+    return [ts.BOS] + rng.integers(0, 256, n - 1).tolist()
+
+
+def _same_rows(got: dict, want: dict, lengths) -> None:
+    for side in ("k", "v"):
+        for b, n in enumerate(lengths):
+            assert torch.equal(got[side][:, b, :n], want[side][:, b, :n]), (side, b)
+
+
+def test_suffix_prefill_start_as_a_device_scalar_equals_an_int():
+    """One chunk appended at a 0-d tensor start (positions and cache
+    writes computed on the device) gives the int start's bits."""
+    _ej, et = _engines()
+    _, cache = et.prefill_ids(_ids(1, 40))
+    tokens = torch.tensor([_ids(2, 32)[1:] + [0]], dtype=torch.long)
+    a = et._clone_cache(cache)
+    b = et._clone_cache(cache)
+    la, ca = ts.suffix_prefill(et.params, tokens, a, 40, 25, CFG_T)
+    lb, cb = ts.suffix_prefill(et.params, tokens, b, torch.tensor(40), torch.tensor([25]),
+                               CFG_T)
+    assert torch.equal(la, lb)
+    assert ca["length"] == 65 and cb["length"].tolist() == [65]
+    for side in ("k", "v"):
+        assert torch.equal(ca[side], cb[side])
+
+
+@pytest.mark.parametrize("lengths", [[9], [30, 3], [64, 40, 33, 50],
+                                     [200, 17, 5, 128, 64, 3, 100, 90], [450, 40, 300, 9]],
+                         ids=["one", "two", "four", "eight", "long"])
+def test_admission_prefill_rows_equal_the_eager_path(lengths):
+    """A cold batched admission (pad rows of the batch bucket included)
+    through the pieces gives ``_prefill_rows``' logits, lengths and row
+    K/V bit for bit; a row past the largest bucket runs its chunks alone
+    on the staged row, the rows that ended before no pad chunks."""
+    et, adm = _admission_engine()
+    B = ts._bucket(len(lengths), adm.batch_buckets)
+    rows = [_ids(10 + i, n) for i, n in enumerate(lengths)] + [[ts.BOS]] * (B - len(lengths))
+    want_logits, want = et._prefill_rows(rows, 0)
+    eager = adm.eager_chunks
+    got_logits, got = adm.prefill_rows(rows)
+    assert torch.equal(got_logits, want_logits)
+    assert torch.equal(got["length"], want["length"])
+    _same_rows(got, want, [len(r) for r in rows])
+    assert adm.eager_chunks == eager
+
+
+def test_admission_ingestion_equals_the_eager_path():
+    """A single cold prompt past the largest bucket, warm prefix tails at
+    each suffix bucket and none, and a snapshot-restored context: the
+    pieces give ``ingest_ids``' logits, length and row K/V bit for bit,
+    and the warm rows are copies in staged storage, never the snapshot."""
+    et, adm = _admission_engine()
+    prefix = SYSTEM
+    prefix_ids, _ = ts.prefix_prompt_ids(prefix, "", CFG_T.max_seq_len)
+    cases = [(_ids(3, 300), None, None), (_ids(4, 70), None, None)]
+    cases += [(prefix_ids + _ids(S, S + 1)[1:], prefix, prefix_ids) for S in (20, 64, 128, 256)]
+    cases += [(list(prefix_ids), prefix, prefix_ids)]
+    for ids, pre, pre_ids in cases:
+        want_logits, want = et.ingest_ids(ids, pre, pre_ids)
+        got_logits, got = adm.ingest_ids(ids, pre, pre_ids)
+        assert torch.equal(got_logits, want_logits), len(ids)
+        assert got["length"] == want["length"] == len(ids)
+        _same_rows(got, want, [len(ids)])
+        assert got["k"].data_ptr() == adm.row["k"].data_ptr()
+    assert adm.eager_chunks == 0
+
+
+def test_an_admission_chunk_no_bucket_fits_runs_eagerly_and_is_counted():
+    """A warm prefix's tail that ends in the cache's last 31 positions
+    leaves a chunk no prefill bucket fits: it runs eagerly, is counted,
+    and the result still equals the eager path's."""
+    et, adm = _admission_engine()
+    prefix = "Be brief. "
+    prefix_ids, _ = ts.prefix_prompt_ids(prefix, "", CFG_T.max_seq_len)
+    start = len(prefix_ids)
+    odd = next(n for n in range(1, CFG_T.max_seq_len - 1 - start)
+               if any(b not in et.prefill_buckets for _, _, b in et._schedule(n, start)))
+    ids = prefix_ids + _ids(7, odd + 1)[1:]
+    want_logits, want = et.ingest_ids(ids, prefix, prefix_ids)
+    eager = adm.eager_chunks
+    got_logits, got = adm.ingest_ids(ids, prefix, prefix_ids)
+    assert adm.eager_chunks == eager + 1
+    assert torch.equal(got_logits, want_logits)
+    _same_rows(got, want, [len(ids)])
+
+
+def test_a_prefix_entry_kept_across_two_admissions_is_unchanged():
+    """A prefix snapshot made by an admission is a copy of staged storage:
+    later admissions, which rewrite that storage, leave it bit for bit."""
+    et, _adm = _admission_engine()
+    text = "A prefix cached while admitting. "
+    entry = et.cache_prefix(text, ingest=_adm.ingest)
+    kept = [entry.cache["k"].clone(), entry.cache["v"].clone(), entry.logits.clone()]
+    _adm.prefill_rows([_ids(5, 80), _ids(6, 40)])
+    _adm.ingest_ids(_ids(8, 300))
+    assert entry.cache["k"].data_ptr() != _adm.row["k"].data_ptr()
+    assert all(torch.equal(a, b) for a, b in zip(
+        kept, [entry.cache["k"], entry.cache["v"], entry.logits]))
+    # ... and it equals the snapshot the eager path makes.
+    _, ej = None, ts.ServeEngine(CFG_T, et.params, decode_chunk_size=CHUNK, device="cpu")
+    eager = ej.cache_prefix(text)
+    assert torch.equal(eager.logits, entry.logits) and eager.ids == entry.ids
+    _same_rows(entry.cache, eager.cache, [len(entry.ids)])
+
+
+def test_staged_input_takes_several_writes_before_a_read():
+    from tpuslo_torch.models.graphs import StagedInput
+
+    staged = StagedInput((2,), torch.long, torch.device("cpu"))
+    seen = []
+    for values in ([1, 2], np.asarray([3, 4]), [5, 6]):
+        staged.write(values)
+        seen.append(staged.tensor.clone())
+    assert [t.tolist() for t in seen] == [[1, 2], [3, 4], [5, 6]]
+    scalar = StagedInput((), torch.long, torch.device("cpu"))
+    scalar.write(7)
+    assert scalar.tensor.item() == 7

@@ -5,7 +5,7 @@ JAX compiles each serving program once and the reference auditor counts
 XLA compiles from ``jax.monitoring``; a compile inside a steady section
 is a retrace.  The port has no compiler: on a card each speculative
 dispatch is a CUDA graph captured once
-(:class:`tpuslo_torch.models.speculative.GraphedDispatch`), so the
+(:class:`tpuslo_torch.models.graphs.GraphedDispatch`), so the
 counts mean:
 
 * **a steady compile is a recapture**: a capture of a key that its owner
@@ -131,7 +131,7 @@ def install() -> None:
     if _installed:
         return
     from tpuslo_torch.models.serve import _HostRead
-    from tpuslo_torch.models.speculative import GraphedDispatch
+    from tpuslo_torch.models.graphs import GraphedDispatch
 
     GraphedDispatch.on_capture = _GLOBAL.on_capture
     _HostRead.on_read = _GLOBAL.on_host_read
@@ -150,7 +150,7 @@ def uninstall() -> None:
     if not _installed:
         return
     from tpuslo_torch.models.serve import _HostRead
-    from tpuslo_torch.models.speculative import GraphedDispatch
+    from tpuslo_torch.models.graphs import GraphedDispatch
 
     GraphedDispatch.on_capture = None
     _HostRead.on_read = None

@@ -22,7 +22,10 @@ batch) names the first op whose row-0 bits differ from the lone row's
 
 ``router``: the router bench at its defaults, several times, with each
 front-door admission timed by the prefix state it met (a cold fill, a
-warm snapshot, a plain prompt, a parked row)::
+warm snapshot, a plain prompt, a parked row), and the TTFT of the paced
+affinity and random passes split by the state of the request's prefix
+on its replica when it was routed and by that replica's queue depth
+then, with each replica's share of the requests::
 
     python -m tpuslo_torch.benchmark.probes router --runs 3
 
@@ -42,6 +45,7 @@ import torch
 from tpuslo_torch.benchmark import frontdoor_bench, router_bench
 from tpuslo_torch.cli.loadgen import synthesize_requests
 from tpuslo_torch.models import frontdoor, kv_cache, llama, serve, speculative
+from tpuslo_torch.models import router as router_mod
 
 
 def build_engines(dtype: str, device: str):
@@ -179,9 +183,64 @@ def first_diff_rows(spec, prompt: str, want: list[int], parted: int | None,
     return rows
 
 
+#: The router bench's fleet passes, in the order it serves them.
+ROUTER_PASSES = ("scaleout_fleet", "scaleout_single", "affinity", "random", "kill")
+
+
+def _ttft_split(routed: dict[int, dict], timings: dict[int, dict]) -> dict:
+    """TTFT (ms: n, p50, p99) of one pass by the prefix state met at
+    routing and by the replica's queue depth then (capped at 4), each
+    replica's share of the requests, and what the slowest 1% met."""
+
+    def summary(values: list[float]) -> dict:
+        v = sorted(values)
+        return {"n": len(v), "p50_ms": v[len(v) // 2] if v else None,
+                "p99_ms": v[min(len(v) - 1, int(0.99 * len(v)))] if v else None}
+
+    rows = [(routed[g], t["ttft_s"] * 1e3) for g, t in timings.items() if g in routed]
+    by_state: dict[str, list[float]] = {}
+    by_depth: dict[str, list[float]] = {}
+    engines: dict[int, int] = {}
+    for r, ttft in rows:
+        by_state.setdefault(r["state"], []).append(ttft)
+        by_depth.setdefault(str(min(r["depth"], 4)), []).append(ttft)
+        engines[r["engine"]] = engines.get(r["engine"], 0) + 1
+    slow = sorted(rows, key=lambda rt: rt[1])[-max(1, len(rows) // 100):]
+    return {"ttft_by_state": {k: summary(v) for k, v in sorted(by_state.items())},
+            "ttft_by_depth": {k: summary(v) for k, v in sorted(by_depth.items())},
+            "requests_by_engine": [engines.get(j, 0) for j in range(max(engines) + 1)]
+            if engines else [],
+            "slowest_1pct": {"n": len(slow),
+                             "states": {s: sum(r["state"] == s for r, _ in slow)
+                                        for s in ("warm", "cold", "plain")},
+                             "mean_depth": sum(r["depth"] for r, _ in slow) / len(slow)
+                             if slow else None}}
+
+
 def router(runs: int, device: str) -> list[dict]:
     costs: dict[str, list[float]] = {}
     admit = frontdoor.FrontDoorEngine._admit
+    route = router_mod.SLORouter.route
+    serve_fleet = router_bench._serve_fleet
+    arrivals: dict[int, dict[int, dict]] = {}
+    passes: list = []
+
+    def routed(self, prompt, tenant="default", max_new_tokens=32, stop_at_eos=True,
+               prefix=None):
+        gid = route(self, prompt, tenant, max_new_tokens, stop_at_eos, prefix)
+        if gid is not None:
+            idx, _ = self._placements[gid]
+            eng = self.engine(idx)
+            state = ("plain" if not prefix else
+                     "warm" if eng.target.prefix_warm(prefix) else "cold")
+            arrivals.setdefault(id(self), {})[gid] = {
+                "engine": idx, "depth": eng.queue_depth - 1, "state": state}
+        return gid
+
+    def fleet(router_, clocks, records, *args, **kwargs):
+        out = serve_fleet(router_, clocks, records, *args, **kwargs)
+        passes.append(router_)
+        return out
 
     def timed(self, slot, req):
         if req.parked is not None:
@@ -197,23 +256,33 @@ def router(runs: int, device: str) -> list[dict]:
             costs.setdefault(kind, []).append((time.perf_counter() - t0) * 1e3)
 
     frontdoor.FrontDoorEngine._admit = timed
+    router_mod.SLORouter.route = routed
+    router_bench._serve_fleet = fleet
     rows = []
     try:
         for run in range(runs):
             costs.clear()
+            arrivals.clear()
+            passes.clear()
             t0 = time.perf_counter()
             report = router_bench.run_router_bench(device=device)
             admits = {kind: {"n": len(v), "median_ms": sorted(v)[len(v) // 2]}
                       for kind, v in costs.items()}
+            named = dict(zip(ROUTER_PASSES, passes))
             rows.append({
                 "probe": "router", "run": run, "seconds": time.perf_counter() - t0,
                 "passed": report["passed"], "failures": report["failures"],
                 **{f"{side}_ttft_{q}_ms": report[side][f"ttft_{q}_ms"]
                    for side in ("affinity", "random") for q in ("p50", "p99")},
                 "affinity_hit_rate": report["router_affinity_hit_rate"], "admissions": admits,
+                "split": {side: _ttft_split(arrivals.get(id(named[side]), {}),
+                                            named[side].request_timings())
+                          for side in ("affinity", "random") if side in named},
             })
     finally:
         frontdoor.FrontDoorEngine._admit = admit
+        router_mod.SLORouter.route = route
+        router_bench._serve_fleet = serve_fleet
     return rows
 
 

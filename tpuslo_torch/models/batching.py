@@ -51,7 +51,7 @@ def _copy_length(lengths: torch.Tensor, slot: int, value) -> None:
     if isinstance(value, torch.Tensor):
         lengths[slot].copy_(value.reshape(()))
     else:
-        lengths[slot] = int(value)
+        lengths[slot:slot + 1].fill_(int(value))
 
 
 def _inject_rows(pool: Cache, rows: Cache, slots: Sequence[int]) -> Cache:
@@ -69,7 +69,7 @@ def _inject_rows(pool: Cache, rows: Cache, slots: Sequence[int]) -> Cache:
             slot = int(slots[i])
             for side in ("k", "v"):
                 for dst, src in kv_leaf_pairs(pool[side], rows[side]):
-                    dst[:, slot] = src[:, i]
+                    dst.select(1, slot).copy_(src.select(1, i))
             per_row = isinstance(lengths, torch.Tensor) and lengths.ndim == 1
             _copy_length(pool["length"], slot, lengths[i] if per_row else lengths)
     return pool

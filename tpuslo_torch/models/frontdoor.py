@@ -46,9 +46,17 @@ uninterrupted stream.
 
 What differs from the JAX engine: there is no jit.  On a card the
 engine's dispatch is one CUDA graph, captured when the engine is built
-(:class:`tpuslo_torch.models.speculative.GraphedDispatch`), so the
+(:class:`tpuslo_torch.models.graphs.GraphedDispatch`), so the
 capture stays out of a bench's timer as XLA's compile does; each
-``step()`` replays it.  The graph reads and writes buffers whose storage
+``step()`` replays it.  Each admission prefill is a graph replay too:
+the first front door over a pair of engines captures their
+:class:`~tpuslo_torch.models.serve.AdmissionGraphs` (a cold prefill per
+batch and prefill bucket, a suffix chunk per bucket), which later front
+doors over the same engines replay; ``admission_captures`` and
+``admission_capture_ms`` say what this one captured, ``eager_admissions``
+counts the chunks no graph fits (a remainder at the cache end).  The
+admitted rows come back in the engines' staged storage and are injected
+into the pools at once.  The graph reads and writes buffers whose storage
 never changes over the engine's life: the two slot pools (admission,
 parks and resumes copy rows in and out of them in place), the current
 tokens, the frontiers and the mask (refilled from pinned host memory:
@@ -89,9 +97,8 @@ from tpuslo_torch.models.serve import (
     _HostRead,
     _upload,
 )
+from tpuslo_torch.models.graphs import GraphedDispatch, StagedInput
 from tpuslo_torch.models.speculative import (
-    GraphedDispatch,
-    StagedInput,
     _check_pair,
     _rehome_draft_cache,
     _shared_spec_multi_round_fn,
@@ -379,6 +386,19 @@ class FrontDoorEngine:
                 zero_cache(pool)
                 pool["length"].fill_(1)
             self._tokens.fill_(BOS)
+        # The admissions' prefill pieces on each engine (on a card CUDA
+        # graphs, captured by the first front door over the engine and
+        # kept there, so that a later one captures nothing).
+        held = (target._admission, draft._admission)
+        self._adm_t = target.admission_graphs(self._admit_buckets)
+        self._adm_d = draft.admission_graphs(self._admit_buckets)
+        self._adms = tuple({id(a): a for a in (self._adm_t, self._adm_d)}.values())
+        built = [a for a in self._adms if not any(a is h for h in held)]
+        #: Admission graphs this front door captured, and their ms.
+        self.admission_captures = sum(a.captures for a in built)
+        self.admission_capture_ms = sum(a.capture_ms for a in built)
+        #: Admission chunks that ran eagerly: no prefill bucket fits them.
+        self.eager_admissions = 0
 
     # ---- construction helpers -----------------------------------------
 
@@ -618,11 +638,8 @@ class FrontDoorEngine:
             ):
                 self._complete(req, now_s)
                 return
-            _logits, row_t = self.target.ingest_ids(
-                context, req.prefix, prefix_ids
-            )
-            _logits_d, row_d = self.draft.ingest_ids(
-                context, req.prefix, prefix_ids
+            (_logits, row_t), (_logits_d, row_d) = self._admit_both(
+                lambda adm: adm.ingest_ids(context, req.prefix, prefix_ids)
             )
             self._install(
                 slot, req, row_t,
@@ -631,13 +648,19 @@ class FrontDoorEngine:
             )
             return
 
-        logits, row_t = self.target.ingest_ids(
-            ids, req.prefix, prefix_ids
+        (logits, row_t), (_logits_d, row_d) = self._admit_both(
+            lambda adm: adm.ingest_ids(ids, req.prefix, prefix_ids)
         )
-        _logits_d, row_d = self.draft.ingest_ids(
-            ids, req.prefix, prefix_ids
-        )
-        first = int(_HostRead(logits.argmax(dim=-1)).values()[0])
+        first_token = logits.argmax(dim=-1)
+        read = _HostRead(first_token)
+        # The rows and the first token go into the slot while the read is
+        # in flight (the staged rows are overwritten by the next
+        # admission); an instant completion leaves them there as a free
+        # lane's garbage, as a batched admission does.
+        _inject_row(self._cache_t, row_t, slot)
+        _inject_row(self._cache_d, _rehome_draft_cache(self.target, self.draft, row_d), slot)
+        self._tokens[slot:slot + 1].copy_(first_token)
+        first = int(read.values()[0])
         req.admitted_s = now_s
         req.first_token_s = now_s
         req.tokens.append(first)
@@ -645,11 +668,19 @@ class FrontDoorEngine:
         if (req.stop_at_eos and first == EOS) or req.max_new_tokens <= 1:
             self._complete(req, now_s)
             return
-        self._install(
-            slot, req, row_t,
-            _rehome_draft_cache(self.target, self.draft, row_d),
-            first, len(ids),
-        )
+        self._start[slot] = len(ids)
+        self._current[slot] = first
+        self._slots[slot] = req
+
+    def _admit_both(self, ingest):
+        """``ingest(pieces)`` on the target's admission pieces, then on the
+        draft's (:class:`~tpuslo_torch.models.serve.AdmissionGraphs`): two
+        (logits, rows) in staged storage, which the caller injects at
+        once.  Counts the chunks no piece served."""
+        eager = sum(a.eager_chunks for a in self._adms)
+        out = ingest(self._adm_t), ingest(self._adm_d)
+        self.eager_admissions += sum(a.eager_chunks for a in self._adms) - eager
+        return out
 
     def _batchable(self, req: FrontDoorRequest) -> bool:
         """Fresh plain-prompt requests lockstep-prefill together;
@@ -686,8 +717,9 @@ class FrontDoorEngine:
             all_ids.append(ids)
         bucket = _bucket(len(reqs), self._admit_buckets)
         padded = all_ids + [[BOS]] * (bucket - len(reqs))
-        logits_t, rows_t = self.target._prefill_rows(padded, 0)
-        _logits_d, rows_d = self.draft._prefill_rows(padded, 0)
+        (logits_t, rows_t), (_logits_d, rows_d) = self._admit_both(
+            lambda adm: adm.prefill_rows(padded)
+        )
         rows_d = _rehome_draft_cache(self.target, self.draft, rows_d)
         first_tokens = logits_t.argmax(dim=-1)
         first_read = _HostRead(first_tokens)

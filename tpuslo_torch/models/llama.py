@@ -34,7 +34,10 @@ per row:
   query per lane (:func:`tpuslo_torch.ops.dense_lanes.dense_lane_attention`),
   in the cache's own dtype: no pass copies a whole cache to f32;
 * :func:`rms_norm` launches the batch-invariant RMSNorm kernel
-  (:mod:`tpuslo_torch.ops.rms_norm`);
+  (:mod:`tpuslo_torch.ops.rms_norm`), and every residual add that feeds
+  a norm goes with it into one launch of the fused add + RMSNorm kernel
+  (:func:`add_rms_norm`): the add's bits are the eager add's, and only
+  the first layer's ``attn_norm`` runs alone;
 * :func:`_matmul` runs every weight product of a cached pass as pieces
   of :data:`GEMM_ROWS` rows, the last one zero-padded, so that cuBLAS
   runs one kernel, chosen for one shape, whatever the number of rows;
@@ -60,6 +63,7 @@ from tpuslo_torch.models import kv_cache as kvc
 from tpuslo_torch.ops import launch_counts
 from tpuslo_torch.ops.dense_lanes import dense_lane_attention
 from tpuslo_torch.ops.flash_attention import flash_attention, flash_eligible
+from tpuslo_torch.ops.rms_norm import add_rms_norm as ops_add_rms_norm
 from tpuslo_torch.ops.rms_norm import rms_norm as ops_rms_norm
 
 Params = dict[str, Any]
@@ -256,6 +260,21 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return ops_rms_norm(x, weight, eps)
 
 
+def add_rms_norm(h: torch.Tensor, d: torch.Tensor, weight: torch.Tensor,
+                 eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The residual add ``h + d`` and :func:`rms_norm` of its rounded
+    result: the eager add and norm on the CPU, one fused launch on the
+    card."""
+    return ops_add_rms_norm(h, d, weight, eps)
+
+
+def _next_norm(params: Params, i: int) -> torch.Tensor:
+    """The norm weight after layer ``i``'s MLP: the next layer's
+    ``attn_norm``, or ``final_norm`` after the last layer."""
+    layers = params["layers"]["attn_norm"]
+    return layers[i + 1] if i + 1 < layers.shape[0] else params["final_norm"]
+
+
 def rope_frequencies(
     cfg: LlamaConfig, positions: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -400,10 +419,17 @@ def attention_block(
     caller owns that invariant) and sends flash-eligible shapes through
     :func:`flash_attention`.
     """
-    B, S, _ = h.shape
-    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-
     x = rms_norm(h, layer["attn_norm"], cfg.norm_eps)
+    out, kv = _attention_out(cfg, x, layer, cos, sin, mask, causal)
+    return h + out, kv
+
+
+def _attention_out(cfg, x: torch.Tensor, layer: Params, cos: torch.Tensor,
+                   sin: torch.Tensor, mask: torch.Tensor, causal: bool):
+    """:func:`attention_block` from the normalized ``x``, before the
+    residual: (the ``wo`` product, (k, v))."""
+    B, S, _ = x.shape
+    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _seq_matmul(x, layer["wq"]).reshape(B, S, H, HD)
     k = _seq_matmul(x, layer["wk"]).reshape(B, S, KV, HD)
     v = _seq_matmul(x, layer["wv"]).reshape(B, S, KV, HD)
@@ -411,7 +437,7 @@ def attention_block(
     k = apply_rope(k, cos, sin)
     if causal and flash_eligible(tuple(q.shape), KV):
         attn = flash_attention(q, k, v, causal=True)
-    elif h.device.type == "cuda" and B > 1:
+    elif x.device.type == "cuda" and B > 1:
         # One row at a time: the batched products would pick their
         # kernels by the batch.
         attn = torch.cat([attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
@@ -419,7 +445,7 @@ def attention_block(
                           for b in range(B)])
     else:
         attn = attention(q, k, v, mask, H // KV)
-    return h + _seq_matmul(attn.reshape(B, S, H * HD), layer["wo"]), (k, v)
+    return _seq_matmul(attn.reshape(B, S, H * HD), layer["wo"]), (k, v)
 
 
 def _dense_mlp(cfg, layer: Params, x: torch.Tensor, i: int | None = None,
@@ -433,19 +459,22 @@ def _dense_mlp(cfg, layer: Params, x: torch.Tensor, i: int | None = None,
     return _traced("w2", i, matmul(act, layer["w2"]))
 
 
-def _layer_body(
-    cfg: LlamaConfig,
-    h: torch.Tensor,
-    layer: Params,
-    cos: torch.Tensor,
-    sin: torch.Tensor,
-    mask: torch.Tensor,
-    causal: bool = False,
-) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
-    """One transformer layer; returns (hidden, (rotated_k, v))."""
-    h, kv = attention_block(cfg, h, layer, cos, sin, mask, causal=causal)
-    x = rms_norm(h, layer["mlp_norm"], cfg.norm_eps)
-    return h + _dense_mlp(cfg, layer, x, matmul=_seq_matmul), kv
+def _seq_layers(params: Params, cfg: LlamaConfig, h: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor, mask: torch.Tensor, write=None) -> torch.Tensor:
+    """The layer loop of a full-sequence pass (causal ``mask``), with the
+    final norm: each residual add reaches the norm after it in one
+    :func:`add_rms_norm`.  ``write(i, k, v)`` takes layer ``i``'s rotated
+    K and V."""
+    x = rms_norm(h, params["layers"]["attn_norm"][0], cfg.norm_eps)
+    for i in range(cfg.n_layers):
+        layer = _layer(params, i)
+        out, (k, v) = _attention_out(cfg, x, layer, cos, sin, mask, causal=True)
+        if write is not None:
+            write(i, k, v)
+        h, x = add_rms_norm(h, out, layer["mlp_norm"], cfg.norm_eps)
+        mlp = _dense_mlp(cfg, layer, x, matmul=_seq_matmul)
+        h, x = add_rms_norm(h, mlp, _next_norm(params, i), cfg.norm_eps)
+    return x
 
 
 def _at(leaf, i: int):
@@ -467,9 +496,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Ten
     h = _embed_lookup(params, tokens, cfg.dtype)
     cos, sin = rope_frequencies(cfg, positions)
     mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
-    for i in range(cfg.n_layers):
-        h, _kv = _layer_body(cfg, h, _layer(params, i), cos, sin, mask, causal=True)
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    h = _seq_layers(params, cfg, h, cos, sin, mask)
     return _seq_matmul(h, params["output"]).float()
 
 
@@ -551,12 +578,13 @@ def prefill(
     h = _embed_lookup(params, tokens, cfg.dtype)
     cos, sin = rope_frequencies(cfg, positions)
     mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
-    for i in range(cfg.n_layers):
-        h, (k, v) = _layer_body(cfg, h, _layer(params, i), cos, sin, mask, causal=True)
+
+    def write(i, k, v):
         kvc.kv_write_seq(_at(cache["k"], i), k, 0)
         kvc.kv_write_seq(_at(cache["v"], i), v, 0)
+
+    h = _seq_layers(params, cfg, h, cos, sin, mask, write)
     cache = {"k": cache["k"], "v": cache["v"], "length": length}
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     last = _row_lengths(length, B, dev) - 1
     h_last = h[torch.arange(B, device=dev), last]
     return _seq_matmul(h_last, params["output"]).float(), cache
@@ -570,8 +598,11 @@ def trace_ops(record):
     """Call ``record(op, layer, tensor)`` with the output of every op of
     the cached passes (decode, verify, draft) while the block runs: per
     layer ``attn_norm``, ``q``, ``k``, ``v``, ``rope_q``, ``rope_k``,
-    ``attention``, ``wo``, ``mlp_norm``, ``w1``, ``w3``, ``silu_mul``,
-    ``w2``, then ``final_norm`` and ``logits`` (layer ``None``).  A
+    ``attention``, ``wo``, ``wo_residual`` (the hidden state plus
+    ``wo``), ``mlp_norm``, ``w1``, ``w3``, ``silu_mul``, ``w2``,
+    ``w2_residual``, then ``final_norm`` and ``logits`` (layer ``None``).
+    A fused add + norm records both of its outputs: the residual, then
+    the norm (the next layer's ``attn_norm`` after ``w2_residual``).  A
     probe's tool for finding which op's bits depend on the batch."""
     global _TRACE
     before, _TRACE = _TRACE, record
@@ -614,11 +645,11 @@ def _cached_layers(
     else:
         key_pos = torch.arange(cfg.max_seq_len, device=h.device)
         mask = key_pos[None, None, :] <= positions[:, :, None]  # (B, K, T)
+    x = _traced("attn_norm", 0, rms_norm(h, params["layers"]["attn_norm"][0], cfg.norm_eps))
     for i in range(cfg.n_layers):
         layer = _layer(params, i)
         k_cache = _at(cache["k"], i)
         v_cache = _at(cache["v"], i)
-        x = _traced("attn_norm", i, rms_norm(h, layer["attn_norm"], cfg.norm_eps))
         q = _traced("q", i, matmul(x, layer["wq"])).reshape(B, K, H, HD)
         k = _traced("k", i, matmul(x, layer["wk"])).reshape(B, K, KV, HD)
         v = _traced("v", i, matmul(x, layer["wv"])).reshape(B, K, KV, HD)
@@ -634,10 +665,15 @@ def _cached_layers(
                 mask, H // KV,
             )
         attn = _traced("attention", i, attn)
-        h = h + _traced("wo", i, matmul(attn.reshape(B, K, H * HD), layer["wo"]))
-        x = _traced("mlp_norm", i, rms_norm(h, layer["mlp_norm"], cfg.norm_eps))
-        h = h + _dense_mlp(cfg, layer, x, i, matmul=matmul)
-    return _traced("final_norm", None, rms_norm(h, params["final_norm"], cfg.norm_eps))
+        wo = _traced("wo", i, matmul(attn.reshape(B, K, H * HD), layer["wo"]))
+        h, x = add_rms_norm(h, wo, layer["mlp_norm"], cfg.norm_eps)
+        h = _traced("wo_residual", i, h)
+        x = _traced("mlp_norm", i, x)
+        h, x = add_rms_norm(h, _dense_mlp(cfg, layer, x, i, matmul=matmul),
+                            _next_norm(params, i), cfg.norm_eps)
+        h = _traced("w2_residual", i, h)
+        x = _traced("attn_norm", i + 1, x) if i + 1 < cfg.n_layers else x
+    return _traced("final_norm", None, x)
 
 
 

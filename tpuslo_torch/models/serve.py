@@ -19,6 +19,11 @@ What differs, and why:
   queues while the card computes.
 * Sampled decoding draws from ``torch.Generator``s; greedy streams are
   the JAX engine's exactly (tests hold them so).
+* A front door's admissions go through the engine's
+  :class:`AdmissionGraphs` (on a card one CUDA graph replay per prefill
+  piece over staged storage, where JAX jits every prefill); the engine's
+  own calls stay eager.  Both cut a prompt into chunks by one
+  :meth:`ServeEngine._schedule`.
 * Tensor-parallel serving (``mesh=``) and sequence-parallel ingestion
   (``ingest_prompt_sp``) belong to the multi-device slice and raise.
 """
@@ -26,6 +31,7 @@ What differs, and why:
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Iterator
 
@@ -33,6 +39,7 @@ import numpy as np
 import torch
 
 from tpuslo_torch.device import resolve_device, synchronize
+from tpuslo_torch.models.graphs import GraphedDispatch, StagedInput, copy_cache
 from tpuslo_torch.models.kv_cache import kv_map, validate_kv_dtype
 from tpuslo_torch.models.llama import (
     GREEDY,
@@ -41,6 +48,7 @@ from tpuslo_torch.models.llama import (
     decode_chunk,
     init_kv_cache,
     init_params,
+    kv_cache_bytes,
     llama_tiny,
     prefill,
     quantize_params,
@@ -53,7 +61,7 @@ BOS = 256
 EOS = 257
 
 
-def suffix_prefill(params, tokens, kv, start: int, true_length, cfg):
+def suffix_prefill(params, tokens, kv, start, true_length, cfg):
     """Append a (padded) suffix to KV already holding ``start`` tokens.
 
     ``verify_chunk`` scores the suffix against the whole cache (prefix
@@ -61,12 +69,17 @@ def suffix_prefill(params, tokens, kv, start: int, true_length, cfg):
     ``start`` in place; the next-token
     logits are gathered at the suffix's true last position and the
     returned cache has ``length = start + true_length`` (``true_length``
-    an int or a per-row tensor).  The write raises if the padded chunk
-    would run past the cache end.
+    an int or a per-row tensor).  ``start`` is a Python int, whose write
+    raises if the padded chunk would run past the cache end, or a 0-d
+    device tensor, whose positions and cache writes the card computes
+    (one CUDA graph then serves every start: :class:`AdmissionGraphs`);
+    both give the same bits.
     """
     B = tokens.shape[0]
+    if not isinstance(start, torch.Tensor):
+        start = int(start)
     logits, cache = verify_chunk(
-        params, tokens, {"k": kv["k"], "v": kv["v"], "length": int(start)}, cfg,
+        params, tokens, {"k": kv["k"], "v": kv["v"], "length": start}, cfg,
         prompt_chunk=True,
     )
     dev = tokens.device
@@ -77,7 +90,7 @@ def suffix_prefill(params, tokens, kv, start: int, true_length, cfg):
         true_length = int(true_length)
         last_pos = torch.full((B,), true_length - 1, dtype=torch.long, device=dev)
     last = logits[torch.arange(B, device=dev), last_pos]
-    return last, {**cache, "length": int(start) + true_length}
+    return last, {**cache, "length": start + true_length}
 
 
 def forced_logits(engine, ids: list[int]) -> torch.Tensor:
@@ -222,7 +235,8 @@ class _HostRead:
             self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             self._host.copy_(t, non_blocking=True)
             self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(t.device))
+            with torch.cuda.device(t.device):
+                self._event.record()
         else:
             self._host, self._event = t, None
 
@@ -307,6 +321,7 @@ class ServeEngine:
         # Shapes that have run once: the telemetry records first hits only.
         self._seen_shapes: set[tuple[str, int]] = set()
         self.prefix_cache_max = 4
+        self._admission: AdmissionGraphs | None = None
 
     def _new_cache(self, batch: int) -> dict:
         return init_kv_cache(self.cfg, batch, kv_dtype=self.kv_dtype, device=self.device)
@@ -477,11 +492,7 @@ class ServeEngine:
             )
         final_logits = None
         cache = None
-        pos = 0
-        while pos < maxlen:
-            take = min(self.prefill_buckets[-1], maxlen - pos)
-            bucket = self._chunk_bucket(take, self.cfg.max_seq_len - (start + pos))
-            take = min(take, bucket)
+        for pos, take, bucket in self._schedule(maxlen, start):
             chunk_rows = [row[pos : pos + take] for row in rows]
             tokens = self._tokens([cr + [0] * (bucket - len(cr)) for cr in chunk_rows])
             tl = torch.tensor(
@@ -506,7 +517,6 @@ class ServeEngine:
                 final_logits = logits
             else:
                 final_logits = torch.where(ends[:, None], logits, final_logits)
-            pos += take
         lengths = torch.tensor(lens, dtype=torch.long, device=self.device) + start
         return final_logits, {**cache, "length": lengths}
 
@@ -526,20 +536,45 @@ class ServeEngine:
                 self.params, tokens, self._new_cache(1), self.cfg, true_length=len(ids)
             )
 
-    def cache_prefix(self, text: str) -> PrefixEntry:
+    def cache_prefix(self, text: str, ingest=None) -> PrefixEntry:
         """Prefill a shared prefix once; later requests clone its KV and
-        prefill only their suffix.  Bounded FIFO eviction."""
+        prefill only their suffix.  Bounded FIFO eviction.  ``ingest``
+        (an admission's :meth:`AdmissionGraphs.ingest`, which returns
+        staged storage) prefills in place of :meth:`_ingest_ids`, and the
+        entry keeps a copy of what it returns."""
         entry = self._prefix_cache.get(text)
         if entry is not None:
             return entry
         ids, _ = prefix_prompt_ids(text, "", self.cfg.max_seq_len)
-        logits, cache = self._ingest_ids(ids)
+        if ingest is None:
+            logits, cache = self._ingest_ids(ids)
+        else:
+            logits, cache = ingest(ids)
+            cache = self._clone_cache(cache)
         entry = PrefixEntry(text=text, ids=ids, cache=cache, logits=logits)
         if self.prefix_cache_max > 0:
             while len(self._prefix_cache) >= self.prefix_cache_max:
                 self._prefix_cache.pop(next(iter(self._prefix_cache)))
             self._prefix_cache[text] = entry
         return entry
+
+    def admission_graphs(self, batch_buckets: tuple[int, ...]) -> "AdmissionGraphs":
+        """The engine's :class:`AdmissionGraphs` for admission batches of
+        ``batch_buckets`` rows, built (and on a card captured) at the
+        first call and kept: a later front door over this engine
+        captures nothing.  A call for a batch bucket the held ones lack
+        builds them all anew over larger staged storage (each such
+        capture of a held key is a recapture).  The pieces return what the
+        engine's eager path returns, bit for bit, but in staged storage
+        that the next admission overwrites."""
+        held = self._admission
+        if held is None or not set(batch_buckets) <= set(held.batch_buckets):
+            buckets = tuple(sorted(set(batch_buckets)
+                                   | set(held.batch_buckets if held else ())))
+            self._admission = None  # free the old staged storage first
+            del held
+            self._admission = AdmissionGraphs(self, buckets)
+        return self._admission
 
     def _clone_cache(self, cache: dict) -> dict:
         """Fresh buffers, so that in-place writes never reach a snapshot."""
@@ -549,6 +584,21 @@ class ServeEngine:
             "v": kv_map(torch.clone, cache["v"]),
             "length": length.clone() if isinstance(length, torch.Tensor) else length,
         }
+
+    def _schedule(self, longest: int, start: int = 0) -> list[tuple[int, int, int]]:
+        """(pos, take, bucket) of each chunk that ingests ``longest`` ids
+        into a cache holding ``start``: the largest bucket's worth at a
+        time, each padded to a bucket that fits the cache
+        (:meth:`_chunk_bucket`)."""
+        chunks = []
+        pos = 0
+        while pos < longest:
+            take = min(self.prefill_buckets[-1], longest - pos)
+            bucket = self._chunk_bucket(take, self.cfg.max_seq_len - (start + pos))
+            take = min(take, bucket)
+            chunks.append((pos, take, bucket))
+            pos += take
+        return chunks
 
     def _chunk_bucket(self, take: int, remaining: int) -> int:
         """Chunk bucket that never crosses the cache end while reusing
@@ -574,11 +624,7 @@ class ServeEngine:
         each chunk padded to a prefill bucket that fits the cache.
         Returns (next-token logits, cache)."""
         logits = None
-        pos = 0
-        while pos < len(ids):
-            take = min(self.prefill_buckets[-1], len(ids) - pos)
-            bucket = self._chunk_bucket(take, self.cfg.max_seq_len - (start + pos))
-            take = min(take, bucket)
+        for pos, take, bucket in self._schedule(len(ids), start):
             chunk = ids[pos : pos + take] + [0] * (bucket - take)
             first_hit = ("suffix", bucket) not in self._seen_shapes
             if first_hit:
@@ -595,7 +641,6 @@ class ServeEngine:
                 self._record_compile(
                     "suffix", bucket, (time.perf_counter() - t0) * 1000.0
                 )
-            pos += take
         return logits, cache
 
     def _ingest_ids(self, ids: list[int]):
@@ -718,3 +763,228 @@ class ServeEngine:
                 if idx >= max_new_tokens:
                     return
             pending, last = next_read, next_last
+
+
+class _PrefillPiece:
+    """A cold prefill of ``B`` rows at bucket ``S``, written into the first
+    ``B`` rows of the engine's staged cache (one row: its staged row).
+    Its inputs, the tokens and each row's true length, are views of one
+    staged buffer: one copy from the host per replay."""
+
+    def __init__(self, graphs: "AdmissionGraphs", B: int, S: int, owner, compile_events):
+        dev = graphs.device
+        self.params, self.cfg = graphs.params, graphs.cfg
+        self.B, self.S = B, S
+        self.staged = StagedInput((B * S + B,), torch.long, dev)
+        self.tokens = self.staged.tensor[:B * S].view(B, S)
+        self.lengths = self.staged.tensor[B * S:]
+        self.lengths.fill_(1)
+        self.cache = graphs.rows_view(B)
+        self.run = GraphedDispatch(
+            self.body, "prefill", (self.tokens,), dev, f"prefill:{B}x{S}",
+            owner=owner, pool=graphs.pool, compile_events=compile_events,
+        )
+
+    def body(self) -> torch.Tensor:
+        with dispatch_range("prefill", self.tokens):
+            logits, _ = prefill(self.params, self.tokens, self.cache, self.cfg,
+                                true_length=self.lengths)
+        return logits
+
+    def __call__(self, tokens: np.ndarray, lengths: list[int]) -> torch.Tensor:
+        self.staged.write(np.concatenate([tokens.reshape(-1), lengths]))
+        return self.run()
+
+
+class _SuffixPiece:
+    """One prompt chunk of bucket ``S`` appended to the engine's staged row
+    at a staged 0-d start.  Its inputs, the tokens, the start and the
+    chunk's true length, are views of one staged buffer."""
+
+    def __init__(self, graphs: "AdmissionGraphs", S: int, owner, compile_events):
+        dev = graphs.device
+        self.params, self.cfg = graphs.params, graphs.cfg
+        self.S = S
+        self.staged = StagedInput((S + 2,), torch.long, dev)
+        self.tokens = self.staged.tensor[:S].view(1, S)
+        self.start = self.staged.tensor[S]
+        self.length = self.staged.tensor[S + 1:]
+        self.length.fill_(1)
+        self.cache = graphs.row
+        self.run = GraphedDispatch(
+            self.body, "suffix_prefill", (self.tokens,), dev, f"suffix_prefill:{S}",
+            owner=owner, pool=graphs.pool, compile_events=compile_events,
+        )
+
+    def body(self) -> torch.Tensor:
+        with dispatch_range("suffix_prefill", self.tokens):
+            logits, _ = suffix_prefill(self.params, self.tokens, self.cache,
+                                       self.start, self.length, self.cfg)
+        return logits
+
+    def __call__(self, tokens: list[int], start: int, length: int) -> torch.Tensor:
+        staged = np.zeros(self.S + 2, np.int64)
+        staged[:len(tokens)] = tokens
+        staged[self.S:] = (start, length)
+        self.staged.write(staged)
+        return self.run()
+
+
+class AdmissionGraphs:
+    """A front door's admissions on one engine: each prefill piece one
+    CUDA graph replay on a card (the JAX engine jits every prefill).
+
+    The pieces, captured when the first front door over the engine is
+    built (:meth:`ServeEngine.admission_graphs`), then kept:
+
+    * a cold prefill per (batch bucket B, prefill bucket S), writing the
+      first B rows of one staged cache of the largest batch bucket (B 1:
+      the staged row), with each row's true length staged;
+    * a suffix chunk per prefill bucket S on one staged row, at a staged
+      0-d start (:func:`suffix_prefill`): a warm prefix admission, the
+      chunks past the head of a long prompt, a snapshot-restored
+      request's teacher forcing.
+
+    Inputs are refilled through :class:`~tpuslo_torch.models.graphs.StagedInput`
+    (no synchronizing call).  A front door admits through these methods
+    rather than the engine's.  Every method
+    returns what the engine's eager path returns for the same request
+    (:meth:`prefill_rows` is ``_prefill_rows(rows, 0)``, :meth:`ingest`
+    is ``_ingest_ids``, :meth:`ingest_ids` is ``ingest_ids``), bit for
+    bit: a replay runs the eager body's kernels.  A batched
+    admission runs the chunks past its head for each row that reaches
+    them, alone on the staged row: a lone chunk's products and K2's lanes
+    give a row the bits it has in a batch, and rows that ended earlier
+    no longer run pad chunks.  A chunk whose bucket is no prefill bucket
+    (a remainder at the cache end, :meth:`ServeEngine._chunk_bucket`)
+    runs eagerly, counted in ``eager_chunks``.
+
+    The returned caches are views of staged storage, and a logits
+    tensor a piece returns is the graph's: the next admission on this
+    engine overwrites both.  Callers copy what they keep (the front door
+    injects the rows into its pools at once; the prefix cache clones its
+    snapshot, :meth:`ServeEngine.cache_prefix`).  On the CPU every piece
+    runs its body eagerly over the same staged storage.
+    """
+
+    def __init__(self, engine: ServeEngine, batch_buckets: tuple[int, ...]):
+        self._engine = weakref.proxy(engine)  # the engine holds the graphs
+        self.params, self.cfg, self.device = engine.params, engine.cfg, engine.device
+        self.prefill_buckets = engine.prefill_buckets
+        self.batch_buckets = tuple(batch_buckets)
+        widest = self.batch_buckets[-1]
+        kv = engine.kv_dtype
+        #: Staged KV bytes: the row, and the batch rows when a bucket has more than one.
+        self.staged_bytes = kv_cache_bytes(self.cfg, 1 + (widest if widest > 1 else 0), kv)
+        self.row = init_kv_cache(self.cfg, 1, kv_dtype=kv, device=self.device)
+        self.rows = (init_kv_cache(self.cfg, widest, kv_dtype=kv, device=self.device)
+                     if widest > 1 else None)
+        cuda = self.device.type == "cuda"
+        self.pool = torch.cuda.graph_pool_handle() if cuda else None
+        self.eager_chunks = 0
+        reserved = torch.cuda.memory_reserved(self.device) if cuda else 0
+        t0 = time.perf_counter()
+        events = engine.compile_events
+        self.prefills = {(B, S): _PrefillPiece(self, B, S, engine, events)
+                         for B in self.batch_buckets for S in self.prefill_buckets}
+        self.suffixes = {S: _SuffixPiece(self, S, engine, events) for S in self.prefill_buckets}
+        #: Graphs captured, their milliseconds, and the device memory the
+        #: captures reserved (the graphs' pool), all 0 on the CPU.
+        self.captures = sum(p.run.graph is not None
+                            for p in (*self.prefills.values(), *self.suffixes.values()))
+        self.capture_ms = (time.perf_counter() - t0) * 1000.0 if cuda else 0.0
+        self.pool_bytes = (torch.cuda.memory_reserved(self.device) - reserved) if cuda else 0
+
+    def rows_view(self, B: int) -> dict:
+        """The staged cache a B-row piece writes (its first B rows)."""
+        if B == 1:
+            return self.row
+
+        def head(a):
+            return a[:, :B]
+
+        return {"k": kv_map(head, self.rows["k"]), "v": kv_map(head, self.rows["v"])}
+
+    def _row_of(self, cache: dict, b: int) -> dict:
+        def one(a):
+            return a[:, b:b + 1]
+
+        return {"k": kv_map(one, cache["k"]), "v": kv_map(one, cache["v"])}
+
+    def _suffix(self, ids: list[int], start: int, bucket: int, length: int) -> torch.Tensor:
+        """Append one chunk of ``ids`` at ``start`` to the staged row."""
+        piece = self.suffixes.get(bucket)
+        if piece is not None:
+            return piece(ids, start, length)
+        self.eager_chunks += 1
+        tokens = self._engine._tokens([ids + [0] * (bucket - len(ids))])
+        with dispatch_range("suffix_prefill", tokens):
+            logits, _ = suffix_prefill(self.params, tokens, self.row, start, length, self.cfg)
+        return logits
+
+    def _prefill(self, rows: list[list[int]]) -> tuple[torch.Tensor, dict]:
+        """Logits (a copy) and the staged K/V of ``_prefill_rows(rows, 0)``."""
+        lens = [len(r) for r in rows]
+        if max(lens) > self.cfg.max_seq_len:
+            raise ValueError(
+                f"{max(lens)} positions exceed the cache ({self.cfg.max_seq_len})"
+            )
+        B = len(rows)
+        chunks = self._engine._schedule(max(lens))
+        _, take, S = chunks[0]
+        head = self.prefills[(B, S)]
+        tokens = np.zeros((B, S), np.int64)
+        for b, r in enumerate(rows):
+            tokens[b, :min(len(r), take)] = r[:take]
+        logits = head(tokens, [min(max(n, 1), take) for n in lens]).clone()
+        for b, n in enumerate(lens):
+            if n <= take:
+                continue
+            if B > 1:
+                copy_cache(self.row, self._row_of(head.cache, b))
+            for pos, take_c, S_c in chunks[1:]:
+                if pos >= n:
+                    break
+                last = self._suffix(rows[b][pos:pos + take_c], pos, S_c,
+                                    min(n - pos, take_c))
+            logits[b:b + 1].copy_(last)
+            if B > 1:
+                copy_cache(self._row_of(head.cache, b), self.row)
+        return logits, head.cache
+
+    def prefill_rows(self, rows: list[list[int]]) -> tuple[torch.Tensor, dict]:
+        """A batched cold admission of ``rows`` (a batch bucket of them):
+        ``ServeEngine._prefill_rows(rows, 0)``."""
+        logits, kv = self._prefill(rows)
+        lengths = _upload([len(r) for r in rows], torch.long, self.device)
+        return logits, {**kv, "length": lengths}
+
+    def ingest(self, ids: list[int]) -> tuple[torch.Tensor, dict]:
+        """``ServeEngine._ingest_ids``: a head prefill and chunked appends."""
+        logits, kv = self._prefill([ids])
+        return logits, {**kv, "length": len(ids)}
+
+    def _append(self, ids: list[int], start: int) -> tuple[torch.Tensor, dict]:
+        """``ServeEngine._append_ids`` into the staged row, which holds
+        ``start`` tokens."""
+        last = None
+        for pos, take, bucket in self._engine._schedule(len(ids), start):
+            last = self._suffix(ids[pos:pos + take], start + pos, bucket, take)
+        return last, {"k": self.row["k"], "v": self.row["v"], "length": start + len(ids)}
+
+    def ingest_ids(self, ids: list[int], prefix: str | None = None,
+                   prefix_ids: list[int] | None = None) -> tuple[torch.Tensor, dict]:
+        """``ServeEngine.ingest_ids``: a warm prefix's snapshot is copied
+        into the staged row (no new cache) and only the tail prefills; a
+        cold prefix is ingested here and the engine's prefix cache keeps
+        a copy (:meth:`ServeEngine.cache_prefix`)."""
+        if prefix and prefix_ids:
+            entry = self._engine.cache_prefix(prefix, ingest=self.ingest)
+            if entry.ids == prefix_ids and ids[: len(prefix_ids)] == prefix_ids:
+                tail = ids[len(prefix_ids):]
+                copy_cache(self.row, entry.cache)
+                if not tail:
+                    return entry.logits, {"k": self.row["k"], "v": self.row["v"],
+                                          "length": entry.cache["length"]}
+                return self._append(tail, len(prefix_ids))
+        return self.ingest(ids)

@@ -35,10 +35,12 @@ What differs from the JAX module, and why:
   ``(drafts, preds, accepted)`` tensor through
   :class:`tpuslo_torch.models.serve._HostRead`.
 * On a card every dispatch is **one CUDA graph replay**, as it is one
-  jitted program in JAX (:class:`GraphedDispatch`).  A graph bakes in
-  addresses, so the engines own buffers whose storage never changes:
+  jitted program in JAX
+  (:class:`~tpuslo_torch.models.graphs.GraphedDispatch`).  A graph bakes
+  in addresses, so the engines own buffers whose storage never changes:
   the caches, ``current``, the frontiers and the mask (refilled from
-  pinned host memory, :class:`StagedInput`), and the packed output.
+  pinned host memory, :class:`~tpuslo_torch.models.graphs.StagedInput`),
+  and the packed output.
   A request's prefill writes fresh caches, which are copied into the
   engine's; the single-token tail near capacity stays eager.  Each
   capture is the port's compile: it lands in the target
@@ -51,16 +53,13 @@ What differs from the JAX module, and why:
 
 from __future__ import annotations
 
-import gc
-import inspect
-import time
 import weakref
 from functools import lru_cache
-from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from tpuslo_torch.models.graphs import GraphedDispatch, StagedInput, copy_cache
 from tpuslo_torch.models.kv_cache import kv_leaf_pairs
 from tpuslo_torch.models.llama import decode_chunk, decode_step, init_kv_cache, verify_chunk
 from tpuslo_torch.models.serve import (
@@ -72,8 +71,7 @@ from tpuslo_torch.models.serve import (
     encode_bytes,
     prefix_prompt_ids,
 )
-from tpuslo_torch.ops import launch_counts
-from tpuslo_torch.otel.xla_spans import capture_range, dispatch_range, program_fingerprint
+from tpuslo_torch.otel.xla_spans import dispatch_range
 
 
 def _spec_round_core(
@@ -236,132 +234,6 @@ def _shared_spec_multi_round_fn(cfg_t, cfg_d, k: int, rounds: int):
         )
 
     return spec_multi_round
-
-
-class StagedInput:
-    """A device buffer of fixed storage that the host refills before each
-    dispatch: on a card through a pinned host buffer and a copy that does
-    not make the host wait.  The previous dispatch's read has waited for
-    the previous copy, so the host buffer is free when it is refilled."""
-
-    def __init__(self, shape, dtype: torch.dtype, device: torch.device):
-        self.tensor = torch.zeros(shape, dtype=dtype, device=device)
-        self._host = torch.zeros(shape, dtype=dtype, pin_memory=device.type == "cuda")
-
-    def write(self, values) -> None:
-        self._host.numpy()[...] = values
-        self.tensor.copy_(self._host, non_blocking=True)
-
-
-class GraphedDispatch:
-    """One dispatch over buffers of fixed storage.
-
-    ``body()`` queues the dispatch's work, reads and writes only buffers
-    whose storage never changes, and returns its outputs.  On the CPU
-    each call runs ``body`` eagerly.  On a card the constructor runs
-    ``body`` once on a side stream (the warm-up), captures a second run
-    in a CUDA graph inside ``pool`` (the owner's graphs share one) and
-    records the capture as a compile event in ``compile_events``; each
-    call then replays the graph inside one dispatch range named as the
-    eager round names its own, and returns the captured outputs, whose
-    storage is the graph's.  A capture that fails raises: nothing falls
-    back to the eager body on a card.  The warm-up changes the buffers,
-    so the owner resets them after construction.
-
-    The kernels' launch counters (:mod:`tpuslo_torch.ops.launch_counts`)
-    count what ran on the card: the capture's own increments are taken
-    back (recording is not launching) and each replay adds them.
-
-    A bound-method ``body`` is held weakly, so that an engine and its
-    graph form no reference cycle: a dropped engine (and its graph) is
-    freed at once, never by the cyclic collector in the middle of another
-    engine's capture, where freeing a graph or pinned memory invalidates
-    the capture.  The collector is also off while a capture runs.
-    """
-
-    #: ``on_capture(owner, key, ms)`` after every capture, when set
-    #: (:mod:`tpuslo_torch.analysis.jitaudit` sets it).
-    on_capture: Callable[[Any, str, float], None] | None = None
-
-    def __init__(
-        self,
-        body: Callable[[], Any],
-        module: str,
-        inputs: tuple,
-        device: torch.device,
-        key: str,
-        owner: Any = None,
-        pool=None,
-        compile_events: list | None = None,
-    ):
-        self._body_ref = (
-            weakref.WeakMethod(body) if inspect.ismethod(body) else (lambda: body)
-        )
-        self.module = module
-        self._inputs = inputs
-        self.key = key
-        self.graph = None
-        self.outputs = None
-        self._launches: list = []
-        self.capture_ms: float | None = None
-        if device.type == "cuda":
-            self._capture(device, owner, pool, compile_events)
-
-    def _body(self):
-        """Run the dispatch's eager body once."""
-        return self._body_ref()()
-
-    def _capture(self, device, owner, pool, compile_events) -> None:
-        t0 = time.perf_counter()
-        current = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(current)
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with capture_range(self.module, *self._inputs):
-                with torch.cuda.stream(side):
-                    self._body()
-                current.wait_stream(side)
-                graph = torch.cuda.CUDAGraph()
-                counted = launch_counts.snapshot()
-                with torch.cuda.graph(graph, pool=pool):
-                    self.outputs = self._body()
-                # What the capture recorded is launched by each replay.
-                self._launches = launch_counts.since(counted)
-                launch_counts.add(self._launches, -1)
-        finally:
-            if collecting:
-                gc.enable()
-        torch.cuda.synchronize(device)
-        self.graph = graph
-        self.capture_ms = (time.perf_counter() - t0) * 1000.0
-        if compile_events is not None:
-            compile_events.append({
-                "bucket": self.key,
-                "compile_ms": self.capture_ms,
-                "program_id": program_fingerprint(self.module, *self._inputs),
-                "module_name": self.module,
-                "duration_ms": self.capture_ms,
-            })
-        if GraphedDispatch.on_capture is not None:
-            GraphedDispatch.on_capture(owner, self.key, self.capture_ms)
-
-    def __call__(self):
-        if self.graph is None:
-            return self._body()
-        with dispatch_range(self.module, *self._inputs):
-            self.graph.replay()
-        launch_counts.add(self._launches)
-        return self.outputs
-
-
-def copy_cache(dst: dict, src: dict) -> None:
-    """Copy ``src``'s K/V into ``dst``'s storage (same shape and
-    representation), leaving ``dst``'s ``length`` alone."""
-    for side in ("k", "v"):
-        for d, s in kv_leaf_pairs(dst[side], src[side]):
-            d.copy_(s)
 
 
 def zero_cache(cache: dict) -> None:

@@ -6,7 +6,7 @@ plain integer attribute (``paged_decode_attention.launches`` ...), and
 the model counts the layers its cached passes ran on the card in
 :data:`cached_layers`, which K2's lanes are held to.  A
 replay of a captured graph launches what the capture recorded without
-running the wrappers: :class:`~tpuslo_torch.models.speculative.GraphedDispatch`
+running the wrappers: :class:`~tpuslo_torch.models.graphs.GraphedDispatch`
 takes the counters' :func:`snapshot` around the capture, puts them back
 (recording is not launching) and credits the difference at every
 replay, so the counters keep telling what ran on the card.

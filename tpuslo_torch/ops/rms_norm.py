@@ -1,23 +1,29 @@
-"""Batch-invariant RMSNorm: a hand-written Hopper kernel and its plain
-PyTorch version.
+"""Batch-invariant RMSNorm, and the residual add fused into it: a
+hand-written Hopper kernel and their plain PyTorch versions.
 
-:func:`rms_norm` routes by the device of its input alone:
+:func:`rms_norm` and :func:`add_rms_norm` route by the device of their
+input alone:
 
-* a CPU tensor runs :func:`rms_norm_reference`, the model's RMSNorm as
-  the JAX module computes it (f32 mean of squares, ``rsqrt``, cast back
-  to the input dtype, then times the weight);
+* a CPU tensor runs the plain version: :func:`rms_norm_reference`, the
+  model's RMSNorm as the JAX module computes it (f32 mean of squares,
+  ``rsqrt``, cast back to the input dtype, then times the weight), and
+  :func:`add_rms_norm_reference`, the eager residual add before it;
 * a CUDA tensor launches ``csrc/batch_invariant.cu`` (built with nvcc at
-  first use, see :mod:`tpuslo_torch.ops._build`): one CTA per row and an
-  order of summation over the row that depends on its length alone, so
-  that a row's output bits do not depend on how many rows share the call
-  or on what they hold.  PyTorch's own reduction picks its block shape
-  from the number of rows too, which is why the decode passes of one
-  stream and of a batch of slots parted at near-ties.  It takes an f32,
-  bf16 or f16 input with a weight of the same dtype and raises, naming
-  it, on anything else; a failed build or launch raises too.  There is
-  no fallback from the card to the plain version.
+  first use, see :mod:`tpuslo_torch.ops._build`): one CTA per row, with
+  an order of summation over the row that depends on its length alone,
+  so that a row's output bits do not depend on how many rows share the
+  call or on what they hold.  PyTorch's own reduction picks its block
+  shape from the number of rows too, which is why the decode passes of
+  one stream and of a batch of slots parted at near-ties.  The fused
+  kernel writes the residual ``h + d`` rounded once to the input dtype
+  (the eager add's bits) and the norm of that rounded sum, in one pass
+  over global memory.  Both take an f32, bf16 or f16 input with a weight
+  (and an update) of the same dtype and raise, naming it, on anything
+  else; a failed build or launch raises too.  There is no fallback from
+  the card to the plain version.
 
-``rms_norm.launches`` counts calls that launched the kernel.
+``rms_norm.launches`` and ``add_rms_norm.launches`` count calls that
+launched the kernel.
 """
 
 from __future__ import annotations
@@ -41,14 +47,71 @@ def rms_norm_reference(x: torch.Tensor, weight: torch.Tensor, eps: float) -> tor
     return (x32 * rms).to(x.dtype) * weight
 
 
+def add_rms_norm_reference(
+    h: torch.Tensor, d: torch.Tensor, weight: torch.Tensor, eps: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(h + d, rms_norm_reference(h + d))``: the residual add and the
+    norm of its (rounded) result, as the model runs them eagerly."""
+    h = h + d
+    return h, rms_norm_reference(h, weight, eps)
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel():
+def _kernels():
     lib = _build.load("batch_invariant")
-    fn = lib.tpuslo_rms_norm
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    norm = lib.tpuslo_rms_norm
+    norm.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    norm.restype = ctypes.c_int
+    fused = lib.tpuslo_add_rms_norm
+    fused.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 4
+                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fused.restype = ctypes.c_int
+    return norm, fused
+
+
+def _check(what: str, x: torch.Tensor, weight: torch.Tensor, *more: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, not {x.device}")
+    D = x.shape[-1]
+    if x.dtype not in DTYPES or weight.dtype != x.dtype or any(m.dtype != x.dtype for m in more):
+        raise ValueError(
+            f"the {what} kernel takes tensors of one dtype in "
+            f"{sorted(str(d) for d in DTYPES)}, got "
+            f"{[str(t.dtype) for t in (x, *more, weight)]}"
+        )
+    if weight.device != x.device or weight.shape != (D,) or weight.stride(-1) != 1:
+        raise ValueError(
+            f"the weight must be a ({D},) tensor with unit stride on {x.device}, got "
+            f"{tuple(weight.shape)} on {weight.device}"
+        )
+    for m in more:
+        if m.shape != x.shape or m.device != x.device:
+            raise ValueError(
+                f"{what}: the update must match the input, got {tuple(m.shape)} on "
+                f"{m.device} for {tuple(x.shape)} on {x.device}"
+            )
+    if (D * x.element_size()) % 16 == 0 and weight.data_ptr() % 16:
+        raise ValueError(f"{what}: the weight must start on 16 bytes")
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as ``(rows, D)`` with unit inner stride, and, where a row is
+    a whole number of 16-byte packs, 16-byte aligned rows (a copy
+    otherwise), so that the kernel's path depends on D alone."""
+    D = x.shape[-1]
+    x2 = x.reshape(-1, D)
+    vec = 16 // x.element_size()
+    if x2.stride(-1) != 1 or (D % vec == 0 and (x2.data_ptr() % 16 or x2.stride(0) % vec)):
+        x2 = x2.contiguous()
+        if D % vec == 0 and x2.data_ptr() % 16:
+            x2 = x2.clone()
+    return x2
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -61,34 +124,52 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     """
     if x.device.type == "cpu":
         return rms_norm_reference(x, weight, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"rms_norm runs on cpu or cuda, not {x.device}")
-    D = x.shape[-1]
-    if x.dtype not in DTYPES or weight.dtype != x.dtype:
-        raise ValueError(
-            f"the RMSNorm kernel takes an input and a weight of one dtype in "
-            f"{sorted(str(d) for d in DTYPES)}, got {x.dtype} and {weight.dtype}"
-        )
-    if weight.device != x.device or weight.shape != (D,) or weight.stride(-1) != 1:
-        raise ValueError(
-            f"the weight must be a ({D},) tensor with unit stride on {x.device}, got "
-            f"{tuple(weight.shape)} on {weight.device}"
-        )
-    x2 = x.reshape(-1, D)
-    if x2.stride(-1) != 1:
-        x2 = x2.contiguous()
+    _check("rms_norm", x, weight)
+    x2 = _rows(x)
     out = torch.empty(x2.shape, dtype=x.dtype, device=x.device)
     if x2.shape[0] == 0:
         return out.reshape(x.shape)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel()(x2.data_ptr(), weight.data_ptr(), out.data_ptr(), x2.shape[0], D,
-                        x2.stride(0), out.stride(0), float(eps), DTYPES[x.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"rms_norm kernel launch failed: CUDA error {err}")
+        err = _kernels()[0](x2.data_ptr(), weight.data_ptr(), out.data_ptr(), x2.shape[0],
+                            x2.shape[1], x2.stride(0), out.stride(0), float(eps),
+                            DTYPES[x.dtype], stream)
+    _raise_on(err, "rms_norm")
     rms_norm.launches += 1
     return out.reshape(x.shape)
 
 
+def add_rms_norm(
+    h: torch.Tensor, d: torch.Tensor, weight: torch.Tensor, eps: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The residual add and the RMSNorm after it: ``(h + d, y)`` with
+    ``y`` the RMSNorm of the rounded ``h + d`` over the last axis.
+
+    On the CPU this is :func:`add_rms_norm_reference`.  On CUDA it
+    launches the fused kernel on the current stream (capturable in a CUDA
+    graph) and returns two new tensors of ``h``'s shape and dtype: the
+    sum has the eager add's bits, ``y`` the norm kernel's.
+    """
+    if h.device.type == "cpu":
+        return add_rms_norm_reference(h, d, weight, eps)
+    _check("add_rms_norm", h, weight, d)
+    h2, d2 = _rows(h), _rows(d)
+    h_out = torch.empty(h2.shape, dtype=h.dtype, device=h.device)
+    y = torch.empty(h2.shape, dtype=h.dtype, device=h.device)
+    if h2.shape[0] == 0:
+        return h_out.reshape(h.shape), y.reshape(h.shape)
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = _kernels()[1](h2.data_ptr(), d2.data_ptr(), weight.data_ptr(), h_out.data_ptr(),
+                            y.data_ptr(), h2.shape[0], h2.shape[1], h2.stride(0),
+                            d2.stride(0), h_out.stride(0), y.stride(0), float(eps),
+                            DTYPES[h.dtype], stream)
+    _raise_on(err, "add_rms_norm")
+    add_rms_norm.launches += 1
+    return h_out.reshape(h.shape), y.reshape(h.shape)
+
+
 rms_norm.launches = 0
+add_rms_norm.launches = 0
 launch_counts.register(rms_norm, "launches")
+launch_counts.register(add_rms_norm, "launches")

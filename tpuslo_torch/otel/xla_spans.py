@@ -35,11 +35,12 @@ JAX module's; only two things change:
   lane) is read extent by extent; a trace with no device events (the
   CPU) reads the CPU-side ranges.
 * **what** :class:`capture` **wraps**: ``torch.profiler.profile`` with
-  CPU and, when a card is present, CUDA activities.  It records
-  ``time.time_ns()`` on entry, as the JAX capture does, and writes the
-  Chrome trace into ``log_dir`` in the JAX layout
-  (``plugins/profile/<run>/<host>.trace.json.gz``), where
-  :func:`find_trace_files` finds it.
+  CUDA activities when a card is present and CPU activities as asked
+  (always without a card).  It records ``time.time_ns()`` on entry, as
+  the JAX capture does, and writes the Chrome trace into ``log_dir`` in
+  the JAX layout (``plugins/profile/<run>/<host>.trace.json``, plain
+  JSON: gzipping it cost a capture ~0.1 s on the card; the loaders also
+  read ``.trace.json.gz``), where :func:`find_trace_files` finds it.
 
 Timestamps: a Kineto document carries ``baseTimeNanoseconds`` and its
 ``ts`` are microseconds relative to that base, not absolute
@@ -59,13 +60,13 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import gc
 import glob
 import gzip
 import hashlib
 import json
 import os
 import re
-import shutil
 import socket
 import time
 from dataclasses import dataclass, field
@@ -458,14 +459,26 @@ def find_trace_files(log_dir: str) -> list[str]:
     )
     out: list[str] = []
     for run in runs:
-        out.extend(sorted(glob.glob(os.path.join(run, "*.trace.json.gz"))))
+        out.extend(sorted(
+            glob.glob(os.path.join(run, "*.trace.json.gz"))
+            + glob.glob(os.path.join(run, "*.trace.json"))
+        ))
     return out
+
+
+def _host_of(path: str) -> str:
+    """A trace file's host: its name without the fixed suffix (dotted
+    hostnames stay distinct)."""
+    name = os.path.basename(path)
+    return name[: -len(".gz")] if name.endswith(".gz") else name
 
 
 def load_trace_file(
     path: str, include_ops: bool = False, anchor_unix_ns: int = 0
 ) -> list[XLASpan]:
-    with gzip.open(path, "rt", encoding="utf-8") as fh:
+    """Spans of one trace file, gzipped (``.trace.json.gz``) or plain."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rt", encoding="utf-8") as fh:
         return parse_trace_events(
             json.load(fh), include_ops=include_ops, anchor_unix_ns=anchor_unix_ns
         )
@@ -490,7 +503,7 @@ def load_latest_trace_by_host(
             break
         # Strip the fixed suffix only: dotted hostnames must stay
         # distinct or per-host launch counters would collide.
-        host = os.path.basename(path)[: -len(".trace.json.gz")]
+        host = _host_of(path)[: -len(".trace.json")]
         out.setdefault(host, []).extend(
             load_trace_file(
                 path, include_ops=include_ops, anchor_unix_ns=anchor_unix_ns
@@ -794,24 +807,78 @@ def _run_dir_name() -> str:
     return f"{stamp}_{ns % 1_000_000_000:09d}_{_RUN_SEQ[0]:06d}"
 
 
+def _category(e) -> str:
+    """A Kineto event's Chrome-trace category.  torch 2.13 names it
+    (``activity_type``); torch 2.11 does not, and it is told from the
+    device, the user-annotation flag and the name: on the device a
+    range's extent, a copy (``Memcpy ...``), a fill (``Memset ...``) or
+    a kernel; on the host a range, a CUDA runtime or driver call
+    (``cuda...``/``cu...``) or an operator."""
+    kind = getattr(e, "activity_type", None)
+    if kind is not None:
+        return kind()
+    name = e.name()
+    if e.device_type() == torch.autograd.DeviceType.CUDA:
+        if e.is_user_annotation():
+            return CAT_GPU_ANNOTATION
+        if name.startswith("Memcpy"):
+            return "gpu_memcpy"
+        if name.startswith("Memset"):
+            return "gpu_memset"
+        return "kernel"
+    if e.is_user_annotation():
+        return CAT_CPU_ANNOTATION
+    if name.startswith("cuda"):
+        return "cuda_runtime"
+    if name.startswith("cu"):
+        return "cuda_driver"
+    return "cpu_op"
+
+
+def _doc_from_events(profile, anchor_unix_ns: int) -> dict[str, Any]:
+    """The fields :func:`parse_trace_events` reads, from a finished
+    ``torch.profiler`` run's in-memory Kineto events (no re-read of the
+    exported trace): each event's category, name, ``pid`` (device index;
+    the process on the host), ``tid`` (stream; thread on the host) and
+    correlation id as the Chrome export writes them, its times in
+    microseconds after ``anchor_unix_ns`` (the document's base)."""
+    events = []
+    for e in profile.profiler.kineto_results.events():
+        events.append({
+            "ph": "X", "cat": _category(e), "name": e.name(),
+            "pid": e.device_index(), "tid": e.device_resource_id(),
+            "ts": (e.start_ns() - anchor_unix_ns) / 1000.0,
+            "dur": e.duration_ns() / 1000.0,
+            "args": {"correlation": e.correlation_id()},
+        })
+    return {"traceEvents": events, "baseTimeNanoseconds": anchor_unix_ns}
+
+
 class capture:
     """Context manager: profile a workload region and yield its spans.
 
     Wraps ``torch.profiler.profile`` (CPU activity, and CUDA when a card
-    is present) and records the wall-clock anchor, so ``span_refs()``
-    emits absolute timestamps the matcher can join against probe
-    events::
+    is present: without CPU activity the profiler records no
+    ``record_function`` range, so no module lane) and records the
+    wall-clock anchor, so
+    ``span_refs()`` emits absolute timestamps the matcher can join
+    against probe events::
 
         with xla_spans.capture(tmpdir, include_ops=True) as cap:
             engine.step()
         refs = cap.span_refs(service="frontdoor", node="host-0")
 
     On exit the device is synchronized (so that the region's kernels are
-    in the trace), the Chrome trace is written under ``log_dir`` and
-    parsed; ``module_source`` says how the module lane was read (see
+    in the trace), the Chrome trace is written under ``log_dir``
+    (``<host>.trace.json``, as the profiler exports it, for the readers
+    of the trace directory) and the spans are parsed from the profiler's
+    in-memory events (:func:`_doc_from_events`; reading the export back
+    cost ~35 ms more per window of a front-door step on the card).
+    ``module_source`` says how the module lane was read (see
     :func:`module_lane_source`; a card's trace without the ranges'
-    device extents raises) and ``profile`` holds the profiler for
-    callers that want its own tables.
+    device extents raises), ``stages_ms`` what each stage of the exit
+    cost, and ``profile`` holds the profiler for callers that want its
+    own tables.
     """
 
     def __init__(self, log_dir: str, include_ops: bool = False):
@@ -822,6 +889,7 @@ class capture:
         self.spans_by_host: dict[str, list[XLASpan]] = {}
         self.trace_path = ""
         self.module_source = ""
+        self.stages_ms: dict[str, float] = {}
         self.profile = None
 
     def __enter__(self) -> "capture":
@@ -836,9 +904,19 @@ class capture:
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
+        stages = self.stages_ms = {}
+        mark = [time.perf_counter()]
+
+        def lap(stage: str) -> None:
+            now = time.perf_counter()
+            stages[stage] = (now - mark[0]) * 1000.0
+            mark[0] = now
+
         if torch.cuda.is_available():
             torch.cuda.synchronize()
+        lap("synchronize")
         self.profile.__exit__(exc_type, exc, tb)
+        lap("stop")
         if exc_type is not None:
             return
         run_dir = os.path.join(
@@ -846,26 +924,30 @@ class capture:
         )
         os.makedirs(run_dir, exist_ok=True)
         host = socket.gethostname()
-        self.trace_path = os.path.join(run_dir, f"{host}.trace.json.gz")
-        # Export plain JSON, parse it from memory, and keep it gzipped
-        # at the fastest level (a front-door step's trace is tens of MB).
-        plain = self.trace_path[: -len(".gz")]
-        self.profile.export_chrome_trace(plain)
-        with open(plain, "r", encoding="utf-8") as fh:
-            doc = json.load(fh)
-        with open(plain, "rb") as src, gzip.open(
-            self.trace_path, "wb", compresslevel=1
-        ) as dst:
-            shutil.copyfileobj(src, dst)
-        os.remove(plain)
-        self.module_source = module_lane_source(doc)
-        self.spans_by_host = {
-            host: parse_trace_events(
-                doc, include_ops=self.include_ops,
-                anchor_unix_ns=self.anchor_unix_ns,
-            )
-        }
-        self.spans = list(self.spans_by_host[host])
+        self.trace_path = os.path.join(run_dir, f"{host}.trace.json")
+        # Reading a trace builds hundreds of thousands of short-lived
+        # objects: the cyclic collector's passes over the whole heap in
+        # the middle of it are most of the parse's spread.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            self.profile.export_chrome_trace(self.trace_path)
+            lap("export")
+            doc = _doc_from_events(self.profile, self.anchor_unix_ns)
+            lap("events")
+            self.module_source = module_lane_source(doc)
+            lap("source")
+            self.spans_by_host = {
+                host: parse_trace_events(
+                    doc, include_ops=self.include_ops,
+                    anchor_unix_ns=self.anchor_unix_ns,
+                )
+            }
+            self.spans = list(self.spans_by_host[host])
+            lap("parse")
+        finally:
+            if collecting:
+                gc.enable()
 
     def span_refs(
         self,
