@@ -150,8 +150,8 @@ non-zero exit and no result line:
 17. the serving benches under the recapture and host-sync audit: the
     front-door bench at the JAX bench's defaults (``llama_tiny``, 192
     streams, 16 slots, k 4, 96 tokens, 3 rounds per step, 2 paired
-    passes), the same bench at ``llama32_3b``'s full width and depth
-    (max_seq_len 192, a self-draft, 96 streams, in bf16, its exactness
+    passes), the same bench at ``llama32_3b``'s full width and 14 of its
+    28 layers (max_seq_len 192, a self-draft, 96 streams, in bf16, its exactness
     spot check included), and the router bench at its defaults (4
     replicas, 1,024 streams, a kill); every gate of each report must pass
     with no recapture, K1 (K1-f32 in f32) must launch once per layer per
@@ -168,6 +168,19 @@ non-zero exit and no result line:
     dims 128 and 64), with dense SDPA over the gathered K/V beside it;
     then for the RMSNorm kernel, the lanes and the fixed-shape GEMM, row r
     alone must have the bits it has inside batches of 2 to 200 rows;
+20. the single-card serving bench (``python -m
+    tpuslo_torch.benchmark.serving_bench``), run as a subprocess with a
+    timeout once this script has freed its engines: ``llama32_3b(1024)``
+    in bf16 for TTFT, decode at batch 1 and 8, prefill, the prefix,
+    long-prompt, speculative, batch-curve (K2 on and off), int8-KV,
+    paged-vs-dense and shared-prefix lanes, the ``xla_launch`` join over
+    a capture, the seeded device-plane and profiler lanes, then
+    ``llama3_8b`` with int8 weights; it fails on a lane's error, an HBM
+    share over 100%, ``bench.py``'s floors on the seeded lanes, a missing
+    join rate, K1 not launched in the prefill lane, K2 not launched in the
+    paged lanes, or a model whose parameter count is not the JAX
+    package's; one ``serving:`` JSON line, and its launches go into the
+    kernels line;
 19. the ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card and imports nothing of JAX or of the JAX package.
@@ -3403,7 +3416,12 @@ def phase_invariance(torch, llama, kv_cache) -> dict:
 
 
 BENCH_3B_STREAMS = 96  # bench (ii): the one cut of JAX's 192 streams, for the run's time
-BENCH_3B_SEQ = 192  # JAX's llama_tiny(max_seq_len=192), at llama32_3b's widths and depth
+BENCH_3B_SEQ = 192  # JAX's llama_tiny(max_seq_len=192), at llama32_3b's widths
+# Bench (ii) runs 14 of llama32_3b's 28 layers at its full widths: at full
+# depth it took 188-201 s of a script that phase 20 (the serving bench,
+# 185-205 s) took past 800 s on one card's host; depth is what a time cut
+# may lower.
+BENCH_3B_LAYERS = 14
 # Bench (ii) serves llama32_3b's widths and depth in the model's dtype:
 # every pass on the card is batch-invariant, so its exactness spot check
 # holds in bf16 (the random model's bf16 logits over 128,256 tokens tie
@@ -3550,7 +3568,8 @@ def _bench_attempt(torch, fa, pa, serve, audit, what: str, run) -> dict:
 
 def phase_bench(torch, fa, pa, serve, llama) -> dict:
     """The serving benches on the card: the front-door bench at JAX's
-    defaults, the same bench at llama32_3b's full width in bf16 (96 streams), and
+    defaults, the same bench at llama32_3b's full width and half its depth in bf16
+    (96 streams), and
     the router bench at JAX's defaults; every gate must pass."""
     from tpuslo_torch.analysis import jitaudit
     from tpuslo_torch.benchmark import frontdoor_bench, router_bench
@@ -3565,6 +3584,7 @@ def phase_bench(torch, fa, pa, serve, llama) -> dict:
             lambda log: frontdoor_bench.run_frontdoor_bench(log=log))
         torch.cuda.empty_cache()
         cfg = dataclasses.replace(llama.llama32_3b(max_seq_len=BENCH_3B_SEQ),
+                                  n_layers=BENCH_3B_LAYERS,
                                   dtype=getattr(torch, BENCH_3B_DTYPE))
         out["frontdoor_3b"] = _run_bench(
             torch, fa, pa, serve, audit, f"(ii) front door, llama32_3b {BENCH_3B_DTYPE}",
@@ -3588,6 +3608,101 @@ def phase_bench(torch, fa, pa, serve, llama) -> dict:
            for k in ("k1_launches", "k1_f32_launches")):
         _fail("bench: K1 launched on llama_tiny (head dim 16)")
     return out
+
+
+#: The serving bench's subprocess: its time limit, the parameter counts
+#: of its two models by the JAX package's ``param_count`` (written in:
+#: this script imports no JAX), and ``bench.py``'s floors on its seeded
+#: lanes (``bench.py:1546-1554``).
+SERVING_TIMEOUT_S = 420
+SERVING_MODELS = {"llama32_3b": 3_606_752_256, "llama3_8b": 8_030_261_248}
+SERVING_DEVICEPLANE_MIN_JOIN = 0.9
+SERVING_DEVICEPLANE_MAX_UNEXPLAINED = 0.1
+SERVING_PROFILER_MAX_OVERHEAD_PCT = 3.0
+SERVING_PROFILER_MIN_WINDOW_JOIN = 0.9
+
+
+def _lane_faults(node, path: str = "") -> list[str]:
+    """Every lane of a serving report that errored or was retried, and
+    every HBM share over 100%, by its path in the report."""
+    faults = []
+    if isinstance(node, dict):
+        for key in ("error", "xprof_error", "pallas_error"):
+            if key in node:
+                faults.append(f"{path or 'report'}: {key}: {str(node[key])[:300]}")
+        if node.get("retried") or "retried_after_transient" in node:
+            faults.append(f"{path or 'report'}: retried")
+        if node.get("hbm_bw_pct", 0) > 100:
+            faults.append(f"{path}: hbm_bw_pct {node['hbm_bw_pct']} > 100")
+        for key, value in node.items():
+            faults += _lane_faults(value, f"{path}.{key}" if path else key)
+    elif isinstance(node, list):
+        for i, value in enumerate(node):
+            faults += _lane_faults(value, f"{path}[{i}]")
+    return faults
+
+
+def serving_failures(r: dict) -> list[str]:
+    """Phase 20's gates over one serving report."""
+    fails = _lane_faults(r)
+    dp, prof = r.get("deviceplane", {}), r.get("profiler", {})
+    if dp.get("substantive_join_rate", 0.0) < SERVING_DEVICEPLANE_MIN_JOIN:
+        fails.append(f"device-plane substantive join {dp.get('substantive_join_rate')} "
+                     f"< {SERVING_DEVICEPLANE_MIN_JOIN}")
+    if dp.get("unexplained_share", 1.0) > SERVING_DEVICEPLANE_MAX_UNEXPLAINED:
+        fails.append(f"device-plane unexplained share {dp.get('unexplained_share')} "
+                     f"> {SERVING_DEVICEPLANE_MAX_UNEXPLAINED}")
+    if prof.get("overhead_ema_pct", 1e9) > SERVING_PROFILER_MAX_OVERHEAD_PCT:
+        fails.append(f"profiler overhead EMA {prof.get('overhead_ema_pct')}% "
+                     f"> {SERVING_PROFILER_MAX_OVERHEAD_PCT}%")
+    if prof.get("min_substantive_join_rate", 0.0) < SERVING_PROFILER_MIN_WINDOW_JOIN:
+        fails.append(f"profiler window join {prof.get('min_substantive_join_rate')} "
+                     f"< {SERVING_PROFILER_MIN_WINDOW_JOIN}")
+    rate = r.get("xla_launch_join_rate_substantive")
+    if not isinstance(rate, float | int) or not 0.0 <= rate <= 1.0:
+        fails.append(f"xla_launch_join_rate_substantive is not the ledger's rate: {rate!r}")
+    if not r.get("xla_launch_matches"):
+        fails.append("the capture's dispatches joined no device-time signal (xla_launch)")
+    if r.get("flash_attention") and not r.get("prefill_k1_launches"):
+        fails.append("K1 was not launched in the prefill lane at head dim 128")
+    kv = r.get("kv", {})
+    for lane in ("paged", "batch_curve", "shared_prefix"):
+        if not kv.get(lane, {}).get("k2_launches"):
+            fails.append(f"K2 was not launched in the {lane} lane")
+    for where, report in (("bf16", r), ("int8", r.get("int8", {}))):
+        want = SERVING_MODELS.get(report.get("model"))
+        if report.get("n_params") != want:
+            fails.append(f"{where} model {report.get('model')}: n_params "
+                         f"{report.get('n_params')} != the JAX package's {want}")
+    for lane in ("speculative_measured", "moe"):
+        if "not_ported" not in r.get(lane, {}):
+            fails.append(f"{lane} is neither measured nor marked not ported")
+    return fails
+
+
+def phase_serving(torch) -> dict:
+    """Phase 20: the serving bench as a subprocess on the card, its report
+    held to :func:`serving_failures`."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpuslo_torch.benchmark.serving_bench",
+             "--platform", "auto"],
+            cwd=ROOT, capture_output=True, text=True, timeout=SERVING_TIMEOUT_S,
+        )
+    except subprocess.TimeoutExpired:
+        _fail(f"serving: the bench did not finish in {SERVING_TIMEOUT_S} s")
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("SERVING_BENCH:")]
+    if proc.returncode != 0 or not lines:
+        _fail(f"serving: the bench exited {proc.returncode}: {proc.stderr[-2000:]}")
+    report = json.loads(lines[-1][len("SERVING_BENCH:"):])
+    fails = serving_failures(report)
+    if fails:
+        _fail(f"serving: {fails}")
+    return {"seconds": round(seconds, 1), "report": report}
 
 
 def _load_tree(tree: Path):
@@ -3710,7 +3825,8 @@ def _probe_bench(torch, cs, tree: Path, runs: int, names: list[str]) -> None:
 
     fa = importlib.import_module("tpuslo_torch.ops.flash_attention")
     pa = importlib.import_module("tpuslo_torch.ops.paged_attention")
-    cfg_3b = dataclasses.replace(llama.llama32_3b(max_seq_len=cs.BENCH_3B_SEQ),
+    cfg_3b = llama.llama32_3b(max_seq_len=cs.BENCH_3B_SEQ)
+    cfg_3b = dataclasses.replace(cfg_3b, n_layers=getattr(cs, "BENCH_3B_LAYERS", cfg_3b.n_layers),
                                  dtype=getattr(torch, cs.BENCH_3B_DTYPE))
     benches = {
         "frontdoor_tiny": lambda log: frontdoor_bench.run_frontdoor_bench(log=log),
@@ -3906,6 +4022,11 @@ def main() -> int:
     # per-stream engine, and no op whose bits depend on the batch
     exactness = phase_exactness(torch)
     print(f"exactness: {json.dumps(exactness)}", flush=True)
+    # 20. the serving bench, a subprocess of its own (its launches are its
+    # process's, added to the kernels line below)
+    serving = phase_serving(torch)
+    print(f"serving: {json.dumps(serving)}", flush=True)
+    served_launches = serving["report"]["kernel_launches"]
 
     # 19. kernels line, card line, result line
     line_row = next(
@@ -3930,7 +4051,8 @@ def main() -> int:
         "launches": (served["launches"] + dense["k1_launches"] + paged["k1_launches"]
                      + spec["draft_1b"]["k1_launches"] + spec["self_draft"]["k1_launches"]
                      + front["k1_launches"] + routed["k1_launches"] + device_k1
-                     + entry["launches"]["flash_attention"] + bench_k1["k1_launches"]),
+                     + entry["launches"]["flash_attention"] + bench_k1["k1_launches"]
+                     + served_launches["flash_attention"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel["shapes"]),
         "ms": line_row["ms"],
         "plain_ms": line_row["plain_ms"],
@@ -3946,7 +4068,8 @@ def main() -> int:
         "launches": (served["k2_launches"] + dense["k2_launches"] + paged["k2_launches"]
                      + spec["draft_1b"]["k2_launches"] + spec["self_draft"]["k2_launches"]
                      + front["k2_launches"] + device_k2 + entry["launches"]["paged_attention"]
-                     + benches["frontdoor_3b"]["k2_launches"]),
+                     + benches["frontdoor_3b"]["k2_launches"]
+                     + served_launches["paged_attention"]),
         "max_abs_err": max(r["max_abs_err"] for r in k2["shapes"]),
         "ms": k2_row["ms"],
         "plain_ms": k2_row["plain_ms"],
@@ -3972,7 +4095,7 @@ def main() -> int:
         "source": "tpuslo_torch/ops/csrc/attention_f32.cu",
         "replaces": "tpuslo/ops/flash_attention.py:41",
         "launches": (parity_f32["k1_f32_launches"] + entry["launches"]["flash_attention_f32"]
-                     + bench_k1["k1_f32_launches"]),
+                     + bench_k1["k1_f32_launches"] + served_launches["flash_attention_f32"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel_f32["shapes"]
                            if r["dtype"] == "f32"),
         "ms": f32_row["ms"],
@@ -3988,7 +4111,8 @@ def main() -> int:
         "source": "tpuslo_torch/ops/csrc/attention_f32.cu",
         "replaces": "tpuslo/ops/paged_attention.py:65",
         "launches": (sum(k2_f32_launches.values()) + entry["launches"]["paged_attention_f32"]
-                     + benches["frontdoor_tiny"]["k2_launches"] + benches["router"]["k2_launches"]),
+                     + benches["frontdoor_tiny"]["k2_launches"] + benches["router"]["k2_launches"]
+                     + served_launches["paged_attention_f32"]),
         "max_abs_err": max(r["max_abs_err"] for r in k2_f32["shapes"] + k2_f32_path["shapes"]
                            if r["q"] == "f32"),
         "ms": k2_f32_row["ms"],
@@ -4014,7 +4138,7 @@ def main() -> int:
         "route": "cuda",
         "source": "tpuslo_torch/ops/csrc/batch_invariant.cu",
         "replaces": "tpuslo/models/llama.py:299",
-        "launches": front["norm_launches"],
+        "launches": front["norm_launches"] + served_launches["rms_norm"],
         "max_abs_err": max(r["max_abs_err"] for r in invariance["norm"]),
         "ms": norm_row["ms"],
         "plain_ms": norm_row["plain_ms"],
@@ -4029,7 +4153,7 @@ def main() -> int:
         "route": "cuda",
         "source": "tpuslo_torch/ops/csrc/batch_invariant.cu",
         "replaces": "tpuslo/models/llama.py:739",
-        "launches": front["fused_launches"],
+        "launches": front["fused_launches"] + served_launches["add_rms_norm"],
         "max_abs_err": max(r["max_abs_err"] for r in invariance["fused"]),
         "ms": fused_row["ms"],
         "plain_ms": fused_row["plain_ms"],
@@ -4053,6 +4177,7 @@ def main() -> int:
               "router": routed, "deviceplane": device, "attribution": attributed,
               "entry": entry, "parity": parity, "parity_f32": parity_f32,
               "parity_tiny": parity_tiny, "exactness": exactness, "bench": benches,
+              "serving": serving,
               "invariance": invariance,
               **kernels}
     print(f"record: {json.dumps(record)}")

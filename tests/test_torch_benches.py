@@ -178,3 +178,37 @@ def test_the_router_probe_splits_ttft_by_prefix_state_and_depth(monkeypatch):
         assert set(split["ttft_by_state"]) <= {"warm", "cold", "plain"}
         assert all(s["p50_ms"] <= s["p99_ms"] for s in split["ttft_by_state"].values())
         assert split["slowest_1pct"]["n"] == sum(split["slowest_1pct"]["states"].values())
+
+
+def test_the_router_probe_splits_admission_host_time(monkeypatch):
+    """The router probe splits each admission kind's host time into the
+    launch of its prefill pieces, its read wait, the work after the read
+    and the rest, and reports every fill's admissions and host reads; the
+    front door's and the read's methods are put back after the run."""
+    import gc
+
+    from tpuslo_torch.benchmark import probes
+    from tpuslo_torch.models import frontdoor, serve
+
+    run = trb.run_router_bench
+    monkeypatch.setattr(probes.router_bench, "run_router_bench",
+                        lambda device: run(**ROUTER_ARGS, device=device))
+    def methods():
+        fd = frontdoor.FrontDoorEngine
+        return (fd._admit, fd._admit_batch, fd._admit_both, fd._fill_slots,
+                serve._HostRead.values)
+
+    before, callbacks = methods(), list(gc.callbacks)
+    (row,) = probes.router(1, "cpu")
+    assert methods() == before and gc.callbacks == callbacks
+    assert {"warm", "plain_batch"} <= set(row["admissions"])
+    assert set(row["gc"]) == {"affinity", "random"}
+    assert all(g["n"] >= g["gen2"] >= 0 and g["total_ms"] >= g["max_ms"] >= 0
+               for g in row["gc"].values())
+    for kind, admits in row["admissions"].items():
+        assert admits["n"] > 0
+        assert admits["launch_median_ms"] > 0
+        assert min(admits[f"{p}_median_ms"] for p in ("wait", "after_read")) >= 0
+    fills = row["fills"]
+    assert fills["n"] > 0 and fills["reads_median"] >= 1
+    assert fills["admissions_max"] >= 1

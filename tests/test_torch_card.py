@@ -1685,3 +1685,39 @@ def test_cuda_activity_alone_records_no_dispatch_range(cuda_device, tmp_path):
     assert not cats & {xla_spans.CAT_CPU_ANNOTATION, xla_spans.CAT_GPU_ANNOTATION}
     assert xla_spans.module_lane_source(doc) == "cpu_annotation"
     assert not [s for s in xla_spans.parse_trace_events(doc) if s.lane == xla_spans.MODULES_LANE]
+
+
+@pytest.mark.cuda
+def test_a_fill_of_warm_admissions_reads_once_and_never_synchronizes(cuda_device):
+    """Four prefix requests on a warm snapshot admit one by one through
+    their graph replays and read their first tokens once for the whole
+    fill; under the benches' audit (PyTorch's sync debug mode) the fill
+    makes no synchronizing call (the read is a pinned copy and an event).
+    Each stream equals the one the same front door gives its request
+    admitted alone (the per-stream engine prefills ``prefix + suffix`` as
+    one sequence, which is other arithmetic: ROADMAP F8)."""
+    from tpuslo_torch.analysis import jitaudit
+
+    target, draft = _spec_pair(cuda_device)
+    fd = frontdoor.FrontDoorEngine(target, draft, k=3, max_slots=4, rounds_per_step=2)
+    prefix = "a shared system prompt "
+    fd.submit("warm up", prefix=prefix, max_new_tokens=2, stop_at_eos=False)
+    fd.run()
+    users = [f"user {i}" for i in range(4)]
+    ids = [fd.submit(u, prefix=prefix, max_new_tokens=12, stop_at_eos=False) for u in users]
+    torch.cuda.synchronize()
+    jitaudit.install()
+    audit = jitaudit.registry()
+    try:
+        before = (audit.syncs, audit.host_reads)
+        fd._fill_slots()
+        torch.cuda.synchronize()
+        assert (audit.syncs - before[0], audit.host_reads - before[1]) == (0, 1)
+    finally:
+        jitaudit.uninstall()
+        audit.reset()
+    assert all(fd._slots) and not fd._queue
+    results = fd.run()
+    for u, rid in zip(users, ids):
+        alone = fd.submit(u, prefix=prefix, max_new_tokens=12, stop_at_eos=False)
+        assert fd.run()[alone] == results[rid]

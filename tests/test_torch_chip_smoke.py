@@ -238,6 +238,11 @@ def test_bench_ii_serves_the_models_dtype():
     assert chip_smoke.BENCH_3B_DTYPE == "bfloat16"
 
 
+def test_bench_ii_keeps_the_3b_widths_at_half_its_depth():
+    """Bench (ii)'s time cut lowers depth only (14 of 28 layers)."""
+    assert chip_smoke.BENCH_3B_LAYERS == 14 and chip_smoke.BENCH_3B_STREAMS == 96
+
+
 def test_hold_exact_fails_only_a_held_stream():
     ok = chip_smoke._hold_exact("t", [[1, 2, 3], [1, 9, 3]], [[1, 2, 3], [1, 2, 3]],
                                 [True, False])
@@ -355,3 +360,61 @@ def test_the_probe_mode_needs_a_card(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert chip_smoke.probe_main(["norm", "--tree", str(chip_smoke.ROOT)]) == 2
+
+
+def _serving_report() -> dict:
+    """A serving report that meets every gate of phase 20."""
+    return {
+        "model": "llama32_3b", "n_params": 3_606_752_256, "flash_attention": True,
+        "prefill_k1_launches": 28, "xla_launch_join_rate_substantive": 0.97,
+        "xla_launch_matches": 3, "bw_decode_b1": {"hbm_bw_pct": 61.4},
+        "deviceplane": {"substantive_join_rate": 1.0, "unexplained_share": 0.0002},
+        "profiler": {"overhead_ema_pct": 0.08, "min_substantive_join_rate": 1.0},
+        "kv": {"paged": {"k2_launches": 10},
+               "batch_curve": {"k2_launches": 4, "curve": [{"batch": 1, "ms_per_step": 9.0}]},
+               "shared_prefix": {"k2_launches": 5}},
+        "int8": {"model": "llama3_8b", "n_params": 8_030_261_248,
+                 "bw_decode_b8": {"hbm_bw_pct": 40.0}},
+        "speculative_measured": {"not_ported": "ROADMAP 14"},
+        "moe": {"not_ported": "ROADMAP 12"},
+    }
+
+
+def test_serving_gates_pass_a_good_report():
+    assert chip_smoke.serving_failures(_serving_report()) == []
+
+
+@pytest.mark.parametrize("break_it,failure", [
+    (lambda r: r["kv"]["batch_curve"]["curve"][0].update(pallas_error="boom"), "pallas_error"),
+    (lambda r: r.update(prefix_cache={"error": "OOM"}), "prefix_cache: error"),
+    (lambda r: r.update(xprof_error="no trace"), "xprof_error"),
+    (lambda r: r["int8"].update(retried=True), "int8: retried"),
+    (lambda r: r["int8"]["bw_decode_b8"].update(hbm_bw_pct=100.5), "hbm_bw_pct 100.5"),
+    (lambda r: r["deviceplane"].update(substantive_join_rate=0.89), "device-plane substantive"),
+    (lambda r: r["deviceplane"].update(unexplained_share=0.11), "unexplained share"),
+    (lambda r: r["profiler"].update(overhead_ema_pct=3.2), "overhead EMA"),
+    (lambda r: r["profiler"].update(min_substantive_join_rate=0.5), "window join"),
+    (lambda r: r.pop("xla_launch_join_rate_substantive"), "not the ledger's rate"),
+    (lambda r: r.update(xla_launch_matches=0), "joined no device-time signal"),
+    (lambda r: r.update(prefill_k1_launches=0), "K1 was not launched"),
+    (lambda r: r["kv"]["paged"].update(k2_launches=0), "K2 was not launched in the paged"),
+    (lambda r: r["kv"]["shared_prefix"].update(k2_launches=0), "shared_prefix lane"),
+    (lambda r: r.update(n_params=3_606_752_257), "bf16 model llama32_3b"),
+    (lambda r: r["int8"].update(model="llama32_3b"), "int8 model llama32_3b"),
+    (lambda r: r.update(moe={"tokens_per_sec": 1.0}), "moe is neither"),
+])
+def test_serving_gates_name_each_failure(break_it, failure):
+    report = _serving_report()
+    break_it(report)
+    fails = chip_smoke.serving_failures(report)
+    assert fails and any(failure in f for f in fails), fails
+
+
+def test_serving_models_are_the_jax_param_counts():
+    """The constants phase 20 holds ``n_params`` to are the JAX package's
+    ``param_count`` of the bench's two configs."""
+    from tpuslo.benchmark import serving_bench as jsb
+    from tpuslo.models.llama import param_count
+
+    assert chip_smoke.SERVING_MODELS == {
+        name: param_count(jsb._make_config(name)) for name in ("llama32_3b", "llama3_8b")}

@@ -849,3 +849,149 @@ def test_restore_state_readmits_into_the_engines_own_storage(sides):
     assert fresh.snapshot_resumes >= 1 and _fixed_storage(fresh) == fixed
     for prompt, rid in zip(prompts, ids):
         assert results[rid] == spec_reference(s, s.engines, prompt, 30)
+
+
+# ---- one first-token read per fill ---------------------------------------
+
+#: The token the prefill of "eos 0" picks under JAX's seed-0 weights; the
+#: forced weights give EOS's output column 1.5x this token's column.
+EOS_FORCED_FROM = 433
+EOS_PREFIX = "shared prefix "
+
+
+@pytest.fixture(scope="module")
+def eos_sides():
+    """(JAX side, port side) over JAX's seed-0 weights with EOS forced:
+    the output column of EOS is 1.5x that of :data:`EOS_FORCED_FROM`, so
+    the prompts "eos 0" and "eos 10", and "q0" and "q10" after
+    :data:`EOS_PREFIX`, end on their first token, and EOS turns up
+    mid-stream too.  Both sides get the same weights."""
+    pn = jax.tree.map(np.asarray, jl.init_params(jax.random.PRNGKey(0), CFG_J))
+    out = pn["output"].copy()
+    out[:, ts.EOS] = out[:, EOS_FORCED_FROM] * 1.5
+    pn = {**pn, "output": out}
+    pj = jax.tree.map(jnp.asarray, pn)
+    pt = bridge.params_from_numpy(pn, CFG_T, "cpu")
+    return (
+        SimpleNamespace(name="jax", mod=jfd, slo=jslo, SpeculativeEngine=jsp.SpeculativeEngine,
+                        engines=(js.ServeEngine(cfg=CFG_J, params=pj),
+                                 js.ServeEngine(cfg=CFG_J, params=pj))),
+        SimpleNamespace(name="port", mod=tfd, slo=tslo, SpeculativeEngine=tsp.SpeculativeEngine,
+                        engines=(ts.ServeEngine(cfg=CFG_T, params=pt, device="cpu"),
+                                 ts.ServeEngine(cfg=CFG_T, params=pt, device="cpu"))),
+    )
+
+
+def _fill_reads(fd) -> int:
+    """Host reads (the port's ``jitaudit`` count) of one ``_fill_slots``."""
+    from tpuslo_torch.analysis import jitaudit
+
+    jitaudit.install()
+    try:
+        before = jitaudit.registry().host_sync_count()
+        fd._fill_slots()
+        return jitaudit.registry().host_sync_count() - before
+    finally:
+        jitaudit.uninstall()
+
+
+class TestOneReadPerFill:
+    @pytest.mark.parametrize("n", [2, 4])
+    def test_a_fill_of_warm_admissions_reads_the_host_once(self, sides, n):
+        """N prefix requests on a warm snapshot admit one by one (each its
+        own suffix prefill) and their first tokens come back in ONE host
+        read, not N; the streams are the per-stream engine's."""
+        _, s = sides
+        fd = s.mod.FrontDoorEngine(*s.engines, k=3, max_slots=n)
+        fd.submit("warm up", prefix=EOS_PREFIX, max_new_tokens=2, stop_at_eos=False)
+        fd.run()
+        users = [f"user {i}" for i in range(n)]
+        ids = [fd.submit(u, prefix=EOS_PREFIX, max_new_tokens=6, stop_at_eos=False)
+               for u in users]
+        assert all(fd._prefix_warm(r.prefix) for r in fd._queue)
+        assert _fill_reads(fd) == 1
+        assert not fd._queue and all(fd._slots)
+        results = fd.run()
+        for u, rid in zip(users, ids):
+            assert results[rid] == spec_reference(s, s.engines, u, 6, prefix=EOS_PREFIX)
+
+    def test_a_mixed_fill_reads_once_when_no_first_token_can_free_a_slot(self, sides):
+        """Warm admissions, then a batch of cold ones in the same fill: one
+        read for all of them when none may end on EOS."""
+        _, s = sides
+        fd = s.mod.FrontDoorEngine(*s.engines, k=3, max_slots=4)
+        fd.submit("warm up", prefix=EOS_PREFIX, max_new_tokens=2, stop_at_eos=False)
+        fd.run()
+        for i in range(2):
+            fd.submit(f"warm {i}", prefix=EOS_PREFIX, max_new_tokens=6, stop_at_eos=False)
+        for i in range(4):
+            fd.submit(f"cold {i}", max_new_tokens=6, stop_at_eos=False)
+        assert _fill_reads(fd) == 1
+        assert len(fd._queue) == 2 and all(fd._slots)
+
+    def test_the_forced_prompts_end_on_their_first_token(self, eos_sides):
+        for s in eos_sides:
+            spec = s.SpeculativeEngine(*s.engines, k=3)
+            for prompt, prefix in (("eos 0", None), ("eos 10", None), ("q0", EOS_PREFIX),
+                                   ("q10", EOS_PREFIX)):
+                assert spec.generate(prompt, max_new_tokens=4, stop_at_eos=True,
+                                     prefix=prefix) == [ts.EOS]
+
+    @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+    def test_instant_completions_in_a_fill_equal_jax(self, eos_sides, paged):
+        """A fill holding instant completions (EOS on the first token, warm
+        and cold, and one-token budgets) among other admissions: the freed
+        slots are refilled in the same fill, and streams, completion
+        order, sheds and preemptions equal the JAX front door's."""
+        def scenario(s):
+            burn = s.slo.BurnEngine()
+            burn.demote_tenant("lowly")
+            fd = s.mod.FrontDoorEngine(*s.engines, k=3, max_slots=3, max_queue=9,
+                                       burn_engine=burn, paged=paged, block_size=32)
+            fd.submit("warm up", prefix=EOS_PREFIX, max_new_tokens=2, stop_at_eos=False)
+            fd.run()
+            low = [fd.submit(f"low {i}", tenant="lowly", max_new_tokens=20) for i in range(3)]
+            fd.step()
+            plan = [("q0", EOS_PREFIX, 8), ("q1", EOS_PREFIX, 8), ("eos 0", None, 8),
+                    ("q10", EOS_PREFIX, 8), ("q2", EOS_PREFIX, 1), ("budget 3", None, 12),
+                    ("eos 10", None, 8), ("q3", EOS_PREFIX, 10), ("budget 4", None, 1),
+                    ("budget 5", None, 9), ("late", None, 6)]
+            ids = [fd.submit(p, tenant="vip", prefix=prefix, max_new_tokens=b)
+                   for p, prefix, b in plan]
+            fd.run()
+            return {**observe(fd), "low": low, "ids": ids, "order": list(fd.results)}
+
+        got = both(eos_sides, scenario)
+        instant = [rid for rid in got["ids"] if got["results"].get(rid) == [ts.EOS]]
+        assert len(instant) == 4
+        assert got["preemptions"] >= 1 and got["shed_requests"]
+        assert all(len(got["results"][rid]) == 1 for rid in (got["ids"][4], got["ids"][8]))
+
+    def test_an_eos_first_token_frees_its_slot_within_the_fill(self, eos_sides):
+        """Two slots, three queued requests, the first ending on EOS: the
+        fill reads, frees that slot and admits the third before the first
+        dispatch, as a read per admission does.  The port seats the third
+        request in the freed slot where JAX seats the second: the slots of
+        the two differ, and with them the order of two completions inside
+        one step, but not which requests complete at which step, nor any
+        stream."""
+        def scenario(s):
+            fd = s.mod.FrontDoorEngine(*s.engines, k=3, max_slots=2)
+            fd.submit("warm up", prefix=EOS_PREFIX, max_new_tokens=2, stop_at_eos=False)
+            fd.run()
+            ids = [fd.submit(p, prefix=EOS_PREFIX, max_new_tokens=8)
+                   for p in ("q0", "q1", "q2")]
+            fd._fill_slots()
+            occupied = sorted(r.request_id for r in fd._slots if r is not None)
+            per_step = []
+            while True:
+                done = set(fd.results)
+                more = fd.step()
+                per_step.append(sorted(set(fd.results) - done))
+                if not more:
+                    break
+            return {**observe(fd), "ids": ids, "occupied": occupied, "per_step": per_step}
+
+        got = both(eos_sides, scenario)
+        assert got["occupied"] == got["ids"][1:]
+        assert got["results"][got["ids"][0]] == [ts.EOS]

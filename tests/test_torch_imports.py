@@ -55,7 +55,10 @@ def test_port_files_exist():
                 "columnar/posterior.py", "faultreplay/generator.py",
                 "analysis/jitaudit.py", "benchmark/frontdoor_bench.py",
                 "benchmark/router_bench.py", "cli/loadgen.py", "benchmark/probes.py",
-                "ops/dense_lanes.py", "ops/rms_norm.py", "ops/launch_counts.py"):
+                "ops/dense_lanes.py", "ops/rms_norm.py", "ops/launch_counts.py",
+                "semconv/__init__.py", "metrics/rejections.py", "metrics/__init__.py",
+                "correlation/matcher.py", "correlation/__init__.py", "sloengine/sweep.py",
+                "benchmark/serving_bench.py"):
         assert REPO / "tpuslo_torch" / rel in PORT_FILES
 
 
@@ -79,7 +82,9 @@ def test_importing_the_port_loads_no_jax():
         "tpuslo_torch.columnar, tpuslo_torch.faultreplay, tpuslo_torch.signals.mode, "
         "tpuslo_torch.analysis.jitaudit, tpuslo_torch.benchmark.frontdoor_bench, "
         "tpuslo_torch.benchmark.router_bench, tpuslo_torch.cli.loadgen, "
-        "tpuslo_torch.benchmark.probes, tpuslo_torch.ops.rms_norm; "
+        "tpuslo_torch.benchmark.probes, tpuslo_torch.ops.rms_norm, tpuslo_torch.semconv, "
+        "tpuslo_torch.metrics, tpuslo_torch.correlation, tpuslo_torch.sloengine.sweep, "
+        "tpuslo_torch.benchmark.serving_bench; "
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'tpuslo', 'jsonschema')); "
         "print(bad); sys.exit(1 if bad else 0)"

@@ -431,3 +431,57 @@ class TestEngineKill:
             router.route("nowhere to go", max_new_tokens=2)
         with pytest.raises(KeyError):
             router.engine(0)
+
+
+# ---- one first-token read per fill ---------------------------------------
+
+
+@pytest.fixture(scope="module")
+def eos_sides():
+    """(JAX side, port side) over JAX's seed-0 weights with EOS's output
+    column set to 1.5x that of token 433, the one the prefill of "eos 0"
+    picks: "eos 0", "eos 10", and "q0", "q10" after the prefix "shared
+    prefix ", end on their first token (``tests/test_torch_frontdoor.py``
+    holds that), and EOS turns up mid-stream."""
+    pn = jax.tree.map(np.asarray, jl.init_params(jax.random.PRNGKey(0), CFG_J))
+    out = pn["output"].copy()
+    out[:, ts.EOS] = out[:, 433] * 1.5
+    pn = {**pn, "output": out}
+    pj = jax.tree.map(jnp.asarray, pn)
+    pt = bridge.params_from_numpy(pn, CFG_T, "cpu")
+    return (
+        SimpleNamespace(fd=jfd, router=jr, slo=jslo, SpeculativeEngine=jsp.SpeculativeEngine,
+                        engines=(js.ServeEngine(cfg=CFG_J, params=pj),
+                                 js.ServeEngine(cfg=CFG_J, params=pj))),
+        SimpleNamespace(fd=tfd, router=tr, slo=tslo, SpeculativeEngine=tsp.SpeculativeEngine,
+                        engines=(ts.ServeEngine(cfg=CFG_T, params=pt, device="cpu"),
+                                 ts.ServeEngine(cfg=CFG_T, params=pt, device="cpu"))),
+    )
+
+
+def test_router_decisions_equal_jax_with_instant_completions_in_fills(eos_sides):
+    """The router bench's traffic shape in small (prefix groups, a few
+    requests routed between steps, one-token budgets and first tokens
+    that are EOS) over two paged replicas: every decision, placement,
+    stream and shed equals JAX's, each replica's fills reading their
+    first tokens once."""
+    def scenario(s):
+        router = s.router.SLORouter(make_fleet(s, 2, max_queue=6), seed=0)
+        shared = ["q0", "q1", "q10", "q2"]
+        plain = ["eos 0", "plain 1", "eos 10", "plain 2"]
+        plan = []
+        for i in range(24):
+            group = ("shared prefix ", "grp-01/sys", None)[i % 3]
+            prompt = {"shared prefix ": shared[i // 3 % 4], None: plain[i // 3 % 4]}.get(
+                group, f" q{i}")
+            plan.append((prompt, group, 1 if i % 7 == 3 else 6 + i % 5))
+        for start in range(0, len(plan), 3):
+            for prompt, group, budget in plan[start:start + 3]:
+                router.route(prompt, max_new_tokens=budget, prefix=group)
+            router.step()
+        router.run()
+        return observe(router)
+
+    got = both(eos_sides, scenario)
+    assert sum(toks == [ts.EOS] for toks in got["results"].values()) >= 2
+    assert got["affinity_hits"] > 0

@@ -22,9 +22,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from tpuslo import schema  # noqa: E402
-from tpuslo.correlation import SignalRef, SpanRef, match  # noqa: E402
 from tpuslo.correlation.multihost import SliceJoiner  # noqa: E402
 from tpuslo.otel import xla_spans as jx  # noqa: E402
+from tpuslo_torch.correlation import SignalRef, SpanRef, match  # noqa: E402
 from tpuslo_torch.models import llama as tl  # noqa: E402
 from tpuslo_torch.models import serve as ts  # noqa: E402
 from tpuslo_torch.otel import xla_spans as tx  # noqa: E402

@@ -25,7 +25,13 @@ front-door admission timed by the prefix state it met (a cold fill, a
 warm snapshot, a plain prompt, a parked row), and the TTFT of the paced
 affinity and random passes split by the state of the request's prefix
 on its replica when it was routed and by that replica's queue depth
-then, with each replica's share of the requests::
+then, with each replica's share of the requests.  Each admission kind's
+host time (a lone cold, warm or parked admission, a batch of plain
+prompts) is split into the launch of its
+prefill pieces (graph replays on the card), its wait inside a first-token
+read, the host work after that read and the rest; each fill (the
+admissions of one ``step()``) reports its admissions, host reads and
+wait, and each paced pass the cyclic collector's passes inside it::
 
     python -m tpuslo_torch.benchmark.probes router --runs 3
 
@@ -37,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import time
 
@@ -217,9 +224,27 @@ def _ttft_split(routed: dict[int, dict], timings: dict[int, dict]) -> dict:
                              if slow else None}}
 
 
+def _median(values: list[float]) -> float | None:
+    return sorted(values)[len(values) // 2] if values else None
+
+
 def router(runs: int, device: str) -> list[dict]:
     costs: dict[str, list[float]] = {}
+    parts: dict[str, dict[str, list[float]]] = {}
+    fills: list[dict] = []
+    # The admission and the fill being timed: each collects the ms spent
+    # in its own pieces, so a read outside both (the dispatch's) is not
+    # charged to either.
+    open_admit: list[dict] = []
+    open_fill: list[dict] = []
     admit = frontdoor.FrontDoorEngine._admit
+    admit_both = frontdoor.FrontDoorEngine._admit_both
+    fill_slots = frontdoor.FrontDoorEngine._fill_slots
+    values = serve._HostRead.values
+    admit_batch = frontdoor.FrontDoorEngine._admit_batch
+    windows: list[tuple[float, float]] = []
+    pauses: list[tuple[float, float, int]] = []
+    gc_start: list[float | None] = [None]
     route = router_mod.SLORouter.route
     serve_fleet = router_bench._serve_fleet
     arrivals: dict[int, dict[int, dict]] = {}
@@ -238,49 +263,155 @@ def router(runs: int, device: str) -> list[dict]:
         return gid
 
     def fleet(router_, clocks, records, *args, **kwargs):
+        t_pass = time.perf_counter()
         out = serve_fleet(router_, clocks, records, *args, **kwargs)
         passes.append(router_)
+        windows.append((t_pass, time.perf_counter()))
         return out
 
-    def timed(self, slot, req):
+    def collected(phase: str, info: dict) -> None:
+        # The cyclic collector's passes, by generation: a pause inside a
+        # paced pass lands in the virtual clock of the engine stepping.
+        if phase == "start":
+            gc_start[0] = time.perf_counter()
+        elif gc_start[0] is not None:
+            pauses.append((gc_start[0], (time.perf_counter() - gc_start[0]) * 1e3,
+                           info["generation"]))
+            gc_start[0] = None
+
+    def kind_of(self, req) -> str:
         if req.parked is not None:
-            kind = "parked"
-        elif not req.prefix:
-            kind = "plain"
-        else:
-            kind = "warm" if self.target.prefix_warm(req.prefix) else "cold"
+            return "parked"
+        if not req.prefix:
+            return "plain"
+        return "warm" if self.target.prefix_warm(req.prefix) else "cold"
+
+    def timed(self, slot, req):
+        return timed_call(kind_of(self, req), 1, lambda: admit(self, slot, req))
+
+    def timed_batch(self, slots, reqs):
+        # A run of plain prompts in one batched prefill, timed as a whole.
+        return timed_call("plain_batch", len(reqs), lambda: admit_batch(self, slots, reqs))
+
+    def timed_call(kind: str, admissions: int, call):
+        if open_fill:
+            open_fill[-1]["admissions"] += admissions
+        cur = {"launch": 0.0, "wait": 0.0, "read_end": None}
+        open_admit.append(cur)
         t0 = time.perf_counter()
         try:
-            return admit(self, slot, req)
+            return call()
         finally:
-            costs.setdefault(kind, []).append((time.perf_counter() - t0) * 1e3)
+            end = time.perf_counter()
+            open_admit.pop()
+            total = (end - t0) * 1e3
+            after = (end - cur["read_end"]) * 1e3 if cur["read_end"] is not None else 0.0
+            costs.setdefault(kind, []).append(total)
+            split = parts.setdefault(kind, {"launch": [], "wait": [], "after_read": [],
+                                            "rest": []})
+            split["launch"].append(cur["launch"])
+            split["wait"].append(cur["wait"])
+            split["after_read"].append(after)
+            split["rest"].append(total - cur["launch"] - cur["wait"] - after)
+
+    def timed_both(self, ingest):
+        t0 = time.perf_counter()
+        try:
+            return admit_both(self, ingest)
+        finally:
+            if open_admit:
+                open_admit[-1]["launch"] += (time.perf_counter() - t0) * 1e3
+
+    def timed_values(self):
+        t0 = time.perf_counter()
+        try:
+            return values(self)
+        finally:
+            end = time.perf_counter()
+            for scope in (open_admit, open_fill):
+                if scope:
+                    scope[-1]["wait"] += (end - t0) * 1e3
+            if open_admit:
+                open_admit[-1]["read_end"] = end
+
+    def timed_fill(self):
+        cur = {"admissions": 0, "wait": 0.0, "reads": serve._HostRead.reads}
+        open_fill.append(cur)
+        t0 = time.perf_counter()
+        try:
+            return fill_slots(self)
+        finally:
+            open_fill.pop()
+            if cur["admissions"]:
+                fills.append({"admissions": cur["admissions"],
+                              "reads": serve._HostRead.reads - cur["reads"],
+                              "wait_ms": cur["wait"],
+                              "ms": (time.perf_counter() - t0) * 1e3})
 
     frontdoor.FrontDoorEngine._admit = timed
+    frontdoor.FrontDoorEngine._admit_batch = timed_batch
+    frontdoor.FrontDoorEngine._admit_both = timed_both
+    frontdoor.FrontDoorEngine._fill_slots = timed_fill
+    serve._HostRead.values = timed_values
     router_mod.SLORouter.route = routed
     router_bench._serve_fleet = fleet
+    gc.callbacks.append(collected)
     rows = []
     try:
         for run in range(runs):
             costs.clear()
+            parts.clear()
+            fills.clear()
             arrivals.clear()
             passes.clear()
+            windows.clear()
+            pauses.clear()
+            # As chip_smoke.py's bench attempts do: the heap earlier runs
+            # left is collected and frozen, so that the cyclic collector's
+            # passes over it do not land inside a timed pass.
+            gc.collect()
+            gc.freeze()
             t0 = time.perf_counter()
-            report = router_bench.run_router_bench(device=device)
-            admits = {kind: {"n": len(v), "median_ms": sorted(v)[len(v) // 2]}
+            try:
+                report = router_bench.run_router_bench(device=device)
+            finally:
+                gc.unfreeze()
+            admits = {kind: {"n": len(v), "median_ms": _median(v),
+                             **{f"{piece}_median_ms": _median(ms)
+                                for piece, ms in parts[kind].items()}}
                       for kind, v in costs.items()}
+            many = [f for f in fills if f["admissions"] > 1]
+            fill_rows = {"n": len(fills), "with_several_admissions": len(many),
+                         "admissions_max": max((f["admissions"] for f in fills), default=0),
+                         **{f"{key}_median": _median([f[key] for f in fills])
+                            for key in ("reads", "wait_ms", "ms")},
+                         "several": {f"{key}_median": _median([f[key] for f in many])
+                                     for key in ("admissions", "reads", "wait_ms", "ms")}}
             named = dict(zip(ROUTER_PASSES, passes))
+            in_pass = {name: [(ms, gen) for t, ms, gen in pauses if lo <= t < hi]
+                       for name, (lo, hi) in zip(ROUTER_PASSES, windows)}
+            collections = {name: {"n": len(p), "gen2": sum(g == 2 for _, g in p),
+                                  "max_ms": max((ms for ms, _ in p), default=0.0),
+                                  "total_ms": sum(ms for ms, _ in p)}
+                           for name, p in in_pass.items() if name in ("affinity", "random")}
             rows.append({
                 "probe": "router", "run": run, "seconds": time.perf_counter() - t0,
                 "passed": report["passed"], "failures": report["failures"],
                 **{f"{side}_ttft_{q}_ms": report[side][f"ttft_{q}_ms"]
                    for side in ("affinity", "random") for q in ("p50", "p99")},
                 "affinity_hit_rate": report["router_affinity_hit_rate"], "admissions": admits,
+                "fills": fill_rows, "gc": collections,
                 "split": {side: _ttft_split(arrivals.get(id(named[side]), {}),
                                             named[side].request_timings())
                           for side in ("affinity", "random") if side in named},
             })
     finally:
+        gc.callbacks.remove(collected)
         frontdoor.FrontDoorEngine._admit = admit
+        frontdoor.FrontDoorEngine._admit_batch = admit_batch
+        frontdoor.FrontDoorEngine._admit_both = admit_both
+        frontdoor.FrontDoorEngine._fill_slots = fill_slots
+        serve._HostRead.values = values
         router_mod.SLORouter.route = route
         router_bench._serve_fleet = serve_fleet
     return rows

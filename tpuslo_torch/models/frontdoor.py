@@ -61,7 +61,12 @@ never changes over the engine's life: the two slot pools (admission,
 parks and resumes copy rows in and out of them in place), the current
 tokens, the frontiers and the mask (refilled from pinned host memory:
 no synchronizing call) and the packed output, which the step's one read
-takes through :class:`tpuslo_torch.models.serve._HostRead`.  On the CPU
+takes through :class:`tpuslo_torch.models.serve._HostRead`.  The
+admissions of one fill hold their first tokens on the device and read
+them all at once (JAX reads each admission's): the fill reads before a
+decision the free slots decide, so every admission, shed and preemption
+is JAX's, and only the slot a request takes after an EOS first token may
+differ.  On the CPU
 the same buffers are used and the dispatch runs eagerly.  The memoized
 ``_SHARED_*`` splice programs and the retrace audit of JAX have no
 counterpart; a parked row is a clone and never a view of the pool.  The
@@ -193,6 +198,20 @@ class _PagedParked:
     frontier: int
 
 
+@dataclass(slots=True)
+class _FirstToken:
+    """An admission whose first token is still on the device: its slot
+    (None where the request ends on that token whatever it is), the
+    token (one element), the admission's start time and the slot's
+    frontier once the token is read."""
+
+    slot: int | None
+    req: FrontDoorRequest
+    token: torch.Tensor
+    now_s: float
+    start: int
+
+
 class FrontDoorObserver:
     """No-op observer; the bench/agent bridge these to metrics."""
 
@@ -298,6 +317,8 @@ class FrontDoorEngine:
         self._start = np.ones(max_slots, np.int64)
         self._current = np.full(max_slots, BOS, np.int64)
         self._slots: list[FrontDoorRequest | None] = [None] * max_slots
+        # Admissions of the running fill whose first token is not read.
+        self._firsts: list[_FirstToken] = []
         self._queue: list[FrontDoorRequest] = []
         self._next_id = 0
         # Injectable monotonic clock: every request timestamp the
@@ -652,25 +673,15 @@ class FrontDoorEngine:
             lambda adm: adm.ingest_ids(ids, req.prefix, prefix_ids)
         )
         first_token = logits.argmax(dim=-1)
-        read = _HostRead(first_token)
-        # The rows and the first token go into the slot while the read is
-        # in flight (the staged rows are overwritten by the next
-        # admission); an instant completion leaves them there as a free
-        # lane's garbage, as a batched admission does.
+        # The rows and the first token go into the slot at once (the
+        # staged rows are overwritten by the next admission); the first
+        # token is read with the fill's others (:meth:`_read_firsts`).
+        # An instant completion leaves them there as a free lane's
+        # garbage, as a batched admission does.
         _inject_row(self._cache_t, row_t, slot)
         _inject_row(self._cache_d, _rehome_draft_cache(self.target, self.draft, row_d), slot)
         self._tokens[slot:slot + 1].copy_(first_token)
-        first = int(read.values()[0])
-        req.admitted_s = now_s
-        req.first_token_s = now_s
-        req.tokens.append(first)
-        self._observer.admitted(req.tenant)
-        if (req.stop_at_eos and first == EOS) or req.max_new_tokens <= 1:
-            self._complete(req, now_s)
-            return
-        self._start[slot] = len(ids)
-        self._current[slot] = first
-        self._slots[slot] = req
+        self._hold_first(slot, req, first_token, now_s, len(ids))
 
     def _admit_both(self, ingest):
         """``ingest(pieces)`` on the target's admission pieces, then on the
@@ -722,7 +733,6 @@ class FrontDoorEngine:
         )
         rows_d = _rehome_draft_cache(self.target, self.draft, rows_d)
         first_tokens = logits_t.argmax(dim=-1)
-        first_read = _HostRead(first_tokens)
         # Pad rows alias the first real slot; the reverse-ordered
         # inject writes them first, so the real row wins.
         assignment = [
@@ -733,23 +743,52 @@ class FrontDoorEngine:
         _inject_rows(self._cache_d, rows_d, assignment)
         real_slots = _upload(slots[: len(reqs)], torch.long, self.device)
         self._tokens[real_slots] = first_tokens[: len(reqs)]
-        firsts = [int(v) for v in first_read.values()]
         for i, req in enumerate(reqs):
-            first = firsts[i]
-            req.admitted_s = now_s
-            req.first_token_s = now_s
+            self._hold_first(
+                slots[i], req, first_tokens[i : i + 1], now_s, len(all_ids[i])
+            )
+
+    def _hold_first(
+        self,
+        slot: int,
+        req: FrontDoorRequest,
+        token: torch.Tensor,
+        now_s: float,
+        start: int,
+    ) -> None:
+        """Keep an admission's first token (``token``, one element on the
+        device) for the fill's one read.  A request that ends on its
+        first token whatever it is (a one-token budget) leaves ``slot``
+        free for the next admission, as it would once read; any other
+        holds the slot until the read decides."""
+        req.admitted_s = now_s
+        req.first_token_s = now_s
+        holds = req.max_new_tokens > 1
+        if holds:
+            self._slots[slot] = req
+        self._firsts.append(
+            _FirstToken(slot if holds else None, req, token, now_s, start)
+        )
+
+    def _read_firsts(self) -> None:
+        """Read every held first token in ONE host read, then finish the
+        admissions in their order: each request's first token, then its
+        slot's frontier, or its completion where the token ends it (EOS,
+        a one-token budget; an instant complete's injected row simply
+        becomes a parked lane until something overwrites it)."""
+        held, self._firsts = self._firsts, []
+        firsts = _HostRead(torch.cat([h.token for h in held])).values()
+        for h, first in zip(held, firsts):
+            req = h.req
             req.tokens.append(first)
             self._observer.admitted(req.tenant)
-            if (
-                req.stop_at_eos and first == EOS
-            ) or req.max_new_tokens <= 1:
-                # Instant complete: the injected row simply becomes a
-                # parked lane until something overwrites it.
-                self._complete(req, now_s)
+            if (req.stop_at_eos and first == EOS) or req.max_new_tokens <= 1:
+                if h.slot is not None:
+                    self._slots[h.slot] = None
+                self._complete(req, h.now_s)
                 continue
-            self._slots[slots[i]] = req
-            self._start[slots[i]] = len(all_ids[i])
-            self._current[slots[i]] = first
+            self._start[h.slot] = h.start
+            self._current[h.slot] = first
 
     def _install(
         self,
@@ -921,6 +960,22 @@ class FrontDoorEngine:
     def _fill_slots(self) -> None:
         """Admit (and, under pressure, preempt) at a round boundary.
 
+        The admissions' first tokens are read once per fill
+        (:meth:`_read_firsts`), not once per admission.  A read first
+        token can end its request (EOS) and free its slot, so the fill
+        reads before any decision that depends on the free slots it
+        would give, and admits again after the read: every admission,
+        shed and preemption is the one a read per admission makes.
+        """
+        self._admit_queued()
+        while self._firsts:
+            self._read_firsts()
+            self._admit_queued()
+
+    def _admit_queued(self) -> None:
+        """Admit queued requests while the free slots allow; return where
+        a decision needs the held first tokens read first.
+
         Preemption fires only for a STRICTLY higher-priority queued
         request than the lowest-priority running slot — equal
         priorities never thrash, and each park+admit raises the
@@ -932,22 +987,34 @@ class FrontDoorEngine:
                 for i, occupant in enumerate(self._slots)
                 if occupant is None
             ]
-            if not free and self._burn is None:
-                # Uniform priorities (no burn engine): preemption can
-                # never fire, so a full house needs no queue sort —
-                # this boundary is a pure decode round.
+            if not free and (self._firsts or self._burn is None):
+                # A full house: the held first tokens are read first (one
+                # may be EOS and free its slot; a park needs its slot's
+                # frontier).  Uniform priorities (no burn engine):
+                # preemption can never fire, so a full house needs no
+                # queue sort — this boundary is a pure decode round.
                 return
+            # A held first token may be EOS and free its slot, which a
+            # batch the free slots cut would then take.
+            may_free = any(
+                h.slot is not None and h.req.stop_at_eos for h in self._firsts
+            )
             self._queue.sort(key=self._order_key)
             if free:
                 if self._batchable(self._queue[0]):
-                    run: list[FrontDoorRequest] = []
+                    run = 0
                     while (
-                        self._queue
-                        and len(run) < len(free)
-                        and self._batchable(self._queue[0])
+                        run < len(self._queue)
+                        and run <= len(free)
+                        and self._batchable(self._queue[run])
                     ):
-                        run.append(self._queue.pop(0))
-                    self._admit_batch(free[: len(run)], run)
+                        run += 1
+                    if run > len(free) and may_free:
+                        return
+                    run = min(run, len(free))
+                    reqs = self._queue[:run]
+                    del self._queue[:run]
+                    self._admit_batch(free[:run], reqs)
                 else:
                     self._admit(free[0], self._queue.pop(0))
                 continue

@@ -4,8 +4,8 @@
 The top layer of the observability stack: a streaming
 per-request SLI pipeline (``RequestOutcome`` → ring-buffer sliding
 windows), per-tenant error budgets, Google-SRE-style multi-window
-multi-burn-rate alerting with hysteresis.  (The seeded burn-scenario
-sweep gate is not copied: nothing on the serving path imports it.)  Burn state feeds outgoing ``IncidentAttribution`` payloads
+multi-burn-rate alerting with hysteresis; the seeded burn-scenario
+sweep gate is ``tpuslo_torch.sloengine.sweep``.  Burn state feeds outgoing ``IncidentAttribution`` payloads
 (severity + customer-impact denominator for the Bayesian attribution),
 the provenance chain, Prometheus, and ``sloctl budget``.
 """
