@@ -150,7 +150,7 @@ non-zero exit and no result line:
 17. the serving benches under the recapture and host-sync audit: the
     front-door bench at the JAX bench's defaults (``llama_tiny``, 192
     streams, 16 slots, k 4, 96 tokens, 3 rounds per step, 2 paired
-    passes), the same bench at ``llama32_3b``'s full width and 14 of its
+    passes), the same bench at ``llama32_3b``'s full width and 7 of its
     28 layers (max_seq_len 192, a self-draft, 96 streams, in bf16, its exactness
     spot check included), and the router bench at its defaults (4
     replicas, 1,024 streams, a kill); every gate of each report must pass
@@ -178,9 +178,30 @@ non-zero exit and no result line:
     ``llama3_8b`` with int8 weights; it fails on a lane's error, an HBM
     share over 100%, ``bench.py``'s floors on the seeded lanes, a missing
     join rate, K1 not launched in the prefill lane, K2 not launched in the
-    paged lanes, or a model whose parameter count is not the JAX
-    package's; one ``serving:`` JSON line, and its launches go into the
-    kernels line;
+    paged or MoE lanes, or a model whose parameter count is not the JAX
+    package's; its MoE lane serves ``mixtral_2b6`` at batch 1; one
+    ``serving:`` JSON line, and its launches go into the kernels line;
+21. MoE serving, the second model family: ``mixtral_2b6(1024)`` in bf16
+    at full width and depth (16 layers, D 2048, 16 heads, 4 kv heads, FFN
+    5632, 4 experts, top 2) on seeded weights: ``MoEServeEngine``
+    generates the serve phase's prompts (TTFT, tok/s), its prefill logits
+    are held to the same weights on the CPU (``PARITY_TOL``), the MoE
+    block's row alone must have the bits it has inside batches of 2 to
+    200, then ``MoEContinuousBatchingEngine`` (4 slots, 6 requests) and
+    ``MoEPagedBatchingEngine`` (4 slots, blocks of 64, bf16 then int8 KV)
+    serve 6 requests each, every stream held to ``MoEServeEngine.generate``
+    (the dense one exactly, the paged ones by the near-tie rule, a
+    divergence teacher-forced through ``prefill_ids``); K1 must launch once
+    per layer per prefill at buckets 128 and 256, K2 once per layer per
+    cached pass and paged step; one ``moe:`` JSON line;
+22. the CUDA probe surface: the probe manager's plan of every signal
+    (status, symbol and file offset in the card's ``libcuda.so`` or NCCL,
+    cookie), the host's prerequisites and capability mode, and an
+    ``attach_all`` whose refusal (no root, no BTF, no libbpf, objects not
+    built) is reported, not failed; fails if a library was found and no
+    candidate of a signal resolves in it, if ``hbm_alloc_stall_ms`` or
+    ``xla_compile_ms`` does not resolve in ``libcuda.so``, or if a cookie
+    is not ``make_cookie``'s; one ``probe:`` JSON line;
 19. the ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card and imports nothing of JAX or of the JAX package.
@@ -3417,11 +3438,13 @@ def phase_invariance(torch, llama, kv_cache) -> dict:
 
 BENCH_3B_STREAMS = 96  # bench (ii): the one cut of JAX's 192 streams, for the run's time
 BENCH_3B_SEQ = 192  # JAX's llama_tiny(max_seq_len=192), at llama32_3b's widths
-# Bench (ii) runs 14 of llama32_3b's 28 layers at its full widths: at full
+# Bench (ii) runs 7 of llama32_3b's 28 layers at its full widths: at full
 # depth it took 188-201 s of a script that phase 20 (the serving bench,
-# 185-205 s) took past 800 s on one card's host; depth is what a time cut
-# may lower.
-BENCH_3B_LAYERS = 14
+# 185-205 s) took past 800 s on one card's host; at 14 layers 91 s, and
+# phases 21 and 22 (MoE serving, the probe surface, ~45 s with the MoE
+# lane of phase 20) took that time again.  Depth is what a time cut may
+# lower.
+BENCH_3B_LAYERS = 7
 # Bench (ii) serves llama32_3b's widths and depth in the model's dtype:
 # every pass on the card is batch-invariant, so its exactness spot check
 # holds in bf16 (the random model's bf16 logits over 128,256 tokens tie
@@ -3616,6 +3639,7 @@ def phase_bench(torch, fa, pa, serve, llama) -> dict:
 #: lanes (``bench.py:1546-1554``).
 SERVING_TIMEOUT_S = 420
 SERVING_MODELS = {"llama32_3b": 3_606_752_256, "llama3_8b": 8_030_261_248}
+SERVING_MOE = ("mixtral_2b6", 2_513_635_328)  # the MoE lane's model and its JAX param_count
 SERVING_DEVICEPLANE_MIN_JOIN = 0.9
 SERVING_DEVICEPLANE_MAX_UNEXPLAINED = 0.1
 SERVING_PROFILER_MAX_OVERHEAD_PCT = 3.0
@@ -3674,9 +3698,17 @@ def serving_failures(r: dict) -> list[str]:
         if report.get("n_params") != want:
             fails.append(f"{where} model {report.get('model')}: n_params "
                          f"{report.get('n_params')} != the JAX package's {want}")
-    for lane in ("speculative_measured", "moe"):
-        if "not_ported" not in r.get(lane, {}):
-            fails.append(f"{lane} is neither measured nor marked not ported")
+    if "not_ported" not in r.get("speculative_measured", {}):
+        fails.append("speculative_measured is neither measured nor marked not ported")
+    moe = r.get("moe", {})
+    if (moe.get("model"), moe.get("n_params")) != SERVING_MOE:
+        fails.append(f"moe model {moe.get('model')}: n_params {moe.get('n_params')} "
+                     f"!= the JAX package's {SERVING_MOE}")
+    for key in ("ttft_ms", "decode_tokens_per_sec"):
+        if not isinstance(moe.get(key), float | int) or moe[key] <= 0:
+            fails.append(f"moe lane has no {key}: {moe.get(key)!r}")
+    if not moe.get("k2_launches"):
+        fails.append("K2 was not launched in the moe lane")
     return fails
 
 
@@ -3703,6 +3735,271 @@ def phase_serving(torch) -> dict:
     if fails:
         _fail(f"serving: {fails}")
     return {"seconds": round(seconds, 1), "report": report}
+
+
+# Phase 21: the MoE family.  Its prompts are the serve phase's (heads at
+# buckets 128 and 256: K1 at head dim 128) and the batch prompts.
+MOE_BUCKETS = (32, 64, 128, 256)
+MOE_CHUNK = 16
+MOE_SLOTS = 4
+MOE_BLOCK = 64
+MOE_JOBS = list(PROMPTS.values()) + BATCH_PROMPTS[:3]
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _hold_moe_streams(torch, ref, results, what: str, exact: bool) -> dict:
+    """Each of :data:`MOE_JOBS`' streams against ``ref.generate``: equal
+    at every token (``exact``), or leaving it first where the reference's
+    top-2 margin, teacher-forced through ``ref.prefill_ids``, is under
+    2 * PARITY_TOL."""
+    from tpuslo_torch.models.serve import encode_bytes
+
+    parted = []
+    for i, prompt in enumerate(MOE_JOBS):
+        want = [e.token_id for e in ref.generate(prompt, NEW_TOKENS, stop_at_eos=False)]
+        got = results[i]
+        k = next((j for j, (a, b) in enumerate(zip(want, got)) if a != b), None)
+        if len(got) != len(want):
+            _fail(f"{what} request {i}: {len(got)} tokens, generate gave {len(want)}")
+        margin = None
+        if k is not None:
+            if exact:
+                _fail(f"{what} request {i} left generate at token {k}: {got} vs {want}")
+            logits, _ = ref.prefill_ids(
+                encode_bytes(prompt, ref.generation_prompt_cap()) + want[:k])
+            top2 = torch.topk(logits[0].float(), 2).values
+            margin = float(top2[0] - top2[1])
+            if margin >= 2 * PARITY_TOL:
+                _fail(f"{what} request {i} left generate at token {k} where the top-2 "
+                      f"margin is {margin:.4f} (>= {2 * PARITY_TOL})")
+        parted.append({"request": i, "diverged_at": k, "tie_margin": margin})
+    equal = sum(r["diverged_at"] is None for r in parted)
+    print(f"{what}: streams vs MoEServeEngine.generate: {equal}/{len(parted)} equal at every "
+          f"token{'' if exact else ', the rest leave it at near-ties'} {parted}", flush=True)
+    return {"equal": equal, "streams": len(parted), "parity": parted}
+
+
+def _moe_batched(torch, engine, what: str) -> tuple[list[list[int]], dict]:
+    ids = [engine.submit(p, NEW_TOKENS, stop_at_eos=False) for p in MOE_JOBS]
+    t0 = time.perf_counter()
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    results = [engine.results[i] for i in ids]
+    row = {"slots": engine.max_slots, "requests": len(ids), "steps": engine.steps,
+           "wall_ms": wall * 1e3, "tok_s": sum(map(len, results)) / wall,
+           "stats": engine.stats()}
+    print(f"{what}: {len(ids)} requests x {NEW_TOKENS} tokens through {engine.max_slots} "
+          f"slots: {engine.steps} steps, {wall * 1e3:.1f} ms, {row['tok_s']:.1f} tok/s",
+          flush=True)
+    return results, row
+
+
+def _moe_invariance(torch, moe, cfg, params) -> dict:
+    """Row r of the MoE block (layer 0's weights) alone against the same
+    row inside batches of 2 to 200 rows, bitwise (r first and last)."""
+    layer = {k: params["layers"][k][0] for k in ("router", "w1", "w3", "w2")}
+    gen = torch.Generator(device="cuda").manual_seed(2718)
+    X = torch.randn((max(INVARIANCE_BATCHES), cfg.dim), generator=gen,
+                    device="cuda").bfloat16()
+    breaks = []
+    for n in INVARIANCE_BATCHES:
+        y = moe.moe_mlp(layer, X[:n], cfg.moe())
+        for r in (0, n - 1):
+            if not torch.equal(y[r], moe.moe_mlp(layer, X[r:r + 1], cfg.moe())[0]):
+                breaks.append((n, r))
+    torch.cuda.synchronize()
+    print(f"moe: the MoE block's row r alone vs inside batches {INVARIANCE_BATCHES} (r first "
+          f"and last): {'bitwise equal' if not breaks else f'differs at {breaks}'}", flush=True)
+    return {"invariant": not breaks, "breaks": breaks}
+
+
+def phase_moe(torch, fa, pa, serve) -> dict:
+    """Phase 21: ``mixtral_2b6`` at full width and depth through the MoE
+    engines (see the module docstring)."""
+    from tpuslo_torch.models import mixtral
+    from tpuslo_torch.ops import moe
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = mixtral.mixtral_2b6(max_seq_len=1024)
+    t0 = time.perf_counter()
+    engine = mixtral.MoEServeEngine(cfg, rng_seed=0, prefill_buckets=MOE_BUCKETS,
+                                    decode_chunk_size=MOE_CHUNK, device="cuda")
+    torch.cuda.synchronize()
+    out = {"config": "mixtral_2b6", "n_layers": cfg.n_layers, "dim": cfg.dim,
+           "n_experts": cfg.n_experts, "top_k": cfg.top_k,
+           "params": mixtral.param_count(cfg), "active_params": mixtral.active_param_count(cfg),
+           "init_s": time.perf_counter() - t0, "warmup_ms": engine.warmup()}
+    print(f"moe: mixtral_2b6 L={cfg.n_layers} D={cfg.dim} H={cfg.n_heads} KV={cfg.n_kv_heads} "
+          f"FFN={cfg.ffn_dim} E={cfg.n_experts} top-{cfg.top_k} params={out['params']} "
+          f"(active {out['active_params']}) init {out['init_s']:.2f}s warmup "
+          f"{out['warmup_ms']:.0f} ms", flush=True)
+
+    # The counts are set to 0 just before the path and read just after.
+    fa.flash_attention.launches = fa.flash_attention.f32_launches = 0
+    pa.paged_decode_attention.launches = pa.paged_decode_attention.f32_launches = 0
+    lanes_0 = _lane_layers()
+    requests = []
+    for prompt in MOE_JOBS[:len(PROMPTS)]:
+        t0 = time.perf_counter()
+        events = list(engine.generate(prompt, NEW_TOKENS, stop_at_eos=False))
+        total = time.perf_counter() - t0
+        ids = len(serve.encode_bytes(prompt, engine.generation_prompt_cap()))
+        requests.append({"prompt_ids": ids, "tokens": len(events),
+                         "ttft_ms": events[0].ttft_ms,
+                         "decode_tok_s": (len(events) - 1) / (total - events[0].ttft_ms / 1e3)})
+        print(f"moe: generate {ids} prompt ids: TTFT {events[0].ttft_ms:.1f} ms, decode "
+              f"{requests[-1]['decode_tok_s']:.1f} tok/s", flush=True)
+    out["requests"] = requests
+
+    dense_engine = mixtral.MoEContinuousBatchingEngine(
+        cfg, params=engine.params, max_slots=MOE_SLOTS, prefill_buckets=MOE_BUCKETS,
+        decode_chunk_size=MOE_CHUNK, device="cuda")
+    dense, out["dense"] = _moe_batched(torch, dense_engine, "moe dense")
+    paged_runs, paged_steps = {}, 0
+    for kv in ("bf16", "int8"):
+        paged_engine = mixtral.MoEPagedBatchingEngine(
+            cfg, params=engine.params, max_slots=MOE_SLOTS, block_size=MOE_BLOCK,
+            prefill_buckets=MOE_BUCKETS, decode_chunk_size=MOE_CHUNK, kv_dtype=kv,
+            device="cuda")
+        if not paged_engine.pallas_attention:
+            _fail("moe: the paged MoE engine does not read its pool through K2 on the card")
+        paged_runs[kv] = _moe_batched(torch, paged_engine, f"moe paged {kv}")
+        paged_steps += paged_engine.steps
+        del paged_engine
+    torch.cuda.synchronize()
+    k1 = fa.flash_attention.launches + fa.flash_attention.f32_launches
+    k2 = _k2_all()
+    lanes = _lane_layers() - lanes_0
+    # Every prefill of a MOE_JOBS prompt ran at its own bucket (the serve
+    # prompts once, every job in each of the three batching engines): K1
+    # where that bucket is flash-eligible.
+    buckets = [serve._bucket(len(serve.encode_bytes(p, engine.generation_prompt_cap())),
+                             MOE_BUCKETS) for p in MOE_JOBS]
+    eligible = [fa.flash_eligible((1, S, cfg.n_heads, cfg.head_dim), cfg.n_kv_heads)
+                for S in buckets]
+    k1_needed = cfg.n_layers * (sum(eligible[:len(PROMPTS)]) + 3 * sum(eligible))
+    print(f"moe: K1 launches {k1} (prefills at buckets {buckets}, {sum(eligible)} of them "
+          f"flash-eligible, served 4 times: {k1_needed}); K2 launches {k2} ({lanes} layers of "
+          f"cached passes + {paged_steps} paged steps x {cfg.n_layers} layers)", flush=True)
+    if k1 == 0 or k1 != k1_needed:
+        _fail(f"moe: K1 launched {k1} times, the phase's prefills need {k1_needed}")
+    _hold_lanes("moe", k2, lanes, paged_steps * cfg.n_layers)
+    out.update(k1_launches=k1, k1_needed=k1_needed, k2_launches=k2, lane_layers=lanes,
+               paged_steps=paged_steps, prefill_buckets=buckets)
+
+    # Streams against the per-stream engine (reference launches are not counted).
+    out["invariance"] = _moe_invariance(torch, moe, cfg, engine.params)
+    out["dense"]["streams"] = _hold_moe_streams(torch, engine, dense, "moe dense",
+                                                exact=out["invariance"]["invariant"])
+    out["paged"] = {}
+    for kv, (results, row) in paged_runs.items():
+        ref = engine if kv == "bf16" else mixtral.MoEServeEngine(
+            cfg, params=engine.params, prefill_buckets=MOE_BUCKETS,
+            decode_chunk_size=MOE_CHUNK, kv_dtype=kv, device="cuda")
+        row["streams"] = _hold_moe_streams(torch, ref, results, f"moe paged {kv}", exact=False)
+        out["paged"][kv] = row
+
+    # Card logits against the same weights on the CPU.
+    ids = [256] + list(PROMPTS["bucket128"].encode())
+    gpu, _ = engine.prefill_ids(ids)
+    cpu_engine = mixtral.MoEServeEngine(cfg, params=_tree_to(engine.params, "cpu"),
+                                        prefill_buckets=MOE_BUCKETS, device="cpu")
+    t0 = time.perf_counter()
+    cpu, _ = cpu_engine.prefill_ids(ids)
+    cpu_s = time.perf_counter() - t0
+    del cpu_engine
+    gpu = gpu.float().cpu()
+    err = float((gpu - cpu).abs().max())
+    top2 = torch.topk(cpu[0], 2).values
+    margin = float(top2[0] - top2[1])
+    same = int(gpu[0].argmax()) == int(cpu[0].argmax())
+    print(f"moe: card vs CPU prefill logits ({len(ids)} ids, bucket 128, full depth): max abs "
+          f"err {err:.4f} (tol {PARITY_TOL}); greedy token {'agrees' if same else 'differs'}, "
+          f"CPU top-2 margin {margin:.4f}; the CPU pass took {cpu_s:.1f} s", flush=True)
+    if not torch.isfinite(gpu).all() or err > PARITY_TOL:
+        _fail(f"moe: card vs CPU logits differ by {err} > {PARITY_TOL}")
+    if not same and margin >= 2 * PARITY_TOL:
+        _fail("moe: the greedy first token differs at a decisive margin")
+    out["parity"] = {"max_abs_err": err, "tol": PARITY_TOL, "same_token": same,
+                     "cpu_top2_margin": margin, "cpu_s": cpu_s}
+    del engine, dense_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"moe: phase took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# Phase 22: the CUDA probe surface.  The signals the CUDA manifest feeds,
+# and the two whose symbols the card's libcuda.so must hold.
+PROBE_CUDA_SIGNALS = ("xla_compile_ms", "hbm_alloc_stall_ms", "ici_collective_latency_ms",
+                      "host_offload_stall_ms", "ici_link_retries_total",
+                      "dcn_transfer_latency_ms")
+PROBE_MUST_RESOLVE = ("hbm_alloc_stall_ms", "xla_compile_ms")
+
+
+def phase_probe(torch) -> dict:
+    """Phase 22: plan every signal against the card's CUDA probe surface,
+    print what the machine allows, and try the attach."""
+    from tpuslo_torch import prereq
+    from tpuslo_torch.collector import probe_manager as pm_mod
+    from tpuslo_torch.signals import constants as sig
+    from tpuslo_torch.signals import mode
+
+    t_phase = time.perf_counter()
+    torch.cuda.init()
+    pm = pm_mod.ProbeManager()
+    libraries = pm.libraries()
+    plans = pm.plan(list(sig.supported_signals_for_mode(sig.CAPABILITY_CUDA_FULL)))
+    rows, fails = [], []
+    for plan in plans:
+        if plan.signal not in PROBE_CUDA_SIGNALS:
+            continue
+        row = {"signal": plan.signal, "status": plan.status, "kind": plan.kind,
+               "library": plan.target_binary, "symbol": plan.symbol,
+               "file_offset": plan.file_offset, "cookie": plan.cookie, "detail": plan.detail}
+        rows.append(row)
+        print(f"probe: {plan.signal}: {plan.status} {plan.kind} "
+              f"{plan.symbol or '-'} @ {plan.target_binary or '-'}+0x{plan.file_offset:x} "
+              f"cookie 0x{plan.cookie:016x} ({plan.detail or 'ok'})", flush=True)
+        if plan.target_binary and not plan.symbol:
+            fails.append(f"{plan.signal}: {plan.target_binary} was found and no candidate "
+                         "resolves in it")
+        if plan.symbol and plan.kind.startswith("uprobe") and (
+                plan.cookie != pm_mod.make_cookie(plan.signal, plan.symbol)):
+            fails.append(f"{plan.signal}: cookie 0x{plan.cookie:x} is not make_cookie's")
+    for name in PROBE_MUST_RESOLVE:
+        row = next(r for r in rows if r["signal"] == name)
+        if not row["symbol"] or "libcuda" not in os.path.basename(row["library"]):
+            fails.append(f"{name} did not resolve in libcuda.so: {row}")
+    snapshot = prereq.collect_snapshot()
+    checks = {r.name: r.passed for r in prereq.evaluate(snapshot)}
+    objects = sorted(p.name for p in pm_mod.DEFAULT_OBJ_DIR.glob("*.bpf.o")) \
+        if pm_mod.DEFAULT_OBJ_DIR.exists() else []
+    allows = {"root": snapshot.is_root, "btf": snapshot.has_btf,
+              "libbpf": pm.available(), "objects_built": objects,
+              "kallsyms_readable": os.access("/proc/kallsyms", os.R_OK),
+              "capability_mode": mode.detect_capability_mode()}
+    print(f"probe: libraries {libraries}; the machine allows {allows}; prerequisites "
+          f"{checks}", flush=True)
+    report = pm.attach_all([r["signal"] for r in rows])
+    attach = report.to_dict()
+    pm.detach_all()
+    print(f"probe: attach_all: attached {attach['attached']}; "
+          + "; ".join(f"{r['signal']} {r['status']}" for r in attach["results"]), flush=True)
+    out = {"plans": rows, "libraries": libraries, "allows": allows, "prereq": checks,
+           "attach": attach, "seconds": time.perf_counter() - t_phase}
+    print(f"probe: phase took {out['seconds']:.1f} s", flush=True)
+    if fails:
+        _fail(f"probe: {fails}")
+    return out
 
 
 def _load_tree(tree: Path):
@@ -3891,6 +4188,7 @@ def main() -> int:
         return probe_main(sys.argv[2:])
     import torch
 
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on a GPU only",
               file=sys.stderr)
@@ -4027,6 +4325,13 @@ def main() -> int:
     serving = phase_serving(torch)
     print(f"serving: {json.dumps(serving)}", flush=True)
     served_launches = serving["report"]["kernel_launches"]
+    # 21. MoE serving: mixtral_2b6 through the three MoE engines (its
+    # launches counted from 0 just before its path)
+    moe = phase_moe(torch, fa, pa, serve)
+    print(f"moe: {json.dumps(moe)}", flush=True)
+    # 22. the CUDA probe surface
+    probed = phase_probe(torch)
+    print(f"probe: {json.dumps(probed)}", flush=True)
 
     # 19. kernels line, card line, result line
     line_row = next(
@@ -4052,7 +4357,7 @@ def main() -> int:
                      + spec["draft_1b"]["k1_launches"] + spec["self_draft"]["k1_launches"]
                      + front["k1_launches"] + routed["k1_launches"] + device_k1
                      + entry["launches"]["flash_attention"] + bench_k1["k1_launches"]
-                     + served_launches["flash_attention"]),
+                     + served_launches["flash_attention"] + moe["k1_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel["shapes"]),
         "ms": line_row["ms"],
         "plain_ms": line_row["plain_ms"],
@@ -4069,7 +4374,7 @@ def main() -> int:
                      + spec["draft_1b"]["k2_launches"] + spec["self_draft"]["k2_launches"]
                      + front["k2_launches"] + device_k2 + entry["launches"]["paged_attention"]
                      + benches["frontdoor_3b"]["k2_launches"]
-                     + served_launches["paged_attention"]),
+                     + served_launches["paged_attention"] + moe["k2_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in k2["shapes"]),
         "ms": k2_row["ms"],
         "plain_ms": k2_row["plain_ms"],
@@ -4168,7 +4473,10 @@ def main() -> int:
     idle = [k["name"] for k in kernels["kernels"] if not k["launches"]]
     if idle:
         _fail(f"kernels of the path launched no time in its run: {idle}")
+    seconds = time.perf_counter() - t_script
+    print(f"chip_smoke: every phase passed in {seconds:.1f} s", flush=True)
     record = {"card": card, "kind": kind, "count": count, "torch": torch.__version__,
+              "seconds": seconds,
               "build_s": {n: b.seconds for n, b in builds.items()},
               "ptxas": ptxas, "kernel": kernel, "kernel_f32": kernel_f32,
               "serve": served, "dense": dense, "paged": paged, "paged_kernel": k2,
@@ -4177,7 +4485,7 @@ def main() -> int:
               "router": routed, "deviceplane": device, "attribution": attributed,
               "entry": entry, "parity": parity, "parity_f32": parity_f32,
               "parity_tiny": parity_tiny, "exactness": exactness, "bench": benches,
-              "serving": serving,
+              "serving": serving, "moe": moe, "probe": probed,
               "invariance": invariance,
               **kernels}
     print(f"record: {json.dumps(record)}")

@@ -1721,3 +1721,84 @@ def test_a_fill_of_warm_admissions_reads_once_and_never_synchronizes(cuda_device
     for u, rid in zip(users, ids):
         alone = fd.submit(u, prefix=prefix, max_new_tokens=12, stop_at_eos=False)
         assert fd.run()[alone] == results[rid]
+
+
+# --- the MoE family and the CUDA probe surface -------------------------
+
+
+def _moe_cfg(dim: int = 512, ffn: int = 1024):
+    from tpuslo_torch.ops import moe
+
+    return moe.MoEConfig(dim=dim, ffn_dim=ffn, n_experts=4, top_k=2, capacity_factor=2.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,ffn", [(512, 1024), (2048, 5632)])
+def test_the_moe_block_is_batch_invariant(cuda_device, dim, ffn):
+    """Row r of the MoE block alone has the bits it has inside batches of
+    2 to 200 rows (drop-free routing, bf16, mixtral_2b6's widths too)."""
+    from tpuslo_torch.ops import moe
+
+    cfg = _moe_cfg(dim, ffn)
+    params = moe.init_moe_params(0, cfg, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    X = torch.randn((200, dim), generator=gen, device=cuda_device).bfloat16()
+    for n in (2, 5, 8, 16, 40, 80, 200):
+        y = moe.moe_mlp(params, X[:n], cfg)
+        for r in (0, n // 2, n - 1):
+            assert torch.equal(y[r], moe.moe_mlp(params, X[r:r + 1], cfg)[0]), (n, r)
+
+
+@pytest.mark.cuda
+def test_the_moe_block_on_the_card_matches_the_cpu(cuda_device):
+    from tpuslo_torch.ops import moe
+
+    cfg = _moe_cfg()
+    params = moe.init_moe_params(0, cfg, device=cuda_device)
+    x = torch.randn((64, cfg.dim), generator=torch.Generator().manual_seed(1)).bfloat16()
+    got = moe.moe_mlp(params, x.to(cuda_device), cfg).float().cpu()
+    want = moe.moe_mlp({k: v.cpu() for k, v in params.items()}, x, cfg).float()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=0)
+
+
+@pytest.mark.cuda
+def test_the_moe_paged_engine_reads_its_pool_through_k2(cuda_device):
+    """On the card the MoE paged engine's steps launch K2 once per layer,
+    and its streams equal the per-stream MoE engine's or leave them at a
+    near-tie."""
+    from tpuslo_torch.models import mixtral
+
+    cfg = dataclasses.replace(mixtral.mixtral_tiny(max_seq_len=256), dim=256, n_heads=2,
+                              n_kv_heads=1)
+    ref = mixtral.MoEServeEngine(cfg, rng_seed=3, device=cuda_device)
+    engine = mixtral.MoEPagedBatchingEngine(cfg, params=ref.params, max_slots=3,
+                                            block_size=64, device=cuda_device)
+    assert engine.pallas_attention
+    prompts = ["paged experts", "a second request", "and a third one"]
+    ids = [engine.submit(p, 12, stop_at_eos=False) for p in prompts]
+    k2 = paged_decode_attention.launches + paged_decode_attention.f32_launches
+    engine.run()
+    launched = paged_decode_attention.launches + paged_decode_attention.f32_launches - k2
+    assert launched == engine.steps * cfg.n_layers
+    for rid, prompt in zip(ids, prompts):
+        want = [e.token_id for e in ref.generate(prompt, 12, stop_at_eos=False)]
+        got = engine.results[rid]
+        k = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
+        if k is not None:
+            logits, _ = ref.prefill_ids(serve.encode_bytes(prompt, ref.generation_prompt_cap())
+                                        + want[:k])
+            top2 = torch.topk(logits[0].float(), 2).values
+            assert float(top2[0] - top2[1]) < 2 * LOGIT_TOL, (k, got, want)
+
+
+@pytest.mark.cuda
+def test_find_libcuda_returns_the_library_this_process_maps(cuda_device):
+    from tpuslo_torch.collector import symbols
+
+    torch.ones(1, device=cuda_device)  # CUDA is initialised in this process
+    path = symbols.find_libcuda(env={})
+    assert path and "libcuda.so" in path
+    with open("/proc/self/maps", encoding="utf-8") as fh:
+        mapped = {line.split()[-1] for line in fh if len(line.split()) >= 6}
+    assert path in mapped
+    assert symbols.resolve_elf_symbol(path, ["cuMemAlloc_v2"]).name == "cuMemAlloc_v2"

@@ -239,8 +239,9 @@ def test_bench_ii_serves_the_models_dtype():
 
 
 def test_bench_ii_keeps_the_3b_widths_at_half_its_depth():
-    """Bench (ii)'s time cut lowers depth only (14 of 28 layers)."""
-    assert chip_smoke.BENCH_3B_LAYERS == 14 and chip_smoke.BENCH_3B_STREAMS == 96
+    """Bench (ii)'s time cuts lower depth only: 14 of 28 layers, then 7 to
+    make room for the MoE and probe phases."""
+    assert chip_smoke.BENCH_3B_LAYERS == 7 and chip_smoke.BENCH_3B_STREAMS == 96
 
 
 def test_hold_exact_fails_only_a_held_stream():
@@ -376,7 +377,8 @@ def _serving_report() -> dict:
         "int8": {"model": "llama3_8b", "n_params": 8_030_261_248,
                  "bw_decode_b8": {"hbm_bw_pct": 40.0}},
         "speculative_measured": {"not_ported": "ROADMAP 14"},
-        "moe": {"not_ported": "ROADMAP 12"},
+        "moe": {"model": "mixtral_2b6", "n_params": 2_513_635_328, "ttft_ms": 31.5,
+                "decode_tokens_per_sec": 40.2, "k1_launches": 0, "k2_launches": 1536},
     }
 
 
@@ -401,7 +403,14 @@ def test_serving_gates_pass_a_good_report():
     (lambda r: r["kv"]["shared_prefix"].update(k2_launches=0), "shared_prefix lane"),
     (lambda r: r.update(n_params=3_606_752_257), "bf16 model llama32_3b"),
     (lambda r: r["int8"].update(model="llama32_3b"), "int8 model llama32_3b"),
-    (lambda r: r.update(moe={"tokens_per_sec": 1.0}), "moe is neither"),
+    (lambda r: r.update(speculative_measured={"tokens_per_sec": 1.0}),
+     "speculative_measured is neither"),
+    (lambda r: r.update(moe={"not_ported": "ROADMAP 12"}), "moe model None"),
+    (lambda r: r["moe"].update(n_params=2_513_635_327), "moe model mixtral_2b6"),
+    (lambda r: r["moe"].pop("ttft_ms"), "moe lane has no ttft_ms"),
+    (lambda r: r["moe"].update(decode_tokens_per_sec=0.0), "no decode_tokens_per_sec"),
+    (lambda r: r["moe"].update(k2_launches=0), "K2 was not launched in the moe lane"),
+    (lambda r: r["moe"].update(error="RuntimeError: OOM"), "moe: error"),
 ])
 def test_serving_gates_name_each_failure(break_it, failure):
     report = _serving_report()
@@ -418,3 +427,9 @@ def test_serving_models_are_the_jax_param_counts():
 
     assert chip_smoke.SERVING_MODELS == {
         name: param_count(jsb._make_config(name)) for name in ("llama32_3b", "llama3_8b")}
+
+
+def test_serving_moe_is_the_jax_param_count():
+    from tpuslo.models import mixtral
+
+    assert chip_smoke.SERVING_MOE == ("mixtral_2b6", mixtral.param_count(mixtral.mixtral_2b6()))

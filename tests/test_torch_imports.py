@@ -1,7 +1,7 @@
 """The port stands alone: nothing in ``tpuslo_torch/`` or ``chip_smoke.py``
 imports JAX or the JAX package (``tpuslo``), statically or at run time,
-nor ``jsonschema`` (the card's machine does not have it; the port's
-contract validator is its own)."""
+nor ``jsonschema`` or ``yaml`` (the card's machine has neither; the
+port's contract validator is its own, its probe manifest is JSON)."""
 
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ PORT_FILES = sorted((REPO / "tpuslo_torch").rglob("*.py")) + [REPO / "chip_smoke
 
 def _forbidden(module: str) -> bool:
     root = module.split(".")[0]
-    return root in ("jax", "jaxlib", "tpuslo", "jsonschema")
+    return root in ("jax", "jaxlib", "tpuslo", "jsonschema", "yaml")
 
 
 def _imported_modules(tree: ast.AST):
@@ -58,7 +58,9 @@ def test_port_files_exist():
                 "ops/dense_lanes.py", "ops/rms_norm.py", "ops/launch_counts.py",
                 "semconv/__init__.py", "metrics/rejections.py", "metrics/__init__.py",
                 "correlation/matcher.py", "correlation/__init__.py", "sloengine/sweep.py",
-                "benchmark/serving_bench.py"):
+                "benchmark/serving_bench.py", "ops/moe.py", "models/mixtral.py",
+                "collector/symbols.py", "collector/probe_manager.py", "prereq/checker.py",
+                "prereq/__init__.py"):
         assert REPO / "tpuslo_torch" / rel in PORT_FILES
 
 
@@ -84,9 +86,12 @@ def test_importing_the_port_loads_no_jax():
         "tpuslo_torch.benchmark.router_bench, tpuslo_torch.cli.loadgen, "
         "tpuslo_torch.benchmark.probes, tpuslo_torch.ops.rms_norm, tpuslo_torch.semconv, "
         "tpuslo_torch.metrics, tpuslo_torch.correlation, tpuslo_torch.sloengine.sweep, "
-        "tpuslo_torch.benchmark.serving_bench; "
+        "tpuslo_torch.benchmark.serving_bench, tpuslo_torch.ops.moe, "
+        "tpuslo_torch.models.mixtral, tpuslo_torch.collector, "
+        "tpuslo_torch.collector.symbols, tpuslo_torch.collector.probe_manager, "
+        "tpuslo_torch.prereq, tpuslo_torch.prereq.checker; "
         "bad = sorted(m for m in sys.modules "
-        "if m.split('.')[0] in ('jax', 'tpuslo', 'jsonschema')); "
+        "if m.split('.')[0] in ('jax', 'tpuslo', 'jsonschema', 'yaml')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     proc = subprocess.run(

@@ -233,3 +233,24 @@ def test_a_whole_cpu_run_reports_every_lane():
     assert "xprof_error" not in got and got["xla_launch_matches"] > 0
     assert set(got["kernel_launches"].values()) == {0}
     assert got["mfu_prefill"] is None and "hbm_bw_pct" not in got["bw_decode_b1"]
+
+
+def test_the_moe_lane_reports_the_jax_lanes_keys(monkeypatch):
+    """``_bench_moe`` on ``mixtral_tiny`` standing in for ``mixtral_2b6``:
+    the JAX lane's keys, its counts from the port's ``param_count``, a
+    decode rate, and no kernel launched on the CPU.  The lane the card
+    runs is the real config (phase 20 holds its ``n_params`` to JAX's)."""
+    from tpuslo_torch.models import mixtral
+
+    monkeypatch.setattr(mixtral, "mixtral_2b6", lambda: mixtral.mixtral_tiny(256))
+    got = tsb._bench_moe(None, None, CPU)
+    cfg = mixtral.mixtral_tiny(256)
+    assert (got["model"], got["n_params"], got["n_params_active"]) == (
+        "mixtral_2b6", mixtral.param_count(cfg), mixtral.active_param_count(cfg))
+    assert (got["n_experts"], got["top_k"]) == (4, 2)
+    assert got["ttft_ms"] > 0 and got["decode_tokens_per_sec"] > 0
+    assert "mfu_decode_b1" not in got and "hbm_bw_pct" not in got["bw_decode_b1"]
+    assert got["bw_decode_b1"]["bytes_per_step"] == int(
+        tsb.decode_step_hbm_bytes(got["n_params_active"], tl.kv_cache_bytes(cfg, 1)))
+    assert (got["k1_launches"], got["k2_launches"]) == (0, 0)
+    assert "moe" not in tsb.NOT_PORTED

@@ -12,7 +12,7 @@ The toolkit's own account of one card's serving speed:
   roof, against the card's row of :data:`PEAK_BF16_FLOPS` and
   :data:`PEAK_HBM_BW`;
 * the prefix, long-prompt, speculative, paged-vs-dense, int8-KV,
-  shared-prefix and int8-weight lanes;
+  shared-prefix, MoE (``mixtral_2b6``) and int8-weight lanes;
 * proves the ``xla_launch`` correlation tier on a real capture: a
   ``torch.profiler`` capture over a serve recovers the dispatches' module
   spans and their kernels' device time, and the two streams are joined
@@ -33,9 +33,9 @@ window ends in a device read or a synchronize, the K2 arm of the batch
 curve runs the hand-written kernel where JAX ran its Pallas kernel, and
 the result carries the process's kernel launches (``kernel_launches``)
 and each lane's own (``k1_launches`` / ``k2_launches``).  The measured
-speculative lane (it trains a draft over a mesh), the MoE lane and the
-persisted-capture fallback of ``bench.py`` are not ported yet: the first
-two report ``{"not_ported": <ROADMAP item>}``.
+speculative lane (it trains a draft over a mesh) and the persisted-capture
+fallback of ``bench.py`` are not ported yet: the first reports
+``{"not_ported": <ROADMAP item>}``.
 """
 
 from __future__ import annotations
@@ -66,7 +66,6 @@ PEAK_HBM_BW = {name: bw for name, (bw, _flops) in PEAKS.items()}
 #: The ROADMAP items the lanes that are not ported wait for.
 NOT_PORTED = {
     "speculative_measured": "ROADMAP 14 (training: it trains a draft over a mesh)",
-    "moe": "ROADMAP 12 (MoE: ops/moe.py and models/mixtral.py)",
 }
 
 
@@ -1288,10 +1287,10 @@ def run(platform: str = "auto", model: str = "auto") -> dict[str, Any]:
     # --- MoE + int8 lanes ----------------------------------------------
     if on_card:
         # Drop the bf16 lanes' weights first (7.2 GB on the 3B config):
-        # the int8 lane builds an 8B model.
+        # the MoE and int8 lanes build models of their own.
         del engine, params
         _free_device(device)
-        out["moe"] = {"not_ported": NOT_PORTED["moe"]}
+        out["moe"] = lane("moe", lambda: _bench_moe(peak_flops, peak_bw, device))
         out["int8"] = lane(
             "int8", lambda: _bench_int8(bytes_limit, peak_flops, peak_bw, device)
         )
@@ -1301,6 +1300,58 @@ def run(platform: str = "auto", model: str = "auto") -> dict[str, Any]:
     out["lane_seconds"] = seconds
     out["elapsed_s"] = round(time.perf_counter() - t_bench, 1)
     return out
+
+
+def _bench_moe(peak_flops, peak_bw, device: torch.device) -> dict[str, Any]:
+    """Measured MoE serving: ``mixtral_2b6`` (drop-free routing) at full
+    width and depth in bf16, batch-1 TTFT and decode tokens/s, the second
+    model family's datum on the card.
+
+    A decoded token computes through its top-k experts only, so MFU and
+    the bytes a step must move count the active (routed) parameters."""
+    from tpuslo_torch.models.llama import kv_cache_bytes
+    from tpuslo_torch.models.mixtral import (
+        MoEServeEngine,
+        active_param_count,
+        mixtral_2b6,
+        param_count,
+    )
+
+    cfg = mixtral_2b6()
+    res: dict[str, Any] = {
+        "model": "mixtral_2b6",
+        "n_params": param_count(cfg),
+        "n_params_active": active_param_count(cfg),
+        "n_experts": cfg.n_experts,
+        "top_k": cfg.top_k,
+    }
+    k1_at, k2_at = _k1(), _k2()
+    t0 = time.perf_counter()
+    engine = MoEServeEngine(cfg=cfg, prefill_buckets=(32, 64, 128, 256), device=device)
+    try:
+        synchronize(device)
+        res["init_params_s"] = round(time.perf_counter() - t0, 2)
+        res["warmup_compile_ms"] = round(engine.warmup(), 1)
+        ttft_ms, b1_tps = _b1_latency(engine, n_tokens=96)
+        res["ttft_ms"] = round(ttft_ms, 2)
+        res["decode_tokens_per_sec"] = round(b1_tps, 2)
+        if peak_flops:
+            res["mfu_decode_b1"] = round(b1_tps * 2.0 * res["n_params_active"] / peak_flops, 5)
+        # A b1 step streams the attention and shared weights, top_k experts
+        # a layer, and the whole KV buffer.
+        res["bw_decode_b1"] = bandwidth_report(
+            b1_tps, 1,
+            decode_step_hbm_bytes(res["n_params_active"], kv_cache_bytes(cfg, 1)),
+            peak_bw,
+        )
+        res["k1_launches"] = _k1() - k1_at
+        res["k2_launches"] = _k2() - k2_at
+    finally:
+        # Free the ~5 GB of MoE weights even when a stage raises: the int8
+        # 8B lane that follows needs the card's headroom.
+        del engine
+        _free_device(device)
+    return res
 
 
 def _bench_int8(bytes_limit, peak_flops, peak_bw, device: torch.device) -> dict[str, Any]:

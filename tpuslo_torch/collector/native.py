@@ -1,7 +1,8 @@
 """ctypes binding to the repo's native runtime (``native/libtpuslo_runtime.so``):
-the port's own copy of the part of ``tpuslo/collector/native.py`` that a
-ring producer calls (``load_runtime``, ``pack_event``, the signal id and
-flag constants).
+the port's own copy of the parts of ``tpuslo/collector/native.py`` that a
+ring producer and the probe manager call (``load_runtime``,
+``runtime_available``, ``pack_event``, the ``tpuslo_pm_*`` attach entry
+points, the signal id and flag constants).
 
 The runtime owns the ring-buffer transport; this module locates it
 (building it on demand with ``make -C native`` if needed), loads it and
@@ -24,7 +25,22 @@ _LIB_NAME = "libtpuslo_runtime.so"
 EVENT_BYTES = 72
 
 # Signal ids — mirror of ``enum tpuslo_signal_id`` (contract values).
+SIG_DNS_LATENCY = 1
+SIG_TCP_RETRANSMIT = 2
+SIG_RUNQ_DELAY = 3
+SIG_CONNECT_LATENCY = 4
+SIG_TLS_HANDSHAKE = 5
+SIG_CPU_STEAL = 6
+SIG_MEM_RECLAIM = 7
+SIG_DISK_IO = 8
+SIG_SYSCALL_LATENCY = 9
+SIG_XLA_COMPILE = 16
+SIG_HBM_ALLOC_STALL = 17
 SIG_HBM_UTILIZATION = 18
+SIG_ICI_LINK_RETRY = 19
+SIG_ICI_COLLECTIVE = 20
+SIG_HOST_OFFLOAD = 21
+SIG_DCN_TRANSFER = 22
 
 # Flags — mirror of TPUSLO_F_*.
 F_TPU = 0x0008
@@ -69,6 +85,33 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.tpuslo_ring_dropped.restype = ctypes.c_uint64
     lib.tpuslo_ring_dropped.argtypes = [ctypes.c_void_p]
     lib.tpuslo_ring_close.argtypes = [ctypes.c_void_p]
+
+    lib.tpuslo_pm_available.restype = ctypes.c_int
+    lib.tpuslo_pm_new.restype = ctypes.c_void_p
+    lib.tpuslo_pm_free.argtypes = [ctypes.c_void_p]
+    lib.tpuslo_pm_load.restype = ctypes.c_int
+    lib.tpuslo_pm_load.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p,
+    ]
+    lib.tpuslo_pm_ringbuf_fd.restype = ctypes.c_int
+    lib.tpuslo_pm_ringbuf_fd.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    lib.tpuslo_pm_attach_auto.restype = ctypes.c_int
+    lib.tpuslo_pm_attach_auto.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    lib.tpuslo_pm_attach_kprobe.restype = ctypes.c_int
+    lib.tpuslo_pm_attach_kprobe.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
+        ctypes.c_int,
+    ]
+    lib.tpuslo_pm_attach_uprobe.restype = ctypes.c_int
+    lib.tpuslo_pm_attach_uprobe.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
+        ctypes.c_uint64, ctypes.c_int, ctypes.c_uint64,
+    ]
+    lib.tpuslo_pm_detach_object.restype = ctypes.c_int
+    lib.tpuslo_pm_detach_object.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    lib.tpuslo_pm_last_error.restype = ctypes.c_char_p
+    lib.tpuslo_pm_last_error.argtypes = [ctypes.c_void_p]
+
     lib.tpuslo_event_size.restype = ctypes.c_int
 
 

@@ -6,7 +6,9 @@ the JAX package.  The parameter trees share leaf names, the
 carries over as a copy:
 
 * a dense leaf arrives as f32 (``np.asarray(leaf, np.float32)``, which
-  is exact for bf16) and is cast to ``cfg.dtype``;
+  is exact for bf16) and is cast to ``cfg.dtype``, except the Mixtral
+  family's ``router``, which JAX keeps in f32 and so does the port (the
+  ``(L, E, D, F)`` expert leaves are dense leaves like any other);
 * an int8 ``{"q", "s"}`` leaf is copied as it is and never quantized
   again: re-quantizing could round exact .5 boundaries differently.
 
@@ -41,18 +43,35 @@ def _leaf_to_torch(leaf, dtype: torch.dtype, device: torch.device):
     )
 
 
+#: Layer leaves that stay f32 whatever the model dtype.
+F32_LEAVES = ("router",)
+
+
 def params_from_numpy(tree: dict, cfg, device: str | torch.device = "cuda") -> dict:
-    """The port's parameters from a JAX parameter tree given as numpy
-    arrays (or anything ``np.asarray`` accepts)."""
+    """The port's parameters (Llama or Mixtral) from a JAX parameter tree
+    given as numpy arrays (or anything ``np.asarray`` accepts)."""
     dev = resolve_device(device)
     return {
         "embed": _leaf_to_torch(tree["embed"], cfg.dtype, dev),
         "layers": {
-            name: _leaf_to_torch(leaf, cfg.dtype, dev)
+            name: _leaf_to_torch(
+                leaf, torch.float32 if name in F32_LEAVES else cfg.dtype, dev)
             for name, leaf in tree["layers"].items()
         },
         "final_norm": _leaf_to_torch(tree["final_norm"], cfg.dtype, dev),
         "output": _leaf_to_torch(tree["output"], cfg.dtype, dev),
+    }
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The port's parameters as numpy, the inverse of
+    :func:`params_from_numpy`: dense leaves in f32 (exact for bf16), int8
+    leaves as ``{"q": int8, "s": f32}``."""
+    return {
+        "embed": _side_to_numpy(params["embed"]),
+        "layers": {name: _side_to_numpy(leaf) for name, leaf in params["layers"].items()},
+        "final_norm": _side_to_numpy(params["final_norm"]),
+        "output": _side_to_numpy(params["output"]),
     }
 
 

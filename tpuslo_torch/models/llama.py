@@ -460,11 +460,12 @@ def _dense_mlp(cfg, layer: Params, x: torch.Tensor, i: int | None = None,
 
 
 def _seq_layers(params: Params, cfg: LlamaConfig, h: torch.Tensor, cos: torch.Tensor,
-                sin: torch.Tensor, mask: torch.Tensor, write=None) -> torch.Tensor:
+                sin: torch.Tensor, mask: torch.Tensor, write=None, mlp_fn=None) -> torch.Tensor:
     """The layer loop of a full-sequence pass (causal ``mask``), with the
     final norm: each residual add reaches the norm after it in one
     :func:`add_rms_norm`.  ``write(i, k, v)`` takes layer ``i``'s rotated
-    K and V."""
+    K and V.  ``mlp_fn(layer, x)`` swaps the dense MLP for another block
+    body (the Mixtral family's MoE); the adds and norms around it stay."""
     x = rms_norm(h, params["layers"]["attn_norm"][0], cfg.norm_eps)
     for i in range(cfg.n_layers):
         layer = _layer(params, i)
@@ -472,7 +473,8 @@ def _seq_layers(params: Params, cfg: LlamaConfig, h: torch.Tensor, cos: torch.Te
         if write is not None:
             write(i, k, v)
         h, x = add_rms_norm(h, out, layer["mlp_norm"], cfg.norm_eps)
-        mlp = _dense_mlp(cfg, layer, x, matmul=_seq_matmul)
+        mlp = (_dense_mlp(cfg, layer, x, matmul=_seq_matmul) if mlp_fn is None
+               else mlp_fn(layer, x))
         h, x = add_rms_norm(h, mlp, _next_norm(params, i), cfg.norm_eps)
     return x
 
@@ -488,15 +490,17 @@ def _layer(params: Params, i: int) -> Params:
     return {name: _at(leaf, i) for name, leaf in params["layers"].items()}
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    """Full-sequence forward -> f32 logits (B, S, vocab)."""
+def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+            mlp_fn=None) -> torch.Tensor:
+    """Full-sequence forward -> f32 logits (B, S, vocab); ``mlp_fn`` as
+    in :func:`_seq_layers`."""
     B, S = tokens.shape
     dev = tokens.device
     positions = torch.arange(S, device=dev).expand(B, S)
     h = _embed_lookup(params, tokens, cfg.dtype)
     cos, sin = rope_frequencies(cfg, positions)
     mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
-    h = _seq_layers(params, cfg, h, cos, sin, mask)
+    h = _seq_layers(params, cfg, h, cos, sin, mask, mlp_fn=mlp_fn)
     return _seq_matmul(h, params["output"]).float()
 
 
@@ -560,9 +564,10 @@ def prefill(
     cache: dict,
     cfg: LlamaConfig,
     true_length=None,
+    mlp_fn=None,
 ) -> tuple[torch.Tensor, dict]:
     """Process the (possibly pad-bucketed) prompt and fill the cache in
-    place.
+    place (``mlp_fn`` as in :func:`_seq_layers`).
 
     ``true_length`` is the real prompt length when ``tokens`` is padded:
     logits are gathered at position ``true_length - 1`` and the cache
@@ -583,7 +588,7 @@ def prefill(
         kvc.kv_write_seq(_at(cache["k"], i), k, 0)
         kvc.kv_write_seq(_at(cache["v"], i), v, 0)
 
-    h = _seq_layers(params, cfg, h, cos, sin, mask, write)
+    h = _seq_layers(params, cfg, h, cos, sin, mask, write, mlp_fn)
     cache = {"k": cache["k"], "v": cache["v"], "length": length}
     last = _row_lengths(length, B, dev) - 1
     h_last = h[torch.arange(B, device=dev), last]
@@ -626,6 +631,7 @@ def _cached_layers(
     positions: torch.Tensor,
     write,
     matmul=_matmul,
+    mlp_fn=None,
 ) -> torch.Tensor:
     """The layer loop shared by decode and verify: each layer writes its
     new K/V with ``write(layer_cache_side, new)``, then query ``(b, j)``
@@ -635,7 +641,7 @@ def _cached_layers(
     ``launch_counts.cached_layers`` counts the layers the card ran, so
     that a run can show K2 launched once per layer per pass.  ``matmul``
     takes every weight product (:func:`_seq_matmul` in a prompt chunk's
-    pass)."""
+    pass); ``mlp_fn`` as in :func:`_seq_layers`."""
     B, K, _ = h.shape
     H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cos, sin = rope_frequencies(cfg, positions)
@@ -669,8 +675,9 @@ def _cached_layers(
         h, x = add_rms_norm(h, wo, layer["mlp_norm"], cfg.norm_eps)
         h = _traced("wo_residual", i, h)
         x = _traced("mlp_norm", i, x)
-        h, x = add_rms_norm(h, _dense_mlp(cfg, layer, x, i, matmul=matmul),
-                            _next_norm(params, i), cfg.norm_eps)
+        mlp = (_dense_mlp(cfg, layer, x, i, matmul=matmul) if mlp_fn is None
+               else mlp_fn(layer, x))
+        h, x = add_rms_norm(h, mlp, _next_norm(params, i), cfg.norm_eps)
         h = _traced("w2_residual", i, h)
         x = _traced("attn_norm", i + 1, x) if i + 1 < cfg.n_layers else x
     return _traced("final_norm", None, x)
@@ -678,7 +685,7 @@ def _cached_layers(
 
 
 def decode_step(
-    params: Params, token: torch.Tensor, cache: dict, cfg: LlamaConfig
+    params: Params, token: torch.Tensor, cache: dict, cfg: LlamaConfig, mlp_fn=None
 ) -> tuple[torch.Tensor, dict]:
     """One-token decode.  token: (B,) -> f32 logits (B, vocab).
 
@@ -686,13 +693,14 @@ def decode_step(
     :func:`verify_chunk` at K=1) or a tensor, ``(B,)`` per-row positions
     or one 0-d device-side position for every row (one slot per row is
     scattered in place, and each row sees the cache positions
-    ``<= length``).
+    ``<= length``).  ``mlp_fn`` as in :func:`_seq_layers`.
     """
     B = token.shape[0]
     dev = token.device
     pos = _as_length(cache["length"], B, dev)
     if isinstance(pos, int):
-        logits, cache = verify_chunk(params, token[:, None], {**cache, "length": pos}, cfg)
+        logits, cache = verify_chunk(params, token[:, None], {**cache, "length": pos}, cfg,
+                                     mlp_fn=mlp_fn)
         return logits[:, 0], {**cache, "length": pos + 1}
     row_pos = pos.expand(B)  # a 0-d shared frontier, broadcast
     h = _embed_lookup(params, token[:, None], cfg.dtype)
@@ -701,7 +709,7 @@ def decode_step(
     def write(side, new):
         kvc.kv_write_rows(side, new[:, 0], rows, row_pos)
 
-    h = _cached_layers(params, cfg, h, cache, row_pos[:, None], write)
+    h = _cached_layers(params, cfg, h, cache, row_pos[:, None], write, mlp_fn=mlp_fn)
     cache = {"k": cache["k"], "v": cache["v"], "length": pos + 1}
     return _traced("logits", None, _matmul(h[:, 0, :], params["output"])).float(), cache
 
@@ -764,6 +772,7 @@ def sample_from_logits(
 def verify_chunk(
     params: Params, tokens: torch.Tensor, cache: dict, cfg: LlamaConfig,
     prompt_chunk: bool = False,
+    mlp_fn=None,
 ) -> tuple[torch.Tensor, dict]:
     """Score K tokens in one pass: f32 logits at every position.
 
@@ -779,7 +788,8 @@ def verify_chunk(
     ``prompt_chunk`` marks a prompt's chunk appended to its cache (a
     suffix prefill), which no dispatch batches: its weight products run
     as a prefill's do (:func:`_seq_matmul`), each row at a lone chunk's
-    shape, instead of as :data:`GEMM_ROWS`-row pieces.
+    shape, instead of as :data:`GEMM_ROWS`-row pieces.  ``mlp_fn`` as in
+    :func:`_seq_layers`.
     """
     B, K = tokens.shape
     dev = tokens.device
@@ -801,7 +811,7 @@ def verify_chunk(
 
     h = _embed_lookup(params, tokens, cfg.dtype)
     matmul = _seq_matmul if prompt_chunk else _matmul
-    h = _cached_layers(params, cfg, h, cache, positions, write, matmul)
+    h = _cached_layers(params, cfg, h, cache, positions, write, matmul, mlp_fn)
     cache = {"k": cache["k"], "v": cache["v"], "length": start}
     return _traced("logits", None, matmul(h, params["output"])).float(), cache
 

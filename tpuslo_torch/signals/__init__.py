@@ -6,6 +6,7 @@ from tpuslo_torch.signals.constants import (
     ALL_SIGNALS,
     CAPABILITY_BCC_DEGRADED,
     CAPABILITY_CORE_FULL,
+    CAPABILITY_CUDA_FULL,
     CAPABILITY_MODES,
     CAPABILITY_TPU_FULL,
     CPU_SIGNALS,
@@ -44,6 +45,7 @@ __all__ = [
     "ALL_SIGNALS",
     "CAPABILITY_BCC_DEGRADED",
     "CAPABILITY_CORE_FULL",
+    "CAPABILITY_CUDA_FULL",
     "CAPABILITY_MODES",
     "CAPABILITY_TPU_FULL",
     "CPU_SIGNALS",

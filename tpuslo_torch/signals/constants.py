@@ -106,14 +106,18 @@ ALL_SIGNALS: tuple[str, ...] = CPU_SIGNALS + TPU_SIGNALS
 
 # --- Capability modes ---------------------------------------------------
 # tpu_full     — TPU-VM host with libtpu + /dev/accel access: all signals.
-# core_full    — CO-RE capable kernel, no TPU probe surface: CPU signals.
+# cuda_full    — GPU host with /dev/nvidia* or libcuda.so (the port's
+#                probe surface, tpuslo_torch/collector): all signals.
+# core_full    — CO-RE capable kernel, no device probe surface: CPU signals.
 # bcc_degraded — no BTF; BCC fallback covers DNS + TCP retransmits only.
 CAPABILITY_TPU_FULL = "tpu_full"
+CAPABILITY_CUDA_FULL = "cuda_full"
 CAPABILITY_CORE_FULL = "core_full"
 CAPABILITY_BCC_DEGRADED = "bcc_degraded"
 
 CAPABILITY_MODES = (
     CAPABILITY_TPU_FULL,
+    CAPABILITY_CUDA_FULL,
     CAPABILITY_CORE_FULL,
     CAPABILITY_BCC_DEGRADED,
 )
