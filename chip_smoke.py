@@ -5,15 +5,15 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-``python3 chip_smoke.py probe {admission,bench,norm} [--tree DIR]
+``python3 chip_smoke.py probe {admission,bench,norm,train} [--tree DIR]
 [--runs N]`` measures one part of the path instead, on this checkout or
 on another one (an older commit unpacked with ``git archive``), whose own
-``tpuslo_torch`` (and, for ``admission`` and ``bench``, its own
+``tpuslo_torch`` (and, for ``admission``, ``bench`` and ``train``, its own
 ``chip_smoke.py`` phases) it imports: phase 12's profiled windows with
 each admitting window's device time by dispatch range and each capture's
 cost; the serving benches under one harness (the heap collected and
 frozen before every bench, whatever the tree does); the RMSNorm kernels
-at phase 18's shapes.  One JSON line per measurement (:func:`probe_main`).
+at phase 18's shapes; phase 23 alone after the builds.  One JSON line per measurement (:func:`probe_main`).
 
 Phases, each printing its own lines; any failure ends the run with a
 non-zero exit and no result line:
@@ -202,6 +202,28 @@ non-zero exit and no result line:
     candidate of a signal resolves in it, if ``hbm_alloc_stall_ms`` or
     ``xla_compile_ms`` does not resolve in ``libcuda.so``, or if a cookie
     is not ``make_cookie``'s; one ``probe:`` JSON line;
+23. training: (a) K1 (the train shape B 8, S 128, 24 heads over 8, D 128,
+    and S 256) and K1-f32 (an f32 shape), RMSNorm and the fused add +
+    RMSNorm (1024 x 3072) under autograd, the kernel's forward and the
+    new backward against the plain version's autograd: outputs and input
+    gradients within ``TRAIN_BF16_REL`` (f32: ``TRAIN_F32_REL``) of their
+    largest values, and the device times at the train step's shapes (taken
+    right after phase 18, while the profiler keeps every kernel event); (b) ``llama32_3b`` at full width and depth through
+    ``trainer.train()``: batch 8, sequence 128, 10 steps on the CLI's
+    synthetic corpus, each step's wall, the last step traced for its device
+    time by kernel family, tokens/s, MFU (8 x N x tokens over 989 TFLOP/s),
+    peak memory; fails unless every loss is finite and the last below the
+    first and K1 launched 2 x 28 times a step (forward and remat
+    recompute); (c) the first step's loss and every gradient leaf on the
+    card against the CPU on the same weights, at full width and
+    ``TRAIN_CPU_LAYERS`` layers; (d) ``llama_tiny``: 6 steps uninterrupted
+    against 3, a checkpoint and 3 resumed in fresh objects, bit for bit; (e)
+    ``mixtral_2b6`` through ``train()``, 5 steps, every expert of every
+    layer given a gradient in some step (an expert no token chose in a
+    step has none there), the router's aux loss finite;
+    (f) the serving bench's ``speculative_measured`` lane (a target and a
+    draft trained on the card, acceptance, speedup, streams identical);
+    one ``train:`` JSON line;
 19. the ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card and imports nothing of JAX or of the JAX package.
@@ -216,6 +238,7 @@ import dataclasses
 import gc
 import importlib.util
 import json
+import math
 import os
 import re
 import subprocess
@@ -936,22 +959,26 @@ def _device_breakdown(torch, fn) -> dict:
     }
 
 
-def _launched_kernels(torch, fn) -> dict[str, int]:
+def _launched_kernels(torch, fn, calls: int = 50) -> dict[str, int]:
     """{kernel name: launches per call} of the device kernels ``fn``
-    launches (profiled alone over 10 calls), so that a step's breakdown
-    can be read by what a wrapper launches rather than by a kernel name
-    written here."""
+    launches (profiled alone over ``calls`` calls after a lead-in of spin
+    kernels), so that a step's breakdown can be read by what a wrapper
+    launches rather than by a kernel name written here.  A trace was seen
+    on the card to lose its first ~40 events: over 10 calls of a
+    two-kernel wrapper that left no kernel in five traces running."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for _ in range(5):  # a trace may come back empty (see _per_call_ms)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
+            for _ in range(LEAD_IN_KERNELS):
+                torch.cuda._sleep(1000)
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        kernels = _device_kernels(prof)
-        found = {k: n for k, (_, n) in _per_call_kernels(kernels, 10).items()}
+        kernels = [e for e in _device_kernels(prof) if "spin_kernel" not in e.key]
+        found = {k: n for k, (_, n) in _per_call_kernels(kernels, calls).items()}
         if found:
             return found
     _fail("five profiler traces of one call held no kernel")
@@ -3698,8 +3725,11 @@ def serving_failures(r: dict) -> list[str]:
         if report.get("n_params") != want:
             fails.append(f"{where} model {report.get('model')}: n_params "
                          f"{report.get('n_params')} != the JAX package's {want}")
-    if "not_ported" not in r.get("speculative_measured", {}):
-        fails.append("speculative_measured is neither measured nor marked not ported")
+    spec = r.get("speculative_measured", {})
+    if not isinstance(spec.get("acceptance_rate"), float | int) or "parity_ok" not in spec:
+        fails.append("speculative_measured is not measured (no acceptance or parity)")
+    elif spec["parity_ok"] is not True:
+        fails.append("speculative_measured: the speculative streams differ from target-only")
     moe = r.get("moe", {})
     if (moe.get("model"), moe.get("n_params")) != SERVING_MOE:
         fails.append(f"moe model {moe.get('model')}: n_params {moe.get('n_params')} "
@@ -4002,6 +4032,544 @@ def phase_probe(torch) -> dict:
     return out
 
 
+# ---- phase 23: training ------------------------------------------------------
+# The train step's shapes: llama32_3b at batch 8, sequence 128 (K1 at head
+# dim 128, causal, on every layer's forward and its remat recompute).
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+TRAIN_STEPS = 10  # llama32_3b through train(); the last step is traced
+TRAIN_3B_PARAMS = 3_606_752_256  # the JAX package's param_count(llama32_3b)
+TRAIN_MOE_STEPS = 5
+TRAIN_MOE_PARAMS = 2_513_635_328  # the JAX package's param_count(mixtral_2b6)
+TRAIN_RESUME_STEPS = 6  # llama_tiny: uninterrupted, and half, checkpoint, resume
+# (a) gradients against the plain versions under autograd.  K1 at the train
+# shape and at S 256, K1-f32 at the f32 model's prefill shape, both norms
+# at 1024 rows of D 3072.
+TRAIN_GRAD_SHAPES = ((8, 128, 24, 8, 128), (8, 256, 24, 8, 128))
+TRAIN_GRAD_F32_SHAPE = (2, 128, 2, 1, 128)
+TRAIN_NORM_ROWS, TRAIN_NORM_D = 1024, 3072
+# bf16 gradients against the plain version's: both take f32 arithmetic
+# and round once to bf16, so an element differs by at most an ulp of its
+# own; held to 2 bf16 ulps of the largest value (2^-7 relative).
+TRAIN_BF16_REL = 2.0**-7
+TRAIN_F32_REL = 1e-4  # f32 gradients: f32 sums in another order
+# (c) the card against the CPU at full width and TRAIN_CPU_LAYERS layers,
+# one sequence: the loss within 2e-2 (bf16 products and norms round at
+# every layer on both sides; the CPU tests' bf16 loss bound) and each
+# gradient leaf within 5e-2 of its largest value (the cotangents round to
+# bf16 at every op of both backward passes).
+TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH = 2, 1
+TRAIN_PARITY_LOSS_TOL = 2e-2
+TRAIN_PARITY_GRAD_REL = 5e-2
+# The CLI's synthetic corpus (python -m tpuslo_torch train without --corpus).
+TRAIN_TEXTS = [f"synthetic document {i}: the five boxing wizards jump quickly"
+               for i in range(200)]
+# Kernel-name families of a traced step's device time.
+TRAIN_KERNEL_GROUPS = (
+    ("K1", ("flash_fwd",)),
+    ("norm kernels", ("norm_kernel",)),
+    ("GEMM", ("gemm", "xmma", "nvjet", "cutlass", "sm90_")),
+    ("optimizer", ("multi_tensor_apply", "foreach")),
+)
+
+
+def _rel_err(got, ref) -> float:
+    """Largest |got - ref| over the largest |ref|."""
+    ref = ref.detach().float()
+    return float((got.detach().float() - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def _grad_pair(torch, fn, ref_fn, inputs, cotangents) -> tuple[list, list]:
+    """(outputs and input gradients of ``fn``, the same of ``ref_fn``) on
+    fresh leaves of ``inputs``, each backward taking ``cotangents``."""
+    results = []
+    for f in (fn, ref_fn):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        outs = f(*leaves)
+        outs = list(outs) if isinstance(outs, tuple) else [outs]
+        torch.autograd.backward(outs, cotangents)
+        results.append([o.detach() for o in outs] + [t.grad for t in leaves])
+    torch.cuda.synchronize()
+    return results[0], results[1]
+
+
+def _train_grads(torch, fa, rn) -> list[dict]:
+    """(a) K1, K1-f32, RMSNorm and add + RMSNorm, kernel forward plus the
+    new backward against the plain version under autograd."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2323)
+    rows = []
+
+    def randn(shape, dtype, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+
+    for (B, S, H, KV, D), dtype in ([(s, torch.bfloat16) for s in TRAIN_GRAD_SHAPES]
+                                    + [(TRAIN_GRAD_F32_SHAPE, torch.float32)]):
+        bf16 = dtype == torch.bfloat16
+        what = f"{'K1' if bf16 else 'K1-f32'} B={B} S={S} H={H} KV={KV} D={D} causal"
+        inputs = [randn((B, S, H, D), dtype), randn((B, S, KV, D), dtype),
+                  randn((B, S, KV, D), dtype)]
+        before = (fa.flash_attention.launches, fa.flash_attention.f32_launches)
+        got, ref = _grad_pair(torch, lambda q, k, v: fa.flash_attention(q, k, v, causal=True),
+                              lambda q, k, v: fa.flash_attention_reference(q, k, v, True),
+                              inputs, [randn((B, S, H, D), dtype)])
+        launched = (fa.flash_attention.launches - before[0],
+                    fa.flash_attention.f32_launches - before[1])
+        if launched != ((1, 0) if bf16 else (0, 1)):
+            _fail(f"train: {what}: the kernel launched {launched} (K1, K1-f32) times, not once")
+        out_err = float((got[0].float() - ref[0].float()).abs().max())
+        errs = {n: _rel_err(g, r) for n, g, r in zip(("dq", "dk", "dv"), got[1:], ref[1:])}
+        rel = TRAIN_BF16_REL if bf16 else TRAIN_F32_REL
+        out_tol = KERNEL_TOL if bf16 else F32_TOL
+        if out_err > out_tol or max(errs.values()) > rel or not all(
+                torch.isfinite(t).all() for t in got):
+            _fail(f"train: {what}: out err {out_err} (tol {out_tol}), gradients {errs} "
+                  f"(tol {rel} of the largest value)")
+        rows.append({"kernel": "K1" if bf16 else "K1-f32", "B": B, "S": S, "H": H, "KV": KV,
+                     "D": D, "dtype": "bf16" if bf16 else "f32", "out_max_abs_err": out_err,
+                     "out_tol": out_tol, "grad_rel_err": errs, "grad_tol": rel})
+        print(f"train: grads {what}: out err {out_err:.3e} (tol {out_tol}), dq/dk/dv "
+              f"{errs['dq']:.2e}/{errs['dk']:.2e}/{errs['dv']:.2e} of the largest "
+              f"(tol {rel:.2e})", flush=True)
+    R, D = TRAIN_NORM_ROWS, TRAIN_NORM_D
+    x, d = randn((R, D), torch.bfloat16, 3.0), randn((R, D), torch.bfloat16)
+    w = randn((D,), torch.bfloat16, 0.1, 1.0)
+    for name, fn, ref_fn, inputs, cot in (
+        ("rms_norm", lambda a, b: rn.rms_norm(a, b, 1e-5),
+         lambda a, b: rn.rms_norm_reference(a, b, 1e-5), [x, w], [randn((R, D), torch.bfloat16)]),
+        ("add_rms_norm", lambda a, b, c: rn.add_rms_norm(a, b, c, 1e-5),
+         lambda a, b, c: rn.add_rms_norm_reference(a, b, c, 1e-5), [x, d, w],
+         [randn((R, D), torch.bfloat16), randn((R, D), torch.bfloat16)]),
+    ):
+        counter = getattr(rn, name)
+        before = counter.launches
+        got, ref = _grad_pair(torch, fn, ref_fn, inputs, cot)
+        if counter.launches - before != 1:
+            _fail(f"train: {name} launched {counter.launches - before} times, not once")
+        n_out = len(got) - len(inputs)
+        errs = {f"out{i}": _rel_err(g, r) for i, (g, r) in enumerate(zip(got[:n_out],
+                                                                         ref[:n_out]))}
+        errs.update({f"d{i}": _rel_err(g, r) for i, (g, r) in enumerate(zip(got[n_out:],
+                                                                            ref[n_out:]))})
+        if max(errs.values()) > TRAIN_BF16_REL or not all(torch.isfinite(t).all() for t in got):
+            _fail(f"train: {name} rows {R} D {D} bf16: {errs} (tol {TRAIN_BF16_REL} of the "
+                  "largest value)")
+        rows.append({"kernel": name, "rows": R, "D": D, "dtype": "bf16", "rel_err": errs,
+                     "tol": TRAIN_BF16_REL})
+        print(f"train: grads {name} rows {R} D {D} bf16: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f" of the largest (tol {TRAIN_BF16_REL:.2e})", flush=True)
+    return rows
+
+
+def _train_timings(torch, fa, rn) -> dict:
+    """Device ms (cold L2 for the norms) at the train step's shapes: K1's
+    forward and forward + backward (the plain backward) beside the plain
+    version's and SDPA's, and both norm kernels' forwards beside their
+    plain versions, the library's and the bytes bound."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2324)
+    B, S, H, KV, D = TRAIN_GRAD_SHAPES[0]
+    leaves = [torch.randn(shape, generator=gen, device=dev).bfloat16().requires_grad_()
+              for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D))]
+    do = torch.randn((B, S, H, D), generator=gen, device=dev).bfloat16()
+    q, k, v = (t.detach() for t in leaves)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in leaves)
+    dot = do.transpose(1, 2)
+
+    def fwd_bwd(fn, xs, cot):
+        def run():
+            for t in xs:
+                t.grad = None
+            fn(*xs).backward(cot)
+        return run
+
+    what = f"train attention B={B} S={S} H={H} KV={KV} D={D}"
+    attention = {
+        "shape": what,
+        "fwd_ms": _per_call_ms(torch, lambda: fa.flash_attention(q, k, v), 20, f"K1 {what}")[0],
+        "fwd_bwd_ms": _per_call_ms(torch, fwd_bwd(
+            lambda *xs: fa.flash_attention(*xs, causal=True), leaves, do), 10,
+            f"K1 + backward {what}")[0],
+        "plain_fwd_bwd_ms": _per_call_ms(torch, fwd_bwd(
+            lambda *xs: fa.flash_attention_reference(*xs, True), leaves, do), 10,
+            f"plain fwd + bwd {what}")[0],
+        "library_fwd_bwd_ms": _per_call_ms(torch, fwd_bwd(
+            lambda *xs: F.scaled_dot_product_attention(*xs, is_causal=True, enable_gqa=True),
+            [qt, kt, vt], dot), 10, f"sdpa fwd + bwd {what}")[0],
+    }
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    R, Dn = TRAIN_NORM_ROWS, TRAIN_NORM_D
+    h = (3 * torch.randn((R, Dn), generator=gen, device=dev)).bfloat16()
+    d = torch.randn((R, Dn), generator=gen, device=dev).bfloat16()
+    w = (1 + 0.1 * torch.randn((Dn,), generator=gen, device=dev)).bfloat16()
+    norms = {}
+    for name, fn, plain, library, nbytes in (
+        ("rms_norm", lambda: rn.rms_norm(h, w, 1e-5), lambda: rn.rms_norm_reference(h, w, 1e-5),
+         lambda: F.rms_norm(h, (Dn,), w, 1e-5), 2 * (2 * R * Dn + Dn)),
+        ("add_rms_norm", lambda: rn.add_rms_norm(h, d, w, 1e-5),
+         lambda: rn.add_rms_norm_reference(h, d, w, 1e-5),
+         lambda: F.rms_norm(torch.add(h, d), (Dn,), w, 1e-5), 2 * (4 * R * Dn + Dn)),
+    ):
+        t_bytes, t_ops = nbytes / PEAK_BYTES, 6 * R * Dn / PEAK_F32_FLOPS
+        norms[name] = {
+            "rows": R, "D": Dn, "ms": _per_call_ms(torch, fn, 50, name, flush)[0],
+            "plain_ms": _per_call_ms(torch, plain, 50, f"plain {name}", flush)[0],
+            "library_ms": _per_call_ms(torch, library, 50, f"library {name}", flush)[0],
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+    del flush
+    print(f"train: {what}: K1 forward {attention['fwd_ms']:.4f} ms, K1 + plain backward "
+          f"{attention['fwd_bwd_ms']:.4f} ms, plain forward + backward "
+          f"{attention['plain_fwd_bwd_ms']:.4f} ms, SDPA forward + backward "
+          f"{attention['library_fwd_bwd_ms']:.4f} ms; norms at {R} x {Dn}: "
+          + ", ".join(f"{n} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+                      f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f})"
+                      for n, r in norms.items()), flush=True)
+    return {"attention": attention, "norms": norms}
+
+
+def _kernel_groups(kernels) -> dict[str, dict]:
+    """A traced step's device ms and launches by TRAIN_KERNEL_GROUPS."""
+    groups = {name: {"ms": 0.0, "launches": 0} for name, _ in TRAIN_KERNEL_GROUPS}
+    groups["other"] = {"ms": 0.0, "launches": 0}
+    for e in kernels:
+        name = next((g for g, marks in TRAIN_KERNEL_GROUPS
+                     if any(m in e.key.lower() for m in marks)), "other")
+        groups[name]["ms"] += e.self_device_time_total / 1e3
+        groups[name]["launches"] += e.count
+    return groups
+
+
+def _observed(torch, fa, rn, builder, log: list, trace_step: int | None = None,
+              check=None):
+    """A step builder around ``builder`` whose step synchronizes and logs
+    its wall ms and the K1 and norm launches it made; the step numbered
+    ``trace_step`` runs under ``torch.profiler`` (its device time by kernel
+    logged; its wall is not a step's), and ``check(params)`` sees the
+    gradients after every step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def build(mesh, cfg):
+        step_fn, init_fn = builder(mesh, cfg)
+
+        def step(params, opt_state, tokens, targets):
+            n = len(log) + 1
+            counts = (fa.flash_attention.launches, rn.add_rms_norm.launches,
+                      rn.rms_norm.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kernels = None
+            if n == trace_step:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(LEAD_IN_KERNELS):  # takes the trace's lost first events
+                        torch.cuda._sleep(1000)
+                    out = step_fn(params, opt_state, tokens, targets)
+                    torch.cuda.synchronize()
+                kernels = [e for e in _device_kernels(prof) if "spin_kernel" not in e.key]
+            else:
+                out = step_fn(params, opt_state, tokens, targets)
+                torch.cuda.synchronize()
+            row = {"step": n, "wall_ms": (time.perf_counter() - t0) * 1e3,
+                   "k1": fa.flash_attention.launches - counts[0],
+                   "add_rms_norm": rn.add_rms_norm.launches - counts[1],
+                   "rms_norm": rn.rms_norm.launches - counts[2], "traced": kernels is not None}
+            if kernels is not None:
+                row["device_ms"] = sum(e.self_device_time_total for e in kernels) / 1e3
+                row["by_group"] = _kernel_groups(kernels)
+                top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+                row["top_kernels"] = [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
+                                       "launches": e.count} for e in top]
+            if check is not None:
+                check(out[0])
+            log.append(row)
+            return out
+
+        return step, init_fn
+
+    return build
+
+
+def _zero_counts(fa, pa, rn, launch_counts) -> None:
+    for counter in (fa.flash_attention, pa.paged_decode_attention):
+        counter.launches = counter.f32_launches = 0
+    rn.rms_norm.launches = rn.add_rms_norm.launches = 0
+    launch_counts.cached_layers = 0
+
+
+def _read_counts(fa, pa, rn) -> dict[str, int]:
+    return {"flash_attention": fa.flash_attention.launches,
+            "flash_attention_f32": fa.flash_attention.f32_launches,
+            "paged_attention": pa.paged_decode_attention.launches,
+            "paged_attention_f32": pa.paged_decode_attention.f32_launches,
+            "rms_norm": rn.rms_norm.launches, "add_rms_norm": rn.add_rms_norm.launches}
+
+
+def _train_3b(torch, fa, pa, rn, launch_counts, llama, train, trainer, mesh,
+              timings: dict) -> dict:
+    """(b) llama32_3b at full width and depth through train()."""
+    cfg = llama.llama32_3b(max_seq_len=TRAIN_SEQ)
+    if llama.param_count(cfg) != TRAIN_3B_PARAMS:
+        _fail(f"train: llama32_3b has {llama.param_count(cfg)} parameters, the JAX "
+              f"package's {TRAIN_3B_PARAMS}")
+    log: list[dict] = []
+    tcfg = trainer.TrainerConfig(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(fa, pa, rn, launch_counts)
+    t0 = time.perf_counter()
+    result = trainer.train(cfg, mesh, TRAIN_TEXTS, tcfg, step_builder=_observed(
+        torch, fa, rn, train.build_sharded_train_step, log, trace_step=TRAIN_STEPS))
+    seconds = time.perf_counter() - t0
+    launches = _read_counts(fa, pa, rn)
+    peak = torch.cuda.max_memory_allocated()
+    losses = result["losses"]
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        _fail(f"train: llama32_3b losses {losses}")
+    if not losses[-1] < losses[0]:
+        _fail(f"train: llama32_3b loss did not fall: {losses[0]} -> {losses[-1]}")
+    want_k1 = 2 * cfg.n_layers
+    bad = [r["step"] for r in log if r["k1"] != want_k1]
+    if bad or launches["flash_attention"] != want_k1 * TRAIN_STEPS:
+        _fail(f"train: K1 launches per step {[r['k1'] for r in log]}, not {want_k1} "
+              "(forward + remat recompute)")
+    steady = [r["wall_ms"] for r in log[1:] if not r["traced"]]
+    median_ms = sorted(steady)[len(steady) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 8 * TRAIN_3B_PARAMS * tokens  # forward, backward (2x) and the remat forward
+    traced = next(r for r in log if r["traced"])
+    if not traced["device_ms"] > 0:
+        _fail("train: the traced llama32_3b step held no kernel time")
+    # Attention's share of the traced step's device time: each layer's K1
+    # forward and plain backward, and the remat recompute's forward.
+    att = timings["attention"]
+    attention_ms = cfg.n_layers * (att["fwd_bwd_ms"] + att["fwd_ms"])
+    out = {"model": "llama32_3b", "n_params": TRAIN_3B_PARAMS, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "seconds": seconds,
+           "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
+           "step_wall_ms": [r["wall_ms"] for r in log], "median_step_ms": median_ms,
+           "tokens_per_s": tokens / (median_ms / 1e3),
+           "mfu": flops / (median_ms / 1e3) / PEAK_BF16_FLOPS,
+           "step_flops": flops, "peak_memory_bytes": peak,
+           "k1_per_step": want_k1, "add_rms_norm_per_step": log[1]["add_rms_norm"],
+           "rms_norm_per_step": log[1]["rms_norm"], "launches": launches,
+           "traced_step": {k: traced[k] for k in ("step", "wall_ms", "device_ms", "by_group",
+                                                   "top_kernels")},
+           "attention_ms_per_step": attention_ms,
+           "attention_share": attention_ms / traced["device_ms"]}
+    print(f"train: llama32_3b B{TRAIN_BATCH} S{TRAIN_SEQ} {TRAIN_STEPS} steps through train(): "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; median step {median_ms:.1f} ms wall, "
+          f"{out['tokens_per_s']:.0f} tok/s, MFU {out['mfu']:.4f} (8 N tokens / 989 TFLOP/s); "
+          f"peak memory {peak / 2**30:.2f} GiB; per step K1 {want_k1}, add + RMSNorm "
+          f"{out['add_rms_norm_per_step']}, RMSNorm {out['rms_norm_per_step']}", flush=True)
+    print(f"train: llama32_3b traced step {traced['step']}: device "
+          f"{traced['device_ms']:.1f} ms of {traced['wall_ms']:.1f} ms wall (attention, K1 and "
+          f"its plain backward: {attention_ms:.1f} ms, {out['attention_share']:.3f}); "
+          + ", ".join(f"{k} {v['ms']:.1f} ms ({v['launches']})"
+                      for k, v in traced["by_group"].items())
+          + "; top: " + ", ".join(f"{k['name'][:60]} {k['ms']:.1f} ms ({k['launches']})"
+                                  for k in traced["top_kernels"][:5]), flush=True)
+    return out
+
+
+def _train_parity(torch, fa, pa, rn, launch_counts, llama, train) -> dict:
+    """(c) the first step's loss and one gradient leaf per kind, card
+    against CPU, on the same weights at full width and TRAIN_CPU_LAYERS
+    layers."""
+    from tpuslo_torch.models.data import tokenize_corpus, window_batches
+
+    cfg = dataclasses.replace(llama.llama32_3b(max_seq_len=TRAIN_SEQ), n_layers=TRAIN_CPU_LAYERS)
+    tok, tgt = next(window_batches(tokenize_corpus(TRAIN_TEXTS), TRAIN_CPU_BATCH, TRAIN_SEQ))
+    card = train.trainable(llama.init_params(29, cfg, "cuda"))
+    host = train.trainable(train.frozen(_tree_to(card, "cpu")))
+    dev = card["embed"].device
+    _zero_counts(fa, pa, rn, launch_counts)
+    t0 = time.perf_counter()
+    loss_card = train.loss_fn(card, torch.from_numpy(tok).to(dev), torch.from_numpy(tgt).to(dev),
+                              cfg)
+    loss_card.backward()
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = _read_counts(fa, pa, rn)
+    if launches["flash_attention"] != 2 * TRAIN_CPU_LAYERS:
+        _fail(f"train: parity: K1 launched {launches['flash_attention']} times, not "
+              f"{2 * TRAIN_CPU_LAYERS}")
+    t0 = time.perf_counter()
+    loss_host = train.loss_fn(host, torch.from_numpy(tok), torch.from_numpy(tgt), cfg)
+    loss_host.backward()
+    host_s = time.perf_counter() - t0
+    loss_err = abs(float(loss_card.detach()) - float(loss_host.detach()))
+    grads = {}
+    for path, t in train.param_leaves(card):
+        ref = dict(train.param_leaves(host))[path]
+        grads[path] = _rel_err(t.grad.cpu(), ref.grad)
+    worst = max(grads.values())
+    if loss_err > TRAIN_PARITY_LOSS_TOL or worst > TRAIN_PARITY_GRAD_REL:
+        _fail(f"train: card vs CPU at {TRAIN_CPU_LAYERS} layers: loss err {loss_err} (tol "
+              f"{TRAIN_PARITY_LOSS_TOL}), gradients {grads} (tol {TRAIN_PARITY_GRAD_REL})")
+    print(f"train: card vs CPU, llama32_3b width at {TRAIN_CPU_LAYERS} layers, B"
+          f"{TRAIN_CPU_BATCH} S{TRAIN_SEQ} bf16: loss {float(loss_card.detach()):.5f} vs "
+          f"{float(loss_host.detach()):.5f} (err {loss_err:.2e}, tol {TRAIN_PARITY_LOSS_TOL}); "
+          f"worst gradient leaf {worst:.2e} of its largest (tol {TRAIN_PARITY_GRAD_REL}); "
+          f"card {card_s:.2f} s, CPU {host_s:.2f} s", flush=True)
+    return {"layers": TRAIN_CPU_LAYERS, "batch": TRAIN_CPU_BATCH, "seq": TRAIN_SEQ,
+            "loss_card": float(loss_card.detach()), "loss_cpu": float(loss_host.detach()),
+            "loss_err": loss_err, "loss_tol": TRAIN_PARITY_LOSS_TOL, "grad_rel_err": grads,
+            "grad_tol": TRAIN_PARITY_GRAD_REL, "launches": launches,
+            "card_s": card_s, "cpu_s": host_s}
+
+
+def _train_resume(torch, fa, pa, rn, launch_counts, llama, trainer, mesh, workdir: Path) -> dict:
+    """(d) llama_tiny: TRAIN_RESUME_STEPS steps uninterrupted against half
+    of them, a checkpoint, and the rest resumed in fresh objects."""
+    cfg = llama.llama_tiny(max_seq_len=64)
+    half = TRAIN_RESUME_STEPS // 2
+    kw = dict(batch=4, seq_len=32, seed=3)
+
+    def run(steps, ckpt_dir=None):
+        return trainer.train(cfg, mesh, TRAIN_TEXTS, trainer.TrainerConfig(
+            steps=steps, ckpt_every=half if ckpt_dir else 0, **kw), checkpoint_dir=ckpt_dir)
+
+    _zero_counts(fa, pa, rn, launch_counts)
+    full = run(TRAIN_RESUME_STEPS)["losses"]
+    ckpt_dir = str(workdir / "resume")
+    first = run(half, ckpt_dir)
+    second = run(TRAIN_RESUME_STEPS, ckpt_dir)
+    launches = _read_counts(fa, pa, rn)
+    resumed = first["losses"] + second["losses"]
+    if second["first_step"] != half or len(resumed) != TRAIN_RESUME_STEPS:
+        _fail(f"train: resume started at {second['first_step']}, ran {len(resumed)} steps")
+    if resumed != full:
+        _fail(f"train: the resumed losses {resumed} are not the uninterrupted {full} bit for bit")
+    print(f"train: resume llama_tiny {half} + {half} steps equals {TRAIN_RESUME_STEPS} "
+          "uninterrupted bit for bit", flush=True)
+    return {"model": "llama_tiny", "steps": TRAIN_RESUME_STEPS, "losses": full,
+            "bitwise": True, "launches": launches}
+
+
+def _train_moe(torch, fa, pa, rn, launch_counts, mixtral, train, trainer, mesh) -> dict:
+    """(e) mixtral_2b6 at full width and depth through train()."""
+    cfg = mixtral.mixtral_2b6(max_seq_len=TRAIN_SEQ)
+    if mixtral.param_count(cfg) != TRAIN_MOE_PARAMS:
+        _fail(f"train: mixtral_2b6 has {mixtral.param_count(cfg)} parameters, the JAX "
+              f"package's {TRAIN_MOE_PARAMS}")
+    seen: dict = {"per_step": []}
+
+    def check(params):
+        """After each step: the router's gradient is finite; which (layer,
+        expert) pairs got a gradient (an expert no token chose this step
+        gets none, as in JAX)."""
+        layers = params["layers"]
+        if not torch.isfinite(layers["router"].grad).all():
+            _fail("train: mixtral_2b6: the router's gradient is not finite")
+        had = torch.stack([layers[name].grad.abs().flatten(2).amax(-1) > 0
+                           for name in ("w1", "w3", "w2")]).all(0)  # (L, E)
+        seen["any"] = had if "any" not in seen else seen["any"] | had
+        seen["per_step"].append(int(had.sum()))
+        seen["params"] = params
+
+    log: list[dict] = []
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(fa, pa, rn, launch_counts)
+    t0 = time.perf_counter()
+    result = trainer.train(
+        cfg, mesh, TRAIN_TEXTS, trainer.TrainerConfig(steps=TRAIN_MOE_STEPS, batch=TRAIN_BATCH,
+                                                      seq_len=TRAIN_SEQ, seed=0),
+        step_builder=_observed(torch, fa, rn, mixtral.build_moe_train_step, log, check=check))
+    seconds = time.perf_counter() - t0
+    launches = _read_counts(fa, pa, rn)
+    peak = torch.cuda.max_memory_allocated()
+    losses = result["losses"]
+    if len(losses) != TRAIN_MOE_STEPS or not all(math.isfinite(x) for x in losses) or not (
+            losses[-1] < losses[0]):
+        _fail(f"train: mixtral_2b6 losses {losses}")
+    want_k1 = 2 * cfg.n_layers
+    if any(r["k1"] != want_k1 for r in log):
+        _fail(f"train: mixtral_2b6 K1 per step {[r['k1'] for r in log]}, not {want_k1}")
+    pairs = cfg.n_layers * cfg.n_experts
+    if not bool(seen["any"].all()):
+        _fail(f"train: mixtral_2b6: (layer, expert) pairs never given a gradient in "
+              f"{TRAIN_MOE_STEPS} steps: {(~seen['any']).nonzero().tolist()}")
+    from tpuslo_torch.models.data import tokenize_corpus, window_batches
+
+    tok, _ = next(window_batches(tokenize_corpus(TRAIN_TEXTS), TRAIN_BATCH, TRAIN_SEQ))
+    params = train.frozen(seen.pop("params"))
+    with torch.no_grad():
+        _, aux = mixtral.forward(params, torch.from_numpy(tok).to(mesh.device), cfg,
+                                 return_aux=True)
+    del params
+    aux = float(aux)
+    if not math.isfinite(aux):
+        _fail(f"train: mixtral_2b6 router aux loss {aux}")
+    steady = sorted(r["wall_ms"] for r in log[1:])
+    median_ms = steady[len(steady) // 2]
+    print(f"train: mixtral_2b6 B{TRAIN_BATCH} S{TRAIN_SEQ} {TRAIN_MOE_STEPS} steps: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, aux {aux:.4f}; median step {median_ms:.1f} ms "
+          f"wall; peak memory {peak / 2**30:.2f} GiB; (layer, expert) pairs with a gradient "
+          f"per step {seen['per_step']} of {pairs}, every one in some step; K1 {want_k1} per "
+          "step", flush=True)
+    return {"model": "mixtral_2b6", "n_params": TRAIN_MOE_PARAMS, "steps": TRAIN_MOE_STEPS,
+            "expert_pairs_with_grad_per_step": seen["per_step"], "expert_pairs": pairs,
+            "seconds": seconds, "losses": losses, "aux": aux, "median_step_ms": median_ms,
+            "step_wall_ms": [r["wall_ms"] for r in log], "peak_memory_bytes": peak,
+            "launches": launches, "k1_per_step": want_k1}
+
+
+def phase_train(torch, fa, pa, timings: dict | None = None) -> dict:
+    """Phase 23: training on the card (see the module docstring).
+    ``timings`` are :func:`_train_timings`' profiled times, taken early in
+    a whole run (a late trace loses kernel events; one held none of the
+    plain norm's in a run that took them here); measured here without."""
+    import tempfile
+
+    from tpuslo_torch.benchmark import serving_bench
+    from tpuslo_torch.models import llama, mixtral, train, trainer
+    from tpuslo_torch.ops import launch_counts
+    from tpuslo_torch.parallel.mesh import make_mesh, plan_for_devices
+
+    rn = importlib.import_module("tpuslo_torch.ops.rms_norm")
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh(plan_for_devices(1))
+    out = {"grads": _train_grads(torch, fa, rn),
+           "timings": timings if timings is not None else _train_timings(torch, fa, rn)}
+    out["llama32_3b"] = _train_3b(torch, fa, pa, rn, launch_counts, llama, train, trainer, mesh,
+                                  out["timings"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["parity"] = _train_parity(torch, fa, pa, rn, launch_counts, llama, train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="train-") as workdir:
+        out["resume"] = _train_resume(torch, fa, pa, rn, launch_counts, llama, trainer, mesh,
+                                      Path(workdir))
+    out["mixtral_2b6"] = _train_moe(torch, fa, pa, rn, launch_counts, mixtral, train, trainer,
+                                    mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _zero_counts(fa, pa, rn, launch_counts)
+    lane = serving_bench._speculative_measured_lane(device="cuda")
+    lane["launches"] = _read_counts(fa, pa, rn)
+    if lane["parity_ok"] is not True:
+        _fail(f"train: the speculative streams of the trained draft differ from target-only: "
+              f"{lane}")
+    print(f"train: speculative_measured: acceptance {lane['acceptance_rate']}, speedup "
+          f"{lane['measured_speedup']}, streams identical; target loss "
+          f"{lane['target']['loss_first']} -> {lane['target']['loss_last']}, draft "
+          f"{lane['draft']['loss_first']} -> {lane['draft']['loss_last']}", flush=True)
+    out["speculative_measured"] = lane
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in (
+        "llama32_3b", "parity", "resume", "mixtral_2b6")) + lane["launches"][k]
+        for k in lane["launches"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"train: phase took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def _load_tree(tree: Path):
     """The tree's ``chip_smoke`` module, with its ``tpuslo_torch`` first
     on the path."""
@@ -4157,10 +4725,22 @@ def _probe_bench(torch, cs, tree: Path, runs: int, names: list[str]) -> None:
         audit.reset()
 
 
+def _probe_train(torch, tree: Path) -> None:
+    """The tree's phase 23 alone, after building its kernels."""
+    cs = _load_tree(tree)
+    from tpuslo_torch.ops import _build
+
+    with ThreadPoolExecutor(len(cs.KERNELS)) as pool:
+        list(pool.map(_build.build, cs.KERNELS))
+    fa = importlib.import_module("tpuslo_torch.ops.flash_attention")
+    pa = importlib.import_module("tpuslo_torch.ops.paged_attention")
+    print(f"train: {json.dumps(cs.phase_train(torch, fa, pa))}", flush=True)
+
+
 def probe_main(argv: list[str]) -> int:
     """``python3 chip_smoke.py probe ...``: see the module's docstring."""
     p = argparse.ArgumentParser(prog="chip_smoke.py probe")
-    p.add_argument("what", choices=("admission", "bench", "norm"))
+    p.add_argument("what", choices=("admission", "bench", "norm", "train"))
     p.add_argument("--tree", default=str(ROOT), help="the checkout whose code runs")
     p.add_argument("--runs", type=int, default=1)
     p.add_argument("--benches", nargs="+", default=["frontdoor_tiny", "frontdoor_3b", "router"],
@@ -4172,6 +4752,9 @@ def probe_main(argv: list[str]) -> int:
         print("chip_smoke: no CUDA device; the probes run on a GPU only", file=sys.stderr)
         return 2
     tree = Path(args.tree).resolve()
+    if args.what == "train":
+        _probe_train(torch, tree)
+        return 0
     if args.what == "norm":
         _probe_norm(torch, tree, args.runs)
         return 0
@@ -4278,6 +4861,9 @@ def main() -> int:
     # all of a trace's, phase 10 one of its norms), and the benches'
     # gates read host wall time, which a large heap spreads.
     invariance = phase_invariance(torch, llama, kv_cache)
+    # phase 23's profiled times at the train step's shapes, while traces
+    # keep their kernel events
+    train_timings = _train_timings(torch, fa, importlib.import_module("tpuslo_torch.ops.rms_norm"))
     benches = phase_bench(torch, fa, pa, serve, llama)
     print(f"bench: {json.dumps(benches)}", flush=True)
     bench_k1 = {k: sum(benches[b][k] for b in ("frontdoor_tiny", "frontdoor_3b", "router"))
@@ -4332,6 +4918,12 @@ def main() -> int:
     # 22. the CUDA probe surface
     probed = phase_probe(torch)
     print(f"probe: {json.dumps(probed)}", flush=True)
+    # 23. training: gradients against plain, llama32_3b and mixtral_2b6
+    # through train(), card against CPU, a resume, the trained draft (its
+    # launches counted from 0 just before each of its paths)
+    trained = phase_train(torch, fa, pa, train_timings)
+    print(f"train: {json.dumps(trained)}", flush=True)
+    train_launches = trained["launches"]
 
     # 19. kernels line, card line, result line
     line_row = next(
@@ -4357,7 +4949,8 @@ def main() -> int:
                      + spec["draft_1b"]["k1_launches"] + spec["self_draft"]["k1_launches"]
                      + front["k1_launches"] + routed["k1_launches"] + device_k1
                      + entry["launches"]["flash_attention"] + bench_k1["k1_launches"]
-                     + served_launches["flash_attention"] + moe["k1_launches"]),
+                     + served_launches["flash_attention"] + moe["k1_launches"]
+                     + train_launches["flash_attention"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel["shapes"]),
         "ms": line_row["ms"],
         "plain_ms": line_row["plain_ms"],
@@ -4374,7 +4967,8 @@ def main() -> int:
                      + spec["draft_1b"]["k2_launches"] + spec["self_draft"]["k2_launches"]
                      + front["k2_launches"] + device_k2 + entry["launches"]["paged_attention"]
                      + benches["frontdoor_3b"]["k2_launches"]
-                     + served_launches["paged_attention"] + moe["k2_launches"]),
+                     + served_launches["paged_attention"] + moe["k2_launches"]
+                     + train_launches["paged_attention"]),
         "max_abs_err": max(r["max_abs_err"] for r in k2["shapes"]),
         "ms": k2_row["ms"],
         "plain_ms": k2_row["plain_ms"],
@@ -4400,7 +4994,8 @@ def main() -> int:
         "source": "tpuslo_torch/ops/csrc/attention_f32.cu",
         "replaces": "tpuslo/ops/flash_attention.py:41",
         "launches": (parity_f32["k1_f32_launches"] + entry["launches"]["flash_attention_f32"]
-                     + bench_k1["k1_f32_launches"] + served_launches["flash_attention_f32"]),
+                     + bench_k1["k1_f32_launches"] + served_launches["flash_attention_f32"]
+                     + train_launches["flash_attention_f32"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel_f32["shapes"]
                            if r["dtype"] == "f32"),
         "ms": f32_row["ms"],
@@ -4417,7 +5012,8 @@ def main() -> int:
         "replaces": "tpuslo/ops/paged_attention.py:65",
         "launches": (sum(k2_f32_launches.values()) + entry["launches"]["paged_attention_f32"]
                      + benches["frontdoor_tiny"]["k2_launches"] + benches["router"]["k2_launches"]
-                     + served_launches["paged_attention_f32"]),
+                     + served_launches["paged_attention_f32"]
+                     + train_launches["paged_attention_f32"]),
         "max_abs_err": max(r["max_abs_err"] for r in k2_f32["shapes"] + k2_f32_path["shapes"]
                            if r["q"] == "f32"),
         "ms": k2_f32_row["ms"],
@@ -4443,7 +5039,8 @@ def main() -> int:
         "route": "cuda",
         "source": "tpuslo_torch/ops/csrc/batch_invariant.cu",
         "replaces": "tpuslo/models/llama.py:299",
-        "launches": front["norm_launches"] + served_launches["rms_norm"],
+        "launches": (front["norm_launches"] + served_launches["rms_norm"]
+                     + train_launches["rms_norm"]),
         "max_abs_err": max(r["max_abs_err"] for r in invariance["norm"]),
         "ms": norm_row["ms"],
         "plain_ms": norm_row["plain_ms"],
@@ -4458,7 +5055,8 @@ def main() -> int:
         "route": "cuda",
         "source": "tpuslo_torch/ops/csrc/batch_invariant.cu",
         "replaces": "tpuslo/models/llama.py:739",
-        "launches": front["fused_launches"] + served_launches["add_rms_norm"],
+        "launches": (front["fused_launches"] + served_launches["add_rms_norm"]
+                     + train_launches["add_rms_norm"]),
         "max_abs_err": max(r["max_abs_err"] for r in invariance["fused"]),
         "ms": fused_row["ms"],
         "plain_ms": fused_row["plain_ms"],
@@ -4485,7 +5083,7 @@ def main() -> int:
               "router": routed, "deviceplane": device, "attribution": attributed,
               "entry": entry, "parity": parity, "parity_f32": parity_f32,
               "parity_tiny": parity_tiny, "exactness": exactness, "bench": benches,
-              "serving": serving, "moe": moe, "probe": probed,
+              "serving": serving, "moe": moe, "probe": probed, "train": trained,
               "invariance": invariance,
               **kernels}
     print(f"record: {json.dumps(record)}")

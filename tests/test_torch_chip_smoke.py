@@ -376,7 +376,8 @@ def _serving_report() -> dict:
                "shared_prefix": {"k2_launches": 5}},
         "int8": {"model": "llama3_8b", "n_params": 8_030_261_248,
                  "bw_decode_b8": {"hbm_bw_pct": 40.0}},
-        "speculative_measured": {"not_ported": "ROADMAP 14"},
+        "speculative_measured": {"parity_ok": True, "acceptance_rate": 0.93,
+                                 "measured_speedup": 1.4},
         "moe": {"model": "mixtral_2b6", "n_params": 2_513_635_328, "ttft_ms": 31.5,
                 "decode_tokens_per_sec": 40.2, "k1_launches": 0, "k2_launches": 1536},
     }
@@ -404,7 +405,10 @@ def test_serving_gates_pass_a_good_report():
     (lambda r: r.update(n_params=3_606_752_257), "bf16 model llama32_3b"),
     (lambda r: r["int8"].update(model="llama32_3b"), "int8 model llama32_3b"),
     (lambda r: r.update(speculative_measured={"tokens_per_sec": 1.0}),
-     "speculative_measured is neither"),
+     "speculative_measured is not measured"),
+    (lambda r: r.update(speculative_measured={"not_ported": "ROADMAP 14"}),
+     "speculative_measured is not measured"),
+    (lambda r: r["speculative_measured"].update(parity_ok=False), "streams differ"),
     (lambda r: r.update(moe={"not_ported": "ROADMAP 12"}), "moe model None"),
     (lambda r: r["moe"].update(n_params=2_513_635_327), "moe model mixtral_2b6"),
     (lambda r: r["moe"].pop("ttft_ms"), "moe lane has no ttft_ms"),
@@ -433,3 +437,65 @@ def test_serving_moe_is_the_jax_param_count():
     from tpuslo.models import mixtral
 
     assert chip_smoke.SERVING_MOE == ("mixtral_2b6", mixtral.param_count(mixtral.mixtral_2b6()))
+
+
+# --- phase 23: training ------------------------------------------------------
+
+
+def test_phase_23_runs_after_phase_22_and_feeds_the_kernels_line():
+    source = (Path(chip_smoke.__file__)).read_text()
+    main = source[source.index("def main() -> int:"):]
+    assert main.index("phase_probe(torch)") < main.index("phase_train(torch, fa, pa")
+    assert main.index("phase_train(torch, fa, pa") < main.index('kernels = {"kernels": [')
+    # its profiled times are taken early, right after phase 18
+    assert (main.index("phase_invariance(") < main.index("_train_timings(")
+            < main.index("phase_bench(torch"))
+    for counter in ("flash_attention", "flash_attention_f32", "paged_attention",
+                    "paged_attention_f32", "rms_norm", "add_rms_norm"):
+        assert f'train_launches["{counter}"]' in main, counter
+
+
+def test_phase_23_holds_the_jax_param_counts():
+    from tpuslo.models import llama, mixtral
+
+    assert chip_smoke.TRAIN_3B_PARAMS == llama.param_count(llama.llama32_3b())
+    assert chip_smoke.TRAIN_MOE_PARAMS == mixtral.param_count(mixtral.mixtral_2b6())
+
+
+def test_the_script_exits_2_without_a_card(monkeypatch, capsys):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(chip_smoke.sys, "argv", ["chip_smoke.py"])
+    assert chip_smoke.main() == 2
+    assert chip_smoke.probe_main(["train"]) == 2
+    assert '{"ok": true' not in capsys.readouterr().out
+
+
+class _Event:
+    def __init__(self, key, us, count):
+        self.key, self.self_device_time_total, self.count = key, us, count
+
+
+def test_kernel_groups_sum_a_traced_step_by_family():
+    kernels = [_Event("void flash_fwd_kernel<128>(...)", 900.0, 56),
+               _Event("void add_norm_kernel<__nv_bfloat16, 8>(...)", 300.0, 112),
+               _Event("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NTT", 50_000.0, 500),
+               _Event("void at::native::(anonymous)::multi_tensor_apply_kernel<...>", 20_000.0,
+                      90),
+               _Event("void at::native::elementwise_kernel<128, 2, ...>", 4_000.0, 3000)]
+    groups = chip_smoke._kernel_groups(kernels)
+    assert groups["K1"] == {"ms": 0.9, "launches": 56}
+    assert groups["norm kernels"] == {"ms": 0.3, "launches": 112}
+    assert groups["GEMM"] == {"ms": 50.0, "launches": 500}
+    assert groups["optimizer"] == {"ms": 20.0, "launches": 90}
+    assert groups["other"] == {"ms": 4.0, "launches": 3000}
+    assert sum(g["ms"] for g in groups.values()) == pytest.approx(75.2)
+
+
+def test_rel_err_is_relative_to_the_largest_reference_value():
+    import torch
+
+    ref = torch.tensor([0.5, -4.0, 2.0])
+    assert chip_smoke._rel_err(torch.tensor([0.5, -4.0, 2.5]), ref) == pytest.approx(0.125)
+    assert chip_smoke._rel_err(ref.bfloat16(), ref) == 0.0

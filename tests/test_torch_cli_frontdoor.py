@@ -287,7 +287,7 @@ class TestDispatcher:
         assert tdispatch.main([]) == 2
         out = capsys.readouterr().out
         assert out == ("usage: python -m tpuslo_torch <binary> [flags]\n\nbinaries:\n"
-                       "  frontdoor\n  loadgen\n")
+                       "  frontdoor\n  loadgen\n  train\n")
         assert tdispatch.main(["--help"]) == 0
         assert capsys.readouterr().out == out
 

@@ -60,7 +60,9 @@ def test_port_files_exist():
                 "correlation/matcher.py", "correlation/__init__.py", "sloengine/sweep.py",
                 "benchmark/serving_bench.py", "ops/moe.py", "models/mixtral.py",
                 "collector/symbols.py", "collector/probe_manager.py", "prereq/checker.py",
-                "prereq/__init__.py"):
+                "prereq/__init__.py", "parallel/__init__.py", "parallel/mesh.py",
+                "models/data.py", "models/train.py", "models/checkpoint.py",
+                "models/trainer.py", "cli/train.py"):
         assert REPO / "tpuslo_torch" / rel in PORT_FILES
 
 
@@ -89,7 +91,10 @@ def test_importing_the_port_loads_no_jax():
         "tpuslo_torch.benchmark.serving_bench, tpuslo_torch.ops.moe, "
         "tpuslo_torch.models.mixtral, tpuslo_torch.collector, "
         "tpuslo_torch.collector.symbols, tpuslo_torch.collector.probe_manager, "
-        "tpuslo_torch.prereq, tpuslo_torch.prereq.checker; "
+        "tpuslo_torch.prereq, tpuslo_torch.prereq.checker, tpuslo_torch.parallel.mesh, "
+        "tpuslo_torch.models.data, tpuslo_torch.models.train, "
+        "tpuslo_torch.models.checkpoint, tpuslo_torch.models.trainer, "
+        "tpuslo_torch.cli.train; "
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'tpuslo', 'jsonschema', 'yaml')); "
         "print(bad); sys.exit(1 if bad else 0)"

@@ -220,16 +220,17 @@ def test_xla_launch_join_on_the_cpu_joins_through_the_ports_matcher(weights, mon
 
 @pytest.mark.slow
 def test_a_whole_cpu_run_reports_every_lane():
-    """``run(platform="cpu")`` end to end (~40 s on the CPU, so outside
+    """``run(platform="cpu")`` end to end (~1 min on the CPU, so outside
     tier-1): every lane of JAX's CPU run is there without an error, the
-    lanes that wait are marked, and no kernel launched on the CPU."""
+    measured speculative lane's streams are identical, and no kernel
+    launched on the CPU."""
     got = tsb.run(platform="cpu")
     assert got["model"] == "llama_tiny" and got["platform"] == "cpu"
     for lane in ("prefix_cache", "long_prompt", "speculative", "kv", "deviceplane", "profiler"):
         assert "error" not in got[lane], (lane, got[lane])
     for lane in ("int8_kv", "batch_curve", "paged", "shared_prefix"):
         assert "error" not in got["kv"][lane], lane
-    assert got["speculative_measured"] == {"not_ported": tsb.NOT_PORTED["speculative_measured"]}
+    assert "error" not in got["speculative_measured"] and got["speculative_measured"]["parity_ok"]
     assert "xprof_error" not in got and got["xla_launch_matches"] > 0
     assert set(got["kernel_launches"].values()) == {0}
     assert got["mfu_prefill"] is None and "hbm_bw_pct" not in got["bw_decode_b1"]
@@ -254,3 +255,24 @@ def test_the_moe_lane_reports_the_jax_lanes_keys(monkeypatch):
         tsb.decode_step_hbm_bytes(got["n_params_active"], tl.kv_cache_bytes(cfg, 1)))
     assert (got["k1_launches"], got["k2_launches"]) == (0, 0)
     assert "moe" not in tsb.NOT_PORTED
+
+
+def test_the_measured_speculative_lane_reports_the_jax_lanes_keys():
+    """``_speculative_measured_lane`` at 2 training steps per model on both
+    packages: the same keys (``note`` comes only with a speedup under 1),
+    the same configs and train steps, identical emitted streams and no
+    recapture on the port.  The card runs the JAX recipe (chip_smoke
+    phase 23)."""
+    few = dict(target_steps=2, draft_steps=2, n_tokens=8)
+    want = jsb._speculative_measured_lane(**few)
+    got = tsb._speculative_measured_lane(**few, device="cpu")
+    assert set(got) - {"note"} == set(want) - {"note"}
+    assert got["train_steps"] == want["train_steps"] == {"target": 2, "draft": 2}
+    for model in ("target", "draft"):
+        assert set(got[model]) == set(want[model])
+        assert got[model]["n_params"] == want[model]["n_params"]
+        assert np.isfinite([got[model]["loss_first"], got[model]["loss_last"]]).all()
+    assert got["cost_ratio"] == want["cost_ratio"]
+    assert got["parity_ok"] is True and want["parity_ok"] is True
+    assert got["spec_retrace_count"] == 0
+    assert 0.0 <= got["acceptance_rate"] <= 1.0

@@ -11,6 +11,7 @@ import sys
 BINARIES = {
     "frontdoor": "tpuslo_torch.cli.frontdoor",
     "loadgen": "tpuslo_torch.cli.loadgen",
+    "train": "tpuslo_torch.cli.train",
 }
 
 def main(argv: list[str] | None = None) -> int:

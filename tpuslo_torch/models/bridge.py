@@ -20,6 +20,12 @@ JAX's state and hold the port's to it.  A front door's dense parked
 snapshot ``(row_t, row_d, current, frontier)`` goes both ways too
 (:func:`parked_to_numpy`, :func:`parked_from_numpy`): a request parked
 by one framework's front door can be adopted by the other's.
+
+AdamW's moments go both ways (:func:`adamw_state_from_numpy`,
+:func:`adamw_state_to_numpy`): optax's ``ScaleByAdamState(count, mu,
+nu)`` as numpy (``{"count", "mu", "nu"}``, the moment trees shaped like
+the parameters) into a ``torch.optim.AdamW`` built over the same
+parameters and back, so that both frameworks can continue one run.
 """
 
 from __future__ import annotations
@@ -78,7 +84,7 @@ def params_to_numpy(params: dict) -> dict:
 def _side_to_numpy(side) -> Any:
     if isinstance(side, dict):
         return {"q": side["q"].cpu().numpy(), "s": side["s"].cpu().numpy()}
-    return side.float().cpu().numpy()
+    return side.detach().float().cpu().numpy()
 
 
 def cache_to_numpy(cache: dict) -> dict:
@@ -165,3 +171,47 @@ def parked_from_numpy(
         int(tree["current"]),
         int(tree["frontier"]),
     )
+
+
+def _tree_leaf(tree: dict, path: str):
+    for key in path.split("/"):
+        tree = tree[key]
+    return tree
+
+
+def adamw_state_from_numpy(state: dict, optimizer: torch.optim.Optimizer,
+                           params: dict) -> torch.optim.Optimizer:
+    """Load optax's adam moments into ``optimizer`` (an AdamW built by
+    ``tpuslo_torch.models.train.AdamW.init(params)``): each leaf's
+    ``exp_avg`` is ``mu``'s leaf and ``exp_avg_sq`` ``nu``'s, in the
+    parameter's dtype and device, and ``step`` is ``count``.  Returns the
+    optimizer."""
+    from tpuslo_torch.models.train import param_leaves
+
+    count = float(np.asarray(state["count"]))
+    for path, p in param_leaves(params):
+        optimizer.state[p] = {
+            "step": torch.tensor(count, dtype=torch.float32),
+            "exp_avg": _leaf_to_torch(_tree_leaf(state["mu"], path), p.dtype, p.device),
+            "exp_avg_sq": _leaf_to_torch(_tree_leaf(state["nu"], path), p.dtype, p.device),
+        }
+    return optimizer
+
+
+def adamw_state_to_numpy(optimizer: torch.optim.Optimizer, params: dict) -> dict:
+    """The inverse of :func:`adamw_state_from_numpy` for an optimizer that
+    has stepped: ``{"count", "mu", "nu"}``, the moment trees shaped like
+    ``params`` (f32 numpy)."""
+    from tpuslo_torch.models.train import param_leaves
+
+    mu: dict = {}
+    nu: dict = {}
+    for path, p in param_leaves(params):
+        st = optimizer.state[p]
+        *parents, leaf = path.split("/")
+        m, n = mu, nu
+        for key in parents:
+            m, n = m.setdefault(key, {}), n.setdefault(key, {})
+        m[leaf] = _side_to_numpy(st["exp_avg"])
+        n[leaf] = _side_to_numpy(st["exp_avg_sq"])
+    return {"count": np.asarray(int(st["step"]), np.int32), "mu": mu, "nu": nu}

@@ -47,6 +47,13 @@ per row:
   gives every request a lone prefill's bits and a lone prefill runs as
   one product per weight (K1 computes each row in CTAs of its own
   already).
+
+Training (:func:`loss_fn`, ``forward(..., remat=True)``) differentiates
+the same layers: K1 and both norm kernels run their forwards on the card
+inside ``torch.autograd.Function``s whose backwards are the plain
+PyTorch of the JAX package's gradients, each layer runs under
+``torch.utils.checkpoint``, and the products take the whole batch at
+once, as the JAX module's do.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from tpuslo_torch.device import resolve_device
 from tpuslo_torch.models import kv_cache as kvc
@@ -425,19 +433,23 @@ def attention_block(
 
 
 def _attention_out(cfg, x: torch.Tensor, layer: Params, cos: torch.Tensor,
-                   sin: torch.Tensor, mask: torch.Tensor, causal: bool):
+                   sin: torch.Tensor, mask: torch.Tensor, causal: bool,
+                   invariant: bool = True):
     """:func:`attention_block` from the normalized ``x``, before the
-    residual: (the ``wo`` product, (k, v))."""
+    residual: (the ``wo`` product, (k, v)).  ``invariant=False`` (a pass
+    that autograd records) runs each product and the plain attention over
+    the whole batch at once instead of row by row."""
     B, S, _ = x.shape
     H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = _seq_matmul(x, layer["wq"]).reshape(B, S, H, HD)
-    k = _seq_matmul(x, layer["wk"]).reshape(B, S, KV, HD)
-    v = _seq_matmul(x, layer["wv"]).reshape(B, S, KV, HD)
+    matmul = _seq_matmul if invariant else _product
+    q = matmul(x, layer["wq"]).reshape(B, S, H, HD)
+    k = matmul(x, layer["wk"]).reshape(B, S, KV, HD)
+    v = matmul(x, layer["wv"]).reshape(B, S, KV, HD)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if causal and flash_eligible(tuple(q.shape), KV):
         attn = flash_attention(q, k, v, causal=True)
-    elif x.device.type == "cuda" and B > 1:
+    elif invariant and x.device.type == "cuda" and B > 1:
         # One row at a time: the batched products would pick their
         # kernels by the batch.
         attn = torch.cat([attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
@@ -445,7 +457,7 @@ def _attention_out(cfg, x: torch.Tensor, layer: Params, cos: torch.Tensor,
                           for b in range(B)])
     else:
         attn = attention(q, k, v, mask, H // KV)
-    return _seq_matmul(attn.reshape(B, S, H * HD), layer["wo"]), (k, v)
+    return matmul(attn.reshape(B, S, H * HD), layer["wo"]), (k, v)
 
 
 def _dense_mlp(cfg, layer: Params, x: torch.Tensor, i: int | None = None,
@@ -460,22 +472,69 @@ def _dense_mlp(cfg, layer: Params, x: torch.Tensor, i: int | None = None,
 
 
 def _seq_layers(params: Params, cfg: LlamaConfig, h: torch.Tensor, cos: torch.Tensor,
-                sin: torch.Tensor, mask: torch.Tensor, write=None, mlp_fn=None) -> torch.Tensor:
+                sin: torch.Tensor, mask: torch.Tensor, write=None, mlp_fn=None,
+                remat: bool = False, invariant: bool = True, aux: list | None = None
+                ) -> torch.Tensor:
     """The layer loop of a full-sequence pass (causal ``mask``), with the
     final norm: each residual add reaches the norm after it in one
     :func:`add_rms_norm`.  ``write(i, k, v)`` takes layer ``i``'s rotated
     K and V.  ``mlp_fn(layer, x)`` swaps the dense MLP for another block
-    body (the Mixtral family's MoE); the adds and norms around it stay."""
-    x = rms_norm(h, params["layers"]["attn_norm"][0], cfg.norm_eps)
-    for i in range(cfg.n_layers):
-        layer = _layer(params, i)
-        out, (k, v) = _attention_out(cfg, x, layer, cos, sin, mask, causal=True)
+    body (the Mixtral family's MoE); the adds and norms around it stay.
+    With ``aux`` (a list) ``mlp_fn`` returns ``(y, a)`` and each layer's
+    ``a`` is appended to it.
+
+    ``remat=True`` runs each layer under
+    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` over the
+    ``(h, x)`` carry (the residual stream and its norm), as the JAX
+    module's ``jax.checkpoint`` layer body: the backward pass runs each
+    layer's forward again instead of keeping its activations.
+    ``invariant`` as in :func:`_attention_out`.
+
+    A pass that autograd records (``invariant=False``) takes its layers
+    from one ``unbind`` of each layer-stacked leaf: the backward then
+    writes each leaf's gradient once, where indexing layer by layer would
+    add a zero-filled leaf-sized gradient per layer (the 3B step's
+    largest cost on the card before)."""
+    if invariant:
+        def layer_at(i):
+            return _layer(params, i)
+        attn_norms = params["layers"]["attn_norm"]
+    else:
+        split = {name: leaf.unbind(0) for name, leaf in params["layers"].items()}
+
+        def layer_at(i):
+            return {name: leaves[i] for name, leaves in split.items()}
+        attn_norms = split["attn_norm"]
+
+    def next_norm(i):
+        return attn_norms[i + 1] if i + 1 < cfg.n_layers else params["final_norm"]
+
+    def layer_step(h, x, i):
+        layer = layer_at(i)
+        out, (k, v) = _attention_out(cfg, x, layer, cos, sin, mask, causal=True,
+                                     invariant=invariant)
         if write is not None:
             write(i, k, v)
         h, x = add_rms_norm(h, out, layer["mlp_norm"], cfg.norm_eps)
-        mlp = (_dense_mlp(cfg, layer, x, matmul=_seq_matmul) if mlp_fn is None
-               else mlp_fn(layer, x))
-        h, x = add_rms_norm(h, mlp, _next_norm(params, i), cfg.norm_eps)
+        if mlp_fn is None:
+            mlp = _dense_mlp(cfg, layer, x, matmul=_seq_matmul if invariant else _product)
+        else:
+            mlp = mlp_fn(layer, x)
+        if aux is None:
+            return add_rms_norm(h, mlp, next_norm(i), cfg.norm_eps)
+        mlp, a = mlp
+        return (*add_rms_norm(h, mlp, next_norm(i), cfg.norm_eps), a)
+
+    x = rms_norm(h, attn_norms[0], cfg.norm_eps)
+    for i in range(cfg.n_layers):
+        if remat:
+            out = checkpoint(layer_step, h, x, i, use_reentrant=False,
+                             preserve_rng_state=False)
+        else:
+            out = layer_step(h, x, i)
+        h, x = out[0], out[1]
+        if aux is not None:
+            aux.append(out[2])
     return x
 
 
@@ -490,18 +549,51 @@ def _layer(params: Params, i: int) -> Params:
     return {name: _at(leaf, i) for name, leaf in params["layers"].items()}
 
 
+def _differentiated(params: Params) -> bool:
+    """Does autograd record a pass over ``params``?  (Grad mode is on and
+    a leaf requires grad: a training step, never a serving pass.)"""
+    if not torch.is_grad_enabled():
+        return False
+    leaves = [params["embed"], params["final_norm"], params["output"],
+              *params["layers"].values()]
+    return any(isinstance(t, torch.Tensor) and t.requires_grad for t in leaves)
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
-            mlp_fn=None) -> torch.Tensor:
-    """Full-sequence forward -> f32 logits (B, S, vocab); ``mlp_fn`` as
-    in :func:`_seq_layers`."""
+            mlp_fn=None, remat: bool = True, aux: list | None = None) -> torch.Tensor:
+    """Full-sequence forward -> f32 logits (B, S, vocab); ``mlp_fn`` and
+    ``aux`` as in :func:`_seq_layers`.
+
+    A pass that autograd records (a training step) checkpoints each layer
+    when ``remat`` (the JAX module's default) and runs each weight product
+    over the whole batch at once, as the JAX module does; batch
+    invariance is a serving property.  Any other pass is the serving
+    forward, with its bits unchanged: ``remat`` has nothing to save there
+    and is ignored."""
     B, S = tokens.shape
     dev = tokens.device
+    train = _differentiated(params)
     positions = torch.arange(S, device=dev).expand(B, S)
     h = _embed_lookup(params, tokens, cfg.dtype)
     cos, sin = rope_frequencies(cfg, positions)
     mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
-    h = _seq_layers(params, cfg, h, cos, sin, mask, mlp_fn=mlp_fn)
-    return _seq_matmul(h, params["output"]).float()
+    h = _seq_layers(params, cfg, h, cos, sin, mask, mlp_fn=mlp_fn, remat=remat and train,
+                    invariant=not train, aux=aux)
+    return (_product if train else _seq_matmul)(h, params["output"]).float()
+
+
+def nll_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token negative log-likelihood from f32 logits (B, S, V)
+    and integer targets (B, S): ``log_softmax``, then the target's entry,
+    as the JAX module's ``loss_fn`` computes it."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, targets.long()[..., None])[..., 0].mean()
+
+
+def loss_fn(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
+            cfg: LlamaConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy of :func:`forward`'s logits."""
+    return nll_loss(forward(params, tokens, cfg), targets)
 
 
 # --- KV-cache decode path ----------------------------------------------

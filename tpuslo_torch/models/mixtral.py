@@ -24,9 +24,9 @@ Incremental decode equals the full-sequence forward only while routing
 is drop-free (``capacity_factor >= n_experts / top_k``); the batched
 engines refuse any other config, as JAX's do.
 
-What waits: training (``loss_fn``, ``build_moe_train_step``) for the
-training slice; ``sp_generate`` and the tp / ep shardings for the
-multi-device slice.
+Training: :func:`loss_fn` (NLL plus the router's load-balancing term)
+and :func:`build_moe_train_step` on one device.  What waits:
+``sp_generate`` and the tp / ep shardings, for the multi-device slice.
 """
 
 from __future__ import annotations
@@ -213,24 +213,47 @@ def _moe_block(layer: Params, x: torch.Tensor, cfg: MixtralConfig):
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: MixtralConfig,
-            return_aux: bool = False):
+            remat: bool = True, return_aux: bool = False):
     """Full-sequence forward -> f32 logits (B, S, vocab); with
     ``return_aux`` also the mean router load-balancing loss over the
-    layers.  Runs without remat (training is not ported)."""
-    aux = []
-
-    def mlp_fn(layer, x):
-        y, a = _moe_block(layer, x, cfg)
-        aux.append(a)
-        return y
-
-    logits = llama.forward(params, tokens, cfg, mlp_fn=mlp_fn)
+    layers (a training loop adds it to the objective).  ``remat`` as in
+    :func:`tpuslo_torch.models.llama.forward`: each layer checkpointed in
+    a pass that autograd records."""
+    aux: list[torch.Tensor] = []
+    logits = llama.forward(params, tokens, cfg, mlp_fn=_aux_mlp_fn(cfg), remat=remat, aux=aux)
     if return_aux:
         return logits, torch.stack(aux).mean()
     return logits
 
 
+def loss_fn(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
+            cfg: MixtralConfig) -> torch.Tensor:
+    """Cross-entropy plus ``router_aux_coef`` times the router
+    load-balancing loss (without it top-k routing collapses onto the
+    early-winning experts)."""
+    logits, aux = forward(params, tokens, cfg, return_aux=True)
+    return llama.nll_loss(logits, targets) + cfg.router_aux_coef * aux
+
+
+def build_moe_train_step(mesh, cfg: MixtralConfig, optimizer=None):
+    """``(step_fn, init_fn)`` of an AdamW step on the mesh's one device
+    (dp 1, ep 1), the contract of
+    :func:`tpuslo_torch.models.train.build_sharded_train_step`.  The
+    expert-parallel (dp x ep) step belongs to the multi-device slice
+    (ROADMAP item 13)."""
+    from tpuslo_torch.models import train
+
+    return train.build_step(mesh, cfg, init_params, loss_fn, optimizer)
+
+
 # --- KV-cache serving path ---------------------------------------------
+
+
+@functools.lru_cache(maxsize=16)
+def _aux_mlp_fn(cfg: MixtralConfig):
+    """The ``mlp_fn`` hook of the full-sequence forward: MoE, returning
+    ``(output, aux loss)``."""
+    return lambda layer, x: _moe_block(layer, x, cfg)
 
 
 @functools.lru_cache(maxsize=16)

@@ -26,8 +26,16 @@ inputs alone:
 
 ``flash_attention.launches`` counts K1's launches and
 ``flash_attention.f32_launches`` K1-f32's, so that a run can show that
-its path went through the kernel.  Only the forward pass is ported:
-serving never differentiates.
+its path went through the kernel.
+
+Training differentiates it: inputs that autograd records go through
+:class:`_FlashAttention`, whose forward is the same routing (the kernel
+on the card, counted; the plain version on the CPU) and which saves q, k
+and v, as the JAX module's ``_flash_fwd`` does.  Its backward is
+:func:`flash_attention_backward`, the plain PyTorch of the JAX module's
+``_flash_bwd``: an f32 recompute with k and v repeated over the grouped
+heads.  The JAX package has no backward kernel either (XLA computes
+``_flash_bwd``); a remat recompute launches the forward kernel again.
 """
 
 from __future__ import annotations
@@ -204,8 +212,66 @@ def flash_attention(
     launches, on the current stream, the kernel :func:`kernel_route`
     names (K1 for bf16 at D 128 or 256, K1-f32 for the rest up to D 512)
     and raises on anything else, including a failed build or a refused
-    launch.
+    launch.  Differentiable (:class:`_FlashAttention`).
     """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal)
+    return _flash_forward(q, k, v, causal)
+
+
+def flash_attention_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d_out: torch.Tensor,
+    causal: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_attention` at ``(q, k, v)`` for the
+    output cotangent ``d_out``: the JAX module's ``_flash_bwd`` in plain
+    PyTorch.  f32 throughout: the probabilities recomputed with k and v
+    repeated over the grouped heads and the causal mask,
+    ``ds = p * (dp - sum(dp * p))``, the grouped heads' dk and dv summed
+    back onto their kv head, each gradient cast to its input's dtype."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    n_rep = H // KV
+    scale = D**-0.5
+    qf = q.float()
+    kf = k.float().repeat_interleave(n_rep, dim=2)
+    vf = v.float().repeat_interleave(n_rep, dim=2)
+    do = d_out.float()
+    s = torch.einsum("bshd,bthd->bhst", qf, kf) * scale
+    if causal:
+        visible = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~visible, float("-inf"))
+    p = torch.softmax(s, dim=-1)  # (B, H, S, T)
+    dv_rep = torch.einsum("bhst,bshd->bthd", p, do)
+    dp = torch.einsum("bshd,bthd->bhst", do, vf)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhst,bthd->bshd", ds, kf) * scale
+    dk_rep = torch.einsum("bhst,bshd->bthd", ds, qf) * scale
+    dk = dk_rep.reshape(B, S, KV, n_rep, D).sum(dim=3)
+    dv = dv_rep.reshape(B, S, KV, n_rep, D).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward routing of :func:`flash_attention` (the kernel on the
+    card) with :func:`flash_attention_backward` as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _flash_forward(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, d_out, ctx.causal), None)
+
+
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool) -> torch.Tensor:
+    """:func:`flash_attention`'s forward: the plain version on the CPU,
+    the routed kernel on the card."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal)
     if q.device.type != "cuda":

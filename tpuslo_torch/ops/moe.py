@@ -27,6 +27,13 @@ What differs, and why:
   tensor.  A token's output bits then do not depend on the other tokens
   of its batch, as long as nothing is dropped.
 
+Training differentiates the block as JAX's ``top_k`` gather does: the
+gates carry the gradient back to the router through the sorted logits,
+the gathers scatter it back to the tokens, and the card's f32-output
+expert products (``torch.bmm(..., out_dtype=torch.float32)``, which
+PyTorch does not differentiate) take their gradient from
+:func:`f32_product_backward`.
+
 Expert parallelism (``moe_mlp_sharded``, ``moe_params_specs``,
 ``place_moe_params``) belongs to the multi-device slice and raises.
 """
@@ -138,8 +145,36 @@ def _f32_product(piece: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``piece @ w`` accumulated and returned in f32 (batched over the
     leading expert axis)."""
     if piece.device.type == "cuda" and piece.dtype != torch.float32:
+        if torch.is_grad_enabled() and (piece.requires_grad or w.requires_grad):
+            return _F32Product.apply(piece, w)
         return torch.bmm(piece, w, out_dtype=torch.float32)
     return torch.matmul(piece.float(), w.float())
+
+
+def f32_product_backward(
+    piece: torch.Tensor, w: torch.Tensor, g: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(d piece, d w) of ``piece @ w`` taken in f32 for the f32 cotangent
+    ``g``: f32 products cast to each input's dtype, the gradient autograd
+    gives the CPU's ``piece.float() @ w.float()``."""
+    d_piece = torch.matmul(g, w.float().transpose(-1, -2)).to(piece.dtype)
+    d_w = torch.matmul(piece.float().transpose(-1, -2), g).to(w.dtype)
+    return d_piece, d_w
+
+
+class _F32Product(torch.autograd.Function):
+    """``torch.bmm(..., out_dtype=torch.float32)`` has no derivative in
+    PyTorch: this gives it :func:`f32_product_backward`."""
+
+    @staticmethod
+    def forward(ctx, piece, w):
+        ctx.save_for_backward(piece, w)
+        return torch.bmm(piece, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        piece, w = ctx.saved_tensors
+        return f32_product_backward(piece, w, g)
 
 
 def _expert_ffn(params: Params, xe: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:

@@ -24,6 +24,13 @@ input alone:
 
 ``rms_norm.launches`` and ``add_rms_norm.launches`` count calls that
 launched the kernel.
+
+Both are differentiable: inputs that autograd records go through an
+``autograd.Function`` whose forward is the same routing (the kernel on
+the card) and whose backward is :func:`rms_norm_backward` /
+:func:`add_rms_norm_backward`, the gradient of the plain version (the
+JAX function ``(x32 * rms).astype(dtype) * weight``, after the residual
+add in the model dtype) in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -54,6 +61,34 @@ def add_rms_norm_reference(
     norm of its (rounded) result, as the model runs them eagerly."""
     h = h + d
     return h, rms_norm_reference(h, weight, eps)
+
+
+def rms_norm_backward(
+    x: torch.Tensor, weight: torch.Tensor, eps: float, dy: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dweight) of :func:`rms_norm_reference` at ``(x, weight)`` for
+    the output cotangent ``dy``: the plain version differentiated by
+    autograd, op for op the vjp of the JAX function (the weight product
+    in the input dtype, the normalization in f32)."""
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_()
+        wr = weight.detach().requires_grad_()
+        y = rms_norm_reference(xr, wr, eps)
+        dx, dw = torch.autograd.grad(y, (xr, wr), dy)
+    return dx, dw
+
+
+def add_rms_norm_backward(
+    h_sum: torch.Tensor, weight: torch.Tensor, eps: float,
+    d_sum: torch.Tensor, dy: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`add_rms_norm_reference` from the rounded sum
+    ``h_sum = h + d`` it returned and the cotangents of its two outputs:
+    ``(g, dweight)``, ``g = d_sum + dx`` (summed in the model dtype, as
+    the JAX vjp sums a value's two cotangents) being the gradient of both
+    ``h`` and ``d``."""
+    dx, dw = rms_norm_backward(h_sum, weight, eps, dy)
+    return d_sum + dx, dw
 
 
 @functools.lru_cache(maxsize=None)
@@ -122,6 +157,12 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     the card, so it can be captured in a CUDA graph) and returns a new
     tensor of ``x``'s shape and dtype.
     """
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        return _RMSNorm.apply(x, weight, eps)
+    return _rms_norm_forward(x, weight, eps)
+
+
+def _rms_norm_forward(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return rms_norm_reference(x, weight, eps)
     _check("rms_norm", x, weight)
@@ -150,6 +191,14 @@ def add_rms_norm(
     graph) and returns two new tensors of ``h``'s shape and dtype: the
     sum has the eager add's bits, ``y`` the norm kernel's.
     """
+    if torch.is_grad_enabled() and (h.requires_grad or d.requires_grad
+                                    or weight.requires_grad):
+        return _AddRMSNorm.apply(h, d, weight, eps)
+    return _add_rms_norm_forward(h, d, weight, eps)
+
+
+def _add_rms_norm_forward(h: torch.Tensor, d: torch.Tensor, weight: torch.Tensor,
+                          eps: float) -> tuple[torch.Tensor, torch.Tensor]:
     if h.device.type == "cpu":
         return add_rms_norm_reference(h, d, weight, eps)
     _check("add_rms_norm", h, weight, d)
@@ -167,6 +216,40 @@ def add_rms_norm(
     _raise_on(err, "add_rms_norm")
     add_rms_norm.launches += 1
     return h_out.reshape(h.shape), y.reshape(h.shape)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """:func:`rms_norm`'s forward routing with :func:`rms_norm_backward`."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, weight)
+        return _rms_norm_forward(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        return (*rms_norm_backward(x, weight, ctx.eps, dy), None)
+
+
+class _AddRMSNorm(torch.autograd.Function):
+    """:func:`add_rms_norm`'s forward routing with
+    :func:`add_rms_norm_backward`; it keeps the rounded sum, the one
+    tensor the gradient needs."""
+
+    @staticmethod
+    def forward(ctx, h, d, weight, eps):
+        ctx.eps = eps
+        h_sum, y = _add_rms_norm_forward(h, d, weight, eps)
+        ctx.save_for_backward(h_sum, weight)
+        return h_sum, y
+
+    @staticmethod
+    def backward(ctx, d_sum, dy):
+        h_sum, weight = ctx.saved_tensors
+        g, dw = add_rms_norm_backward(h_sum, weight, ctx.eps, d_sum, dy)
+        return g, g, dw, None
 
 
 rms_norm.launches = 0
