@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-``python3 chip_smoke.py probe {admission,bench,norm,train} [--tree DIR]
+``python3 chip_smoke.py probe {admission,bench,norm,train,multidevice,gloo} [--tree DIR]
 [--runs N]`` measures one part of the path instead, on this checkout or
 on another one (an older commit unpacked with ``git archive``), whose own
 ``tpuslo_torch`` (and, for ``admission``, ``bench`` and ``train``, its own
@@ -13,7 +13,10 @@ on another one (an older commit unpacked with ``git archive``), whose own
 each admitting window's device time by dispatch range and each capture's
 cost; the serving benches under one harness (the heap collected and
 frozen before every bench, whatever the tree does); the RMSNorm kernels
-at phase 18's shapes; phase 23 alone after the builds.  One JSON line per measurement (:func:`probe_main`).
+at phase 18's shapes; phase 23 alone after the builds; K2-f32 at head
+dim 24 and phase 24 alone after the builds (``multidevice``: this
+checkout only); which ops gloo runs on CUDA tensors (``gloo``).  One
+JSON line per measurement (:func:`probe_main`).
 
 Phases, each printing its own lines; any failure ends the run with a
 non-zero exit and no result line:
@@ -65,7 +68,11 @@ non-zero exit and no result line:
    K2-f32 at the paged phase's tables over an f32 copy of the pool, and
    at llama_tiny's attention (head dim 16) in bf16, in f32 over int8
    pools and in f16, each within 1e-4 (plus half an output ulp), with
-   dense SDPA over the gathered K/V beside it;
+   dense SDPA over the gathered K/V beside it; then K2-f32 at head dim
+   24 (the serving bench's measured target, 8 heads over 4 kv heads, a
+   256-position cache read as lanes: 1 and 8 rows of 5 queries, f32 and
+   bf16) within the same bound, and row 0's lanes alone against them in
+   the batch of 8, bit for bit;
 8. breakdown: one paged decode step with 8 live lanes, with K2 and with
    the plain pool attention; K2's time in the step sums every kernel one
    call launches;
@@ -150,7 +157,7 @@ non-zero exit and no result line:
 17. the serving benches under the recapture and host-sync audit: the
     front-door bench at the JAX bench's defaults (``llama_tiny``, 192
     streams, 16 slots, k 4, 96 tokens, 3 rounds per step, 2 paired
-    passes), the same bench at ``llama32_3b``'s full width and 7 of its
+    passes), the same bench at ``llama32_3b``'s full width and 2 of its
     28 layers (max_seq_len 192, a self-draft, 96 streams, in bf16, its exactness
     spot check included), and the router bench at its defaults (4
     replicas, 1,024 streams, a kill); every gate of each report must pass
@@ -182,7 +189,7 @@ non-zero exit and no result line:
     package's; its MoE lane serves ``mixtral_2b6`` at batch 1; one
     ``serving:`` JSON line, and its launches go into the kernels line;
 21. MoE serving, the second model family: ``mixtral_2b6(1024)`` in bf16
-    at full width and depth (16 layers, D 2048, 16 heads, 4 kv heads, FFN
+    at full width and 8 of its 16 layers (D 2048, 16 heads, 4 kv heads, FFN
     5632, 4 experts, top 2) on seeded weights: ``MoEServeEngine``
     generates the serve phase's prompts (TTFT, tok/s), its prefill logits
     are held to the same weights on the CPU (``PARITY_TOL``), the MoE
@@ -224,6 +231,25 @@ non-zero exit and no result line:
     (f) the serving bench's ``speculative_measured`` lane (a target and a
     draft trained on the card, acceptance, speedup, streams identical);
     one ``train:`` JSON line;
+24. the multi-device plane on one card, one line per part: (a) ``python
+    -m tpuslo_torch icibench`` over a one-rank NCCL group (every op, its
+    events validated), then each op under the profiler, each launch whose
+    NCCL kernels ran becoming one ``ici_collective_latency_ms`` event (an
+    op a single rank runs without a kernel is printed and counted), read
+    back by ``slicecorr --xprof-dir`` (one host: no incident); (b)
+    ``icibench --multiprocess 3 --delay-host 1`` (gloo CPU processes, as
+    JAX runs its prober): every incident names host 1, then
+    ``--multiprocess 4 --n-slices 2``: a positive dcn component; (c) tp 1
+    over the one-rank NCCL group at ``llama32_3b``'s full width and depth:
+    ``ServeEngine``, the paged engine (K2 on) and the 8-slot front door
+    with the 1B draft equal the same engines without a mesh bit for bit,
+    and the collectives per token; (d) tp 2 as two processes on the one
+    card over gloo (NCCL refuses two ranks on one GPU; the collectives go
+    through host memory): each rank 12 of 24 heads, 4 of 8 kv heads, 4096
+    of 8192 FFN columns and half the vocabulary, prefill logits within
+    PARITY_TOL of the unsharded engine, greedy and paged streams by the
+    near-tie rule, K1 and K2 launched on each rank, the decode step's
+    time; one ``multidevice:`` JSON line;
 19. the ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card and imports nothing of JAX or of the JAX package.
@@ -365,7 +391,8 @@ KERNELS = ("flash_attention", "paged_attention", "attention_f32",
 # kernels for a bf16 pool at Llama-3.2-3B's head dim 128 and 3 query heads
 # per kv head; K1-f32 at the f32 model's head dim 128; K2-f32's split and
 # combine kernels for the f32 model's f32 pool and its int8 pool at head
-# dim 128, and for llama_tiny's bf16 pool at head dim 16; K2 at the 1B
+# dim 128, for llama_tiny's bf16 pool at head dim 16, and for the serving
+# bench's measured target's f32 and bf16 caches at head dim 24; K2 at the 1B
 # draft's head dim 64 and 4 query heads per kv head (its lanes); the
 # RMSNorm kernel and the fused add + RMSNorm kernel in bf16 and in f32,
 # on 16-byte packs (8 and 4 elements).
@@ -376,7 +403,8 @@ PATH_INSTANTIATIONS = ("flash_fwd_kernel<128>", "paged_split_kernel<bf16,128,3>"
                        "paged_f32_combine_kernel<16>", "paged_split_kernel<bf16,64,4>",
                        "paged_combine_kernel<64,4>", "rms_norm_kernel<bf16,8>",
                        "add_norm_kernel<bf16,8>", "rms_norm_kernel<f32,4>",
-                       "add_norm_kernel<f32,4>")
+                       "add_norm_kernel<f32,4>", "paged_f32_kernel<f32,24>",
+                       "paged_f32_kernel<bf16,24>", "paged_f32_combine_kernel<24>")
 # The attribution phase: fault-replay samples per scenario, and the row
 # counts at which the torch lane is timed against numpy (the auto probe's
 # buckets, then the fleet sizes past its cap).
@@ -1128,13 +1156,14 @@ def _eligible_prefills(fa, serve, cfg, jobs) -> int:
     )
 
 
-def _hold_streams(torch, serve, cfg, ref, jobs, results, what: str) -> list[dict]:
-    """Each job's stream against ``ref.generate`` (the single-request
-    engine on the same weights): identical, or diverging first where the
-    reference's top-2 margin is under 2 * PARITY_TOL."""
+def _hold_streams(torch, serve, cfg, ref, jobs, results, what: str,
+                  n_tokens: int = NEW_TOKENS) -> list[dict]:
+    """Each job's stream of ``n_tokens`` against ``ref.generate`` (the
+    single-request engine on the same weights): identical, or diverging
+    first where the reference's top-2 margin is under 2 * PARITY_TOL."""
     report = []
     for i, (prompt, prefix) in enumerate(jobs):
-        want = [e.token_id for e in ref.generate(prompt, NEW_TOKENS, stop_at_eos=False,
+        want = [e.token_id for e in ref.generate(prompt, n_tokens, stop_at_eos=False,
                                                  prefix=prefix)]
         got = results[i]
         diverged, margin = None, None
@@ -1546,6 +1575,52 @@ def phase_paged_kernel_f32_path(torch, pa, kv_cache, paths) -> dict:
             F32_ENGINE_BLOCK, seed, f"the step of the paged engine {name} B={B} MB={MB} "
             f"{q_dtype} q, {pool} pool", q_dtype)})
     return {"shapes": rows}
+
+
+# K2-f32 at head dim 24 (F11): the serving bench's measured speculative
+# lane's target (dim 192, 8 heads of 24 over 4 kv heads) reads its dense
+# cache of 256 positions as K2's lanes, one block of 256 per row: a verify
+# pass of k + 1 = 5 queries on one row, and the same on 8 rows.
+HD24 = dict(H=8, KV=4, HD=24, T=256, K=5)
+HD24_ROWS = (1, 8)
+
+
+def phase_paged_kernel_f32_hd24(torch, pa, kv_cache) -> dict:
+    """K2-f32 at head dim 24 over f32 and bf16 caches (q in the cache's
+    dtype, as the lane's model gives it) against the plain version, within
+    F32_TOL plus half an output ulp, at 1 and 8 rows; then row 0's lanes
+    alone against the same lanes inside the batch of 8, bit for bit."""
+    t = HD24
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(4326)
+    rows, bitwise = [], {}
+    B, K = max(HD24_ROWS), t["K"]
+    for pool in ("f32", "bf16"):
+        dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[pool]
+        k = torch.randn(B, t["T"], t["KV"], t["HD"], generator=gen).to(dev, dtype)
+        v = torch.randn(B, t["T"], t["KV"], t["HD"], generator=gen).to(dev, dtype)
+        starts = torch.randint(0, t["T"] - K, (B,), generator=gen)
+        lengths = (starts[:, None] + torch.arange(K)).reshape(-1).to(dev, torch.int32)
+        table = torch.arange(B, dtype=torch.int32).repeat_interleave(K)[:, None].to(dev)
+        for b in HD24_ROWS:
+            n = b * K
+            rows.append({"shape": f"hd24-{b}x{K}-{pool}", **_k2_f32_row(
+                torch, pa, kv_cache, k[:b], v[:b], table[:n].contiguous(),
+                lengths[:n].contiguous(), t["H"], t["T"], 4327 + b,
+                f"head dim 24, {b} rows x {K} queries, {pool} cache", pool)})
+        q = torch.randn(B * K, t["H"], t["HD"], generator=gen).to(dev, dtype)
+        batch = pa.paged_decode_attention(q, k, v, table, lengths, block_size=t["T"])
+        alone = pa.paged_decode_attention(q[:K].contiguous(), k[:1], v[:1],
+                                          table[:K].contiguous(), lengths[:K].contiguous(),
+                                          block_size=t["T"])
+        torch.cuda.synchronize()
+        bitwise[pool] = bool(torch.equal(alone, batch[:K]))
+        if not bitwise[pool]:
+            _fail(f"K2-f32 at head dim 24 ({pool} cache): row 0's lanes alone differ from "
+                  f"the same lanes inside a batch of {B} rows")
+    print(f"K2-f32: head dim 24: row 0's lanes alone equal them inside a batch of {B} rows, "
+          f"bit for bit: {bitwise}", flush=True)
+    return {"shapes": rows, "alone_equals_batch": bitwise}
 
 
 def phase_breakdown(torch, paged_kv, cfg, engine, capture) -> dict:
@@ -3465,13 +3540,13 @@ def phase_invariance(torch, llama, kv_cache) -> dict:
 
 BENCH_3B_STREAMS = 96  # bench (ii): the one cut of JAX's 192 streams, for the run's time
 BENCH_3B_SEQ = 192  # JAX's llama_tiny(max_seq_len=192), at llama32_3b's widths
-# Bench (ii) runs 7 of llama32_3b's 28 layers at its full widths: at full
+# Bench (ii) runs BENCH_3B_LAYERS of llama32_3b's 28 layers at its full widths: at full
 # depth it took 188-201 s of a script that phase 20 (the serving bench,
 # 185-205 s) took past 800 s on one card's host; at 14 layers 91 s, and
 # phases 21 and 22 (MoE serving, the probe surface, ~45 s with the MoE
 # lane of phase 20) took that time again.  Depth is what a time cut may
-# lower.
-BENCH_3B_LAYERS = 7
+# lower: 2 layers since phase 24 (the multi-device plane, ~125 s) came.
+BENCH_3B_LAYERS = 2
 # Bench (ii) serves llama32_3b's widths and depth in the model's dtype:
 # every pass on the card is batch-invariant, so its exactness spot check
 # holds in bf16 (the random model's bf16 logits over 128,256 tokens tie
@@ -3848,16 +3923,22 @@ def _moe_invariance(torch, moe, cfg, params) -> dict:
     return {"invariant": not breaks, "breaks": breaks}
 
 
+# Phase 21 serves mixtral_2b6 at its full widths and 8 of its 16 layers:
+# depth is what a time cut may lower, and phase 24 took ~125 s (PR 15);
+# the serving bench's moe lane (phase 20) runs the whole model.
+MOE_LAYERS = 8
+
+
 def phase_moe(torch, fa, pa, serve) -> dict:
-    """Phase 21: ``mixtral_2b6`` at full width and depth through the MoE
-    engines (see the module docstring)."""
+    """Phase 21: ``mixtral_2b6`` at full width and MOE_LAYERS of its
+    depth through the MoE engines (see the module docstring)."""
     from tpuslo_torch.models import mixtral
     from tpuslo_torch.ops import moe
 
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    cfg = mixtral.mixtral_2b6(max_seq_len=1024)
+    cfg = dataclasses.replace(mixtral.mixtral_2b6(max_seq_len=1024), n_layers=MOE_LAYERS)
     t0 = time.perf_counter()
     engine = mixtral.MoEServeEngine(cfg, rng_seed=0, prefill_buckets=MOE_BUCKETS,
                                     decode_chunk_size=MOE_CHUNK, device="cuda")
@@ -4161,6 +4242,22 @@ def _train_grads(torch, fa, rn) -> list[dict]:
     return rows
 
 
+def train_attention_bound(B: int, S: int, H: int, KV: int, D: int) -> tuple[float, str]:
+    """The least time for K1's forward and the plain backward in the train
+    step (bf16, causal): the forward reads q, k, v and writes o; the
+    backward (``flash_attention_backward``, which recomputes the
+    probabilities) reads q, k, v and the output cotangent and writes dq,
+    dk, dv; against the 7 products of 2*D per visible (query, key) pair
+    (2 forward; the recomputed scores, dp, dv, dq, dk backward) at the
+    bf16 rate.  (ms, "bytes" or "operations")."""
+    q_bytes, kv_bytes = 2 * B * S * H * D, 2 * B * S * KV * D
+    nbytes = (q_bytes + 2 * kv_bytes + q_bytes) + (2 * q_bytes + 2 * kv_bytes
+                                                   + q_bytes + 2 * kv_bytes)
+    flops = 7 * 2 * D * B * H * S * (S + 1) // 2
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def _train_timings(torch, fa, rn) -> dict:
     """Device ms (cold L2 for the norms) at the train step's shapes: K1's
     forward and forward + backward (the plain backward) beside the plain
@@ -4199,6 +4296,8 @@ def _train_timings(torch, fa, rn) -> dict:
             lambda *xs: F.scaled_dot_product_attention(*xs, is_causal=True, enable_gqa=True),
             [qt, kt, vt], dot), 10, f"sdpa fwd + bwd {what}")[0],
     }
+    attention["fwd_bwd_bound_ms"], attention["fwd_bwd_bound_by"] = train_attention_bound(
+        B, S, H, KV, D)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     R, Dn = TRAIN_NORM_ROWS, TRAIN_NORM_D
     h = (3 * torch.randn((R, Dn), generator=gen, device=dev)).bfloat16()
@@ -4570,6 +4669,369 @@ def phase_train(torch, fa, pa, timings: dict | None = None) -> dict:
     return out
 
 
+# --- phase 24: the multi-device plane on one card -----------------------------
+
+# (a) collectives: reps per op under the profiler; (b) the stragglers:
+# 3 hosts with host 1 delayed, then 4 hosts in 2 slices; (c) tp 1 over a
+# one-rank NCCL group at llama32_3b's full width and depth; (d) tp 2 as two
+# processes on the one card over gloo (NCCL refuses two ranks on one GPU).
+MULTI_REPS = 5
+MULTI_STRAGGLER = ["--multiprocess", "3", "--delay-host", "1", "--delay-ms", "150",
+                   "--reps", "4", "--payload-kb", "256"]
+MULTI_SLICES = ["--multiprocess", "4", "--n-slices", "2", "--reps", "4", "--payload-kb", "256"]
+MULTI_TP1_JOBS = FRONT_JOBS[:8]  # 4 sharing a prefix, then plain prompts
+MULTI_TP1_TOKENS = 16
+MULTI_TP2_PROMPTS = (PROMPTS["bucket128"], PROMPTS["bucket256"])
+MULTI_TP2_SEED = 25
+MULTI_TP2_TOKENS = 16
+MULTI_TIMEOUT_S = 600.0
+
+
+def _icibench(argv: list[str], workdir: Path, name: str) -> tuple[list[dict], dict | None]:
+    """``python -m tpuslo_torch icibench`` as a subprocess: its validated
+    events, and its report when it wrote one."""
+    from tpuslo_torch.schema.fastpath import validate_probe_payload
+
+    out, report = workdir / f"{name}.jsonl", workdir / f"{name}.report.json"
+    extra = ["--report", str(report)] if "--multiprocess" in argv else []
+    proc = subprocess.run([sys.executable, "-m", "tpuslo_torch", "icibench", *argv,
+                           "--output", str(out), *extra], cwd=ROOT, capture_output=True,
+                          text=True, timeout=MULTI_TIMEOUT_S)
+    if proc.returncode != 0:
+        _fail(f"multidevice: icibench {' '.join(argv)} exited {proc.returncode}: "
+              f"{proc.stderr[-800:]}")
+    events = [json.loads(line) for line in out.read_text().splitlines() if line.strip()]
+    bad = [e for e in events if not validate_probe_payload(e)]
+    if not events or bad:
+        _fail(f"multidevice: icibench {' '.join(argv)}: {len(events)} events, "
+              f"{len(bad)} schema-invalid")
+    return events, json.loads(report.read_text()) if extra else None
+
+
+def open_nccl_rank(torch) -> None:
+    """A one-rank NCCL group in this process (tcp on a free localhost
+    port), for phase 24's (a) and (c): opened before (a)'s profiled part,
+    closed by :func:`phase_multidevice` after (c)."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0, device_id=torch.device("cuda", 0))
+
+
+def capture_collectives(torch) -> dict:
+    """Phase 24 (a)'s profiled part, over the one-rank NCCL group: the
+    prober's ops and the mesh's all_to_all (the one op a single NCCL rank
+    runs a kernel for), MULTI_REPS launches each under ``capture`` after a
+    lead-in of spin kernels, each launch whose NCCL kernels ran becoming one
+    ``ici_collective_latency_ms`` event; ``slicecorr --xprof-dir`` reads the
+    capture back (one host: no incident).  Taken right after phase 18: late
+    in a run a trace was seen to lose every kernel event (PR 14, PR 15)."""
+    import tempfile
+
+    from tpuslo_torch.cli import slicecorr
+    from tpuslo_torch.otel import xla_spans
+    from tpuslo_torch.parallel import mesh as mesh_mod
+    from tpuslo_torch.parallel.collectives import DEFAULT_OPS, _collective_fn
+
+    mesh = mesh_mod.tp_mesh(1)
+    x = torch.ones((256, 256), device=mesh.device)
+    fns = {op: _collective_fn(op, mesh, "tp") for op in DEFAULT_OPS}
+    fns["all_to_all"] = lambda t: mesh_mod.all_to_all(t, mesh, "tp")
+    for fn in fns.values():
+        fn(x)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="collectives-") as tmp:
+        log_dir = Path(tmp) / "xprof"
+        with xla_spans.capture(str(log_dir), include_ops=True) as cap:
+            for _ in range(LEAD_IN_KERNELS):  # takes the trace's lost first events
+                torch.cuda._sleep(1000)
+            for op, fn in fns.items():
+                for _ in range(MULTI_REPS):
+                    with xla_spans.dispatch_range(f"icibench_{op}", x):
+                        fn(x)
+        kernels = {op: 0 for op in fns}
+        for span in cap.spans:
+            if xla_spans.is_collective_op(span):
+                owner = next((m.module_name for m in cap.spans
+                              if m.lane == xla_spans.MODULES_LANE
+                              and m.start_us <= span.start_us < m.start_us + m.duration_us),
+                             "")
+                op = owner.removeprefix("icibench_")
+                if op in kernels:
+                    kernels[op] += 1
+        signals = xla_spans.extract_collective_signals_by_host(cap.spans_by_host,
+                                                               cap.anchor_unix_ns)
+        by_op = {op: [e for e in signals if e["tpu"].get("module_name") == f"icibench_{op}"]
+                 for op in fns}
+        out_path, summary = Path(tmp) / "slicecorr.jsonl", Path(tmp) / "slicecorr.json"
+        rc = slicecorr.main(["--xprof-dir", str(log_dir), "--output", str(out_path),
+                             "--summary", str(summary)])
+        joined = json.loads(summary.read_text()) if summary.exists() else {}
+        incidents = out_path.read_text().strip() if out_path.exists() else "missing"
+    if not any(kernels.values()):
+        _fail(f"multidevice: no op launched an NCCL kernel under the profiler: {kernels}")
+    for op in fns:
+        want = MULTI_REPS if kernels[op] else 0
+        if len(by_op[op]) != want:
+            _fail(f"multidevice: {op}: {kernels[op]} NCCL kernels in {MULTI_REPS} launches "
+                  f"gave {len(by_op[op])} ici_collective_latency_ms events, not {want}")
+    if rc != 0 or incidents or joined.get("ingested") != len(signals):
+        _fail(f"multidevice: slicecorr --xprof-dir exited {rc}, summary {joined}, "
+              f"{len(signals)} events extracted")
+    return {"nccl_kernels": kernels, "events_per_op": {op: len(v) for op, v in by_op.items()},
+            "no_kernel_ops": [op for op in fns if not kernels[op]], "slicecorr": joined}
+
+
+def _multi_collectives(workdir: Path, captured: dict) -> dict:
+    """(a) icibench over one NCCL rank (every op, its events validated),
+    with :func:`capture_collectives`' profiled part."""
+    from tpuslo_torch.parallel.collectives import DEFAULT_OPS
+
+    events, _ = _icibench(["--reps", str(MULTI_REPS), "--payload-kb", "256"], workdir,
+                          "icibench")
+    if sorted(e["tpu"]["module_name"] for e in events) != sorted(
+            f"collective:{op}" for op in DEFAULT_OPS):
+        _fail(f"multidevice: icibench events name {[e['tpu']['module_name'] for e in events]}")
+    p95 = {e["tpu"]["module_name"].split(":")[1]: e["value"] for e in events}
+    out = {"transport": "nccl, one rank", "icibench_p95_ms": p95, **captured}
+    print(f"multidevice (a) collectives over one NCCL rank: icibench p95 ms {p95}; under the "
+          f"profiler NCCL kernels per op over {MULTI_REPS} launches {captured['nccl_kernels']}, "
+          f"events {captured['events_per_op']}; ops that launch no kernel on one rank (counted, "
+          f"no event): {captured['no_kernel_ops']}; slicecorr --xprof-dir ingested "
+          f"{captured['slicecorr'].get('ingested')}, incidents "
+          f"{captured['slicecorr'].get('incidents')}", flush=True)
+    return out
+
+
+def _multi_stragglers(workdir: Path) -> dict:
+    """(b) gloo CPU processes on the card's host, as JAX runs its prober:
+    host 1 delayed must be named in every incident; two slices must
+    measure a positive dcn component."""
+    _, delayed = _icibench(MULTI_STRAGGLER, workdir, "straggler")
+    named = [i["straggler_host"] for i in delayed["incidents"]]
+    if delayed["errors"] or not named or any(h != 1 for h in named):
+        _fail(f"multidevice: the delayed host 1 is not named in every incident: {named}, "
+              f"errors {delayed['errors']}")
+    _, sliced = _icibench(MULTI_SLICES, workdir, "slices")
+    dcn = sliced.get("dcn_transfer_ms_max", 0.0)
+    if sliced["errors"] or not dcn > 0:
+        _fail(f"multidevice: 4 hosts in 2 slices measured a dcn component of {dcn} ms "
+              f"(errors {sliced['errors']})")
+    out = {"transport": "gloo, CPU processes", "incidents": named,
+           "top_confidence": delayed["top_confidence"],
+           "host_latencies_ms": [i["host_latencies_ms"] for i in delayed["incidents"]],
+           "dcn_transfer_ms_max": dcn, "dcn_events": sliced.get("dcn_events")}
+    print(f"multidevice (b) stragglers over gloo CPU processes: 3 hosts, host 1 delayed 150 ms: "
+          f"{len(named)} incidents, each naming host {sorted(set(named))}, top confidence "
+          f"{delayed['top_confidence']}; 4 hosts in 2 slices: dcn component max {dcn} ms over "
+          f"{sliced.get('dcn_events')} events", flush=True)
+    return out
+
+
+def _multi_tp1(torch, fa, pa, mesh_mod) -> dict:
+    """(c) tp 1 over the one-rank NCCL group at llama32_3b's full width and
+    depth: ServeEngine, the paged engine (K2 on) and the 8-slot front door
+    with the 1B draft, each against the same engine without a mesh, bit for
+    bit; the collectives each token makes."""
+    from tpuslo_torch.models import frontdoor, llama, paged_kv, serve
+
+    cfg = llama.llama32_3b(max_seq_len=2048)
+    params = llama.init_params(24, cfg, "cuda")
+    mesh = mesh_mod.tp_mesh(1)
+    kw = dict(prefill_buckets=BUCKETS, decode_chunk_size=MULTI_TP1_TOKENS)
+    plain = serve.ServeEngine(cfg, params, **kw)
+    sharded = serve.ServeEngine(cfg, params, mesh=mesh, **kw)
+    ids = serve.encode_bytes(PROMPTS["bucket256"], cfg.max_seq_len - 2)
+    equal_logits = bool(torch.equal(plain.prefill_ids(ids)[0], sharded.prefill_ids(ids)[0]))
+    streams = {}
+    for name, eng in (("plain", plain), ("mesh", sharded)):
+        mesh.reset_counts()
+        streams[name] = [[e.token_id
+                          for e in eng.generate(p, MULTI_TP1_TOKENS, stop_at_eos=False)]
+                         for p in PROMPTS.values()]
+    per_token = {op: n / (len(PROMPTS) * MULTI_TP1_TOKENS) for op, n in mesh.calls.items()}
+    paged = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        eng = paged_kv.PagedBatchingEngine(cfg, ingest=plain if m is None else sharded,
+                                           max_slots=PAGED_SLOTS, block_size=PAGED_BLOCK,
+                                           pallas_attention=True)
+        ids_ = [eng.submit(p, MULTI_TP1_TOKENS, stop_at_eos=False, prefix=pre)
+                for p, pre in MULTI_TP1_JOBS]
+        results = eng.run()
+        paged[name] = [results[i] for i in ids_]
+        del eng
+    draft = serve.ServeEngine(llama.llama32_1b(max_seq_len=cfg.max_seq_len), rng_seed=1, **kw)
+    front = {}
+    fa.flash_attention.launches = pa.paged_decode_attention.launches = 0
+    for name, target in (("plain", plain), ("mesh", sharded)):
+        fd = frontdoor.FrontDoorEngine(target, draft, k=SPEC_K, max_slots=FRONT_SLOTS,
+                                       rounds_per_step=FRONT_ROUNDS)
+        rids = [fd.submit(p, max_new_tokens=MULTI_TP1_TOKENS, stop_at_eos=False, prefix=pre)
+                for p, pre in MULTI_TP1_JOBS]
+        results = fd.run()
+        front[name] = [results[i] for i in rids]
+        del fd
+    launches = {"k1": fa.flash_attention.launches, "k2": pa.paged_decode_attention.launches}
+    equal = {"logits": equal_logits, "generate": streams["mesh"] == streams["plain"],
+             "paged": paged["mesh"] == paged["plain"], "frontdoor": front["mesh"] == front["plain"]}
+    if not all(equal.values()):
+        _fail(f"multidevice: tp 1 over one NCCL rank differs from the engines without a mesh: "
+              f"{equal}")
+    out = {"transport": "nccl, one rank", "equal": equal, "collectives_per_token": per_token,
+           "frontdoor_launches": launches}
+    print(f"multidevice (c) tp 1 over one NCCL rank, llama32_3b full width and depth: bit for "
+          f"bit equal to the engines without a mesh {equal}; collectives per generated token "
+          f"{per_token}; front doors' K1 {launches['k1']} K2 {launches['k2']} launches",
+          flush=True)
+    del plain, sharded, draft, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def multi_tp2_rank(rank: int, world: int, seed: int, prompts, jobs, n_tokens: int, cfg,
+                   device: str = "cuda:0") -> dict:
+    """(d) one of two tp ranks on the one card over gloo: the sharded
+    model drawn leaf by leaf, its prefill logits, greedy streams and the
+    paged engine's (K2 on) streams, K1 and K2 launches, and the host time
+    per decode step."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from tpuslo_torch.models import paged_kv, serve
+    from tpuslo_torch.parallel import mesh as mesh_mod
+
+    fa = importlib.import_module("tpuslo_torch.ops.flash_attention")
+    pa = importlib.import_module("tpuslo_torch.ops.paged_attention")
+
+    mesh = mesh_mod.tp_mesh(world, devices=[device])
+    eng = serve.ServeEngine(cfg, rng_seed=seed, mesh=mesh, prefill_buckets=BUCKETS,
+                            decode_chunk_size=n_tokens)
+    shards = {n: tuple(t.shape) for n, t in eng.params["layers"].items()}
+    fa.flash_attention.launches = pa.paged_decode_attention.launches = 0
+    ids = serve.encode_bytes(prompts[1], cfg.max_seq_len - 2)
+    logits = eng.prefill_ids(ids)[0][0].float().cpu()
+    streams, step_ms = [], []
+    for p in prompts:
+        t0 = None
+        toks = []
+        for e in eng.generate(p, n_tokens + 1, stop_at_eos=False):
+            toks.append(e.token_id)
+            if t0 is None:
+                t0 = time.perf_counter()
+        step_ms.append((time.perf_counter() - t0) * 1e3 / n_tokens)
+        streams.append(toks[:n_tokens])
+    pe = paged_kv.PagedBatchingEngine(cfg, ingest=eng, max_slots=4, block_size=PAGED_BLOCK,
+                                      pallas_attention=True)
+    rids = [pe.submit(p, n_tokens, stop_at_eos=False, prefix=pre) for p, pre in jobs]
+    results = pe.run()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if mesh.device.type == "cuda" else 0.0
+    return {"logits": logits, "streams": streams, "paged": [results[i] for i in rids],
+            "k1": fa.flash_attention.launches, "k2": pa.paged_decode_attention.launches,
+            "step_ms": step_ms, "shards": shards, "calls": dict(mesh.calls),
+            "host_copies": mesh.host_copies, "peak_gb": peak_gb}
+
+
+def _multi_tp2(torch, mesh_mod, cfg=None, device: str = "cuda") -> dict:
+    """(d) tp 2 as two processes on the one card over gloo: each rank's
+    logits within PARITY_TOL of the unsharded engine's, its streams and the
+    paged engine's held to ``generate`` by the near-tie rule, K1 and K2
+    launched on each rank, the time per decode step.  ``cfg`` (default
+    ``llama32_3b(2048)``) and ``device`` let a CPU rehearsal run it
+    narrow."""
+    from tpuslo_torch.models import llama, serve
+
+    cfg = cfg or llama.llama32_3b(max_seq_len=2048)
+    jobs = PAGED_JOBS[:6]
+    ref = serve.ServeEngine(cfg, rng_seed=MULTI_TP2_SEED, prefill_buckets=BUCKETS,
+                            decode_chunk_size=MULTI_TP2_TOKENS, device=device)
+    ids = serve.encode_bytes(MULTI_TP2_PROMPTS[1], cfg.max_seq_len - 2)
+    want_logits = ref.prefill_ids(ids)[0][0].float().cpu()
+    t0 = time.perf_counter()
+    rank_device = "cuda:0" if device == "cuda" else device
+    ranks = mesh_mod.run_ranks(multi_tp2_rank, 2, "gloo", device, timeout_s=MULTI_TIMEOUT_S,
+                               args=(MULTI_TP2_SEED, MULTI_TP2_PROMPTS, jobs, MULTI_TP2_TOKENS,
+                                     cfg, rank_device))
+    ranks_s = time.perf_counter() - t0
+    for key in ("streams", "paged"):
+        if ranks[0][key] != ranks[1][key]:
+            _fail(f"multidevice: tp 2 ranks emitted different {key}")
+    err = max(float((r["logits"] - want_logits).abs().max()) for r in ranks)
+    if err > PARITY_TOL:
+        _fail(f"multidevice: tp 2 prefill logits differ from the unsharded engine's by {err} "
+              f"(> {PARITY_TOL})")
+    held = _hold_streams(torch, serve, cfg, ref, [(p, None) for p in MULTI_TP2_PROMPTS],
+                         ranks[0]["streams"], "multidevice (d) tp 2 generate", MULTI_TP2_TOKENS)
+    held_paged = _hold_streams(torch, serve, cfg, ref, jobs, ranks[0]["paged"],
+                               "multidevice (d) tp 2 paged", MULTI_TP2_TOKENS)
+    for r, got in enumerate(ranks):
+        if got["k1"] <= 0 or got["k2"] <= 0:
+            _fail(f"multidevice: tp 2 rank {r} launched K1 {got['k1']} and K2 {got['k2']} times")
+    step_ms = [sorted(r["step_ms"])[len(r["step_ms"]) // 2] for r in ranks]
+    out = {"transport": "gloo: CUDA tensors through host memory (in gloo; send/recv and "
+                        "all_to_all copied by the wrappers)",
+           "max_logit_err": err, "streams_left": _left(held), "paged_left": _left(held_paged),
+           "launches": [{"k1": r["k1"], "k2": r["k2"]} for r in ranks],
+           "decode_step_ms": step_ms, "collectives": ranks[0]["calls"],
+           "host_copies": ranks[0]["host_copies"], "shards": ranks[0]["shards"],
+           "peak_gb": [r["peak_gb"] for r in ranks], "ranks_s": ranks_s,
+           "held": held, "held_paged": held_paged}
+    print(f"multidevice (d) tp 2, two processes on one card over gloo (collectives through host "
+          f"memory, not an NVLink figure; {out['collectives']} calls on rank 0, "
+          f"{out['host_copies']} copied by the wrappers): 12 of 24 heads, 4 of 8 kv heads, 4096 of 8192 FFN "
+          f"columns, half the vocabulary each; prefill logits within {err:.4f} of the unsharded "
+          f"engine; streams leaving generate at near-ties: {out['streams_left']} of "
+          f"{len(held)}, paged {out['paged_left']} of {len(held_paged)}; K1/K2 launches per "
+          f"rank {out['launches']}; decode step {step_ms} ms (median per rank); ranks ran "
+          f"{ranks_s:.1f} s", flush=True)
+    del ref
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _timed(part, *args) -> dict:
+    """``part(*args)``'s report with the seconds it took."""
+    t0 = time.perf_counter()
+    out = part(*args)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_multidevice(torch, fa, pa, captured: dict) -> dict:
+    """Phase 24: the multi-device plane on one card (parts (a)-(d) above,
+    one line each).  (a) and (c) run over the one-rank NCCL group
+    :func:`open_nccl_rank` opened in this process (``captured``: (a)'s
+    profiled part, taken earlier), which is torn down before (b) and (d)
+    start processes of their own."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from tpuslo_torch.parallel import mesh as mesh_mod
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="multidevice-") as tmp:
+        workdir = Path(tmp)
+        try:
+            out["collectives"] = _timed(_multi_collectives, workdir, captured)
+            out["tp1"] = _timed(_multi_tp1, torch, fa, pa, mesh_mod)
+        finally:
+            dist.destroy_process_group()
+        out["stragglers"] = _timed(_multi_stragglers, workdir)
+    out["tp2"] = _timed(_multi_tp2, torch, mesh_mod)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"multidevice: phase took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def _load_tree(tree: Path):
     """The tree's ``chip_smoke`` module, with its ``tpuslo_torch`` first
     on the path."""
@@ -4737,10 +5199,75 @@ def _probe_train(torch, tree: Path) -> None:
     print(f"train: {json.dumps(cs.phase_train(torch, fa, pa))}", flush=True)
 
 
+def _probe_multidevice(torch) -> None:
+    """This checkout's K2-f32 at head dim 24 (phase 7's last part) and
+    phase 24 alone, after building the kernels (the tp 2 ranks import this
+    script's rank function, so no other tree)."""
+    from tpuslo_torch.models import kv_cache
+    from tpuslo_torch.ops import _build
+
+    sys.path.insert(0, str(ROOT))
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(_build.build, KERNELS))
+    fa = importlib.import_module("tpuslo_torch.ops.flash_attention")
+    pa = importlib.import_module("tpuslo_torch.ops.paged_attention")
+    print(f"hd24: {json.dumps(phase_paged_kernel_f32_hd24(torch, pa, kv_cache))}", flush=True)
+    open_nccl_rank(torch)
+    captured = capture_collectives(torch)
+    print(f"multidevice: {json.dumps(phase_multidevice(torch, fa, pa, captured))}", flush=True)
+
+
+GLOO_OPS = ("all_reduce", "all_gather", "reduce_scatter", "shift", "all_to_all")
+
+
+def gloo_op_rank(rank: int, world: int, op: str, dtype_name: str) -> str:
+    """One raw ``torch.distributed`` op of gloo on CUDA tensors (cuda:0),
+    in a 2-rank group of its own: "ok", or it raises (or the group dies)."""
+    import torch
+    import torch.distributed as dist
+
+    dev, dtype = torch.device("cuda", 0), getattr(torch, dtype_name)
+    x = (torch.ones(1024, device=dev) * (rank + 1)).to(dtype)
+    half = lambda: torch.empty(512, device=dev, dtype=dtype)  # noqa: E731
+    if op == "all_reduce":
+        dist.all_reduce(x)
+    elif op == "all_gather":
+        dist.all_gather([torch.empty_like(x) for _ in range(world)], x)
+    elif op == "reduce_scatter":
+        dist.reduce_scatter(half(), [x[:512].clone(), x[512:].clone()])
+    elif op == "shift":
+        for work in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, x, (rank + 1) % world),
+                dist.P2POp(dist.irecv, torch.empty_like(x), (rank - 1) % world)]):
+            work.wait()
+    else:
+        dist.all_to_all([half(), half()], [x[:512].clone(), x[512:].clone()])
+    torch.cuda.synchronize()
+    return "ok"
+
+
+def _probe_gloo() -> None:
+    """Which ops gloo runs on CUDA tensors (what ``mesh.GLOO_CUDA_OPS``
+    lists): each op and dtype in a 2-rank group of its own on cuda:0, since
+    a refused op may end its group."""
+    from tpuslo_torch.parallel import mesh as mesh_mod
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        for op in GLOO_OPS:
+            try:
+                out[f"{op}/{dtype}"] = mesh_mod.run_ranks(gloo_op_rank, 2, "gloo", "cuda",
+                                                          timeout_s=120, args=(op, dtype))[0]
+            except RuntimeError as exc:
+                out[f"{op}/{dtype}"] = str(exc).strip().splitlines()[-1][:200]
+    print(f"gloo: {json.dumps(out)}", flush=True)
+
+
 def probe_main(argv: list[str]) -> int:
     """``python3 chip_smoke.py probe ...``: see the module's docstring."""
     p = argparse.ArgumentParser(prog="chip_smoke.py probe")
-    p.add_argument("what", choices=("admission", "bench", "norm", "train"))
+    p.add_argument("what", choices=("admission", "bench", "norm", "train", "multidevice",
+                                    "gloo"))
     p.add_argument("--tree", default=str(ROOT), help="the checkout whose code runs")
     p.add_argument("--runs", type=int, default=1)
     p.add_argument("--benches", nargs="+", default=["frontdoor_tiny", "frontdoor_3b", "router"],
@@ -4752,6 +5279,12 @@ def probe_main(argv: list[str]) -> int:
         print("chip_smoke: no CUDA device; the probes run on a GPU only", file=sys.stderr)
         return 2
     tree = Path(args.tree).resolve()
+    if args.what == "multidevice":
+        _probe_multidevice(torch)
+        return 0
+    if args.what == "gloo":
+        _probe_gloo()
+        return 0
     if args.what == "train":
         _probe_train(torch, tree)
         return 0
@@ -4841,6 +5374,7 @@ def main() -> int:
     # 7. K2 vs plain, at the paged phase's step and random tables
     k2 = phase_paged_kernel(torch, pa, kv_cache, cfg, paged_engine, capture)
     k2_f32 = phase_paged_kernel_f32(torch, pa, kv_cache, cfg, paged_engine, capture)
+    k2_f32_hd24 = phase_paged_kernel_f32_hd24(torch, pa, kv_cache)
     # 8. one paged step with K2 on and off
     breakdown = phase_breakdown(torch, paged_kv, cfg, paged_engine, capture)
     del paged_engine
@@ -4864,6 +5398,10 @@ def main() -> int:
     # phase 23's profiled times at the train step's shapes, while traces
     # keep their kernel events
     train_timings = _train_timings(torch, fa, importlib.import_module("tpuslo_torch.ops.rms_norm"))
+    # phase 24 (a)'s profiled part, likewise, over the one-rank NCCL group
+    # that phase 24 (c) uses and then closes
+    open_nccl_rank(torch)
+    multi_capture = capture_collectives(torch)
     benches = phase_bench(torch, fa, pa, serve, llama)
     print(f"bench: {json.dumps(benches)}", flush=True)
     bench_k1 = {k: sum(benches[b][k] for b in ("frontdoor_tiny", "frontdoor_3b", "router"))
@@ -4924,6 +5462,13 @@ def main() -> int:
     trained = phase_train(torch, fa, pa, train_timings)
     print(f"train: {json.dumps(trained)}", flush=True)
     train_launches = trained["launches"]
+    # 24. the multi-device plane on one card: collectives, stragglers, tp 1
+    # over one NCCL rank, tp 2 over gloo (its K1 and K2 launches: tp 1's
+    # front doors, counted from 0 just before them, and tp 2's ranks)
+    multi = phase_multidevice(torch, fa, pa, multi_capture)
+    print(f"multidevice: {json.dumps(multi)}", flush=True)
+    multi_launches = {k: multi["tp1"]["frontdoor_launches"][k]
+                      + sum(r[k] for r in multi["tp2"]["launches"]) for k in ("k1", "k2")}
 
     # 19. kernels line, card line, result line
     line_row = next(
@@ -4950,7 +5495,7 @@ def main() -> int:
                      + front["k1_launches"] + routed["k1_launches"] + device_k1
                      + entry["launches"]["flash_attention"] + bench_k1["k1_launches"]
                      + served_launches["flash_attention"] + moe["k1_launches"]
-                     + train_launches["flash_attention"]),
+                     + train_launches["flash_attention"] + multi_launches["k1"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel["shapes"]),
         "ms": line_row["ms"],
         "plain_ms": line_row["plain_ms"],
@@ -4968,7 +5513,7 @@ def main() -> int:
                      + front["k2_launches"] + device_k2 + entry["launches"]["paged_attention"]
                      + benches["frontdoor_3b"]["k2_launches"]
                      + served_launches["paged_attention"] + moe["k2_launches"]
-                     + train_launches["paged_attention"]),
+                     + train_launches["paged_attention"] + multi_launches["k2"]),
         "max_abs_err": max(r["max_abs_err"] for r in k2["shapes"]),
         "ms": k2_row["ms"],
         "plain_ms": k2_row["plain_ms"],
@@ -5015,7 +5560,7 @@ def main() -> int:
                      + served_launches["paged_attention_f32"]
                      + train_launches["paged_attention_f32"]),
         "max_abs_err": max(r["max_abs_err"] for r in k2_f32["shapes"] + k2_f32_path["shapes"]
-                           if r["q"] == "f32"),
+                           + k2_f32_hd24["shapes"] if r["q"] == "f32"),
         "ms": k2_f32_row["ms"],
         "plain_ms": k2_f32_row["plain_ms"],
         "bound_ms": k2_f32_row["bound_ms"],
@@ -5033,7 +5578,15 @@ def main() -> int:
             "launches": k2_f32_launches[name],
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "dense_sdpa_ms")},
-        } for name, r in k2_f32_rows.items()],
+        } for name, r in k2_f32_rows.items()] + [{
+            "shape": f"{r['shape']}: {r['B']} lanes T={r['BS']} H={r['H']} KV={r['KV']} "
+                     f"HD={r['HD']} {r['q']} q and cache, the measured speculative lane's "
+                     "target (launches: that lane's K2-f32 launches in phase 23, its HD 24 "
+                     "target and its HD 16 draft)",
+            "launches": trained["speculative_measured"]["launches"]["paged_attention_f32"],
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "dense_sdpa_ms")},
+        } for r in k2_f32_hd24["shapes"]],
     }, {
         "name": "rms_norm",
         "route": "cuda",
@@ -5078,7 +5631,8 @@ def main() -> int:
               "build_s": {n: b.seconds for n, b in builds.items()},
               "ptxas": ptxas, "kernel": kernel, "kernel_f32": kernel_f32,
               "serve": served, "dense": dense, "paged": paged, "paged_kernel": k2,
-              "paged_kernel_f32": k2_f32,
+              "paged_kernel_f32": k2_f32, "paged_kernel_f32_hd24": k2_f32_hd24,
+              "multidevice": multi,
               "paged_kernel_f32_path": k2_f32_path, "paged_breakdown": breakdown, "spec": spec, "frontdoor": front,
               "router": routed, "deviceplane": device, "attribution": attributed,
               "entry": entry, "parity": parity, "parity_f32": parity_f32,

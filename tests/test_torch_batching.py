@@ -24,6 +24,7 @@ from tpuslo.models import kv_cache as jkv  # noqa: E402
 from tpuslo.models import llama as jl  # noqa: E402
 from tpuslo.models import serve as js  # noqa: E402
 from tpuslo_torch.models import batching as tb  # noqa: E402
+from tpuslo_torch.parallel import mesh as tmesh  # noqa: E402
 from tpuslo_torch.models import bridge  # noqa: E402
 from tpuslo_torch.models import kv_cache as tkv  # noqa: E402
 from tpuslo_torch.models import llama as tl  # noqa: E402
@@ -251,8 +252,10 @@ def test_bad_arguments_raise():
     _, pt, _ = _weights()
     with pytest.raises(ValueError, match="max_slots"):
         tb.ContinuousBatchingEngine(cfg=CFG_T, params=pt, max_slots=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tb.ContinuousBatchingEngine(cfg=CFG_T, params=pt, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="must divide"):  # tp 4 over 2 kv heads
+        tb.ContinuousBatchingEngine(cfg=CFG_T, params=pt, device="cpu",
+                                    mesh=tmesh.Mesh(tmesh.MeshPlan(tp=4), torch.device("cpu"),
+                                                    backend="gloo"))
     with pytest.raises(ValueError, match="kv_dtype"):
         tb.ContinuousBatchingEngine(cfg=CFG_T, params=pt, kv_dtype="fp8", device="cpu")
 

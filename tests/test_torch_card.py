@@ -431,6 +431,7 @@ F32_PAGED_SHAPES = {
     "BS128": (4, 3, 14, 24, 8, 128, 128),
     "BS8-HD64": (5, 20, 120, 8, 2, 64, 8),
     "nrep2-HD128-BS16": (3, 8, 30, 2, 1, 128, 16),  # the f32 model's paged engine
+    "HD24-nrep2": (4, 4, 20, 8, 4, 24, 64),  # the serving bench's measured target (F11)
 }
 
 
@@ -454,6 +455,22 @@ def test_paged_f32_kernel_matches_plain(cuda_device, shape):
     half = paged_decode_attention(q, k, v, table, lengths, block_size=BS,
                                   out_dtype=torch.bfloat16)
     _hold_f32(half, paged_decode_attention_reference(q, k, v, table, lengths, block_size=BS))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_paged_f32_kernel_at_head_dim_24_is_batch_invariant(cuda_device, dtype):
+    """Head dim 24 (6 column groups of 4: 126 of the 128 threads run the
+    p.v stage): each lane of a batch of 8 has the bits it has alone."""
+    q, k, v, table, lengths = _f32_paged(13, 8, 4, 40, 8, 4, 24, 64, cuda_device)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    batch = paged_decode_attention(q, k, v, table, lengths, block_size=64)
+    for b in range(8):
+        alone = paged_decode_attention(q[b:b + 1].contiguous(), k, v,
+                                       table[b:b + 1].contiguous(),
+                                       lengths[b:b + 1].contiguous(), block_size=64)
+        assert torch.equal(alone, batch[b:b + 1]), b
+    _hold_f32(batch, paged_decode_attention_reference(q, k, v, table, lengths, block_size=64))
 
 
 @pytest.mark.cuda

@@ -240,8 +240,10 @@ def test_bench_ii_serves_the_models_dtype():
 
 def test_bench_ii_keeps_the_3b_widths_at_half_its_depth():
     """Bench (ii)'s time cuts lower depth only: 14 of 28 layers, then 7 to
-    make room for the MoE and probe phases."""
-    assert chip_smoke.BENCH_3B_LAYERS == 7 and chip_smoke.BENCH_3B_STREAMS == 96
+    make room for the MoE and probe phases, then 2 for the multi-device
+    phase (and phase 21 serves 8 of mixtral_2b6's 16 layers)."""
+    assert chip_smoke.BENCH_3B_LAYERS == 2 and chip_smoke.BENCH_3B_STREAMS == 96
+    assert chip_smoke.MOE_LAYERS == 8
 
 
 def test_hold_exact_fails_only_a_held_stream():
@@ -499,3 +501,126 @@ def test_rel_err_is_relative_to_the_largest_reference_value():
     ref = torch.tensor([0.5, -4.0, 2.0])
     assert chip_smoke._rel_err(torch.tensor([0.5, -4.0, 2.5]), ref) == pytest.approx(0.125)
     assert chip_smoke._rel_err(ref.bfloat16(), ref) == 0.0
+
+
+# --- phase 24: the multi-device plane on one card -----------------------------
+
+
+def test_phase_24_runs_after_phase_23_and_feeds_the_kernels_line():
+    source = (Path(chip_smoke.__file__)).read_text()
+    main = source[source.index("def main() -> int:"):]
+    assert main.index("phase_train(torch, fa, pa") < main.index("phase_multidevice(torch")
+    assert main.index("phase_multidevice(torch") < main.index('kernels = {"kernels": [')
+    assert 'multi_launches["k1"]' in main and 'multi_launches["k2"]' in main
+    assert '"multidevice": multi' in main
+    assert main.index("phase_paged_kernel_f32(") < main.index("phase_paged_kernel_f32_hd24(")
+    # (a)'s profiled part runs early, while traces keep their kernel events
+    assert (main.index("_train_timings(") < main.index("open_nccl_rank(torch)")
+            < main.index("capture_collectives(torch)") < main.index("phase_bench(torch"))
+
+
+def test_phase_24_prints_one_line_per_part_and_its_json_line():
+    source = (Path(chip_smoke.__file__)).read_text()
+    for part in ("(a) collectives", "(b) stragglers", "(c) tp 1", "(d) tp 2"):
+        assert source.count(f'f"multidevice {part}') == 1, part
+    phase = source[source.index("def phase_multidevice("):source.index("def _load_tree(")]
+    for key in ("collectives", "tp1", "stragglers", "tp2", "seconds"):
+        assert f'out["{key}"]' in phase, key
+    assert 'print(f"multidevice: {json.dumps(multi)}"' in source
+
+
+def test_the_k2_f32_head_dim_24_instantiations_are_on_the_path():
+    for name in ("paged_f32_kernel<f32,24>", "paged_f32_kernel<bf16,24>",
+                 "paged_f32_combine_kernel<24>"):
+        assert name in chip_smoke.PATH_INSTANTIATIONS
+    assert chip_smoke.ptxas_entries(
+        "Compiling entry function '_ZN12_GLOBAL__N_116paged_f32_kernelIfLi24EEEvNS_9PagedArgsE'"
+    )[0]["name"] == "paged_f32_kernel<f32,24>"
+    assert chip_smoke.HD24["HD"] == 24 and chip_smoke.HD24["H"] // chip_smoke.HD24["KV"] == 2
+
+
+def _straggler_report(incidents, dcn=3.0, errors=()):
+    return {"incidents": [{"straggler_host": h, "host_latencies_ms": {}} for h in incidents],
+            "errors": list(errors), "top_confidence": 0.9, "dcn_transfer_ms_max": dcn,
+            "dcn_events": 8}
+
+
+@pytest.mark.parametrize("delayed,sliced,failure", [
+    (_straggler_report([1, 2, 1]), _straggler_report([]), "not named in every incident"),
+    (_straggler_report([]), _straggler_report([]), "not named in every incident"),
+    (_straggler_report([1], errors=["worker timeout"]), _straggler_report([]), "not named in every incident"),
+    (_straggler_report([1, 1]), _straggler_report([], dcn=0.0), "dcn component of 0.0"),
+    (_straggler_report([1, 1]), _straggler_report([], errors=["boom"]), "dcn component"),
+])
+def test_a_failed_straggler_part_fails_the_script(delayed, sliced, failure, monkeypatch,
+                                                  capsys, tmp_path):
+    reports = iter([delayed, sliced])
+    monkeypatch.setattr(chip_smoke, "_icibench", lambda argv, workdir, name: ([], next(reports)))
+    with pytest.raises(SystemExit) as exit_:
+        chip_smoke._multi_stragglers(tmp_path)
+    assert exit_.value.code == 1
+    assert failure in capsys.readouterr().err
+
+
+def test_a_good_straggler_part_passes(monkeypatch, tmp_path):
+    reports = iter([_straggler_report([1, 1, 1]), _straggler_report([], dcn=2.5)])
+    monkeypatch.setattr(chip_smoke, "_icibench", lambda argv, workdir, name: ([], next(reports)))
+    out = chip_smoke._multi_stragglers(tmp_path)
+    assert out["incidents"] == [1, 1, 1] and out["dcn_transfer_ms_max"] == 2.5
+
+
+def test_icibench_failures_fail_the_script(monkeypatch, capsys, tmp_path):
+    """A non-zero icibench, or an event the validator refuses, ends the
+    run with exit 1."""
+    import types
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run",
+                        lambda *a, **k: types.SimpleNamespace(returncode=1, stderr="boom"))
+    with pytest.raises(SystemExit) as exit_:
+        chip_smoke._icibench(["--reps", "1"], tmp_path, "x")
+    assert exit_.value.code == 1 and "exited 1" in capsys.readouterr().err
+
+    def bad_events(argv, **kw):
+        out = argv[argv.index("--output") + 1]
+        Path(out).write_text(json.dumps({"signal": "ici_collective_latency_ms"}) + "\n")
+        return types.SimpleNamespace(returncode=0, stderr="")
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", bad_events)
+    with pytest.raises(SystemExit):
+        chip_smoke._icibench(["--reps", "1"], tmp_path, "y")
+    assert "schema-invalid" in capsys.readouterr().err
+
+
+def test_a_failed_part_is_not_caught_and_the_group_is_torn_down(monkeypatch, tmp_path):
+    """Phase 24 catches no part's failure: the exit propagates (the
+    script exits 1 with no result line) after the NCCL group is torn
+    down, and no later part runs."""
+    import torch
+    import torch.distributed as dist
+
+    calls = []
+    monkeypatch.setattr(dist, "destroy_process_group", lambda *a, **k: calls.append("destroy"))
+
+    def collectives(*a, **k):
+        calls.append("a")
+        chip_smoke._fail("multidevice: a part failed")
+
+    monkeypatch.setattr(chip_smoke, "_multi_collectives", collectives)
+    for later in ("_multi_tp1", "_multi_stragglers", "_multi_tp2"):
+        monkeypatch.setattr(chip_smoke, later, lambda *a, **k: calls.append(later))
+    with pytest.raises(SystemExit) as exit_:
+        chip_smoke.phase_multidevice(torch, None, None, {})
+    assert exit_.value.code == 1
+    assert calls == ["a", "destroy"]
+
+
+def test_the_train_attention_bound_counts_the_ports_backward():
+    """K1's forward and the plain backward at the train step (B 8, S 128,
+    24 heads over 8, D 128, bf16): 16.8 MB forward (q, k, v read, o
+    written) and 27.3 MB backward (q, k, v and the cotangent read; dq, dk,
+    dv written: the port's backward recomputes the probabilities and
+    never reads o), bytes-bound at 3.35 TB/s, against 2.84 GFLOP."""
+    ms, by = chip_smoke.train_attention_bound(8, 128, 24, 8, 128)
+    assert by == "bytes"
+    assert ms == pytest.approx(44_040_192 / 3.35e12 * 1e3)
+    assert chip_smoke.TRAIN_GRAD_SHAPES[0] == (8, 128, 24, 8, 128)

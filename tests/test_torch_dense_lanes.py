@@ -136,6 +136,21 @@ def test_lanes_equal_the_pallas_kernel(kind, cache, HD, H, KV, T):
                                np.asarray(want, np.float32), atol=TOL[dtype], rtol=0)
 
 
+# The serving bench's measured target (8 heads of 24 over 4 kv heads, a
+# cache of 256 positions): K2-f32 reads it on the card (dense caches only).
+HD24 = (24, 8, 4, 256)
+
+
+@pytest.mark.parametrize("cache", ("f32", "bf16"))
+@pytest.mark.parametrize("kind", ("decode-int", "decode-rows", "verify-5", "verify-5-end"))
+def test_lanes_at_head_dim_24_equal_the_plain_attention_and_jax(kind, cache):
+    """At head dim 24 the lanes (K2's plain version on the CPU) equal the
+    plain attention over the cache and the Pallas kernel in interpret mode
+    on the same numpy inputs, within the bounds above."""
+    test_lanes_equal_the_plain_attention_over_the_cache(kind, cache, *HD24)
+    test_lanes_equal_the_pallas_kernel(kind, cache, *HD24)
+
+
 @pytest.mark.parametrize("T,BS", [(128, 128), (160, 160), (192, 192), (1024, 1024),
                                   (2048, 1024), (3000, 1000), (4096, 1024), (1031, 1)])
 def test_block_size_is_the_fewest_equal_blocks(T, BS):

@@ -62,7 +62,9 @@ def test_port_files_exist():
                 "collector/symbols.py", "collector/probe_manager.py", "prereq/checker.py",
                 "prereq/__init__.py", "parallel/__init__.py", "parallel/mesh.py",
                 "models/data.py", "models/train.py", "models/checkpoint.py",
-                "models/trainer.py", "cli/train.py"):
+                "models/trainer.py", "cli/train.py", "parallel/collectives.py",
+                "parallel/distributed.py", "correlation/multihost.py",
+                "faultreplay/slice_streams.py", "cli/icibench.py", "cli/slicecorr.py"):
         assert REPO / "tpuslo_torch" / rel in PORT_FILES
 
 
@@ -94,7 +96,10 @@ def test_importing_the_port_loads_no_jax():
         "tpuslo_torch.prereq, tpuslo_torch.prereq.checker, tpuslo_torch.parallel.mesh, "
         "tpuslo_torch.models.data, tpuslo_torch.models.train, "
         "tpuslo_torch.models.checkpoint, tpuslo_torch.models.trainer, "
-        "tpuslo_torch.cli.train; "
+        "tpuslo_torch.cli.train, tpuslo_torch.parallel.collectives, "
+        "tpuslo_torch.parallel.distributed, tpuslo_torch.correlation.multihost, "
+        "tpuslo_torch.faultreplay.slice_streams, tpuslo_torch.cli.icibench, "
+        "tpuslo_torch.cli.slicecorr; "
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'tpuslo', 'jsonschema', 'yaml')); "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -104,3 +109,27 @@ def test_importing_the_port_loads_no_jax():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_spawned_workers_load_no_jax():
+    """The processes the port starts (``python -m
+    tpuslo_torch.parallel.distributed`` workers, ``run_ranks`` ranks) run
+    port code alone: a worker's whole run, and a rank's imports, load no
+    JAX and no JAX package."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['distributed', '--process-id', '0', '--num-processes', '1', "
+        "'--port', str(__import__('tpuslo_torch.parallel.distributed', fromlist=['x'])"
+        "._free_port()), '--launches', '1', '--payload-kb', '4']\n"
+        "import tpuslo_torch.parallel.mesh, tpuslo_torch.cli.icibench\n"
+        "try:\n"
+        "    runpy.run_module('tpuslo_torch.parallel.distributed', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert not e.code, e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tpuslo'))\n"
+        "print(bad, file=sys.stderr); sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert '"signal": "ici_collective_latency_ms"' in proc.stdout

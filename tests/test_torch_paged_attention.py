@@ -227,8 +227,15 @@ BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
     (BF16, BF16, False, 64, F16, "f32"),
     (BF16, BF16, False, 64, F32, "split"),
     (F16, torch.int8, True, 16, BF16, "f32"),
+    # Head dim 24 (the serving bench's measured target) on f32 and bf16 pools.
+    (F32, F32, False, 24, None, "f32"),
+    (BF16, BF16, False, 24, None, "f32"),
+    (F16, BF16, False, 24, F16, "f32"),
     # What neither kernel is built for raises, naming it.
     (F32, F32, False, 96, None, "head dim 96"),
+    (F32, torch.int8, True, 24, None, "head dim 24"),
+    (BF16, torch.int8, True, 24, None, "head dim 24"),
+    (F16, F16, False, 24, BF16, "float16 pools at head dim 24"),
     (torch.float64, F32, False, 128, None, "float64 q"),
     (F32, torch.float64, False, 128, None, "float64 pool"),
     (F32, F32, False, 128, torch.float64, "float64 output"),
@@ -237,8 +244,9 @@ BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
 def test_kernel_route_by_dtype(q_dtype, pool_dtype, int8, head_dim, out_dtype, route):
     """K2 serves a bf16 q over bf16 or int8 pools at head dims 64 and 128
     with a bf16 or f32 output; K2-f32 every other f32, bf16 or f16 q over
-    f32, bf16, f16 or int8 pools at head dims 16-256; anything else raises
-    before launch (a choice on dtypes and head dim alone)."""
+    f32, bf16, f16 or int8 pools at head dims 16-256 (and 24 over f32 and
+    bf16 pools); anything else raises before launch (a choice on dtypes and
+    head dim alone)."""
     if route in ("split", "f32"):
         assert tpa.kernel_route(q_dtype, pool_dtype, int8, head_dim, out_dtype) == route
     else:
@@ -251,21 +259,25 @@ def test_kernel_route_by_dtype(q_dtype, pool_dtype, int8, head_dim, out_dtype, r
     ("f32_hd96", False), ("f32_group5", False), ("f32_long_table", False),
     ("f32_hd16", True), ("f32_hd32", True), ("f32_hd256", True),
     ("f32_q_int8_pool", True), ("f16_q_f16_pool", True), ("bf16_hd16_f16_out", True),
-    ("f32_hd16_misaligned_rows", False),
+    ("f32_hd16_misaligned_rows", False), ("f32_hd24", True), ("bf16_hd24", True),
+    ("int8_hd24", False),
 ])
 def test_kernel_input_checks_take_f32_pools(case, ok):
     """The input checks in front of both kernels take what K2-f32 is built
     for (every pairing of f32, bf16 and f16 q over f32, bf16, f16 or int8
-    pools, head dims 16-256, groups of 1, 2, 3, 4 or 8) and raise, naming
-    it, on what it is not: head dim 96, group 5, an int64 table, pool rows
-    that are not 16-byte aligned."""
+    pools, head dims 16-256 and 24 on f32 and bf16 pools, groups of 1, 2,
+    3, 4 or 8) and raise, naming it, on what it is not: head dim 96, int8
+    pools at head dim 24, group 5, an int64 table, pool rows that are not
+    16-byte aligned."""
     HD = {"f32_hd64": 64, "f32_hd96": 96, "f32_hd16": 16, "f32_hd32": 32,
-          "f32_hd256": 256, "bf16_hd16_f16_out": 16, "f32_hd16_misaligned_rows": 18}.get(case, 128)
+          "f32_hd256": 256, "bf16_hd16_f16_out": 16, "f32_hd16_misaligned_rows": 18,
+          "f32_hd24": 24, "bf16_hd24": 24, "int8_hd24": 24}.get(case, 128)
     KV, n_rep = 2, 5 if case == "f32_group5" else 3
-    q_dtype = {"f16_q_f16_pool": F16, "bf16_hd16_f16_out": BF16}.get(case, F32)
+    q_dtype = {"f16_q_f16_pool": F16, "bf16_hd16_f16_out": BF16, "bf16_hd24": BF16}.get(case, F32)
     q = torch.zeros(2, KV * n_rep, HD, dtype=q_dtype)
     pool_dtype = {"f32_q_bf16_pool": BF16, "f16_q_f16_pool": F16, "bf16_hd16_f16_out": BF16,
-                  "f32_q_int8_pool": torch.int8}.get(case, F32)
+                  "f32_q_int8_pool": torch.int8, "bf16_hd24": BF16,
+                  "int8_hd24": torch.int8}.get(case, F32)
     k = torch.zeros(6, 16, KV, HD, dtype=pool_dtype)
     if case == "f32_hd16_misaligned_rows":  # 16-element rows 18 elements apart
         k = k[..., :16]

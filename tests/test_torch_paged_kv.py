@@ -28,6 +28,7 @@ from tpuslo.models import serve as js  # noqa: E402
 from tpuslo_torch.models import bridge  # noqa: E402
 from tpuslo_torch.models import llama as tl  # noqa: E402
 from tpuslo_torch.models import paged_kv as tpk  # noqa: E402
+from tpuslo_torch.parallel import mesh as tmesh  # noqa: E402
 from tpuslo_torch.models import serve as ts  # noqa: E402
 from tpuslo_torch.ops import paged_attention as tpa  # noqa: E402
 
@@ -427,8 +428,10 @@ def test_pallas_switch_reads_the_environment(monkeypatch):
 
 def test_out_of_scope_and_cardless_paths_raise(monkeypatch):
     _, pt, _ = _weights()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tpk.PagedBatchingEngine(cfg=CFG_T, params=pt, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="must divide"):  # tp 4 over 2 kv heads
+        tpk.PagedBatchingEngine(cfg=CFG_T, params=pt, device="cpu",
+                                mesh=tmesh.Mesh(tmesh.MeshPlan(tp=4), torch.device("cpu"),
+                                                backend="gloo"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpk.PagedBatchingEngine(cfg=tl.llama_tiny(max_seq_len=64), block_size=16)

@@ -183,10 +183,17 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_out_of_scope_paths_raise():
+    """A serving mesh without a tp axis raises JAX's ``ValueError`` (tp
+    serving itself: ``test_torch_tp_serve.py``); sequence-parallel
+    ingestion raises, naming the multi-device slice's second half."""
+    from tpuslo_torch.parallel import mesh as tmesh
+
     _, et = _engines()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ts.ServeEngine(CFG_T, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ingest_prompt_sp"):
+    no_tp = tmesh.Mesh(tmesh.MeshPlan(), torch.device("cpu"), backend="gloo")
+    no_tp.axis_names = ("dp",)
+    with pytest.raises(ValueError, match="must have a 'tp' axis"):
+        ts.ServeEngine(CFG_T, mesh=no_tp, device="cpu")
+    with pytest.raises(NotImplementedError, match="ingest_prompt_sp.*13b"):
         et.ingest_prompt_sp("x", sp_mesh=None)
 
 

@@ -276,3 +276,20 @@ def test_the_measured_speculative_lane_reports_the_jax_lanes_keys():
     assert got["parity_ok"] is True and want["parity_ok"] is True
     assert got["spec_retrace_count"] == 0
     assert 0.0 <= got["acceptance_rate"] <= 1.0
+
+
+def test_the_measured_lanes_target_is_jaxs():
+    """F11: the measured lane's default target is the JAX lane's own
+    (8 heads of 24 over 4 kv heads), read from the JAX function's
+    ``LlamaConfig(...)`` call."""
+    import ast
+    import inspect
+
+    tree = ast.parse(inspect.getsource(jsb._speculative_measured_lane).lstrip())
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and getattr(n.func, "id", "") == "LlamaConfig"]
+    want = {kw.arg: ast.literal_eval(kw.value) for kw in calls[0].keywords}
+    assert tsb.MEASURED_TARGET == want
+    from tpuslo_torch.models.llama import LlamaConfig
+
+    assert LlamaConfig(**tsb.MEASURED_TARGET).head_dim == 24

@@ -345,11 +345,14 @@ def test_engines_take_their_device_from_their_serve_engines_and_refuse_a_mesh():
     assert tsp.SpeculativeEngine(tt, dt).device == tt.device
     assert tsp._rehome_draft_cache(tt, dt, {"k": 1}) == {"k": 1}
 
+    # A draft sharded over another mesh than the target's is refused (an
+    # unsharded draft is replicated on every tp rank: its cache stays home).
     class Meshed:
+        device = tt.device
         mesh = object()
 
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tsp._rehome_draft_cache(Meshed(), dt, {})
+    with pytest.raises(ValueError, match="share the target's mesh"):
+        tsp._check_pair(tt, Meshed())
 
 
 def _state_storage(spec) -> dict:

@@ -22,9 +22,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from tpuslo import schema  # noqa: E402
-from tpuslo.correlation.multihost import SliceJoiner  # noqa: E402
+from tpuslo.correlation.multihost import SliceJoiner as JSliceJoiner  # noqa: E402
 from tpuslo.otel import xla_spans as jx  # noqa: E402
 from tpuslo_torch.correlation import SignalRef, SpanRef, match  # noqa: E402
+from tpuslo_torch.correlation.multihost import SliceJoiner  # noqa: E402
 from tpuslo_torch.models import llama as tl  # noqa: E402
 from tpuslo_torch.models import serve as ts  # noqa: E402
 from tpuslo_torch.otel import xla_spans as tx  # noqa: E402
@@ -414,8 +415,8 @@ class TestCollectiveExtraction:
         assert events[0]["value"] == pytest.approx(0.01)  # 2 x 5us in ms
 
     def test_profiler_to_slicecorr_end_to_end(self):
-        """Per-host traces -> collective signals -> SliceJoiner names the
-        straggler host."""
+        """Per-host traces -> collective signals -> the port's SliceJoiner
+        names the straggler host, with JAX's joiner's incidents."""
         by_host = {
             "vm-0": collective_spans()[1],
             "vm-1": collective_spans()[1],
@@ -428,6 +429,10 @@ class TestCollectiveExtraction:
         joiner = SliceJoiner(expected_hosts=4, skew_floor_ms=0.1)
         joiner.add_all(events)
         incidents = joiner.incidents()
+        reference = JSliceJoiner(expected_hosts=4, skew_floor_ms=0.1)
+        reference.add_all(events)
+        assert [i.to_dict() for i in incidents] == [
+            i.to_dict() for i in reference.incidents()]
         assert len(incidents) == 2
         assert all(i.straggler_host == 2 for i in incidents)
         assert all(i.cause == "compute_straggler" for i in incidents)
@@ -574,3 +579,35 @@ class TestLaunchMatchBreakdown:
         assert report == jx.launch_match_breakdown([])
         assert report["launches"] == 0
         assert report["substantive_join_rate"] == 0.0
+
+
+def test_a_collectives_own_range_is_not_a_dispatch():
+    """A card trace where ProcessGroupNCCL's ``nccl:all_to_all`` range
+    sits inside the dispatch range around the call: its SendRecv kernel
+    belongs to the dispatch, so each launch gives one collective event
+    with the dispatch's identity (a one-rank NCCL all_to_all)."""
+    events = []
+    for launch, t0 in ((1, 100.0), (2, 300.0)):
+        events += [
+            {"ph": "X", "cat": "user_annotation", "pid": 1, "tid": 1, "ts": t0, "dur": 50.0,
+             "name": f"icibench_all_to_all(42)#{launch}"},
+            {"ph": "X", "cat": "user_annotation", "pid": 1, "tid": 1, "ts": t0 + 5, "dur": 30.0,
+             "name": "nccl:all_to_all"},
+            {"ph": "X", "cat": "cuda_runtime", "pid": 1, "tid": 1, "ts": t0 + 10, "dur": 5.0,
+             "name": "cudaLaunchKernel", "args": {"correlation": launch}},
+            {"ph": "X", "cat": "gpu_user_annotation", "pid": 0, "tid": 7, "ts": t0 + 20,
+             "dur": 60.0, "name": f"icibench_all_to_all(42)#{launch}"},
+            {"ph": "X", "cat": "gpu_user_annotation", "pid": 0, "tid": 8, "ts": t0 + 25,
+             "dur": 40.0, "name": "nccl:all_to_all"},
+            {"ph": "X", "cat": "kernel", "pid": 0, "tid": 9, "ts": t0 + 30, "dur": 12.0,
+             "name": "ncclDevKernel_SendRecv(ncclDevKernelArgsStorage<4096ul>)",
+             "args": {"correlation": launch}},
+        ]
+    spans = tx.parse_trace_events({"traceEvents": events}, include_ops=True)
+    assert tx.module_lane_source({"traceEvents": events}) == "kernel_segments"
+    modules = [s for s in spans if s.lane == tx.MODULES_LANE]
+    assert [(s.module_name, s.launch_id) for s in modules] == [
+        ("icibench_all_to_all", 1), ("icibench_all_to_all", 2)]
+    got = tx.extract_collective_signals(spans, ANCHOR_NS, node="card0")
+    assert [(e["tpu"]["module_name"], e["tpu"]["launch_id"], e["value"]) for e in got] == [
+        ("icibench_all_to_all", 1, 0.012), ("icibench_all_to_all", 2, 0.012)]

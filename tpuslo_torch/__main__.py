@@ -10,7 +10,9 @@ import sys
 
 BINARIES = {
     "frontdoor": "tpuslo_torch.cli.frontdoor",
+    "icibench": "tpuslo_torch.cli.icibench",
     "loadgen": "tpuslo_torch.cli.loadgen",
+    "slicecorr": "tpuslo_torch.cli.slicecorr",
     "train": "tpuslo_torch.cli.train",
 }
 

@@ -529,6 +529,12 @@ def _speculative_lane(
     }
 
 
+#: The measured speculative lane's target (the JAX lane's): dim 192, 4
+#: layers, 8 heads of 24 over 4 kv heads.
+MEASURED_TARGET = dict(vocab_size=512, dim=192, n_layers=4, n_heads=8, n_kv_heads=4,
+                       ffn_dim=384, max_seq_len=256, rope_theta=10000.0)
+
+
 def _speculative_measured_lane(
     k: int = 4,
     target_steps: int = 100,
@@ -541,8 +547,8 @@ def _speculative_measured_lane(
     """Speculative speedup MEASURED on trained weights (the JAX lane's
     recipe, configs, corpus, prompts and keys).
 
-    It trains a target (dim 192, 4 layers; head dim 32, see below) and a
-    much cheaper draft
+    It trains a target (dim 192, 4 layers, 8 heads of 24 over 4 kv heads)
+    and a much cheaper draft
     (``llama_tiny``) on the same predictable corpus through the port's
     train step (:func:`tpuslo_torch.models.train.build_sharded_train_step`
     on the one device: 100 steps at 3e-4 and 600 at 1e-3, batch 8, seq 64,
@@ -563,14 +569,7 @@ def _speculative_measured_lane(
 
     mesh = make_mesh(plan_for_devices(1), devices=[device])
     device = mesh.device
-    # The JAX lane's target (dim 192, 4 layers, 2 query heads per kv head,
-    # the same parameter count) at 6 heads of 32 where JAX has 8 of 24: the
-    # card's cached passes read the cache through K2-f32, which is built
-    # for head dims 16-256 in powers of two.
-    target_cfg = target_cfg or LlamaConfig(
-        vocab_size=512, dim=192, n_layers=4, n_heads=6, n_kv_heads=3,
-        ffn_dim=384, max_seq_len=256, rope_theta=10000.0,
-    )
+    target_cfg = target_cfg or LlamaConfig(**MEASURED_TARGET)
     draft_cfg = draft_cfg or llama_tiny(max_seq_len=256)  # dim 64, 2 layers
 
     # A predictable byte-level corpus: templates whose completion is

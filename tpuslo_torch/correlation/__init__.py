@@ -1,6 +1,7 @@
-"""L5 correlation: the tiered span-signal matcher.  The quality gates
-(``evaluator.py``), the retry-storm detector and the multi-host slice
-joiner of ``tpuslo/correlation/`` are not ported yet."""
+"""L5 correlation: the tiered span-signal matcher and the multi-host
+slice joiner (:mod:`.multihost`).  The quality gates (``evaluator.py``)
+and the retry-storm detector of ``tpuslo/correlation/`` are not ported
+yet."""
 
 from tpuslo_torch.correlation.matcher import (
     DEFAULT_ENRICHMENT_THRESHOLD,

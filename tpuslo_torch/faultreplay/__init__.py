@@ -1,6 +1,6 @@
 """Deterministic fault-sample replay (the port's own copy of
-``tpuslo/faultreplay/generator.py``; the JAX package's slice-stream
-synthesizer is not ported)."""
+``tpuslo/faultreplay/generator.py``) and the per-host slice streams
+(:mod:`.slice_streams`, a copy of ``tpuslo/faultreplay/slice_streams.py``)."""
 
 from tpuslo_torch.faultreplay.generator import (
     MULTI_FAULT_PAIRS,

@@ -19,8 +19,10 @@ What differs from the JAX engine: there is no jit, so JAX's shared
 ``_SHARED_*`` compile caches have no counterpart and splices are
 in-place copies.  Each step reads its tokens to the host once, as the
 JAX engine's one ``device_get`` per step does, and nothing else.
-Tensor-parallel serving (``mesh=``) belongs to the multi-device slice
-and raises.
+Under a tp mesh (``mesh=``) each rank runs the engine over its shards
+(:class:`~tpuslo_torch.models.serve.ServeEngine` with the mesh) and a
+cache of its ``n_kv_heads / tp`` heads; the scheduler, which decides from
+the gathered tokens alone, makes the same decisions on every rank.
 """
 
 from __future__ import annotations
@@ -142,11 +144,6 @@ class ContinuousBatchingEngine:
         step_fn=None,
         device: str | torch.device = "cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh=) is not ported yet; the "
-                "port serves on one device"
-            )
         if max_slots < 1:
             raise ValueError("max_slots must be >= 1")
         self.kv_dtype = validate_kv_dtype(kv_dtype)
@@ -156,10 +153,12 @@ class ContinuousBatchingEngine:
             ingest = ServeEngine(
                 cfg=self.cfg, params=params, prefill_buckets=prefill_buckets,
                 kv_dtype=kv_dtype, rng_seed=rng_seed,
-                quantize=quantize and params is None, device=device,
+                quantize=quantize and params is None, mesh=mesh, device=device,
             )
         self._ingest = ingest
         self.device = ingest.device
+        self.mesh = getattr(ingest, "mesh", None)
+        self.tp = getattr(ingest, "tp", 1)
         self.params = self._ingest.params
         self._step = (
             step_fn if step_fn is not None
@@ -188,7 +187,7 @@ class ContinuousBatchingEngine:
 
     def _init_decode_state(self) -> Cache:
         cache = init_kv_cache(
-            self.cfg, self.max_slots, kv_dtype=self.kv_dtype, device=self.device
+            self.cfg, self.max_slots, kv_dtype=self.kv_dtype, device=self.device, tp=self.tp
         )
         cache["length"] = torch.zeros(
             (self.max_slots,), dtype=torch.long, device=self.device

@@ -21,6 +21,10 @@ snapshot ``(row_t, row_d, current, frontier)`` goes both ways too
 (:func:`parked_to_numpy`, :func:`parked_from_numpy`): a request parked
 by one framework's front door can be adopted by the other's.
 
+:func:`shard_serve_params` cuts one tp rank's shards out of a serving
+tree, as JAX's ``serve_param_shardings`` places them on its mesh: rank
+``r``'s leaves equal the JAX mesh's ``addressable_shards[r].data``.
+
 AdamW's moments go both ways (:func:`adamw_state_from_numpy`,
 :func:`adamw_state_to_numpy`): optax's ``ScaleByAdamState(count, mu,
 nu)`` as numpy (``{"count", "mu", "nu"}``, the moment trees shaped like
@@ -171,6 +175,57 @@ def parked_from_numpy(
         int(tree["current"]),
         int(tree["frontier"]),
     )
+
+
+#: The axis each serving leaf splits over tp ranks (JAX's
+#: ``serve_param_shardings``): column-parallel weights their output axis,
+#: row-parallel ones (wo, w2) their input axis, the embedding its vocab
+#: rows and the head its vocab columns; None: replicated.
+SERVE_SPLIT_AXIS = {
+    "embed": 0,
+    "layers/wq": 2, "layers/wk": 2, "layers/wv": 2, "layers/w1": 2, "layers/w3": 2,
+    "layers/wo": 1, "layers/w2": 1, "layers/attn_norm": None, "layers/mlp_norm": None,
+    "final_norm": None, "output": 1,
+}
+
+
+def _split(t: torch.Tensor, axis: int | None, tp: int, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s contiguous part of ``t`` along ``axis`` (a fresh
+    tensor, so that the whole leaf can be freed); ``None``: a copy."""
+    if axis is None:
+        return t.clone()
+    n = t.shape[axis]
+    if n % tp:
+        raise ValueError(f"axis {axis} of {tuple(t.shape)} does not split over tp={tp}")
+    return t.narrow(axis, rank * (n // tp), n // tp).contiguous()
+
+
+def shard_leaf(path: str, leaf, tp: int, rank: int):
+    """Rank ``rank``'s shard of the serving leaf at ``path`` (dense, or an
+    int8 ``{"q", "s"}`` leaf: ``q`` split like the dense weight, ``s``
+    like ``q``'s output axis, which is ``q``'s split with the contracting
+    axis -2 dropped)."""
+    axis = SERVE_SPLIT_AXIS[path]
+    if not isinstance(leaf, dict):
+        return _split(leaf, axis, tp, rank)
+    q_nd = leaf["q"].ndim
+    s_axis = None
+    if axis is not None and axis != q_nd - 2:
+        s_axis = axis if axis < q_nd - 2 else axis - 1
+    return {"q": _split(leaf["q"], axis, tp, rank), "s": _split(leaf["s"], s_axis, tp, rank)}
+
+
+def shard_serve_params(params: dict, tp: int, rank: int) -> dict:
+    """Rank ``rank`` of ``tp``'s shards of a Llama serving tree (dense or
+    int8): a new tree of fresh tensors on the leaves' device."""
+    out: dict = {}
+    for path in SERVE_SPLIT_AXIS:
+        *parents, name = path.split("/")
+        src, dst = params, out
+        for key in parents:
+            src, dst = src[key], dst.setdefault(key, {})
+        dst[name] = shard_leaf(path, src[name], tp, rank)
+    return out
 
 
 def _tree_leaf(tree: dict, path: str):

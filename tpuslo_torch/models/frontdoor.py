@@ -72,7 +72,14 @@ the same buffers are used and the dispatch runs eagerly.  The memoized
 counterpart; a parked row is a clone and never a view of the pool.  The
 dispatch ledger's ``dispatch`` share is the host's time to stage and
 launch the dispatch and its ``device wait`` share what the device still
-owed after that.  Serving over a mesh belongs to the multi-device slice.
+owed after that.  Over a tp target (JAX's front door over its tp
+engine) every rank runs the same front door over its target shards, a
+replica of an unsharded draft and pools of its ``n_kv_heads / tp`` heads;
+admissions, sheds and preemptions decide from gathered tokens and host
+state alone, so every rank makes the same ones.  On the card the one-rank
+NCCL all_reduce is captured in the dispatch's and the admissions' CUDA
+graphs; a mesh whose collectives go through host memory (gloo with CUDA
+tensors) is refused.
 """
 
 from __future__ import annotations
@@ -360,11 +367,11 @@ class FrontDoorEngine:
             self._pool_blocks = int(pool_blocks)
             self._paged_pool_t = init_paged_pool(
                 target.cfg, self._pool_blocks, self.block_size, 1,
-                kv_dtype=target.kv_dtype, device=self.device,
+                kv_dtype=target.kv_dtype, device=self.device, tp=target.tp,
             )
             self._paged_pool_d = init_paged_pool(
                 draft.cfg, self._pool_blocks, self.block_size, 1,
-                kv_dtype=draft.kv_dtype, device=self.device,
+                kv_dtype=draft.kv_dtype, device=self.device, tp=draft.tp,
             )
             # One host free list indexes BOTH pools (a park takes the
             # same physical ids in each); block 0 is the null block.
@@ -426,7 +433,7 @@ class FrontDoorEngine:
     def _init_pool(self, engine: ServeEngine) -> Cache:
         pool = init_kv_cache(
             engine.cfg, self.max_slots, kv_dtype=engine.kv_dtype,
-            device=self.device,
+            device=self.device, tp=engine.tp,
         )
         # Free lanes idle at frontier 1 (attention over one zero-KV
         # position is well-defined; frontier 0 would be the only

@@ -48,6 +48,30 @@ per row:
   one product per weight (K1 computes each row in CTAs of its own
   already).
 
+Tensor parallelism (Megatron's layout, the JAX package's
+``serve_param_shardings``): a :class:`ShardedParams` tree holds one tp
+rank's shards and the mesh they are sharded over
+(:func:`tpuslo_torch.models.bridge.shard_serve_params`).  The layers read
+their local heads (``H / tp`` over ``KV / tp``) from the shards' widths,
+and where GSPMD inserts collectives in JAX the port calls them
+(:mod:`tpuslo_torch.parallel.mesh`):
+
+* the embedding's vocab rows are sharded: a masked local lookup, then an
+  all_reduce, which is exact (one rank's row plus zeros);
+* ``wo`` and ``w2`` take the sharded input axis: each rank's partial
+  product is rounded once to the model dtype, as the unsharded product
+  is, and the all_reduce sums the partials in that dtype.  The products
+  are then the same calls as without a mesh and a one-rank reduction
+  returns them unchanged, so tp 1 is bit for bit the unsharded model;
+  at tp 2 the sum of two rounded partials adds one rounding (bf16 at
+  2**-8 of the value; PERF.md gives the logits' error);
+* the output head's vocab columns are sharded: the logits are gathered
+  (all_gather, exact) before sampling, so every rank samples the same
+  tokens.
+
+A plain dict (no mesh) runs none of this, bit for bit as before.  The
+batch-invariant 128-row product pieces stay per rank.
+
 Training (:func:`loss_fn`, ``forward(..., remat=True)``) differentiates
 the same layers: K1 and both norm kernels run their forwards on the card
 inside ``torch.autograd.Function``s whose backwards are the plain
@@ -73,8 +97,49 @@ from tpuslo_torch.ops.dense_lanes import dense_lane_attention
 from tpuslo_torch.ops.flash_attention import flash_attention, flash_eligible
 from tpuslo_torch.ops.rms_norm import add_rms_norm as ops_add_rms_norm
 from tpuslo_torch.ops.rms_norm import rms_norm as ops_rms_norm
+from tpuslo_torch.parallel import mesh as mesh_mod
 
 Params = dict[str, Any]
+
+
+class ShardedParams(dict):
+    """One tp rank's shards of a parameter tree, carrying ``mesh``, the
+    mesh they are sharded over on its ``tp`` axis (see the module
+    docstring)."""
+
+    def __init__(self, tree: Params, mesh):
+        super().__init__(tree)
+        self.mesh = mesh
+
+
+def tp_mesh_of(params: Params):
+    """The mesh a :class:`ShardedParams` tree is sharded over, else None."""
+    return getattr(params, "mesh", None)
+
+
+def _width(w) -> int:
+    return (w["q"] if isinstance(w, dict) else w).shape[-1]
+
+
+def local_heads(cfg, layer: Params) -> tuple[int, int]:
+    """(query heads, kv heads) a layer's weights hold: all of them, or one
+    tp rank's share."""
+    return _width(layer["wq"]) // cfg.head_dim, _width(layer["wk"]) // cfg.head_dim
+
+
+def _reduce(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of the tp ranks' partial products (no mesh: ``t``)."""
+    return t if mesh is None else mesh_mod.all_reduce(t, mesh, "tp")
+
+
+def _logits(params: Params, h: torch.Tensor, matmul) -> torch.Tensor:
+    """The output head's f32 logits over the whole vocabulary: a sharded
+    head's vocab columns gathered from every tp rank."""
+    out = matmul(h, params["output"])
+    mesh = tp_mesh_of(params)
+    if mesh is not None:
+        out = mesh_mod.all_gather(out, mesh, "tp", dim=-1)
+    return out.float()
 
 
 @dataclass(frozen=True)
@@ -193,25 +258,38 @@ def init_params(
     The draws differ from ``jax.random``'s; tests that compare the two
     frameworks carry the JAX weights over instead (``bridge``).
     """
+    tree: Params = {}
+    for path, leaf in init_leaves(rng, cfg, device):
+        _set_leaf(tree, path, leaf)
+    return tree
+
+
+def _set_leaf(tree: dict, path: str, leaf) -> None:
+    *parents, name = path.split("/")
+    for key in parents:
+        tree = tree.setdefault(key, {})
+    tree[name] = leaf
+
+
+def init_leaves(rng: torch.Generator | int, cfg: LlamaConfig,
+                device: str | torch.device = "cuda"):
+    """:func:`init_params` one leaf at a time: ``(path, tensor)`` pairs
+    (``"embed"``, ``"layers/wq"``, ...), drawn in :func:`init_params`'s
+    order, so that a caller can keep a part of each leaf and free the
+    rest before the next is drawn (a tp rank's shard)."""
     dev = resolve_device(device)
     gen = rng
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=dev).manual_seed(int(rng))
     (e_shape, e_fan), layer_dense, (o_shape, o_fan) = _param_layout(cfg)
-    embed = _dense_init(gen, e_shape, e_fan, cfg.dtype, dev)
-    layers = {
-        name: _dense_init(gen, *layer_dense[name], cfg.dtype, dev)
-        for name in _DENSE_LEAVES
-    }
+    yield "embed", _dense_init(gen, e_shape, e_fan, cfg.dtype, dev)
+    for name in _DENSE_LEAVES:
+        yield f"layers/{name}", _dense_init(gen, *layer_dense[name], cfg.dtype, dev)
     L, D = cfg.n_layers, cfg.dim
-    layers["attn_norm"] = torch.ones((L, D), dtype=cfg.dtype, device=dev)
-    layers["mlp_norm"] = torch.ones((L, D), dtype=cfg.dtype, device=dev)
-    return {
-        "embed": embed,
-        "layers": layers,
-        "final_norm": torch.ones((D,), dtype=cfg.dtype, device=dev),
-        "output": _dense_init(gen, o_shape, o_fan, cfg.dtype, dev),
-    }
+    yield "layers/attn_norm", torch.ones((L, D), dtype=cfg.dtype, device=dev)
+    yield "layers/mlp_norm", torch.ones((L, D), dtype=cfg.dtype, device=dev)
+    yield "final_norm", torch.ones((D,), dtype=cfg.dtype, device=dev)
+    yield "output", _dense_init(gen, o_shape, o_fan, cfg.dtype, dev)
 
 
 # --- int8 weight-only quantization -------------------------------------
@@ -374,11 +452,23 @@ def _matmul_fixed(x: torch.Tensor, w) -> torch.Tensor:
 
 
 def _embed_lookup(params: Params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Embedding gather for dense or quantized embedding tables."""
+    """Embedding gather for dense or quantized embedding tables; a tp
+    rank's vocab rows: a masked local lookup summed over the ranks."""
     e = params["embed"]
+    mesh = tp_mesh_of(params)
+    inside = None
+    if mesh is not None:
+        rows = (e["q"] if isinstance(e, dict) else e).shape[0]
+        tokens = tokens - mesh.rank("tp") * rows
+        inside = (tokens >= 0) & (tokens < rows)
+        tokens = torch.where(inside, tokens, torch.zeros_like(tokens))
     if isinstance(e, dict):
-        return (e["q"][tokens].float() * e["s"]).to(dtype)
-    return e[tokens].to(dtype)
+        h = (e["q"][tokens].float() * e["s"]).to(dtype)
+    else:
+        h = e[tokens].to(dtype)
+    if mesh is None:
+        return h
+    return _reduce(torch.where(inside[..., None], h, torch.zeros_like(h)), mesh)
 
 
 def attention(
@@ -434,13 +524,14 @@ def attention_block(
 
 def _attention_out(cfg, x: torch.Tensor, layer: Params, cos: torch.Tensor,
                    sin: torch.Tensor, mask: torch.Tensor, causal: bool,
-                   invariant: bool = True):
+                   invariant: bool = True, mesh=None):
     """:func:`attention_block` from the normalized ``x``, before the
     residual: (the ``wo`` product, (k, v)).  ``invariant=False`` (a pass
     that autograd records) runs each product and the plain attention over
-    the whole batch at once instead of row by row."""
+    the whole batch at once instead of row by row.  ``mesh``: a tp
+    rank's layer, whose ``wo`` partials are summed over the ranks."""
     B, S, _ = x.shape
-    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    (H, KV), HD = local_heads(cfg, layer), cfg.head_dim
     matmul = _seq_matmul if invariant else _product
     q = matmul(x, layer["wq"]).reshape(B, S, H, HD)
     k = matmul(x, layer["wk"]).reshape(B, S, KV, HD)
@@ -457,18 +548,19 @@ def _attention_out(cfg, x: torch.Tensor, layer: Params, cos: torch.Tensor,
                           for b in range(B)])
     else:
         attn = attention(q, k, v, mask, H // KV)
-    return matmul(attn.reshape(B, S, H * HD), layer["wo"]), (k, v)
+    return _reduce(matmul(attn.reshape(B, S, H * HD), layer["wo"]), mesh), (k, v)
 
 
 def _dense_mlp(cfg, layer: Params, x: torch.Tensor, i: int | None = None,
-               matmul=_matmul) -> torch.Tensor:
+               matmul=_matmul, mesh=None) -> torch.Tensor:
     """SwiGLU MLP on normalized hidden states (``i``: the layer index
     that :func:`trace_ops` records the products under; ``matmul``:
-    :func:`_seq_matmul` in a full-sequence pass)."""
+    :func:`_seq_matmul` in a full-sequence pass; ``mesh``: a tp rank's
+    FFN columns, whose ``w2`` partials are summed over the ranks)."""
     gate = F.silu(_traced("w1", i, matmul(x, layer["w1"])).float())
     up = _traced("w3", i, matmul(x, layer["w3"])).float()
     act = _traced("silu_mul", i, (gate * up).to(cfg.dtype))
-    return _traced("w2", i, matmul(act, layer["w2"]))
+    return _traced("w2", i, _reduce(matmul(act, layer["w2"]), mesh))
 
 
 def _seq_layers(params: Params, cfg: LlamaConfig, h: torch.Tensor, cos: torch.Tensor,
@@ -509,15 +601,18 @@ def _seq_layers(params: Params, cfg: LlamaConfig, h: torch.Tensor, cos: torch.Te
     def next_norm(i):
         return attn_norms[i + 1] if i + 1 < cfg.n_layers else params["final_norm"]
 
+    mesh = tp_mesh_of(params)
+
     def layer_step(h, x, i):
         layer = layer_at(i)
         out, (k, v) = _attention_out(cfg, x, layer, cos, sin, mask, causal=True,
-                                     invariant=invariant)
+                                     invariant=invariant, mesh=mesh)
         if write is not None:
             write(i, k, v)
         h, x = add_rms_norm(h, out, layer["mlp_norm"], cfg.norm_eps)
         if mlp_fn is None:
-            mlp = _dense_mlp(cfg, layer, x, matmul=_seq_matmul if invariant else _product)
+            mlp = _dense_mlp(cfg, layer, x, matmul=_seq_matmul if invariant else _product,
+                             mesh=mesh)
         else:
             mlp = mlp_fn(layer, x)
         if aux is None:
@@ -579,7 +674,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
     h = _seq_layers(params, cfg, h, cos, sin, mask, mlp_fn=mlp_fn, remat=remat and train,
                     invariant=not train, aux=aux)
-    return (_product if train else _seq_matmul)(h, params["output"]).float()
+    return _logits(params, h, _product if train else _seq_matmul)
 
 
 def nll_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -604,9 +699,11 @@ def init_kv_cache(
     batch: int,
     kv_dtype: str = "bf16",
     device: str | torch.device = "cuda",
+    tp: int = 1,
 ) -> dict:
     """Preallocated cache ``{"k", "v", "length"}``; ``kv_dtype="int8"``
     stores K/V quantized (see :mod:`tpuslo_torch.models.kv_cache`).
+    ``tp``: one tp rank's cache, holding its ``n_kv_heads / tp`` heads.
 
     ``length`` is a Python int while every row sits at the same position
     and the host knows it (so no device read is needed to slice), a
@@ -617,7 +714,7 @@ def init_kv_cache(
     hand the length back 0-d, with no host read.
     """
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, cfg.max_seq_len, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, batch, cfg.max_seq_len, cfg.n_kv_heads // tp, cfg.head_dim)
     return {
         "k": kvc.init_kv(shape, cfg.dtype, kv_dtype, dev),
         "v": kvc.init_kv(shape, cfg.dtype, kv_dtype, dev),
@@ -625,9 +722,9 @@ def init_kv_cache(
     }
 
 
-def kv_cache_bytes(cfg: LlamaConfig, batch: int, kv_dtype: str = "bf16") -> int:
-    """Device bytes both cache sides occupy."""
-    shape = (cfg.n_layers, batch, cfg.max_seq_len, cfg.n_kv_heads, cfg.head_dim)
+def kv_cache_bytes(cfg: LlamaConfig, batch: int, kv_dtype: str = "bf16", tp: int = 1) -> int:
+    """Device bytes both cache sides occupy (on one of ``tp`` ranks)."""
+    shape = (cfg.n_layers, batch, cfg.max_seq_len, cfg.n_kv_heads // tp, cfg.head_dim)
     return 2 * kvc.kv_bytes(shape, cfg.dtype, kv_dtype)
 
 
@@ -684,7 +781,7 @@ def prefill(
     cache = {"k": cache["k"], "v": cache["v"], "length": length}
     last = _row_lengths(length, B, dev) - 1
     h_last = h[torch.arange(B, device=dev), last]
-    return _seq_matmul(h_last, params["output"]).float(), cache
+    return _logits(params, h_last, _seq_matmul), cache
 
 
 _TRACE = None  # the recorder trace_ops installs: fn(op, layer, tensor)
@@ -735,7 +832,8 @@ def _cached_layers(
     takes every weight product (:func:`_seq_matmul` in a prompt chunk's
     pass); ``mlp_fn`` as in :func:`_seq_layers`."""
     B, K, _ = h.shape
-    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    (H, KV), HD = local_heads(cfg, params["layers"]), cfg.head_dim
+    mesh = tp_mesh_of(params)
     cos, sin = rope_frequencies(cfg, positions)
     lanes = h.device.type == "cuda"
     if lanes:
@@ -763,11 +861,11 @@ def _cached_layers(
                 mask, H // KV,
             )
         attn = _traced("attention", i, attn)
-        wo = _traced("wo", i, matmul(attn.reshape(B, K, H * HD), layer["wo"]))
+        wo = _traced("wo", i, _reduce(matmul(attn.reshape(B, K, H * HD), layer["wo"]), mesh))
         h, x = add_rms_norm(h, wo, layer["mlp_norm"], cfg.norm_eps)
         h = _traced("wo_residual", i, h)
         x = _traced("mlp_norm", i, x)
-        mlp = (_dense_mlp(cfg, layer, x, i, matmul=matmul) if mlp_fn is None
+        mlp = (_dense_mlp(cfg, layer, x, i, matmul=matmul, mesh=mesh) if mlp_fn is None
                else mlp_fn(layer, x))
         h, x = add_rms_norm(h, mlp, _next_norm(params, i), cfg.norm_eps)
         h = _traced("w2_residual", i, h)
@@ -803,7 +901,7 @@ def decode_step(
 
     h = _cached_layers(params, cfg, h, cache, row_pos[:, None], write, mlp_fn=mlp_fn)
     cache = {"k": cache["k"], "v": cache["v"], "length": pos + 1}
-    return _traced("logits", None, _matmul(h[:, 0, :], params["output"])).float(), cache
+    return _traced("logits", None, _logits(params, h[:, 0, :], _matmul)), cache
 
 
 @dataclass(frozen=True)
@@ -905,7 +1003,7 @@ def verify_chunk(
     matmul = _seq_matmul if prompt_chunk else _matmul
     h = _cached_layers(params, cfg, h, cache, positions, write, matmul, mlp_fn)
     cache = {"k": cache["k"], "v": cache["v"], "length": start}
-    return _traced("logits", None, matmul(h, params["output"])).float(), cache
+    return _traced("logits", None, _logits(params, h, matmul)), cache
 
 
 def decode_chunk(

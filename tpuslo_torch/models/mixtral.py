@@ -51,8 +51,9 @@ from tpuslo_torch.otel.xla_spans import dispatch_range
 Params = dict[str, Any]
 
 _MESH_NOT_PORTED = (
-    "MoE serving over a mesh (tp or ep) belongs to the multi-device slice "
-    "(ROADMAP item 13) and is not ported yet; the port serves on one device"
+    "MoE serving over a mesh (tp or ep) belongs to the multi-device slice's "
+    "second half (ROADMAP item 13b) and is not ported yet; the port serves MoE "
+    "models on one device"
 )
 
 
@@ -240,7 +241,7 @@ def build_moe_train_step(mesh, cfg: MixtralConfig, optimizer=None):
     (dp 1, ep 1), the contract of
     :func:`tpuslo_torch.models.train.build_sharded_train_step`.  The
     expert-parallel (dp x ep) step belongs to the multi-device slice
-    (ROADMAP item 13)."""
+    (ROADMAP item 13b)."""
     from tpuslo_torch.models import train
 
     return train.build_step(mesh, cfg, init_params, loss_fn, optimizer)
@@ -313,6 +314,7 @@ class MoEServeEngine:
     ):
         if mesh is not None:
             raise NotImplementedError(_MESH_NOT_PORTED)
+        self.mesh, self.tp = None, 1
         self.device = resolve_device(device)
         self.kv_dtype = validate_kv_dtype(kv_dtype)
         self.cfg = cfg or mixtral_tiny(max_seq_len=256)

@@ -37,8 +37,13 @@ lane's own blocks, and on the CPU its plain version.
 
 What differs from the JAX module: a Python loop over layers writes the
 pool in place where JAX scans and donates; JAX's jitted ``_shared_*``
-compile caches have no counterpart; tensor-parallel pools (``mesh=``)
-raise.
+compile caches have no counterpart.  Under a tp mesh (``mesh=``) each
+rank's pool holds its ``n_kv_heads / tp`` heads and the page table is
+every rank's alike (the free list is host-side and decides from the
+gathered tokens alone).  The JAX engine turns K2 off under a mesh and
+attends through XLA over the physical pool; the port runs K2 (or the
+plain pool attention) on each rank's own kv heads, the same function
+per head.
 """
 
 from __future__ import annotations
@@ -59,11 +64,15 @@ from tpuslo_torch.models.llama import (
     _dense_mlp,
     _embed_lookup,
     _layer,
+    _logits,
     _matmul,
+    _reduce,
     apply_rope,
     llama_tiny,
+    local_heads,
     rms_norm,
     rope_frequencies,
+    tp_mesh_of,
 )
 from tpuslo_torch.ops.paged_attention import paged_decode_attention
 
@@ -72,12 +81,13 @@ State = dict[str, Any]
 
 def init_paged_pool(
     cfg: LlamaConfig, n_blocks: int, block_size: int, slots: int,
-    kv_dtype: str = "bf16", device: str | torch.device = "cuda",
+    kv_dtype: str = "bf16", device: str | torch.device = "cuda", tp: int = 1,
 ) -> State:
     """Pool + page table + per-slot lengths.  ``n_blocks`` includes the
-    reserved null block 0."""
+    reserved null block 0.  ``tp``: one tp rank's pool, holding its
+    ``n_kv_heads / tp`` heads (the page table is every rank's alike)."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads // tp, cfg.head_dim)
     max_blocks = -(-cfg.max_seq_len // block_size)
     return {
         "k": kvc.init_kv(shape, cfg.dtype, kv_dtype, dev),
@@ -191,7 +201,8 @@ def paged_decode_step(
 
     h = _embed_lookup(params, token[:, None], cfg.dtype)
     cos, sin = rope_frequencies(cfg, pos[:, None])
-    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    (H, KV), HD = local_heads(cfg, params["layers"]), cfg.head_dim
+    mesh = tp_mesh_of(params)
     n_blocks = (state["k"]["q"] if isinstance(state["k"], dict) else state["k"]).shape[1]
     if pallas:
         lengths32 = pos.to(torch.int32)  # once per step, for every layer
@@ -229,12 +240,12 @@ def paged_decode_step(
                 q[:, 0], kvc.kv_load(k_pool, cfg.dtype),
                 kvc.kv_load(v_pool, cfg.dtype), visible, H // KV,
             )
-        h = h + _matmul(attn.reshape(B, 1, H * HD), layer["wo"])
+        h = h + _reduce(_matmul(attn.reshape(B, 1, H * HD), layer["wo"]), mesh)
         x = rms_norm(h, layer["mlp_norm"], cfg.norm_eps)
-        h = h + (_dense_mlp(cfg, layer, x) if mlp_fn is None else mlp_fn(layer, x))
+        h = h + (_dense_mlp(cfg, layer, x, mesh=mesh) if mlp_fn is None else mlp_fn(layer, x))
     state = {**state, "length": pos + 1}
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return _matmul(h[:, 0, :], params["output"]).float(), state
+    return _logits(params, h[:, 0, :], _matmul), state
 
 
 # ---- block-granular park/resume (the paged front door) ----------------
@@ -390,11 +401,6 @@ class PagedBatchingEngine(ContinuousBatchingEngine):
         paged_step_fn=None,
         device: str | torch.device = "cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel paged pools (mesh=) are not ported yet; the "
-                "port serves on one device"
-            )
         if pallas_attention is None:
             pallas_attention = os.environ.get("TPUSLO_PAGED_PALLAS", "") == "1"
         self.pallas_attention = bool(pallas_attention)
@@ -425,7 +431,7 @@ class PagedBatchingEngine(ContinuousBatchingEngine):
         super().__init__(
             cfg=cfg, params=params, max_slots=max_slots, rng_seed=rng_seed,
             prefill_buckets=prefill_buckets, quantize=quantize,
-            kv_dtype=kv_dtype, ingest=ingest, step_fn=step, device=device,
+            kv_dtype=kv_dtype, mesh=mesh, ingest=ingest, step_fn=step, device=device,
         )
 
     # -- hooks -----------------------------------------------------------
@@ -433,7 +439,7 @@ class PagedBatchingEngine(ContinuousBatchingEngine):
     def _init_decode_state(self) -> State:
         state = init_paged_pool(
             self.cfg, self.n_blocks, self.block_size, self.max_slots,
-            kv_dtype=self.kv_dtype, device=self.device,
+            kv_dtype=self.kv_dtype, device=self.device, tp=self.tp,
         )
         # Block 0 is the null target of unallocated page-table entries.
         self._free = list(range(1, self.n_blocks))

@@ -24,8 +24,20 @@ What differs, and why:
   piece over staged storage, where JAX jits every prefill); the engine's
   own calls stay eager.  Both cut a prompt into chunks by one
   :meth:`ServeEngine._schedule`.
-* Tensor-parallel serving (``mesh=``) and sequence-parallel ingestion
-  (``ingest_prompt_sp``) belong to the multi-device slice and raise.
+* Tensor-parallel serving (``mesh=``, a mesh with a ``tp`` axis over an
+  initialized process group, :mod:`tpuslo_torch.parallel.mesh`) runs one
+  engine per tp rank, each holding its rank's shards
+  (:class:`~tpuslo_torch.models.llama.ShardedParams`) and a cache of its
+  ``n_kv_heads / tp`` heads; every rank runs the same calls in the same
+  order (the layers' collectives pair up across ranks), and every rank
+  gathers the whole logits and samples the same tokens.  With
+  ``params=None`` the weights are drawn leaf by leaf and each rank keeps
+  only its shard, as JAX's sharded init does.  A front door's
+  admissions replay CUDA graphs, which cannot capture collectives that
+  go through host memory (gloo with CUDA tensors): such a mesh is
+  refused there.  Sequence-parallel ingestion (``ingest_prompt_sp``)
+  belongs to the multi-device slice's second half (ROADMAP item 13b)
+  and raises.
 """
 
 from __future__ import annotations
@@ -39,14 +51,19 @@ import numpy as np
 import torch
 
 from tpuslo_torch.device import resolve_device, synchronize
+from tpuslo_torch.models.bridge import shard_leaf, shard_serve_params
 from tpuslo_torch.models.graphs import GraphedDispatch, StagedInput, copy_cache
 from tpuslo_torch.models.kv_cache import kv_map, validate_kv_dtype
 from tpuslo_torch.models.llama import (
     GREEDY,
     LlamaConfig,
     SamplingConfig,
+    ShardedParams,
+    _quantize_leaf,
+    _set_leaf,
     decode_chunk,
     init_kv_cache,
+    init_leaves,
     init_params,
     kv_cache_bytes,
     llama_tiny,
@@ -246,6 +263,13 @@ class _HostRead:
         return self._host.tolist()
 
 
+def _to_device(tree, device: torch.device):
+    """A (nested dict) tree of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 def _upload(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """Host values (a list or a numpy array) as a new tensor on
     ``device``, never a view of ``values``.  To a card the copy goes
@@ -264,11 +288,49 @@ def _sub_batch_seed(seed: int, index: int) -> int:
     return int(np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)[0] >> 1)
 
 
+def check_serving_mesh(mesh, cfg) -> int:
+    """The tp degree of a serving mesh, with the JAX engine's
+    ``ValueError``s: a mesh without a ``tp`` axis, a tp that does not
+    divide ``n_heads`` and ``n_kv_heads``.  The port also needs tp to
+    divide the FFN width and the vocabulary (its shards are contiguous)
+    and the tp axis to span the mesh."""
+    if "tp" not in mesh.axis_names:
+        raise ValueError(f"serving mesh must have a 'tp' axis, got {mesh.axis_names}")
+    tp = mesh.shape["tp"]
+    if cfg.n_kv_heads % tp or cfg.n_heads % tp:
+        raise ValueError(
+            f"tp={tp} must divide n_kv_heads={cfg.n_kv_heads} "
+            f"and n_heads={cfg.n_heads} (pick a larger config "
+            "or a smaller tp)"
+        )
+    if cfg.ffn_dim % tp or cfg.vocab_size % tp:
+        raise ValueError(f"tp={tp} must divide ffn_dim={cfg.ffn_dim} and "
+                         f"vocab_size={cfg.vocab_size}")
+    if mesh.plan.n_devices != tp:
+        raise ValueError(f"a serving mesh shards over tp alone, got {mesh.shape}")
+    return tp
+
+
+def sharded_init_params(rng_seed: int, cfg: LlamaConfig, mesh, quantize: bool) -> ShardedParams:
+    """This tp rank's shards of ``init_params(rng_seed, cfg)`` (quantized
+    leaf by leaf when ``quantize``), drawn one leaf at a time on the
+    mesh's device: no rank holds the whole tree."""
+    tp, rank = mesh.shape["tp"], mesh.rank("tp")
+    tree: dict = {}
+    for path, leaf in init_leaves(rng_seed, cfg, mesh.device):
+        if quantize and not path.endswith("norm"):
+            leaf = _quantize_leaf(leaf)
+        _set_leaf(tree, path, shard_leaf(path, leaf, tp, rank))
+        del leaf
+    return ShardedParams(tree, mesh)
+
+
 class ServeEngine:
     """Greedy or sampled streaming generation with bucketed prefill.
 
     ``device`` defaults to ``"cuda"`` and raises without a card; pass
-    ``device="cpu"`` to serve through the plain PyTorch path.
+    ``device="cpu"`` to serve through the plain PyTorch path.  With
+    ``mesh`` the engine is one tp rank's and serves on the mesh's device.
     """
 
     def __init__(
@@ -283,15 +345,19 @@ class ServeEngine:
         kv_dtype: str = "bf16",
         device: str | torch.device = "cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh=) is not ported yet; the "
-                "port serves on one device"
-            )
-        self.device = resolve_device(device)
         self.kv_dtype = validate_kv_dtype(kv_dtype)
         self.cfg = cfg or llama_tiny(max_seq_len=512)
-        if params is None:
+        self.mesh = mesh
+        self.tp = 1 if mesh is None else check_serving_mesh(mesh, self.cfg)
+        self.device = resolve_device(device) if mesh is None else mesh.device
+        if mesh is not None and params is None:
+            params = sharded_init_params(rng_seed, self.cfg, mesh, quantize)
+        elif mesh is not None:
+            if quantize and not isinstance(params.get("output"), dict):
+                params = quantize_params(params)
+            shards = shard_serve_params(params, self.tp, mesh.rank("tp"))
+            params = ShardedParams(_to_device(shards, self.device), mesh)
+        elif params is None:
             params = init_params(rng_seed, self.cfg, self.device)
         else:
             embed = params["embed"]
@@ -324,7 +390,8 @@ class ServeEngine:
         self._admission: AdmissionGraphs | None = None
 
     def _new_cache(self, batch: int) -> dict:
-        return init_kv_cache(self.cfg, batch, kv_dtype=self.kv_dtype, device=self.device)
+        return init_kv_cache(self.cfg, batch, kv_dtype=self.kv_dtype, device=self.device,
+                             tp=self.tp)
 
     def _tokens(self, rows: list[list[int]]) -> torch.Tensor:
         return torch.tensor(rows, dtype=torch.long, device=self.device)
@@ -706,10 +773,11 @@ class ServeEngine:
 
     def ingest_prompt_sp(self, prompt: str, sp_mesh, axis_name: str = "sp",
                          pad_quantum: int = 64):
-        """Sequence-parallel ingestion belongs to the multi-device slice."""
+        """Sequence-parallel ingestion belongs to the multi-device slice's
+        second half (ROADMAP item 13b)."""
         raise NotImplementedError(
-            "ingest_prompt_sp (sequence-parallel prefill) is not ported yet; "
-            "use ingest_prompt"
+            "ingest_prompt_sp (sequence-parallel prefill) is not ported yet "
+            "(ROADMAP item 13b); use ingest_prompt"
         )
 
     def generate(
@@ -868,6 +936,13 @@ class AdmissionGraphs:
     """
 
     def __init__(self, engine: ServeEngine, batch_buckets: tuple[int, ...]):
+        cuda = engine.device.type == "cuda"
+        if cuda and engine.mesh is not None and not engine.mesh.graph_capturable:
+            raise ValueError(
+                f"a front door's admissions replay CUDA graphs, which cannot capture "
+                f"collectives that go through host memory ({engine.mesh}): serve over "
+                "NCCL on the card, or over gloo on the CPU"
+            )
         self._engine = weakref.proxy(engine)  # the engine holds the graphs
         self.params, self.cfg, self.device = engine.params, engine.cfg, engine.device
         self.prefill_buckets = engine.prefill_buckets
@@ -875,11 +950,11 @@ class AdmissionGraphs:
         widest = self.batch_buckets[-1]
         kv = engine.kv_dtype
         #: Staged KV bytes: the row, and the batch rows when a bucket has more than one.
-        self.staged_bytes = kv_cache_bytes(self.cfg, 1 + (widest if widest > 1 else 0), kv)
-        self.row = init_kv_cache(self.cfg, 1, kv_dtype=kv, device=self.device)
-        self.rows = (init_kv_cache(self.cfg, widest, kv_dtype=kv, device=self.device)
+        tp = engine.tp
+        self.staged_bytes = kv_cache_bytes(self.cfg, 1 + (widest if widest > 1 else 0), kv, tp)
+        self.row = init_kv_cache(self.cfg, 1, kv_dtype=kv, device=self.device, tp=tp)
+        self.rows = (init_kv_cache(self.cfg, widest, kv_dtype=kv, device=self.device, tp=tp)
                      if widest > 1 else None)
-        cuda = self.device.type == "cuda"
         self.pool = torch.cuda.graph_pool_handle() if cuda else None
         self.eager_chunks = 0
         reserved = torch.cuda.memory_reserved(self.device) if cuda else 0

@@ -46,9 +46,13 @@ What differs from the JAX module, and why:
   capture is the port's compile: it lands in the target
   ``ServeEngine``'s ``compile_events``.  On the CPU the same buffers are
   used and the round runs eagerly.
-* A draft on another mesh than the target belongs to the multi-device
-  slice: :func:`_rehome_draft_cache` keeps its name and returns the
-  cache; the engines refuse a mesh on construction.
+* A tp target (a :class:`ServeEngine` over a mesh) runs as one engine
+  per tp rank, every rank the same rounds.  An unsharded draft is
+  replicated: each rank holds the whole draft and its cache on its own
+  device, which is what JAX's :func:`_rehome_draft_cache` makes of the
+  draft's cache on the target's mesh.  The rounds' CUDA graphs cannot
+  capture collectives that go through host memory (gloo with CUDA
+  tensors): such a target is refused on the card.
 """
 
 from __future__ import annotations
@@ -254,8 +258,8 @@ class _RoundState:
         t, d = engine.target, engine.draft
         dev = engine.device
         rows = 1 if batch is None else batch
-        self.cache_t = init_kv_cache(t.cfg, rows, kv_dtype=t.kv_dtype, device=dev)
-        self.cache_d = init_kv_cache(d.cfg, rows, kv_dtype=d.kv_dtype, device=dev)
+        self.cache_t = init_kv_cache(t.cfg, rows, kv_dtype=t.kv_dtype, device=dev, tp=t.tp)
+        self.cache_d = init_kv_cache(d.cfg, rows, kv_dtype=d.kv_dtype, device=dev, tp=d.tp)
         self.current = torch.zeros((rows,), dtype=torch.long, device=dev)
         if batch is None:
             # One stream: the frontier rides the caches as a 0-d tensor.
@@ -324,15 +328,9 @@ def _rehome_draft_cache(target: ServeEngine, draft: ServeEngine, cache_d):
     """The draft's KV cache where the round will use it.
 
     In the JAX package this replicates an unsharded draft's cache onto a
-    sharded target's mesh.  The port serves on one device and its
-    engines refuse a mesh on construction, so the cache is already at
-    home; the name stays for the multi-device slice.
-    """
-    if getattr(target, "mesh", None) is not None or getattr(draft, "mesh", None) is not None:
-        raise NotImplementedError(
-            "speculative decoding over a mesh is not ported yet; the "
-            "port serves on one device"
-        )
+    sharded target's mesh.  In the port every tp rank holds a replica of
+    an unsharded draft on its own device (:func:`_check_pair`), so the
+    cache is already where the round reads it."""
     return cache_d
 
 
@@ -341,6 +339,15 @@ def _check_pair(target: ServeEngine, draft: ServeEngine) -> None:
         raise ValueError(
             f"target serves on {target.device}, draft on {draft.device}; "
             "a speculative pair shares one device"
+        )
+    t_mesh, d_mesh = getattr(target, "mesh", None), getattr(draft, "mesh", None)
+    if d_mesh is not None and d_mesh is not t_mesh:
+        raise ValueError("a sharded draft must share the target's mesh")
+    if target.device.type == "cuda" and t_mesh is not None and not t_mesh.graph_capturable:
+        raise ValueError(
+            f"speculative rounds replay CUDA graphs, which cannot capture collectives "
+            f"that go through host memory ({t_mesh}): serve over NCCL on the card, or "
+            "over gloo on the CPU"
         )
 
 

@@ -9,7 +9,7 @@ tensors that the step updates in place and returns, and the optimizer
 state is the ``torch.optim.AdamW`` that holds them (:func:`make_optimizer`
 gives its settings, ``optimizer.init(params)`` builds it, as optax's
 ``init`` does).  The dp / fsdp / tp shardings of the JAX builder belong
-to the multi-device slice (ROADMAP item 13): the mesh here is one device
+to the multi-device slice (ROADMAP item 13b): the mesh here is one device
 (:mod:`tpuslo_torch.parallel.mesh`).
 """
 

@@ -727,8 +727,13 @@ struct PagedTile {
   static constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // elements per 16 bytes
   static constexpr int kChunks = HD / kPer;                      // 16-byte pieces of a row
   static constexpr int kKRow = HD + (kChunks % 2 == 0 ? kPer : 0);
-  static constexpr int kColGroups = HD / 4;                      // p.v: 4 columns a thread
+  // p.v: thread (cg, pg) owns 4 columns over the positions pg, pg +
+  // kPosGroups, ...  Where HD / 4 does not divide the block (HD 24: 6
+  // column groups), the first kPosGroups * kColGroups threads run the
+  // stage and the rest idle; the last position group may be partly full.
+  static constexpr int kColGroups = HD / 4;
   static constexpr int kPosGroups = kThreads / kColGroups;
+  static constexpr int kPvThreads = kPosGroups * kColGroups;
   static constexpr int kK = 0;
   static constexpr int kV = kK + align16(kSpan * kKRow * static_cast<int>(sizeof(T)));
   static constexpr int kQ = kV + align16(kSpan * HD * static_cast<int>(sizeof(T)));
@@ -744,7 +749,7 @@ struct PagedTile {
   static constexpr int kStats = kScales + 2 * kSpan * 4;    // m, l [2][kMaxRep]
   static constexpr int kBytes = kStats + 2 * kMaxRep * 4;
   static_assert(HD % kPer == 0 && kChunks >= 1, "whole 16-byte pieces per row");
-  static_assert(kThreads % kColGroups == 0 && kSpan % kPosGroups == 0, "p.v tiling");
+  static_assert(HD % 4 == 0 && kColGroups <= kThreads, "p.v tiling");
   static_assert(kBytes <= kMaxSmem, "fits in shared memory");
 };
 
@@ -892,8 +897,9 @@ __global__ void __launch_bounds__(kThreads) paged_f32_kernel(const PagedArgs a) 
 
   // p.v: thread (cg, pg) owns columns 4 cg .. 4 cg + 3 over positions pg,
   // pg + kPosGroups, ...; rows that are not visible are zeros with
-  // probability 0.
-  {
+  // probability 0.  Threads past kPvThreads (HD 24) take no part.  A
+  // row's sums run in one fixed order whatever the batch.
+  if (tid < G::kPvThreads) {
     const int cg = tid % G::kColGroups, pg = tid / G::kColGroups;
     float acc[kMaxRep][4];
 #pragma unroll
@@ -1001,6 +1007,10 @@ template <typename T>
 int dispatch_paged(const PagedArgs& a, int B, int KV, int HD, cudaStream_t stream) {
   switch (HD) {
     case 16: return launch_paged<T, 16>(a, B, KV, stream);
+    case 24:  // the measured lane's f32 and bf16 caches (f16 spills here)
+      if constexpr (std::is_same_v<T, float> || std::is_same_v<T, bf16>)
+        return launch_paged<T, 24>(a, B, KV, stream);
+      return static_cast<int>(cudaErrorInvalidValue);
     case 32: return launch_paged<T, 32>(a, B, KV, stream);
     case 64: return launch_paged<T, 64>(a, B, KV, stream);
     case 128: return launch_paged<T, 128>(a, B, KV, stream);
@@ -1043,7 +1053,8 @@ extern "C" int tpuslo_flash_attention_fwd_f32(
 // null).  The wrapper has checked: q (B, H, HD) with unit inner stride;
 // pools (N, BS, KV, HD) of one layout with unit inner stride and rows
 // 16-byte aligned; int32 page table (B, MB) with unit inner stride and
-// contiguous int32 lengths (B,); HD in {16, 32, 64, 128, 256}; n_rep in
+// contiguous int32 lengths (B,); HD in {16, 24, 32, 64, 128, 256} (24
+// for f32 and bf16 pools only); n_rep in
 // {1, 2, 3, 4, 8}; 1 <= BS <= 1024; and it passes the split plan (n_split,
 // bps, cps, chunk) and an f32 scratch `part` of B * KV * n_split * n_rep *
 // (HD + 2) elements, both from shapes alone.  Launches the split kernel,

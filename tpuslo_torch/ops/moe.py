@@ -53,7 +53,7 @@ Params = dict[str, Any]
 
 _NOT_PORTED = (
     "expert-parallel MoE (mesh=, the ep axis) belongs to the multi-device "
-    "slice (ROADMAP item 13) and is not ported yet; the port serves on one device"
+    "slice (ROADMAP item 13b) and is not ported yet; the port serves on one device"
 )
 
 

@@ -20,7 +20,8 @@ routes by the device of its inputs alone:
   K2-f32 (``csrc/attention_f32.cu``, f32 FFMA products) for every other
   input the Pallas kernel takes in the repo's configs: an f32, bf16 or
   f16 q over f32, bf16, f16 or int8 pools at head dims
-  :data:`F32_HEAD_DIMS`, an f32, bf16 or f16 output (mixed types are read
+  :data:`F32_HEAD_DIMS` (head dim 24 over f32 and bf16 pools only), an
+  f32, bf16 or f16 output (mixed types are read
   as f32, exactly, as the Pallas kernel casts).  Anything else raises,
   naming it: another dtype or head dim, a group size outside
   :data:`GROUP_SIZES`, a page table or lengths that are not int32, a
@@ -52,7 +53,11 @@ import torch
 from tpuslo_torch.ops import _build, launch_counts
 
 HEAD_DIMS = (64, 128)  # the head dims K2 is built for
-F32_HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims K2-f32 is built for
+F32_HEAD_DIMS = (16, 24, 32, 64, 128, 256)  # the head dims K2-f32 is built for
+#: Head dims K2-f32 is built at for some pool types only: at head dim 24
+#: (the serving bench's measured target) f32 and bf16 caches; an int8 row
+#: is no whole 16-byte pieces there, and the f16 build spills registers.
+F32_POOLS_AT_HEAD_DIM = {24: (torch.float32, torch.bfloat16)}
 GROUP_SIZES = (1, 2, 3, 4, 8)  # query heads per kv head both are built for
 MAX_BLOCK_SIZE = 1024  # the largest pool block the kernels are built for
 SPAN = 64  # logical positions one CTA of the kernels holds at most
@@ -94,6 +99,12 @@ def kernel_route(q_dtype: torch.dtype, pool_dtype: torch.dtype, int8_pool: bool,
         raise ValueError(
             f"no CUDA kernel is built for head dim {head_dim}: K2 takes head dims "
             f"{HEAD_DIMS}, K2-f32 head dims {F32_HEAD_DIMS}"
+        )
+    pools = F32_POOLS_AT_HEAD_DIM.get(head_dim)
+    if pools is not None and pool_dtype not in pools:
+        raise ValueError(
+            f"no CUDA kernel takes {pool_dtype} pools at head dim {head_dim}: K2-f32 "
+            f"is built there for {sorted(str(d) for d in pools)} pools"
         )
     return ROUTE_F32
 

@@ -79,6 +79,10 @@ import torch
 _MODULE_RE = re.compile(r"^(?P<module>.+?)\((?P<fingerprint>\d+)\)$")
 # "frontdoor_round(1383...)#12" -> program name + launch number.
 _LAUNCH_RE = re.compile(r"^(?P<program>.+)#(?P<launch>\d+)$")
+#: Device ranges a library opens inside a dispatch, not dispatches:
+#: ProcessGroupNCCL annotates each collective call as ``nccl:<op>``.  Their
+#: kernels belong to the dispatch range around them.
+LIBRARY_RANGE_PREFIXES = ("nccl:",)
 
 MODULES_LANE = "XLA Modules"
 OPS_LANE = "XLA Ops"
@@ -402,7 +406,8 @@ def parse_trace_events(
     )
     spans: list[XLASpan] = []
     source = module_lane_source(data)
-    gpu_ranges = [e for e in xs if e.get("cat") == CAT_GPU_ANNOTATION]
+    gpu_ranges = [e for e in xs if e.get("cat") == CAT_GPU_ANNOTATION
+                  and not str(e.get("name", "")).startswith(LIBRARY_RANGE_PREFIXES)]
     if source == "kernel_segments":
         ops = [e for e in xs if e.get("cat") in OPS_CATEGORIES]
         spans.extend(_kernel_segments(gpu_ranges, ops, shift_us, xs))

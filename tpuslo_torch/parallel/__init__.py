@@ -1,4 +1,6 @@
-"""Device meshes for the port's training path (the counterpart of
-``tpuslo/parallel``).  Only the one-device part of :mod:`.mesh` is
-ported: the shardings, collectives and pipeline schedules belong to the
-multi-device slice (ROADMAP item 13)."""
+"""The port's multi-device plane (the counterpart of ``tpuslo/parallel``):
+meshes over ``torch.distributed`` process groups and their collectives
+(:mod:`.mesh`), the active collective prober (:mod:`.collectives`) and the
+multi-process straggler prober (:mod:`.distributed`).  Pipeline schedules
+and the training shardings belong to the slice's second half (ROADMAP
+item 13b)."""
