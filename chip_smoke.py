@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-``python3 chip_smoke.py probe {admission,bench,norm,train,multidevice,gloo} [--tree DIR]
+``python3 chip_smoke.py probe {admission,bench,norm,train,multidevice,gloo,sp} [--tree DIR]
 [--runs N]`` measures one part of the path instead, on this checkout or
 on another one (an older commit unpacked with ``git archive``), whose own
 ``tpuslo_torch`` (and, for ``admission``, ``bench`` and ``train``, its own
@@ -15,8 +15,9 @@ cost; the serving benches under one harness (the heap collected and
 frozen before every bench, whatever the tree does); the RMSNorm kernels
 at phase 18's shapes; phase 23 alone after the builds; K2-f32 at head
 dim 24 and phase 24 alone after the builds (``multidevice``: this
-checkout only); which ops gloo runs on CUDA tensors (``gloo``).  One
-JSON line per measurement (:func:`probe_main`).
+checkout only); which ops gloo runs on CUDA tensors (``gloo``); phase 25
+alone after the builds (``sp``: this checkout only).  One JSON line per
+measurement (:func:`probe_main`).
 
 Phases, each printing its own lines; any failure ends the run with a
 non-zero exit and no result line:
@@ -227,10 +228,10 @@ non-zero exit and no result line:
     against 3, a checkpoint and 3 resumed in fresh objects, bit for bit; (e)
     ``mixtral_2b6`` through ``train()``, 5 steps, every expert of every
     layer given a gradient in some step (an expert no token chose in a
-    step has none there), the router's aux loss finite;
-    (f) the serving bench's ``speculative_measured`` lane (a target and a
-    draft trained on the card, acceptance, speedup, streams identical);
-    one ``train:`` JSON line;
+    step has none there), the router's aux loss finite (the serving
+    bench's ``speculative_measured`` lane, a target and a draft trained on
+    the card, runs once, in phase 20, whose gates hold its parity and
+    acceptance); one ``train:`` JSON line;
 24. the multi-device plane on one card, one line per part: (a) ``python
     -m tpuslo_torch icibench`` over a one-rank NCCL group (every op, its
     events validated), then each op under the profiler, each launch whose
@@ -250,6 +251,23 @@ non-zero exit and no result line:
     PARITY_TOL of the unsharded engine, greedy and paged streams by the
     near-tie rule, K1 and K2 launched on each rank, the decode step's
     time; one ``multidevice:`` JSON line;
+25. sequence parallelism, one line per part: (a) sp 1 over a one-rank
+    NCCL group at ``llama32_3b(8192)``'s full width and depth on the serve
+    phase's seed, with a prompt of SP_IDS ids (``ingest_prompt`` takes
+    chunked appends): ``ring_attention`` over the group equal to the call
+    with no mesh bit for bit at the model's widths, ``ingest_prompt_sp``'s
+    logits within PARITY_TOL of ``ingest_prompt``'s (the ring's f32 fold
+    is other arithmetic than K1 and the appends), ``generate`` from the sp
+    cache and ``longserve.sp_generate`` held to ``generate`` by the
+    near-tie rule, K2 once per layer of every cached pass of the handoff's
+    decode, seconds and peak memory; (c) ``mixtral.sp_generate`` at sp 1
+    on ``mixtral_2b6`` at full width and MOE_LAYERS of its layers against
+    ``MoEServeEngine.generate`` by the near-tie rule; (b) sp 2 as two gloo
+    processes on the one card: ``sp_prefill``'s logits within PARITY_TOL
+    of sp 1's, ``sp_generate`` by the near-tie rule, each rank's
+    collectives (k and v shifted once per layer, a max and two sums per
+    decode layer) and host copies, the decode step's time and the peak
+    memory per rank; one ``sp:`` JSON line;
 19. the ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card and imports nothing of JAX or of the JAX package.
@@ -1156,30 +1174,36 @@ def _eligible_prefills(fa, serve, cfg, jobs) -> int:
     )
 
 
+def _near_tie(torch, what: str, want: list[int], got: list[int], logits_at) -> dict:
+    """``got`` against the reference stream ``want``: identical, or
+    leaving it first where the reference's top-2 margin there
+    (``logits_at(k)``: its logits after ``want[:k]``) is under
+    2 * PARITY_TOL."""
+    if len(got) != len(want):
+        _fail(f"{what}: {len(got)} tokens, generate gave {len(want)}")
+    for k, (a, b) in enumerate(zip(want, got)):
+        if a != b:
+            top2 = torch.topk(logits_at(k)[0].float(), 2).values
+            margin = float(top2[0] - top2[1])
+            if margin >= 2 * PARITY_TOL:
+                _fail(f"{what} diverged from generate at token {k} where the top-2 margin "
+                      f"is {margin:.4f} (>= {2 * PARITY_TOL}): {got} vs {want}")
+            return {"diverged_at": k, "tie_margin": margin}
+    return {"diverged_at": None, "tie_margin": None}
+
+
 def _hold_streams(torch, serve, cfg, ref, jobs, results, what: str,
                   n_tokens: int = NEW_TOKENS) -> list[dict]:
     """Each job's stream of ``n_tokens`` against ``ref.generate`` (the
-    single-request engine on the same weights): identical, or diverging
-    first where the reference's top-2 margin is under 2 * PARITY_TOL."""
+    single-request engine on the same weights), by :func:`_near_tie`."""
     report = []
     for i, (prompt, prefix) in enumerate(jobs):
         want = [e.token_id for e in ref.generate(prompt, n_tokens, stop_at_eos=False,
                                                  prefix=prefix)]
-        got = results[i]
-        diverged, margin = None, None
-        if len(got) != len(want):
-            _fail(f"{what} request {i}: {len(got)} tokens, generate gave {len(want)}")
-        for k, (a, b) in enumerate(zip(want, got)):
-            if a != b:
-                logits, _ = ref.ingest_ids(_job_ids(serve, cfg, prompt, prefix) + want[:k])
-                top2 = torch.topk(logits[0].float(), 2).values
-                diverged, margin = k, float(top2[0] - top2[1])
-                if margin >= 2 * PARITY_TOL:
-                    _fail(f"{what} request {i} diverged from generate at token {k} "
-                          f"where the top-2 margin is {margin:.4f} "
-                          f"(>= {2 * PARITY_TOL}): {got} vs {want}")
-                break
-        report.append({"request": i, "diverged_at": diverged, "tie_margin": margin})
+        ids = _job_ids(serve, cfg, prompt, prefix)
+        row = _near_tie(torch, f"{what} request {i}", want, results[i],
+                        lambda k, ids=ids, want=want: ref.ingest_ids(ids + want[:k])[0])
+        report.append({"request": i, **row})
     return report
 
 
@@ -3858,30 +3882,20 @@ def _tree_to(tree, device):
 
 def _hold_moe_streams(torch, ref, results, what: str, exact: bool) -> dict:
     """Each of :data:`MOE_JOBS`' streams against ``ref.generate``: equal
-    at every token (``exact``), or leaving it first where the reference's
-    top-2 margin, teacher-forced through ``ref.prefill_ids``, is under
-    2 * PARITY_TOL."""
+    at every token (``exact``), or by :func:`_near_tie`, the margin
+    teacher-forced through ``ref.prefill_ids``."""
     from tpuslo_torch.models.serve import encode_bytes
 
     parted = []
     for i, prompt in enumerate(MOE_JOBS):
         want = [e.token_id for e in ref.generate(prompt, NEW_TOKENS, stop_at_eos=False)]
         got = results[i]
-        k = next((j for j, (a, b) in enumerate(zip(want, got)) if a != b), None)
-        if len(got) != len(want):
-            _fail(f"{what} request {i}: {len(got)} tokens, generate gave {len(want)}")
-        margin = None
-        if k is not None:
-            if exact:
-                _fail(f"{what} request {i} left generate at token {k}: {got} vs {want}")
-            logits, _ = ref.prefill_ids(
-                encode_bytes(prompt, ref.generation_prompt_cap()) + want[:k])
-            top2 = torch.topk(logits[0].float(), 2).values
-            margin = float(top2[0] - top2[1])
-            if margin >= 2 * PARITY_TOL:
-                _fail(f"{what} request {i} left generate at token {k} where the top-2 "
-                      f"margin is {margin:.4f} (>= {2 * PARITY_TOL})")
-        parted.append({"request": i, "diverged_at": k, "tie_margin": margin})
+        if exact and got != want:
+            _fail(f"{what} request {i} left generate: {got} vs {want}")
+        ids = encode_bytes(prompt, ref.generation_prompt_cap())
+        row = _near_tie(torch, f"{what} request {i}", want, got,
+                        lambda k, ids=ids, want=want: ref.prefill_ids(ids + want[:k])[0])
+        parted.append({"request": i, **row})
     equal = sum(r["diverged_at"] is None for r in parted)
     print(f"{what}: streams vs MoEServeEngine.generate: {equal}/{len(parted)} equal at every "
           f"token{'' if exact else ', the rest leave it at near-ties'} {parted}", flush=True)
@@ -4622,7 +4636,6 @@ def phase_train(torch, fa, pa, timings: dict | None = None) -> dict:
     plain norm's in a run that took them here); measured here without."""
     import tempfile
 
-    from tpuslo_torch.benchmark import serving_bench
     from tpuslo_torch.models import llama, mixtral, train, trainer
     from tpuslo_torch.ops import launch_counts
     from tpuslo_torch.parallel.mesh import make_mesh, plan_for_devices
@@ -4646,22 +4659,9 @@ def phase_train(torch, fa, pa, timings: dict | None = None) -> dict:
                                       Path(workdir))
     out["mixtral_2b6"] = _train_moe(torch, fa, pa, rn, launch_counts, mixtral, train, trainer,
                                     mesh)
-    gc.collect()
-    torch.cuda.empty_cache()
-    _zero_counts(fa, pa, rn, launch_counts)
-    lane = serving_bench._speculative_measured_lane(device="cuda")
-    lane["launches"] = _read_counts(fa, pa, rn)
-    if lane["parity_ok"] is not True:
-        _fail(f"train: the speculative streams of the trained draft differ from target-only: "
-              f"{lane}")
-    print(f"train: speculative_measured: acceptance {lane['acceptance_rate']}, speedup "
-          f"{lane['measured_speedup']}, streams identical; target loss "
-          f"{lane['target']['loss_first']} -> {lane['target']['loss_last']}, draft "
-          f"{lane['draft']['loss_first']} -> {lane['draft']['loss_last']}", flush=True)
-    out["speculative_measured"] = lane
-    out["launches"] = {k: sum(out[p]["launches"][k] for p in (
-        "llama32_3b", "parity", "resume", "mixtral_2b6")) + lane["launches"][k]
-        for k in lane["launches"]}
+    parts = ("llama32_3b", "parity", "resume", "mixtral_2b6")
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in parts)
+                       for k in out[parts[0]]["launches"]}
     gc.collect()
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
@@ -4708,10 +4708,11 @@ def _icibench(argv: list[str], workdir: Path, name: str) -> tuple[list[dict], di
     return events, json.loads(report.read_text()) if extra else None
 
 
-def open_nccl_rank(torch) -> None:
+def open_nccl_rank(torch, backend: str = "nccl") -> None:
     """A one-rank NCCL group in this process (tcp on a free localhost
     port), for phase 24's (a) and (c): opened before (a)'s profiled part,
-    closed by :func:`phase_multidevice` after (c)."""
+    closed by :func:`phase_multidevice` after (c); phase 25 opens its own.
+    ``backend="gloo"`` opens a CPU one (a rehearsal's)."""
     import socket
 
     import torch.distributed as dist
@@ -4719,8 +4720,9 @@ def open_nccl_rank(torch) -> None:
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
-                            rank=0, device_id=torch.device("cuda", 0))
+    kwargs = {"device_id": torch.device("cuda", 0)} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0, **kwargs)
 
 
 def capture_collectives(torch) -> dict:
@@ -5032,6 +5034,285 @@ def phase_multidevice(torch, fa, pa, captured: dict) -> dict:
     return out
 
 
+# Phase 25: sequence parallelism.  A prompt of SP_IDS ids (the BOS id and
+# SP_IDS - 1 bytes): a multiple of 64 x 2, so neither sp 1 nor sp 2 pads it,
+# and longer than the largest prefill bucket, so ingest_prompt takes chunked
+# appends.  Seeds and depths are the serve phase's (llama32_3b, seed 0) and
+# phase 21's (mixtral_2b6 at MOE_LAYERS).
+SP_IDS = 6016
+SP_PROMPT = ("The ring passes each block of keys and values to its neighbour, and "
+             "every rank folds what it receives into its running softmax. " * 60)[:SP_IDS - 1]
+SP_MAX_SEQ = 8192
+SP_SEED = 0
+SP_TOKENS = 16
+SP_MOE_TOKENS = 8
+SP_TIMEOUT_S = 600.0
+
+
+def _sync(torch, device: str) -> None:
+    if device.startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def _peak_gb(torch, device: str) -> float:
+    """Peak allocated device memory since the last reset (0 on the CPU)."""
+    return torch.cuda.max_memory_allocated() / 1e9 if device.startswith("cuda") else 0.0
+
+
+def _reset_peak(torch, device: str) -> None:
+    if device.startswith("cuda"):
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _generate_from(engine, prompt: str, ingest, n_tokens: int) -> list[int]:
+    """``engine.generate``'s ordinary loop from the cache ``ingest(prompt)``
+    installs (its own ``ingest_prompt`` swapped for the call's length)."""
+    engine.ingest_prompt = lambda p, prefix=None: ingest(p)
+    try:
+        return [e.token_id for e in engine.generate(prompt, n_tokens, stop_at_eos=False)]
+    finally:
+        del engine.ingest_prompt
+
+
+def _sp1(torch, mesh_mod, cfg, device: str, prompt: str) -> tuple[dict, object, dict]:
+    """(a) sp 1 over the one-rank group: the ring against the call with no
+    mesh, bit for bit, at the model's attention widths and the prompt's
+    length; ``ingest_prompt_sp`` against ``ingest_prompt`` (logits within
+    PARITY_TOL); ``generate`` from each cache and ``sp_generate``, held to
+    ``generate`` by the near-tie rule; K2 once per layer of every cached
+    pass of the handoff's decode.  Returns (report, the engine, the
+    reference stream with the sp 1 logits) for (b)."""
+    from tpuslo_torch.models import llama, longserve, serve
+
+    ring = importlib.import_module("tpuslo_torch.ops.ring_attention")
+    t_part = time.perf_counter()
+    mesh = mesh_mod.sp_mesh(1, devices=[device])
+    engine = serve.ServeEngine(cfg, llama.init_params(SP_SEED, cfg, device),
+                               prefill_buckets=BUCKETS, decode_chunk_size=SP_TOKENS,
+                               device=device)
+    ids = serve.encode_bytes(prompt, cfg.max_seq_len - 2)
+    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=device).manual_seed(2501)
+    q, k, v = (torch.randn((1, len(ids), n, HD), generator=gen, device=device).to(cfg.dtype)
+               for n in (H, KV, KV))
+    _reset_peak(torch, device)
+    t0 = time.perf_counter()
+    ring_mesh = ring.ring_attention(q, k, v, mesh, "sp", n_rep=H // KV)
+    _sync(torch, device)
+    ring_s = time.perf_counter() - t0
+    ring_bitwise = bool(torch.equal(ring_mesh, ring.ring_attention(q, k, v, None, n_rep=H // KV)))
+    ring_peak = _peak_gb(torch, device)
+    del q, k, v, ring_mesh
+
+    _reset_peak(torch, device)
+    t0 = time.perf_counter()
+    d_logits, _, d_len = engine.ingest_prompt(prompt)
+    _sync(torch, device)
+    ingest_s = time.perf_counter() - t0
+    _reset_peak(torch, device)
+    mesh.reset_counts()
+    t0 = time.perf_counter()
+    s_logits, _, s_len = engine.ingest_prompt_sp(prompt, mesh)
+    _sync(torch, device)
+    sp_ingest_s = time.perf_counter() - t0
+    sp_peak = _peak_gb(torch, device)
+    ingest_calls = dict(mesh.calls)
+    err = float((s_logits.float() - d_logits.float()).abs().max())
+    if not ring_bitwise:
+        _fail("sp: ring_attention at sp 1 over the one-rank group differs from the call "
+              "with no mesh")
+    if s_len != d_len or not torch.isfinite(s_logits).all() or err > PARITY_TOL:
+        _fail(f"sp: ingest_prompt_sp gave {s_len} ids and logits within {err} of "
+              f"ingest_prompt's ({d_len} ids; tol {PARITY_TOL})")
+
+    want = [e.token_id for e in engine.generate(prompt, SP_TOKENS, stop_at_eos=False)]
+
+    def logits_at(k):
+        return engine.ingest_ids(ids + want[:k])[0]
+
+    lanes_0, k2_0 = _lane_layers(), _k2_all()
+    handoff = _generate_from(engine, prompt, lambda p: engine.ingest_prompt_sp(p, mesh),
+                             SP_TOKENS)
+    lanes, k2 = _lane_layers() - lanes_0, _k2_all() - k2_0
+    _hold_lanes("sp (a) the handoff's decode", k2, lanes)
+    held_handoff = _near_tie(torch, "sp (a) generate from the sp cache", want, handoff,
+                             logits_at)
+    mesh.reset_counts()
+    t0 = time.perf_counter()
+    tokens = torch.tensor([ids], dtype=torch.long, device=device)
+    streamed = longserve.sp_generate(engine.params, tokens, cfg, mesh, SP_TOKENS)[0].tolist()
+    sp_generate_s = time.perf_counter() - t0
+    held_sp = _near_tie(torch, "sp (a) sp_generate", want, streamed, logits_at)
+    out = {"transport": f"{mesh.backend}, one rank", "prompt_ids": len(ids),
+           "ring_bitwise": ring_bitwise, "ring_s": ring_s, "ring_peak_gb": ring_peak,
+           "max_logit_err": err, "tol": PARITY_TOL, "ingest_s": ingest_s,
+           "sp_ingest_s": sp_ingest_s, "sp_ingest_peak_gb": sp_peak,
+           "sp_ingest_calls": ingest_calls, "handoff": held_handoff,
+           "handoff_k2_launches": k2, "handoff_lane_layers": lanes,
+           "sp_generate": held_sp, "sp_generate_s": sp_generate_s,
+           "sp_generate_calls": dict(mesh.calls)}
+    out["seconds"] = time.perf_counter() - t_part
+    print(f"sp (a) sp 1 over one {mesh.backend} rank, {cfg.n_layers} layers of D {cfg.dim}, "
+          f"{len(ids)} prompt ids: ring_attention bit for bit equal to the call with no mesh "
+          f"({ring_s:.3f} s, peak {ring_peak:.2f} GB); ingest_prompt_sp logits within {err:.4f} "
+          f"of ingest_prompt's (tol {PARITY_TOL}; {sp_ingest_s:.2f} s, peak {sp_peak:.2f} GB, "
+          f"against {ingest_s:.2f} s of chunked appends); {SP_TOKENS} tokens of generate "
+          f"from the sp cache {held_handoff}, with K2 {k2} launches over {lanes} cached-pass "
+          f"layers; sp_generate {held_sp} ({sp_generate_s:.2f} s); {out['seconds']:.1f} s",
+          flush=True)
+    return out, engine, {"want": want, "ids": ids, "logits": s_logits[0].float().cpu()}
+
+
+def _sp_moe(torch, mesh_mod, cfg, device: str) -> dict:
+    """(c) ``mixtral.sp_generate`` at sp 1 over the one-rank group against
+    ``MoEServeEngine.generate`` by the near-tie rule."""
+    from tpuslo_torch.models import mixtral, serve
+
+    t_part = time.perf_counter()
+    mesh = mesh_mod.sp_mesh(1, devices=[device])
+    engine = mixtral.MoEServeEngine(cfg, rng_seed=0, prefill_buckets=MOE_BUCKETS,
+                                    decode_chunk_size=MOE_CHUNK, device=device)
+    prompt = PROMPTS["bucket256"]
+    ids = serve.encode_bytes(prompt, engine.generation_prompt_cap())
+    want = [e.token_id for e in engine.generate(prompt, SP_MOE_TOKENS, stop_at_eos=False)]
+    tokens = torch.tensor([ids], dtype=torch.long, device=device)
+    got = mixtral.sp_generate(engine.params, tokens, cfg, mesh, SP_MOE_TOKENS)[0].tolist()
+    held = _near_tie(torch, "sp (c) mixtral sp_generate", want, got,
+                     lambda k: engine.prefill_ids(ids + want[:k])[0])
+    out = {"config": "mixtral_2b6", "n_layers": cfg.n_layers, "prompt_ids": len(ids),
+           "tokens": SP_MOE_TOKENS, "held": held, "calls": dict(mesh.calls),
+           "seconds": time.perf_counter() - t_part}
+    print(f"sp (c) mixtral.sp_generate at sp 1, mixtral_2b6 at full width and {cfg.n_layers} "
+          f"of its layers (MOE_LAYERS), {len(ids)} prompt ids: {SP_MOE_TOKENS} tokens against "
+          f"MoEServeEngine.generate {held}; {out['seconds']:.1f} s", flush=True)
+    del engine
+    return out
+
+
+def sp2_rank(rank: int, world: int, seed: int, ids: list[int], n_tokens: int, cfg,
+             device: str = "cuda:0") -> dict:
+    """(b) one of two sp ranks on one device over gloo: the model drawn
+    from the seed, ``sp_generate``'s stream with its ``sp_prefill``'s
+    logits and the time of that prefill and of each decode step, the
+    mesh's calls and host copies, and the peak memory."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from tpuslo_torch.models import llama, longserve
+    from tpuslo_torch.parallel import mesh as mesh_mod
+
+    mesh = mesh_mod.sp_mesh(world, devices=[device])
+    params = llama.init_params(seed, cfg, device)
+    tokens = torch.tensor([ids], dtype=torch.long, device=device)
+    seen = {"sp_prefill": [], "sp_decode_step": []}  # (ms, result) of each call
+
+    def timed(fn):
+        def call(*args, **kw):
+            _sync(torch, device)
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            _sync(torch, device)
+            seen[fn.__name__].append(((time.perf_counter() - t) * 1e3, out))
+            return out
+        return call
+
+    _reset_peak(torch, device)
+    originals = {name: getattr(longserve, name) for name in seen}
+    for name, fn in originals.items():
+        setattr(longserve, name, timed(fn))
+    try:
+        stream = longserve.sp_generate(params, tokens, cfg, mesh, n_tokens)[0].tolist()
+    finally:
+        for name, fn in originals.items():
+            setattr(longserve, name, fn)
+    (prefill_ms, (logits, _)), = seen["sp_prefill"]
+    return {"logits": logits[0].float().cpu(), "stream": stream, "prefill_s": prefill_ms / 1e3,
+            "step_ms": [ms for ms, _ in seen["sp_decode_step"]], "calls": dict(mesh.calls),
+            "host_copies": mesh.host_copies, "peak_gb": _peak_gb(torch, device)}
+
+
+def _sp2(torch, mesh_mod, cfg, device: str, ref, sp1: dict) -> dict:
+    """(b) sp 2 as two gloo processes on the one device: ``sp_prefill``'s
+    logits within PARITY_TOL of (a)'s sp 1, ``sp_generate``'s stream held to
+    (a)'s ``generate`` by the near-tie rule, the collectives each rank
+    made (k and v shifted once per layer at kv-head width, a max and two
+    sums per decode layer) and those copied through host memory, the
+    decode step's time and the peak memory per rank."""
+    t_part = time.perf_counter()
+    rank_device = "cuda:0" if device == "cuda" else device
+    ranks = mesh_mod.run_ranks(sp2_rank, 2, "gloo", device, timeout_s=SP_TIMEOUT_S,
+                               args=(SP_SEED, sp1["ids"], SP_TOKENS, cfg, rank_device))
+    if ranks[0]["stream"] != ranks[1]["stream"]:
+        _fail("sp (b): the sp 2 ranks emitted different streams")
+    err = max(float((r["logits"] - sp1["logits"]).abs().max()) for r in ranks)
+    if not all(bool(torch.isfinite(r["logits"]).all()) for r in ranks) or err > PARITY_TOL:
+        _fail(f"sp (b): sp 2 prefill logits differ from sp 1's by {err} (> {PARITY_TOL})")
+    want = sp1["want"]
+    held = _near_tie(torch, "sp (b) sp 2 sp_generate", want, ranks[0]["stream"],
+                     lambda k: ref.ingest_ids(sp1["ids"] + want[:k])[0])
+    L, steps = cfg.n_layers, SP_TOKENS - 1
+    calls_want = {"shift": 2 * L, "all_reduce": 1 + 2 * steps * L,
+                  "all_reduce_max": steps * L}
+    for r, got in enumerate(ranks):
+        if got["calls"] != calls_want:
+            _fail(f"sp (b): rank {r} made the collectives {got['calls']}, not {calls_want}")
+    step_ms = [sorted(r["step_ms"])[len(r["step_ms"]) // 2] for r in ranks]
+    out = {"transport": "gloo: CUDA tensors through host memory (in gloo; shifts copied by "
+                        "the wrappers)" if device == "cuda" else "gloo, CPU",
+           "max_logit_err": err, "tol": PARITY_TOL, "held": held,
+           "collectives": [r["calls"] for r in ranks],
+           "host_copies": [r["host_copies"] for r in ranks],
+           "prefill_s": [r["prefill_s"] for r in ranks], "decode_step_ms": step_ms,
+           "peak_gb": [r["peak_gb"] for r in ranks], "seconds": time.perf_counter() - t_part}
+    print(f"sp (b) sp 2, two processes on one device over gloo (not an NVLink figure): "
+          f"sp_prefill logits within {err:.4f} of sp 1's (tol {PARITY_TOL}); {SP_TOKENS} "
+          f"tokens of sp_generate {held}; collectives per rank {out['collectives'][0]}, "
+          f"{out['host_copies']} copied through host memory by the wrappers; prefill "
+          f"{out['prefill_s']} s; decode step {step_ms} ms (median per rank); peak "
+          f"{out['peak_gb']} GB; {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def phase_sp(torch, fa, pa, rn, launch_counts, cfg=None, moe_cfg=None,
+             device: str = "cuda", prompt: str = SP_PROMPT) -> dict:
+    """Phase 25: sequence parallelism on one device ((a)-(c) above, one
+    line each).  (a) and (c) run over a one-rank group in this process
+    (NCCL on the card), torn down before (b) starts its processes.  The
+    kernels' counts are set to 0 just before and read just after.  ``cfg``
+    (default ``llama32_3b(SP_MAX_SEQ)``), ``moe_cfg`` (default
+    ``mixtral_2b6`` at MOE_LAYERS), ``device`` and ``prompt`` let a CPU
+    rehearsal run it narrow."""
+    import torch.distributed as dist
+
+    from tpuslo_torch.models import llama, mixtral
+    from tpuslo_torch.parallel import mesh as mesh_mod
+
+    cfg = cfg or llama.llama32_3b(max_seq_len=SP_MAX_SEQ)
+    moe_cfg = moe_cfg or dataclasses.replace(mixtral.mixtral_2b6(max_seq_len=1024),
+                                             n_layers=MOE_LAYERS)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    out = {}
+    _zero_counts(fa, pa, rn, launch_counts)
+    open_nccl_rank(torch, "nccl" if device == "cuda" else "gloo")
+    try:
+        out["sp1"], engine, sp1 = _sp1(torch, mesh_mod, cfg, device, prompt)
+        out["moe"] = _sp_moe(torch, mesh_mod, moe_cfg, device)
+    finally:
+        dist.destroy_process_group()
+    out["launches"] = _read_counts(fa, pa, rn)
+    out["sp2"] = _sp2(torch, mesh_mod, cfg, device, engine, sp1)
+    del engine
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"sp: phase took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def _load_tree(tree: Path):
     """The tree's ``chip_smoke`` module, with its ``tpuslo_torch`` first
     on the path."""
@@ -5217,7 +5498,21 @@ def _probe_multidevice(torch) -> None:
     print(f"multidevice: {json.dumps(phase_multidevice(torch, fa, pa, captured))}", flush=True)
 
 
-GLOO_OPS = ("all_reduce", "all_gather", "reduce_scatter", "shift", "all_to_all")
+def _probe_sp(torch) -> None:
+    """Phase 25 alone, after building the kernels (the sp 2 ranks import
+    this script's rank function, so no other tree)."""
+    from tpuslo_torch.ops import _build
+
+    sys.path.insert(0, str(ROOT))
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(_build.build, KERNELS))
+    mods = [importlib.import_module(f"tpuslo_torch.ops.{m}")
+            for m in ("flash_attention", "paged_attention", "rms_norm", "launch_counts")]
+    print(f"sp: {json.dumps(phase_sp(torch, *mods))}", flush=True)
+
+
+GLOO_OPS = ("all_reduce", "all_reduce_max", "all_gather", "reduce_scatter", "shift",
+            "all_to_all")
 
 
 def gloo_op_rank(rank: int, world: int, op: str, dtype_name: str) -> str:
@@ -5231,6 +5526,8 @@ def gloo_op_rank(rank: int, world: int, op: str, dtype_name: str) -> str:
     half = lambda: torch.empty(512, device=dev, dtype=dtype)  # noqa: E731
     if op == "all_reduce":
         dist.all_reduce(x)
+    elif op == "all_reduce_max":
+        dist.all_reduce(x, op=dist.ReduceOp.MAX)
     elif op == "all_gather":
         dist.all_gather([torch.empty_like(x) for _ in range(world)], x)
     elif op == "reduce_scatter":
@@ -5243,6 +5540,10 @@ def gloo_op_rank(rank: int, world: int, op: str, dtype_name: str) -> str:
     else:
         dist.all_to_all([half(), half()], [x[:512].clone(), x[512:].clone()])
     torch.cuda.synchronize()
+    if op.startswith("all_reduce"):  # ranks hold 1 and 2
+        want = world if op == "all_reduce_max" else world * (world + 1) // 2
+        if not bool((x.float() == want).all()):
+            return f"wrong result {float(x.float()[0])}, not {want}"
     return "ok"
 
 
@@ -5267,7 +5568,7 @@ def probe_main(argv: list[str]) -> int:
     """``python3 chip_smoke.py probe ...``: see the module's docstring."""
     p = argparse.ArgumentParser(prog="chip_smoke.py probe")
     p.add_argument("what", choices=("admission", "bench", "norm", "train", "multidevice",
-                                    "gloo"))
+                                    "gloo", "sp"))
     p.add_argument("--tree", default=str(ROOT), help="the checkout whose code runs")
     p.add_argument("--runs", type=int, default=1)
     p.add_argument("--benches", nargs="+", default=["frontdoor_tiny", "frontdoor_3b", "router"],
@@ -5284,6 +5585,9 @@ def probe_main(argv: list[str]) -> int:
         return 0
     if args.what == "gloo":
         _probe_gloo()
+        return 0
+    if args.what == "sp":
+        _probe_sp(torch)
         return 0
     if args.what == "train":
         _probe_train(torch, tree)
@@ -5469,6 +5773,13 @@ def main() -> int:
     print(f"multidevice: {json.dumps(multi)}", flush=True)
     multi_launches = {k: multi["tp1"]["frontdoor_launches"][k]
                       + sum(r[k] for r in multi["tp2"]["launches"]) for k in ("k1", "k2")}
+    # 25. sequence parallelism: sp 1 over a one-rank NCCL group (the ring,
+    # the handoff into ServeEngine, sp_generate, Mixtral's sp_generate), sp 2
+    # over gloo (its launches counted from 0 just before (a) and (c))
+    sp = phase_sp(torch, fa, pa, importlib.import_module("tpuslo_torch.ops.rms_norm"),
+                  importlib.import_module("tpuslo_torch.ops.launch_counts"))
+    print(f"sp: {json.dumps(sp)}", flush=True)
+    sp_launches = sp["launches"]
 
     # 19. kernels line, card line, result line
     line_row = next(
@@ -5495,7 +5806,8 @@ def main() -> int:
                      + front["k1_launches"] + routed["k1_launches"] + device_k1
                      + entry["launches"]["flash_attention"] + bench_k1["k1_launches"]
                      + served_launches["flash_attention"] + moe["k1_launches"]
-                     + train_launches["flash_attention"] + multi_launches["k1"]),
+                     + train_launches["flash_attention"] + multi_launches["k1"]
+                     + sp_launches["flash_attention"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel["shapes"]),
         "ms": line_row["ms"],
         "plain_ms": line_row["plain_ms"],
@@ -5513,7 +5825,8 @@ def main() -> int:
                      + front["k2_launches"] + device_k2 + entry["launches"]["paged_attention"]
                      + benches["frontdoor_3b"]["k2_launches"]
                      + served_launches["paged_attention"] + moe["k2_launches"]
-                     + train_launches["paged_attention"] + multi_launches["k2"]),
+                     + train_launches["paged_attention"] + multi_launches["k2"]
+                     + sp_launches["paged_attention"]),
         "max_abs_err": max(r["max_abs_err"] for r in k2["shapes"]),
         "ms": k2_row["ms"],
         "plain_ms": k2_row["plain_ms"],
@@ -5581,9 +5894,9 @@ def main() -> int:
         } for name, r in k2_f32_rows.items()] + [{
             "shape": f"{r['shape']}: {r['B']} lanes T={r['BS']} H={r['H']} KV={r['KV']} "
                      f"HD={r['HD']} {r['q']} q and cache, the measured speculative lane's "
-                     "target (launches: that lane's K2-f32 launches in phase 23, its HD 24 "
-                     "target and its HD 16 draft)",
-            "launches": trained["speculative_measured"]["launches"]["paged_attention_f32"],
+                     "target (launches: phase 20's K2-f32 launches, all that lane's, its HD "
+                     "24 target and its HD 16 draft)",
+            "launches": served_launches["paged_attention_f32"],
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "dense_sdpa_ms")},
         } for r in k2_f32_hd24["shapes"]],
@@ -5593,7 +5906,7 @@ def main() -> int:
         "source": "tpuslo_torch/ops/csrc/batch_invariant.cu",
         "replaces": "tpuslo/models/llama.py:299",
         "launches": (front["norm_launches"] + served_launches["rms_norm"]
-                     + train_launches["rms_norm"]),
+                     + train_launches["rms_norm"] + sp_launches["rms_norm"]),
         "max_abs_err": max(r["max_abs_err"] for r in invariance["norm"]),
         "ms": norm_row["ms"],
         "plain_ms": norm_row["plain_ms"],
@@ -5609,7 +5922,7 @@ def main() -> int:
         "source": "tpuslo_torch/ops/csrc/batch_invariant.cu",
         "replaces": "tpuslo/models/llama.py:739",
         "launches": (front["fused_launches"] + served_launches["add_rms_norm"]
-                     + train_launches["add_rms_norm"]),
+                     + train_launches["add_rms_norm"] + sp_launches["add_rms_norm"]),
         "max_abs_err": max(r["max_abs_err"] for r in invariance["fused"]),
         "ms": fused_row["ms"],
         "plain_ms": fused_row["plain_ms"],
@@ -5632,7 +5945,7 @@ def main() -> int:
               "ptxas": ptxas, "kernel": kernel, "kernel_f32": kernel_f32,
               "serve": served, "dense": dense, "paged": paged, "paged_kernel": k2,
               "paged_kernel_f32": k2_f32, "paged_kernel_f32_hd24": k2_f32_hd24,
-              "multidevice": multi,
+              "multidevice": multi, "sp": sp,
               "paged_kernel_f32_path": k2_f32_path, "paged_breakdown": breakdown, "spec": spec, "frontdoor": front,
               "router": routed, "deviceplane": device, "attribution": attributed,
               "entry": entry, "parity": parity, "parity_f32": parity_f32,

@@ -624,3 +624,83 @@ def test_the_train_attention_bound_counts_the_ports_backward():
     assert by == "bytes"
     assert ms == pytest.approx(44_040_192 / 3.35e12 * 1e3)
     assert chip_smoke.TRAIN_GRAD_SHAPES[0] == (8, 128, 24, 8, 128)
+
+
+# --- phase 25: sequence parallelism -------------------------------------------
+
+
+def test_phase_25_runs_after_phase_24_and_feeds_the_kernels_line():
+    source = (Path(chip_smoke.__file__)).read_text()
+    main = source[source.index("def main() -> int:"):]
+    assert main.index("phase_multidevice(torch") < main.index("phase_sp(torch")
+    assert main.index("phase_sp(torch") < main.index('kernels = {"kernels": [')
+    for kernel in ("flash_attention", "paged_attention", "rms_norm", "add_rms_norm"):
+        assert f'sp_launches["{kernel}"]' in main, kernel
+    assert '"sp": sp' in main and 'print(f"sp: {json.dumps(sp)}"' in main
+
+
+def test_phase_25_prints_one_line_per_part():
+    source = (Path(chip_smoke.__file__)).read_text()
+    for part in ("(a) sp 1", "(b) sp 2", "(c) mixtral"):
+        assert source.count(f'f"sp {part}') == 1, part
+    # the prompt is not padded at sp 1 or 2 and takes chunked appends
+    assert chip_smoke.SP_IDS % 128 == 0 and chip_smoke.SP_IDS > chip_smoke.BUCKETS[-1]
+    assert len(chip_smoke.SP_PROMPT) == chip_smoke.SP_IDS - 1
+
+
+def _phase_25_modules():
+    import importlib
+
+    return [importlib.import_module(f"tpuslo_torch.ops.{m}")
+            for m in ("flash_attention", "paged_attention", "rms_norm", "launch_counts")]
+
+
+def test_phase_25_rehearses_on_the_cpu_at_a_tiny_width(monkeypatch):
+    """Phase 25's functions at a 2-layer width on the CPU: sp 1 over a
+    one-rank gloo group, sp 2 as two gloo processes.  The CPU reads no
+    cache as K2's lanes, so the lane check is the one part stubbed."""
+    import sys
+
+    import torch
+
+    from tpuslo_torch.models import llama, mixtral
+
+    monkeypatch.setitem(sys.modules, "chip_smoke", chip_smoke)  # the ranks import it
+    monkeypatch.setattr(chip_smoke, "_hold_lanes", lambda *a, **k: None)
+    cfg = llama.llama_tiny(max_seq_len=512)
+    out = chip_smoke.phase_sp(torch, *_phase_25_modules(), cfg=cfg,
+                              moe_cfg=mixtral.mixtral_tiny(max_seq_len=256), device="cpu",
+                              prompt=chip_smoke.SP_PROMPT[:299])
+    sp1, sp2 = out["sp1"], out["sp2"]
+    assert sp1["ring_bitwise"] and sp1["prompt_ids"] == 300
+    assert sp1["max_logit_err"] <= chip_smoke.PARITY_TOL
+    assert sp1["sp_ingest_calls"] == {"all_reduce": 1, "all_gather": 2}
+    assert sp2["max_logit_err"] <= chip_smoke.PARITY_TOL
+    steps = chip_smoke.SP_TOKENS - 1
+    for calls in sp2["collectives"]:
+        assert calls == {"shift": 2 * cfg.n_layers, "all_reduce": 1 + 2 * steps * cfg.n_layers,
+                         "all_reduce_max": steps * cfg.n_layers}
+    assert sp2["host_copies"] == [0, 0] and len(sp2["decode_step_ms"]) == 2
+    assert out["moe"]["tokens"] == chip_smoke.SP_MOE_TOKENS
+    assert not torch.distributed.is_initialized()
+
+
+def test_a_failed_sp_part_is_not_caught_and_the_group_is_torn_down(monkeypatch):
+    import torch
+    import torch.distributed as dist
+
+    calls = []
+    monkeypatch.setattr(chip_smoke, "open_nccl_rank", lambda *a, **k: calls.append("open"))
+    monkeypatch.setattr(dist, "destroy_process_group", lambda *a, **k: calls.append("destroy"))
+
+    def sp1(*a, **k):
+        calls.append("a")
+        chip_smoke._fail("sp: a part failed")
+
+    monkeypatch.setattr(chip_smoke, "_sp1", sp1)
+    for later in ("_sp_moe", "_sp2"):
+        monkeypatch.setattr(chip_smoke, later, lambda *a, **k: calls.append(later))
+    with pytest.raises(SystemExit) as exit_:
+        chip_smoke.phase_sp(torch, *_phase_25_modules(), device="cpu")
+    assert exit_.value.code == 1
+    assert calls == ["open", "a", "destroy"]

@@ -3,7 +3,9 @@ factorization for 1-64 devices and 1, 2 and 4 slices (exact), a
 one-device mesh, a plan of more devices refused without a process group,
 and, inside spawned gloo ranks, ``make_mesh`` giving JAX's axis names and
 sizes for 2, 4 and 8 devices (and 4 over 2 slices) with one subgroup per
-axis."""
+axis, and ``sp_mesh`` giving the JAX tests' one-axis ``("sp",)`` mesh,
+over which ``all_reduce`` sums and, with ``op="max"``, takes JAX's
+``pmax``."""
 
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 
+import test_torch_sp_ranks as sp_ranks  # noqa: E402
 import test_torch_tp_ranks as ranks  # noqa: E402
 from tpuslo.parallel import mesh as jmesh  # noqa: E402
 from tpuslo_torch.parallel import mesh as tmesh  # noqa: E402
@@ -67,6 +70,21 @@ def test_make_mesh_in_ranks_gives_jaxs_axes(n, slices):
             idx = [slice(None) if i == a else c for i, c in enumerate(coords)]
             members = [d.id for d in devices[tuple(idx)].reshape(-1)]
             assert view["sums"][axis] == sum(members), axis
+
+
+def test_sp_mesh_in_ranks_gives_jaxs_axis_and_reduces_by_sum_and_max():
+    from jax.sharding import Mesh
+
+    want = Mesh(np.array(jax.devices()[:3]), ("sp",))
+    got = tmesh.run_ranks(sp_ranks.sp_mesh_checks, 3, timeout_s=ranks.RANK_TIMEOUT_S)
+    for r, view in enumerate(got):
+        assert view["axis_names"] == list(want.axis_names)
+        assert view["shape"] == dict(want.shape) and view["rank"] == r
+        assert view["plan"] is None
+        assert view["sum"] == [3.0, 30.0]
+        assert view["max"] == view["max_bf16"] == [2.0, 20.0]
+        assert view["x_after"] == [float(r), float(10 * r)]  # a new tensor; x unchanged
+        assert view["calls"] == {"all_reduce": 1, "all_reduce_max": 2}
 
 
 def test_the_training_shardings_name_13b():

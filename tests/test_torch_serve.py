@@ -185,7 +185,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 def test_out_of_scope_paths_raise():
     """A serving mesh without a tp axis raises JAX's ``ValueError`` (tp
     serving itself: ``test_torch_tp_serve.py``); sequence-parallel
-    ingestion raises, naming the multi-device slice's second half."""
+    ingestion refuses, with JAX's message, an engine with a mesh, int8 KV
+    or int8 weights (the handoff itself: ``test_torch_sp_serve.py``)."""
     from tpuslo_torch.parallel import mesh as tmesh
 
     _, et = _engines()
@@ -193,8 +194,13 @@ def test_out_of_scope_paths_raise():
     no_tp.axis_names = ("dp",)
     with pytest.raises(ValueError, match="must have a 'tp' axis"):
         ts.ServeEngine(CFG_T, mesh=no_tp, device="cpu")
-    with pytest.raises(NotImplementedError, match="ingest_prompt_sp.*13b"):
-        et.ingest_prompt_sp("x", sp_mesh=None)
+    sp = tmesh.sp_mesh(1, devices=["cpu"])
+    for engine in (_engines(quantized=True)[1],  # int8 weights and int8 KV
+                   ts.ServeEngine(CFG_T, et.params, kv_dtype="int8", device="cpu"),
+                   ts.ServeEngine(CFG_T, et.params, mesh=tmesh.tp_mesh(1, devices=["cpu"]),
+                                  device="cpu")):
+        with pytest.raises(ValueError, match="single-device bf16"):
+            engine.ingest_prompt_sp("x", sp)
 
 
 def test_params_on_another_device_raise():

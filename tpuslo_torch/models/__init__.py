@@ -1,7 +1,8 @@
 """Serving models of the port: the Llama family, its KV caches, the
 single-stream ``ServeEngine``, the continuous-batching engines (dense
 and paged), speculative decoding, the SLO-aware front door, the router
-over replicated front doors, and the JAX weight bridge."""
+over replicated front doors, long-context serving over a
+sequence-parallel mesh (``longserve``), and the JAX weight bridge."""
 
 from tpuslo_torch.models.llama import (
     GREEDY,
@@ -28,6 +29,7 @@ from tpuslo_torch.models.paged_kv import PagedBatchingEngine
 from tpuslo_torch.models.speculative import SpeculativeEngine
 from tpuslo_torch.models.frontdoor import FrontDoorEngine, FrontDoorObserver
 from tpuslo_torch.models.router import SLORouter
+from tpuslo_torch.models import longserve
 
 __all__ = [
     "GREEDY",
@@ -51,6 +53,7 @@ __all__ = [
     "llama32_1b",
     "llama32_3b",
     "llama_tiny",
+    "longserve",
     "prefill",
     "quantize_params",
     "sample_from_logits",

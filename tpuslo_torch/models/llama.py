@@ -453,12 +453,15 @@ def _matmul_fixed(x: torch.Tensor, w) -> torch.Tensor:
 
 def _embed_lookup(params: Params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Embedding gather for dense or quantized embedding tables; a tp
-    rank's vocab rows: a masked local lookup summed over the ranks."""
+    rank's vocab rows: a masked local lookup summed over the ranks.  An id
+    past the vocabulary reads the last row, as JAX's gather clamps it (a
+    byte-level engine's BOS and EOS lie past a 256-id vocabulary)."""
     e = params["embed"]
     mesh = tp_mesh_of(params)
     inside = None
+    rows = (e["q"] if isinstance(e, dict) else e).shape[0]
+    tokens = tokens.clamp(max=rows * (1 if mesh is None else mesh.shape["tp"]) - 1)
     if mesh is not None:
-        rows = (e["q"] if isinstance(e, dict) else e).shape[0]
         tokens = tokens - mesh.rank("tp") * rows
         inside = (tokens >= 0) & (tokens < rows)
         tokens = torch.where(inside, tokens, torch.zeros_like(tokens))

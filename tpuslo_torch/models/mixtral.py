@@ -24,9 +24,12 @@ Incremental decode equals the full-sequence forward only while routing
 is drop-free (``capacity_factor >= n_experts / top_k``); the batched
 engines refuse any other config, as JAX's do.
 
+Long context: :func:`sp_generate` (the ring prefill and distributed
+decode of :mod:`tpuslo_torch.models.longserve` with the MoE block).
+
 Training: :func:`loss_fn` (NLL plus the router's load-balancing term)
-and :func:`build_moe_train_step` on one device.  What waits:
-``sp_generate`` and the tp / ep shardings, for the multi-device slice.
+and :func:`build_moe_train_step` on one device.  What waits: the tp /
+ep shardings, for the multi-device slice's second half.
 """
 
 from __future__ import annotations
@@ -526,6 +529,33 @@ class MoEPagedBatchingEngine(_MoEBatchedContract, PagedBatchingEngine):
         )
 
 
+def sp_generate(
+    params: Params,
+    tokens: torch.Tensor,
+    cfg: MixtralConfig,
+    mesh,
+    max_new_tokens: int,
+    **kwargs,
+) -> torch.Tensor:
+    """Long-context MoE generation over an ``sp`` mesh.
+
+    :func:`tpuslo_torch.models.longserve.sp_generate` with the MoE block
+    through the same ``mlp_fn`` hook as every other Llama-family path.
+    Routing is positionwise, so it runs on each rank's piece of the
+    sequence; the config must be drop-free (``capacity_factor >=
+    n_experts / top_k``) so that a rank's capacity buffers never drop a
+    token the single-device path keeps, the contract the batched MoE
+    engines hold.
+    """
+    from tpuslo_torch.models import longserve
+
+    cfg = _MoEBatchedContract._require_drop_free(cfg)
+    return longserve.sp_generate(
+        params, tokens, cfg, mesh, max_new_tokens,
+        mlp_fn=_serving_mlp_fn(cfg), **kwargs,
+    )
+
+
 __all__ = [
     "MixtralConfig",
     "MoEContinuousBatchingEngine",
@@ -541,5 +571,6 @@ __all__ = [
     "mixtral_tiny",
     "param_count",
     "prefill",
+    "sp_generate",
     "verify_chunk",
 ]

@@ -35,9 +35,11 @@ What differs, and why:
   only its shard, as JAX's sharded init does.  A front door's
   admissions replay CUDA graphs, which cannot capture collectives that
   go through host memory (gloo with CUDA tensors): such a mesh is
-  refused there.  Sequence-parallel ingestion (``ingest_prompt_sp``)
-  belongs to the multi-device slice's second half (ROADMAP item 13b)
-  and raises.
+  refused there.
+* Sequence-parallel ingestion (``ingest_prompt_sp``, a mesh with an
+  ``sp`` axis) runs on an engine without a tp mesh on every sp rank: the
+  ring prefill is split over the ranks, and each rank's engine gets the
+  whole dense cache and decodes alone.
 """
 
 from __future__ import annotations
@@ -773,12 +775,50 @@ class ServeEngine:
 
     def ingest_prompt_sp(self, prompt: str, sp_mesh, axis_name: str = "sp",
                          pad_quantum: int = 64):
-        """Sequence-parallel ingestion belongs to the multi-device slice's
-        second half (ROADMAP item 13b)."""
-        raise NotImplementedError(
-            "ingest_prompt_sp (sequence-parallel prefill) is not ported yet "
-            "(ROADMAP item 13b); use ingest_prompt"
-        )
+        """Long-prompt ingestion over a sequence-parallel mesh.
+
+        :meth:`ingest_prompt` ingests past the largest bucket by serial
+        chunked appends; this path runs one
+        :func:`tpuslo_torch.models.sp_serve.sp_prefill` over the mesh (ring
+        attention, O(S / p) activations per rank) and installs the KV into
+        an ordinary dense cache, so decode continues on the engine's normal
+        loop.  Same return contract as :meth:`ingest_prompt`: (logits,
+        single-row cache, total_len).  Every rank of the mesh calls it with
+        the same prompt, each on its own engine.
+
+        The padded length snaps to ``axis_size * pad_quantum`` (the
+        bucketed-prefill discipline), clipped to the largest sp-aligned
+        length the cache holds.  bf16 dense caches only: the handoff
+        targets the single-device decode path.
+        """
+        if self.mesh is not None or self.kv_dtype != "bf16" or self.quantized:
+            raise ValueError(
+                "ingest_prompt_sp targets the single-device bf16 decode "
+                "path; serve tp/int8 engines through ingest_prompt"
+            )
+        from tpuslo_torch.models.sp_serve import sp_prefill_into_cache
+
+        n_sp = sp_mesh.shape[axis_name]
+        quantum = n_sp * pad_quantum
+        ids = encode_bytes(prompt, max(1, self.cfg.max_seq_len - 2))
+        total_len = len(ids)
+        # Snap to the quantum ladder, clipped to the largest sp-aligned
+        # length the cache can hold.
+        aligned_cap = (self.cfg.max_seq_len // n_sp) * n_sp
+        padded = min(-(-total_len // quantum) * quantum, aligned_cap)
+        if padded < total_len:
+            raise ValueError(
+                f"cfg.max_seq_len={self.cfg.max_seq_len} cannot hold a "
+                f"{total_len}-id prompt at sp axis {n_sp} (aligned "
+                f"capacity {aligned_cap})"
+            )
+        tokens = self._tokens([ids + [0] * (padded - total_len)])
+        with dispatch_range("sp_prefill", tokens):
+            logits, cache = sp_prefill_into_cache(
+                self.params, tokens, self._new_cache(1), self.cfg, sp_mesh,
+                axis_name=axis_name, true_length=total_len,
+            )
+        return logits, cache, total_len
 
     def generate(
         self,

@@ -20,13 +20,18 @@ packages.
   more than one device without a group raises and says how to start
   ranks (:func:`run_ranks`); no mesh of one device is built in its place.
 
+:func:`sp_mesh` builds the one-axis ``("sp",)`` mesh of sequence
+parallelism (the JAX tests' ``Mesh(devices[:n], ("sp",))``) the same way;
+it has no plan.
+
 Where JAX's GSPMD inserts the collectives a sharding implies, the port
-calls them: :func:`all_reduce`, :func:`all_gather`,
+calls them: :func:`all_reduce` (a sum, or a max with ``op="max"``: JAX's
+``pmax``, counted as ``all_reduce_max``), :func:`all_gather`,
 :func:`reduce_scatter`, :func:`shift` (``ppermute`` by one step, as
 ``batch_isend_irecv``) and :func:`all_to_all`, each over one axis of a
 mesh and counted in ``mesh.calls`` (by op).  Over NCCL they take device
-tensors.  Gloo takes CUDA tensors for all_reduce, all_gather and
-reduce_scatter (:data:`GLOO_CUDA_OPS`, measured on the card); its
+tensors.  Gloo takes CUDA tensors for all_reduce (sum and max), all_gather
+and reduce_scatter (:data:`GLOO_CUDA_OPS`, measured on the card); its
 send/recv of a CUDA tensor ended both ranks (``writev ... Bad address``)
 and it has no all_to_all for them, so for those two ops the wrapper
 copies a CUDA tensor through host memory explicitly and counts the copy
@@ -43,6 +48,7 @@ multi-device slice (ROADMAP item 13b) and raise.
 from __future__ import annotations
 
 import collections
+import math
 import os
 import pickle
 import queue as queue_mod
@@ -57,9 +63,10 @@ import torch
 from tpuslo_torch.device import resolve_device
 
 AXES = ("dp", "fsdp", "tp")
-#: The ops gloo runs on CUDA tensors itself (on the card, PERF.md); the
-#: others go through host memory.
-GLOO_CUDA_OPS = frozenset({"all_reduce", "all_gather", "reduce_scatter"})
+#: The ops gloo runs on CUDA tensors itself (in f32 and bf16, measured on
+#: the card by ``python3 chip_smoke.py probe gloo``, PERF.md); the others go
+#: through host memory.
+GLOO_CUDA_OPS = frozenset({"all_reduce", "all_reduce_max", "all_gather", "reduce_scatter"})
 
 TRAINING_SHARDINGS_NOT_PORTED = (
     "the training shardings (param_shardings, batch_sharding, "
@@ -148,14 +155,16 @@ class Mesh:
     is this rank's coordinate on an axis and ``group(axis)`` its
     subgroup (``None`` on a one-device mesh).  ``calls`` counts the
     collectives called over the mesh by op, ``host_copies`` those that
-    went through host memory."""
+    went through host memory.  ``axes`` (names, sizes) gives a mesh
+    without a plan (``plan`` None) its axes: :func:`sp_mesh`."""
 
-    def __init__(self, plan: MeshPlan, device: torch.device, backend: str | None = None,
-                 groups: dict | None = None, ranks: dict | None = None):
+    def __init__(self, plan: MeshPlan | None, device: torch.device, backend: str | None = None,
+                 groups: dict | None = None, ranks: dict | None = None,
+                 axes: tuple[tuple[str, ...], tuple[int, ...]] | None = None):
         self.plan = plan
         self.device = device
         self.backend = backend
-        self.axis_names, sizes = _axes(plan)
+        self.axis_names, sizes = axes or _axes(plan)
         self.shape = dict(zip(self.axis_names, sizes))
         self._groups = groups or {}
         self._ranks = ranks or {name: 0 for name in self.axis_names}
@@ -205,26 +214,33 @@ def make_mesh(plan: MeshPlan, devices: list | None = None,
     ``devices``: a one-device mesh's device list (default the card), or,
     over a group, the device every rank uses (default: each rank's own
     card).  ``backend`` must match the initialized group's when given."""
+    return _group_mesh(plan, _axes(plan), devices, backend)
+
+
+def _group_mesh(plan: MeshPlan | None, axes: tuple[tuple[str, ...], tuple[int, ...]],
+                devices: list | None, backend: str | None) -> Mesh:
+    """:func:`make_mesh` over the axes ``(names, sizes)``."""
     import torch.distributed as dist
 
+    names, sizes = axes
+    n = math.prod(sizes)
     if not (dist.is_available() and dist.is_initialized()):
-        if plan.n_devices > 1:
-            raise RuntimeError(NO_GROUP.format(n=plan.n_devices))
+        if n > 1:
+            raise RuntimeError(NO_GROUP.format(n=n))
         devices = list(devices) if devices is not None else ["cuda"]
         if not devices:
-            raise ValueError(f"plan needs {plan.n_devices} devices, have 0")
-        return Mesh(plan, resolve_device(devices[0]))
+            raise ValueError(f"plan needs {n} devices, have 0")
+        return Mesh(plan, resolve_device(devices[0]), axes=axes)
     world, me = dist.get_world_size(), dist.get_rank()
     group_backend = str(dist.get_backend())
     if backend is not None and backend != group_backend:
         raise ValueError(f"the default group runs {group_backend}, not {backend}")
-    if world != plan.n_devices:
-        raise ValueError(f"plan needs {plan.n_devices} devices, the group has {world} ranks")
+    if world != n:
+        raise ValueError(f"plan needs {n} devices, the group has {world} ranks")
     if devices:
         device = resolve_device(devices[0])
     else:
         device = rank_device("cuda" if group_backend == "nccl" else "cpu", me)
-    names, sizes = _axes(plan)
     groups, ranks = {}, {}
     for axis in names:
         for members in axis_groups(names, sizes, axis):
@@ -234,13 +250,21 @@ def make_mesh(plan: MeshPlan, devices: list | None = None,
                  else dist.new_group(members))
             if me in members:
                 groups[axis], ranks[axis] = g, members.index(me)
-    return Mesh(plan, device, group_backend, groups, ranks)
+    return Mesh(plan, device, group_backend, groups, ranks, axes)
 
 
 def tp_mesh(tp: int, devices: list | None = None, backend: str | None = None) -> Mesh:
     """A serving mesh of ``tp`` ranks on the tp axis alone (the JAX tests'
     ``Mesh(devices[:tp], ("tp",))``), over the initialized default group."""
     return make_mesh(MeshPlan(tp=tp), devices=devices, backend=backend)
+
+
+def sp_mesh(n: int, devices: list | None = None, backend: str | None = None) -> Mesh:
+    """A sequence-parallel mesh of ``n`` ranks on one axis, ``"sp"`` (the
+    JAX tests' ``Mesh(devices[:n], ("sp",))``), over the initialized
+    default group; ``n`` 1 with no group is the one-device mesh of
+    :func:`make_mesh`.  It has no plan."""
+    return _group_mesh(None, (("sp",), (n,)), devices, backend)
 
 
 # --- collectives over a mesh axis ----------------------------------------
@@ -262,17 +286,20 @@ def _run(mesh: Mesh, op: str, axis: str, x: torch.Tensor, body: Callable) -> tor
     return body(x)
 
 
-def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str = "tp") -> torch.Tensor:
-    """The sum of ``x`` over the axis (JAX ``psum``), in ``x``'s dtype; a
-    new tensor, ``x`` unchanged."""
+def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str = "tp", op: str = "sum") -> torch.Tensor:
+    """The sum of ``x`` over the axis (JAX ``psum``), or with ``op="max"``
+    its elementwise max (JAX ``pmax``, counted as ``all_reduce_max``), in
+    ``x``'s dtype; a new tensor, ``x`` unchanged."""
     import torch.distributed as dist
+
+    reduce_op = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
 
     def body(t):
         t = t.clone()
-        dist.all_reduce(t, group=mesh.group(axis))
+        dist.all_reduce(t, op=reduce_op, group=mesh.group(axis))
         return t
 
-    return _run(mesh, "all_reduce", axis, x, body)
+    return _run(mesh, "all_reduce" if op == "sum" else f"all_reduce_{op}", axis, x, body)
 
 
 def all_gather(x: torch.Tensor, mesh: Mesh, axis: str = "tp", dim: int = 0) -> torch.Tensor:
