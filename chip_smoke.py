@@ -5,8 +5,8 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-``python3 chip_smoke.py probe {admission,bench,norm,train,multidevice,gloo,sp} [--tree DIR]
-[--runs N]`` measures one part of the path instead, on this checkout or
+``python3 chip_smoke.py probe
+{admission,bench,norm,train,multidevice,gloo,sp,moemesh} [--tree DIR] [--runs N]`` measures one part of the path instead, on this checkout or
 on another one (an older commit unpacked with ``git archive``), whose own
 ``tpuslo_torch`` (and, for ``admission``, ``bench`` and ``train``, its own
 ``chip_smoke.py`` phases) it imports: phase 12's profiled windows with
@@ -16,7 +16,8 @@ frozen before every bench, whatever the tree does); the RMSNorm kernels
 at phase 18's shapes; phase 23 alone after the builds; K2-f32 at head
 dim 24 and phase 24 alone after the builds (``multidevice``: this
 checkout only); which ops gloo runs on CUDA tensors (``gloo``); phase 25
-alone after the builds (``sp``: this checkout only).  One JSON line per
+alone after the builds (``sp``: this checkout only); phase 26 alone after
+the builds (``moemesh``: this checkout only).  One JSON line per
 measurement (:func:`probe_main`).
 
 Phases, each printing its own lines; any failure ends the run with a
@@ -159,8 +160,9 @@ non-zero exit and no result line:
     front-door bench at the JAX bench's defaults (``llama_tiny``, 192
     streams, 16 slots, k 4, 96 tokens, 3 rounds per step, 2 paired
     passes), the same bench at ``llama32_3b``'s full width and 2 of its
-    28 layers (max_seq_len 192, a self-draft, 96 streams, in bf16, its exactness
-    spot check included), and the router bench at its defaults (4
+    28 layers (max_seq_len 192, a self-draft, 96 streams over 0.5 s, the
+    JAX bench's 192 a second, in bf16, its exactness spot check
+    included), and the router bench at its defaults (4
     replicas, 1,024 streams, a kill); every gate of each report must pass
     with no recapture, K1 (K1-f32 in f32) must launch once per layer per
     logged flash-eligible prefill and K2 (or K2-f32) once per layer per
@@ -268,6 +270,23 @@ non-zero exit and no result line:
     collectives (k and v shifted once per layer, a max and two sums per
     decode layer) and host copies, the decode step's time and the peak
     memory per rank; one ``sp:`` JSON line;
+26. Mixtral serving over tp and ep meshes, one line per part, on
+    ``mixtral_2b6`` at full width and MOE_LAYERS of its layers (phase 21's
+    config and seed): (a) tp 1 and ep 1 over a one-rank NCCL group:
+    ``MoEServeEngine`` (prefill logits, ``generate``), the continuous
+    engine and the paged engine (K2 on) bit for bit the same engines
+    without a mesh, K2 once per layer of every cached pass and paged step;
+    (b) ``moe_mlp_sharded`` at ep 1 over that group against ``moe_mlp`` on
+    layer 0's block (``ep_err``, held to MOEMESH_EP_TOL of the largest
+    output: the exchange rounds the expert outputs to bf16 for the return
+    hop), and the NCCL ``SendRecv`` kernels of MOEMESH_PROFILED_CALLS
+    profiled calls after a lead-in of spin kernels; (c) tp 2 and ep 2 in one
+    pair of gloo processes on the one card: tp 2's prefill logits within
+    PARITY_TOL of (a)'s engine without a mesh and its streams and the
+    paged engine's by the near-tie rule, whether ep 2's logits are bit for
+    bit that engine's, and per rank the collectives, host copies, K1 and
+    K2 launches (both > 0), the decode step and the peak memory; one
+    ``moemesh:`` JSON line;
 19. the ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card and imports nothing of JAX or of the JAX package.
@@ -3563,6 +3582,14 @@ def phase_invariance(torch, llama, kv_cache) -> dict:
 
 
 BENCH_3B_STREAMS = 96  # bench (ii): the one cut of JAX's 192 streams, for the run's time
+# ... and their arrival window, cut with them: the JAX bench's 192 streams
+# a second, its four bursts of 24 every 125 ms.  Over JAX's 1 s window the
+# cut's bursts of 24 fit the burn front door's 16 slots and 12 queued
+# (``max(8, streams // 8)``), where JAX's bursts of 48 overfill 16 + 24, so
+# whether the burning tenant was shed hung on a 2-layer model's admission
+# timing: its goodput share read 0.050-0.069 and 0.078-0.100 against the
+# gate's 0.078.  The records are the same 96, their offsets halved.
+BENCH_3B_WINDOW_S = 0.5
 BENCH_3B_SEQ = 192  # JAX's llama_tiny(max_seq_len=192), at llama32_3b's widths
 # Bench (ii) runs BENCH_3B_LAYERS of llama32_3b's 28 layers at its full widths: at full
 # depth it took 188-201 s of a script that phase 20 (the serving bench,
@@ -3718,7 +3745,7 @@ def _bench_attempt(torch, fa, pa, serve, audit, what: str, run) -> dict:
 def phase_bench(torch, fa, pa, serve, llama) -> dict:
     """The serving benches on the card: the front-door bench at JAX's
     defaults, the same bench at llama32_3b's full width and half its depth in bf16
-    (96 streams), and
+    (96 streams at the JAX bench's 192 a second), and
     the router bench at JAX's defaults; every gate must pass."""
     from tpuslo_torch.analysis import jitaudit
     from tpuslo_torch.benchmark import frontdoor_bench, router_bench
@@ -3738,7 +3765,8 @@ def phase_bench(torch, fa, pa, serve, llama) -> dict:
         out["frontdoor_3b"] = _run_bench(
             torch, fa, pa, serve, audit, f"(ii) front door, llama32_3b {BENCH_3B_DTYPE}",
             lambda log: frontdoor_bench.run_frontdoor_bench(
-                cfg=cfg, streams=BENCH_3B_STREAMS, log=log))
+                cfg=cfg, streams=BENCH_3B_STREAMS, arrival_window_s=BENCH_3B_WINDOW_S,
+                log=log))
         out["frontdoor_3b"]["model"] = {"layers": cfg.n_layers, "dim": cfg.dim,
                                         "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
                                         "ffn": cfg.ffn_dim, "vocab": cfg.vocab_size,
@@ -5313,6 +5341,341 @@ def phase_sp(torch, fa, pa, rn, launch_counts, cfg=None, moe_cfg=None,
     return out
 
 
+# Phase 26: Mixtral serving over tp and ep meshes.  (a) and (b) run over a
+# one-rank NCCL group in this process on phase 21's model (mixtral_2b6 at
+# full width, MOE_LAYERS deep, seed 0), drawn once; (c) runs tp 2 and ep 2
+# in one pair of gloo processes on the one card at the same depth, each
+# rank drawing only its shards from the same seed, so that (a)'s engine
+# without a mesh is their reference.  Streams are MOEMESH_TOKENS long (one
+# decode chunk): the decode step's median in (c) is taken over them.
+MOEMESH_SEED = 0
+MOEMESH_TOKENS = 8
+MOEMESH_PROMPTS = (PROMPTS["bucket128"], PROMPTS["bucket256"])  # K1 at buckets 128 and 256
+MOEMESH_SLOTS = 2
+MOEMESH_MLP_TOKENS = 256
+# (b)'s ep_err against the largest output of moe_mlp: the exchange rounds
+# each expert output to bf16 (2^-9 of it) before the combine, the result
+# is rounded once more, and a one-ulp difference at the largest output is
+# 2^-7 of it.
+MOEMESH_EP_TOL = 2.0**-6
+# (b)'s profiled calls, after a lead-in of spin kernels: this late in the
+# script a trace was seen to lose its first kernel events (both SendRecv
+# kernels of a lone profiled call), so the lead-in takes those and its
+# kept count says how many were lost.
+MOEMESH_PROFILED_CALLS = 4
+MOEMESH_LEAD_IN = 64
+MOEMESH_TIMEOUT_S = 300.0
+
+
+def _hold_launched(what: str, counts: dict) -> None:
+    """K1 and K2 (either build) both launched in a part of the path."""
+    k1 = counts["flash_attention"] + counts["flash_attention_f32"]
+    k2 = counts["paged_attention"] + counts["paged_attention_f32"]
+    if k1 <= 0 or k2 <= 0:
+        _fail(f"{what}: K1 launched {k1} and K2 {k2} times")
+
+
+def _moemesh_engines(mixtral, cfg, params, mesh, device: str, ids: list[int]) -> dict:
+    """What ``MoEServeEngine`` (prefill logits, ``generate``) and the
+    continuous and paged engines emit over ``mesh`` (or none)."""
+    kw = dict(prefill_buckets=MOE_BUCKETS, decode_chunk_size=MOEMESH_TOKENS, device=device)
+    eng = mixtral.MoEServeEngine(cfg, params, mesh=mesh, **kw)
+    out = {"logits": eng.prefill_ids(ids)[0],
+           "generate": [[e.token_id for e in eng.generate(p, MOEMESH_TOKENS, stop_at_eos=False)]
+                        for p in MOEMESH_PROMPTS],
+           "paged_steps": 0}
+    for name, cls, extra in (("dense", mixtral.MoEContinuousBatchingEngine, {}),
+                             ("paged", mixtral.MoEPagedBatchingEngine,
+                              {"block_size": MOE_BLOCK})):
+        engine = cls(cfg, eng.params, max_slots=MOEMESH_SLOTS, mesh=mesh, **extra, **kw)
+        if name == "paged":
+            if device.startswith("cuda") and not engine.pallas_attention:
+                _fail("moemesh: the paged MoE engine does not read its pool through K2")
+        rids = [engine.submit(p, MOEMESH_TOKENS, stop_at_eos=False) for p in MOEMESH_PROMPTS]
+        results = engine.run()
+        out[name] = [results[i] for i in rids]
+        if name == "paged":
+            out["paged_steps"] = engine.steps
+    return out, eng
+
+
+def _moemesh1(torch, mixtral, mesh_mod, cfg, params, device: str, ids: list[int],
+              counts) -> tuple[dict, object, dict]:
+    """(a) tp 1 and ep 1 over the one-rank group against the engines
+    without a mesh: the prefill logits ``torch.equal``, every stream
+    identical; K1 and K2 launched, K2 once per layer of every cached pass
+    and paged step.  Returns (report, the engine without a mesh, its
+    output) for (c)."""
+    t_part = time.perf_counter()
+    lanes_0 = _lane_layers()
+    plain, ref = _moemesh_engines(mixtral, cfg, params, None, device, ids)
+    out = {"transport": None, "equal": {}, "calls": {}}
+    paged_steps = plain["paged_steps"]
+    for axis, make in (("tp", mesh_mod.tp_mesh), ("ep", mesh_mod.ep_mesh)):
+        mesh = make(1, devices=[device])
+        out["transport"] = f"{mesh.backend}, one rank"
+        got, _ = _moemesh_engines(mixtral, cfg, params, mesh, device, ids)
+        paged_steps += got["paged_steps"]
+        out["equal"][axis] = {
+            "logits": bool(torch.equal(got["logits"], plain["logits"])),
+            **{k: got[k] == plain[k] for k in ("generate", "dense", "paged")}}
+        out["calls"][axis] = dict(mesh.calls)
+    _sync(torch, device)
+    out["launches"] = counts()
+    lanes = _lane_layers() - lanes_0
+    _hold_launched("moemesh (a)", out["launches"])
+    k2 = out["launches"]["paged_attention"] + out["launches"]["paged_attention_f32"]
+    _hold_lanes("moemesh (a)", k2, lanes, paged_steps * cfg.n_layers)
+    if not all(all(v.values()) for v in out["equal"].values()):
+        _fail(f"moemesh: tp 1 or ep 1 over one rank differs from the engines without a mesh: "
+              f"{out['equal']}")
+    out["seconds"] = time.perf_counter() - t_part
+    print(f"moemesh (a) tp 1 and ep 1 over one {out['transport']}, mixtral_2b6 at full width "
+          f"and {cfg.n_layers} layers: MoEServeEngine (prefill logits, generate), the "
+          f"continuous and the paged engine (K2 on) bit for bit the engines without a mesh "
+          f"{out['equal']}; collectives {out['calls']}; launches {out['launches']} (K2 over "
+          f"{lanes} cached-pass layers + {paged_steps} paged steps); {out['seconds']:.1f} s",
+          flush=True)
+    return out, ref, plain
+
+
+def _moemesh_exchange(torch, moe, mesh_mod, cfg, params, device: str) -> dict:
+    """(b) ``moe_mlp_sharded`` at ep 1 over the one-rank group against
+    ``moe_mlp`` on layer 0's block (full width, drop-free) over
+    MOEMESH_MLP_TOKENS tokens: ``ep_err`` (the exchange rounds the expert
+    outputs to bf16 for the return hop, ``moe_mlp`` combines them in f32),
+    the collectives of a call, the NCCL kernels MOEMESH_PROFILED_CALLS
+    calls launched under the profiler, and each one's time."""
+    t_part = time.perf_counter()
+    layer = {k: params["layers"][k][0] for k in ("router", "w1", "w3", "w2")}
+    mcfg = cfg.moe()
+    gen = torch.Generator(device=device).manual_seed(2602)
+    x = torch.randn((MOEMESH_MLP_TOKENS, cfg.dim), generator=gen, device=device).to(cfg.dtype)
+    mesh = mesh_mod.ep_mesh(1, devices=[device])
+    ref = moe.moe_mlp(layer, x, mcfg)
+    mesh.reset_counts()
+    got = moe.moe_mlp_sharded(layer, x, mcfg, mesh)
+    calls = dict(mesh.calls)
+    err = float((got.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    tol = MOEMESH_EP_TOL * scale
+    out = {"tokens": MOEMESH_MLP_TOKENS, "capacity": mcfg.capacity(MOEMESH_MLP_TOKENS),
+           "ep_err": err, "ref_max_abs": scale, "tol": tol, "calls": calls,
+           "sendrecv_kernels": None, "profiled_calls": 0, "lead_in_kept": None, "ms": None,
+           "plain_ms": None}
+    if device.startswith("cuda"):
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(MOEMESH_LEAD_IN):
+                torch.cuda._sleep(1000)
+            for _ in range(MOEMESH_PROFILED_CALLS):
+                moe.moe_mlp_sharded(layer, x, mcfg, mesh)
+            torch.cuda.synchronize()
+        kernels = _device_kernels(prof)
+        out["sendrecv_kernels"] = sum(e.count for e in kernels if "SendRecv" in e.key)
+        out["profiled_calls"] = MOEMESH_PROFILED_CALLS
+        out["lead_in_kept"] = sum(e.count for e in kernels if "spin_kernel" in e.key)
+        out["ms"] = _time_ms(torch, lambda: moe.moe_mlp_sharded(layer, x, mcfg, mesh), 5)
+        out["plain_ms"] = _time_ms(torch, lambda: moe.moe_mlp(layer, x, mcfg), 5)
+    if not torch.isfinite(got).all() or err > tol or calls != {"all_to_all": 2}:
+        _fail(f"moemesh: moe_mlp_sharded at ep 1 made {calls} and differs from moe_mlp by "
+              f"{err} (tol {tol}: 2^-6 of the largest output)")
+    out["seconds"] = time.perf_counter() - t_part
+    print(f"moemesh (b) moe_mlp_sharded at ep 1 over the one-rank group, layer 0's block "
+          f"(D {cfg.dim}, FFN {cfg.ffn_dim}, E {cfg.n_experts}, top {cfg.top_k}, capacity "
+          f"{out['capacity']} of {MOEMESH_MLP_TOKENS} tokens: drop-free): ep_err {err:.3e} "
+          f"against moe_mlp (tol {tol:.3e}: 2^-6 of the largest output, {scale:.3f}); {calls}; "
+          f"ncclDevKernel_SendRecv launches in {out['profiled_calls']} profiled calls "
+          f"{out['sendrecv_kernels']} (after {MOEMESH_LEAD_IN} spin kernels, "
+          f"{out['lead_in_kept']} kept); "
+          f"{out['ms']} ms against moe_mlp's {out['plain_ms']} ms; {out['seconds']:.1f} s",
+          flush=True)
+    return out
+
+
+def moemesh2_rank(rank: int, world: int, seed: int, cfg, ids: list[int], prompts,
+                  n_tokens: int, device: str = "cuda:0") -> dict:
+    """(c) one of two ranks on one device over gloo, tp then ep: the
+    rank's shards drawn from the seed, its prefill logits, ``generate``'s
+    streams with the time of each decode step, under tp the paged
+    engine's streams (K2 on), the mesh's calls and host copies, the
+    kernels' launches and the peak memory."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from tpuslo_torch.models import mixtral
+    from tpuslo_torch.parallel import mesh as mesh_mod
+
+    mods = [importlib.import_module(f"tpuslo_torch.ops.{m}")
+            for m in ("flash_attention", "paged_attention", "rms_norm", "launch_counts")]
+    out = {}
+    for axis, make in (("tp", mesh_mod.tp_mesh), ("ep", mesh_mod.ep_mesh)):
+        mesh = make(world, devices=[device])
+        _reset_peak(torch, device)
+        _zero_counts(*mods)
+        eng = mixtral.MoEServeEngine(cfg, rng_seed=seed, mesh=mesh, prefill_buckets=MOE_BUCKETS,
+                                     decode_chunk_size=n_tokens)
+        got = {"shards": {n: tuple(t.shape) for n, t in eng.params["layers"].items()},
+               "logits": eng.prefill_ids(ids)[0][0].float().cpu(), "streams": [],
+               "step_ms": []}
+        for p in prompts:
+            t0, toks = None, []
+            for e in eng.generate(p, n_tokens + 1, stop_at_eos=False):
+                toks.append(e.token_id)
+                if t0 is None:
+                    t0 = time.perf_counter()
+            got["step_ms"].append((time.perf_counter() - t0) * 1e3 / n_tokens)
+            got["streams"].append(toks[:n_tokens])
+        if axis == "tp":
+            pe = mixtral.MoEPagedBatchingEngine(cfg, eng.params, max_slots=len(prompts),
+                                                block_size=MOE_BLOCK, mesh=mesh,
+                                                prefill_buckets=MOE_BUCKETS,
+                                                decode_chunk_size=n_tokens)
+            rids = [pe.submit(p, n_tokens, stop_at_eos=False) for p in prompts]
+            results = pe.run()
+            got["paged"] = [results[i] for i in rids]
+            got["paged_k2"] = pe.pallas_attention
+            del pe
+        _sync(torch, device)
+        got.update(launches=_read_counts(*mods[:3]), calls=dict(mesh.calls),
+                   host_copies=mesh.host_copies, peak_gb=_peak_gb(torch, device))
+        out[axis] = got
+        del eng
+        gc.collect()
+        if device.startswith("cuda"):
+            torch.cuda.empty_cache()
+    return out
+
+
+def _moemesh2(torch, mesh_mod, cfg, device: str, ref, plain: dict, ids: list[int]) -> dict:
+    """(c) tp 2 and ep 2 in one pair of gloo processes on the one device:
+    tp 2's prefill logits within PARITY_TOL of the engine without a mesh
+    ((a)'s), its streams and the paged engine's held to that engine's
+    ``generate`` by the near-tie rule (``tp_moe_tokens``,
+    ``tp_moe_paged_tokens``); whether ep 2's logits are bit for bit that
+    engine's (else within PARITY_TOL), its streams by the near-tie rule;
+    per rank and mesh the collectives, host copies, K1 and K2 launches
+    (both > 0), the median decode step and the peak memory."""
+    from tpuslo_torch.models import serve
+
+    t_part = time.perf_counter()
+    rank_device = "cuda:0" if device == "cuda" else device
+    ranks = mesh_mod.run_ranks(moemesh2_rank, 2, "gloo", device, timeout_s=MOEMESH_TIMEOUT_S,
+                               args=(MOEMESH_SEED, cfg, ids, MOEMESH_PROMPTS, MOEMESH_TOKENS,
+                                     rank_device))
+    want_logits = plain["logits"][0].float().cpu()
+    cap = ref.generation_prompt_cap()
+
+    def held(what: str, got: list[list[int]]) -> list[dict]:
+        rows = []
+        for i, prompt in enumerate(MOEMESH_PROMPTS):
+            want = plain["generate"][i]
+            pids = serve.encode_bytes(prompt, cap)
+            rows.append({"request": i, **_near_tie(
+                torch, f"{what} request {i}", want, got[i],
+                lambda k, pids=pids, want=want: ref.prefill_ids(pids + want[:k])[0])})
+        return rows
+
+    out = {"transport": "gloo: CUDA tensors through host memory (in gloo; not an NVLink "
+                        "figure)" if device == "cuda" else "gloo, CPU"}
+    for axis in ("tp", "ep"):
+        keys = ("streams", "paged") if axis == "tp" else ("streams",)
+        for key in keys:
+            if ranks[0][axis][key] != ranks[1][axis][key]:
+                _fail(f"moemesh (c): the {axis} 2 ranks emitted different {key}")
+        err = max(float((r[axis]["logits"] - want_logits).abs().max()) for r in ranks)
+        bitwise = all(bool(torch.equal(r[axis]["logits"], want_logits)) for r in ranks)
+        if not all(bool(torch.isfinite(r[axis]["logits"]).all()) for r in ranks) or (
+                err > PARITY_TOL):
+            _fail(f"moemesh (c): {axis} 2 prefill logits differ from the engine without a mesh "
+                  f"by {err} (> {PARITY_TOL})")
+        row = {"max_logit_err": err, "bitwise": bitwise,
+               "tokens": held(f"moemesh (c) {axis} 2 generate", ranks[0][axis]["streams"])}
+        if axis == "tp":
+            row["paged_k2"] = ranks[0]["tp"]["paged_k2"]
+            row["paged_tokens"] = held("moemesh (c) tp 2 paged", ranks[0]["tp"]["paged"])
+        for r, got in enumerate(ranks):
+            _hold_launched(f"moemesh (c) {axis} 2 rank {r}", got[axis]["launches"])
+        row["per_rank"] = [{
+            "calls": got[axis]["calls"], "host_copies": got[axis]["host_copies"],
+            "launches": got[axis]["launches"], "peak_gb": got[axis]["peak_gb"],
+            "decode_step_ms": sorted(got[axis]["step_ms"])[len(got[axis]["step_ms"]) // 2],
+            "step_ms": got[axis]["step_ms"]} for got in ranks]
+        row["shards"] = {k: v for k, v in ranks[0][axis]["shards"].items()
+                         if k in ("wq", "wk", "w1", "w2")}
+        out[axis] = row
+    out["tp_moe_tokens"] = _left(out["tp"]["tokens"])
+    out["tp_moe_paged_tokens"] = _left(out["tp"]["paged_tokens"])
+    out["seconds"] = time.perf_counter() - t_part
+    for axis in ("tp", "ep"):
+        row = out[axis]
+        print(f"moemesh (c) {axis} 2, two processes on one device over gloo ({out['transport']}):"
+              f" shards {row['shards']}; prefill logits {'bit for bit' if row['bitwise'] else ''}"
+              f" within {row['max_logit_err']:.4f} of the engine without a mesh (tol "
+              f"{PARITY_TOL}); streams leaving generate at near-ties {_left(row['tokens'])} of "
+              f"{len(row['tokens'])}"
+              + (f", paged (K2 {'on' if row['paged_k2'] else 'off'}) "
+                 f"{_left(row['paged_tokens'])} of {len(row['paged_tokens'])}"
+                 if axis == "tp" else "")
+              + "; per rank: "
+              + "; ".join(f"calls {p['calls']}, host copies {p['host_copies']}, K1 "
+                          f"{p['launches']['flash_attention']} K2 "
+                          f"{p['launches']['paged_attention']}, decode step "
+                          f"{p['decode_step_ms']:.1f} ms (median), peak {p['peak_gb']:.2f} GB"
+                          for p in row["per_rank"]), flush=True)
+    print(f"moemesh (c): the pair ran {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def phase_moemesh(torch, fa, pa, rn, launch_counts, cfg=None, device: str = "cuda") -> dict:
+    """Phase 26: Mixtral serving over tp and ep meshes on one device
+    ((a)-(c) above, one line each).  (a) and (b) run over a one-rank group
+    in this process (NCCL on the card), torn down before (c) starts its
+    processes.  The kernels' counts are set to 0 just before (a) and read
+    just after it; (c)'s ranks count their own.  ``cfg`` (default
+    ``mixtral_2b6`` at MOE_LAYERS) and ``device`` let a CPU rehearsal run
+    it narrow."""
+    import torch.distributed as dist
+
+    from tpuslo_torch.models import mixtral, serve
+    from tpuslo_torch.ops import moe
+    from tpuslo_torch.parallel import mesh as mesh_mod
+
+    cfg = cfg or dataclasses.replace(mixtral.mixtral_2b6(max_seq_len=1024), n_layers=MOE_LAYERS)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    out = {"config": "mixtral_2b6", "n_layers": cfg.n_layers, "dim": cfg.dim,
+           "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "ffn_dim": cfg.ffn_dim,
+           "n_experts": cfg.n_experts, "top_k": cfg.top_k, "tokens": MOEMESH_TOKENS}
+    params = mixtral.init_params(MOEMESH_SEED, cfg, device)
+    ids = serve.encode_bytes(MOEMESH_PROMPTS[1], cfg.max_seq_len - MOEMESH_TOKENS - 1)
+    open_nccl_rank(torch, "nccl" if device == "cuda" else "gloo")
+    try:
+        _zero_counts(fa, pa, rn, launch_counts)
+        out["one_rank"], ref, plain = _moemesh1(torch, mixtral, mesh_mod, cfg, params, device,
+                                                ids, lambda: _read_counts(fa, pa, rn))
+        out["exchange"] = _moemesh_exchange(torch, moe, mesh_mod, cfg, params, device)
+    finally:
+        dist.destroy_process_group()
+    out["two_ranks"] = _moemesh2(torch, mesh_mod, cfg, device, ref, plain, ids)
+    out["ep_err"] = out["exchange"]["ep_err"]
+    out["tp_moe_tokens"] = out["two_ranks"]["tp_moe_tokens"]
+    out["tp_moe_paged_tokens"] = out["two_ranks"]["tp_moe_paged_tokens"]
+    out["launches"] = {k: out["one_rank"]["launches"][k] + sum(
+        p["launches"][k] for axis in ("tp", "ep") for p in out["two_ranks"][axis]["per_rank"])
+        for k in out["one_rank"]["launches"]}
+    del ref, plain, params
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"moemesh: phase took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def _load_tree(tree: Path):
     """The tree's ``chip_smoke`` module, with its ``tpuslo_torch`` first
     on the path."""
@@ -5439,7 +5802,8 @@ def _probe_bench(torch, cs, tree: Path, runs: int, names: list[str]) -> None:
     benches = {
         "frontdoor_tiny": lambda log: frontdoor_bench.run_frontdoor_bench(log=log),
         "frontdoor_3b": lambda log: frontdoor_bench.run_frontdoor_bench(
-            cfg=cfg_3b, streams=cs.BENCH_3B_STREAMS, log=log),
+            cfg=cfg_3b, streams=cs.BENCH_3B_STREAMS,
+            arrival_window_s=getattr(cs, "BENCH_3B_WINDOW_S", 1.0), log=log),
         "router": lambda log: router_bench.run_router_bench(log=log),
     }
     jitaudit.install()
@@ -5461,6 +5825,8 @@ def _probe_bench(torch, cs, tree: Path, runs: int, names: list[str]) -> None:
                     **{k: b.get(k) for k in ("failed", "passed", "attempts", "admission_s",
                                              "admission_calls", "seconds", "recaptures",
                                              "slo", "failures")},
+                    "burn": b.get("burn"),
+                    "first_burn": b.get("first_attempt", {}).get("burn"),
                     **{k: v for k, v in b.items() if "ttft" in k or "speedup" in k}}),
                     flush=True)
     finally:
@@ -5496,6 +5862,22 @@ def _probe_multidevice(torch) -> None:
     open_nccl_rank(torch)
     captured = capture_collectives(torch)
     print(f"multidevice: {json.dumps(phase_multidevice(torch, fa, pa, captured))}", flush=True)
+
+
+def _probe_moemesh(torch) -> None:
+    """Phase 26 alone, after building the kernels (the (c) ranks import
+    this script's rank function, so no other tree)."""
+    from tpuslo_torch.ops import _build
+
+    sys.path.insert(0, str(ROOT))
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(_build.build, KERNELS))
+    mods = [importlib.import_module(f"tpuslo_torch.ops.{m}")
+            for m in ("flash_attention", "paged_attention", "rms_norm", "launch_counts")]
+    t0 = time.perf_counter()
+    out = phase_moemesh(torch, *mods)
+    print(f"moemesh: {json.dumps(out)}", flush=True)
+    print(f"moemesh: probe took {time.perf_counter() - t0:.1f} s after the builds", flush=True)
 
 
 def _probe_sp(torch) -> None:
@@ -5568,7 +5950,7 @@ def probe_main(argv: list[str]) -> int:
     """``python3 chip_smoke.py probe ...``: see the module's docstring."""
     p = argparse.ArgumentParser(prog="chip_smoke.py probe")
     p.add_argument("what", choices=("admission", "bench", "norm", "train", "multidevice",
-                                    "gloo", "sp"))
+                                    "gloo", "sp", "moemesh"))
     p.add_argument("--tree", default=str(ROOT), help="the checkout whose code runs")
     p.add_argument("--runs", type=int, default=1)
     p.add_argument("--benches", nargs="+", default=["frontdoor_tiny", "frontdoor_3b", "router"],
@@ -5588,6 +5970,9 @@ def probe_main(argv: list[str]) -> int:
         return 0
     if args.what == "sp":
         _probe_sp(torch)
+        return 0
+    if args.what == "moemesh":
+        _probe_moemesh(torch)
         return 0
     if args.what == "train":
         _probe_train(torch, tree)
@@ -5780,6 +6165,13 @@ def main() -> int:
                   importlib.import_module("tpuslo_torch.ops.launch_counts"))
     print(f"sp: {json.dumps(sp)}", flush=True)
     sp_launches = sp["launches"]
+    # 26. Mixtral serving over tp and ep meshes: tp 1 and ep 1 over a one-rank
+    # NCCL group, the expert exchange at ep 1, tp 2 and ep 2 over gloo (its
+    # launches counted from 0 just before (a), and (c)'s ranks' own)
+    moemesh = phase_moemesh(torch, fa, pa, importlib.import_module("tpuslo_torch.ops.rms_norm"),
+                            importlib.import_module("tpuslo_torch.ops.launch_counts"))
+    print(f"moemesh: {json.dumps(moemesh)}", flush=True)
+    moemesh_launches = moemesh["launches"]
 
     # 19. kernels line, card line, result line
     line_row = next(
@@ -5807,7 +6199,7 @@ def main() -> int:
                      + entry["launches"]["flash_attention"] + bench_k1["k1_launches"]
                      + served_launches["flash_attention"] + moe["k1_launches"]
                      + train_launches["flash_attention"] + multi_launches["k1"]
-                     + sp_launches["flash_attention"]),
+                     + sp_launches["flash_attention"] + moemesh_launches["flash_attention"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel["shapes"]),
         "ms": line_row["ms"],
         "plain_ms": line_row["plain_ms"],
@@ -5826,7 +6218,7 @@ def main() -> int:
                      + benches["frontdoor_3b"]["k2_launches"]
                      + served_launches["paged_attention"] + moe["k2_launches"]
                      + train_launches["paged_attention"] + multi_launches["k2"]
-                     + sp_launches["paged_attention"]),
+                     + sp_launches["paged_attention"] + moemesh_launches["paged_attention"]),
         "max_abs_err": max(r["max_abs_err"] for r in k2["shapes"]),
         "ms": k2_row["ms"],
         "plain_ms": k2_row["plain_ms"],
@@ -5906,7 +6298,8 @@ def main() -> int:
         "source": "tpuslo_torch/ops/csrc/batch_invariant.cu",
         "replaces": "tpuslo/models/llama.py:299",
         "launches": (front["norm_launches"] + served_launches["rms_norm"]
-                     + train_launches["rms_norm"] + sp_launches["rms_norm"]),
+                     + train_launches["rms_norm"] + sp_launches["rms_norm"]
+                     + moemesh_launches["rms_norm"]),
         "max_abs_err": max(r["max_abs_err"] for r in invariance["norm"]),
         "ms": norm_row["ms"],
         "plain_ms": norm_row["plain_ms"],
@@ -5922,7 +6315,8 @@ def main() -> int:
         "source": "tpuslo_torch/ops/csrc/batch_invariant.cu",
         "replaces": "tpuslo/models/llama.py:739",
         "launches": (front["fused_launches"] + served_launches["add_rms_norm"]
-                     + train_launches["add_rms_norm"] + sp_launches["add_rms_norm"]),
+                     + train_launches["add_rms_norm"] + sp_launches["add_rms_norm"]
+                     + moemesh_launches["add_rms_norm"]),
         "max_abs_err": max(r["max_abs_err"] for r in invariance["fused"]),
         "ms": fused_row["ms"],
         "plain_ms": fused_row["plain_ms"],
@@ -5945,7 +6339,7 @@ def main() -> int:
               "ptxas": ptxas, "kernel": kernel, "kernel_f32": kernel_f32,
               "serve": served, "dense": dense, "paged": paged, "paged_kernel": k2,
               "paged_kernel_f32": k2_f32, "paged_kernel_f32_hd24": k2_f32_hd24,
-              "multidevice": multi, "sp": sp,
+              "multidevice": multi, "sp": sp, "moemesh": moemesh,
               "paged_kernel_f32_path": k2_f32_path, "paged_breakdown": breakdown, "spec": spec, "frontdoor": front,
               "router": routed, "deviceplane": device, "attribution": attributed,
               "entry": entry, "parity": parity, "parity_f32": parity_f32,

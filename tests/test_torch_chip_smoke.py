@@ -246,6 +246,35 @@ def test_bench_ii_keeps_the_3b_widths_at_half_its_depth():
     assert chip_smoke.MOE_LAYERS == 8
 
 
+def test_bench_ii_cuts_its_window_with_its_streams():
+    """Bench (ii) serves the JAX bench's first 96 records at its rate of
+    192 a second: the same records as over a 1 s window, offsets halved."""
+    import inspect
+
+    from tpuslo_torch.benchmark import frontdoor_bench
+    from tpuslo_torch.cli.loadgen import synthesize_requests
+
+    defaults = inspect.signature(frontdoor_bench.run_frontdoor_bench).parameters
+    jax_rate = defaults["streams"].default / defaults["arrival_window_s"].default
+    n, window = chip_smoke.BENCH_3B_STREAMS, chip_smoke.BENCH_3B_WINDOW_S
+    assert n / window == jax_rate == 192
+
+    def records(duration_s):
+        return synthesize_requests(profile="chat_short", rps=n / duration_s,
+                                   duration_s=duration_s, seed=defaults["seed"].default,
+                                   arrival="burst", tenants=4, tenant_mix="40,30,20,10",
+                                   prefix_rate=0.35)[:n]
+
+    cut, whole = records(window), records(1.0)
+    assert len(cut) == n
+    for a, b in zip(cut, whole):
+        # loadgen rounds each offset to the microsecond
+        assert a["offset_ms"] == pytest.approx(b["offset_ms"] * window, abs=1e-3)
+        assert {k: v for k, v in a.items() if k != "offset_ms"} == \
+            {k: v for k, v in b.items() if k != "offset_ms"}
+    assert max(r["offset_ms"] for r in cut) < 1000.0 * window
+
+
 def test_hold_exact_fails_only_a_held_stream():
     ok = chip_smoke._hold_exact("t", [[1, 2, 3], [1, 9, 3]], [[1, 2, 3], [1, 2, 3]],
                                 [True, False])
@@ -702,5 +731,93 @@ def test_a_failed_sp_part_is_not_caught_and_the_group_is_torn_down(monkeypatch):
         monkeypatch.setattr(chip_smoke, later, lambda *a, **k: calls.append(later))
     with pytest.raises(SystemExit) as exit_:
         chip_smoke.phase_sp(torch, *_phase_25_modules(), device="cpu")
+    assert exit_.value.code == 1
+    assert calls == ["open", "a", "destroy"]
+
+
+# --- phase 26: Mixtral serving over tp and ep meshes -------------------------
+
+
+def test_phase_26_runs_after_phase_25_and_feeds_the_kernels_line():
+    source = (Path(chip_smoke.__file__)).read_text()
+    main = source[source.index("def main() -> int:"):]
+    assert main.index("phase_sp(torch") < main.index("phase_moemesh(torch")
+    assert main.index("phase_moemesh(torch") < main.index('kernels = {"kernels": [')
+    for kernel in ("flash_attention", "paged_attention", "rms_norm", "add_rms_norm"):
+        assert f'moemesh_launches["{kernel}"]' in main, kernel
+    assert '"moemesh": moemesh' in main and 'print(f"moemesh: {json.dumps(moemesh)}"' in main
+
+
+def test_phase_26_prints_one_line_per_part():
+    source = (Path(chip_smoke.__file__)).read_text()
+    for part in ("(a) tp 1 and ep 1", "(b) moe_mlp_sharded", "(c) {axis} 2"):
+        assert source.count(f'print(f"moemesh {part}') == 1, part
+    # the prompts prefill at buckets 128 and 256, where K1 runs at head dim 128
+    from tpuslo_torch.models import serve
+
+    assert [serve._bucket(len(serve.encode_bytes(p, 256)), chip_smoke.MOE_BUCKETS)
+            for p in chip_smoke.MOEMESH_PROMPTS] == [128, 256]
+
+
+def test_phase_26_rehearses_on_the_cpu_at_a_tiny_width(monkeypatch):
+    """Phase 26's functions at mixtral_tiny's width on the CPU: tp 1, ep 1
+    and the exchange over a one-rank gloo group, tp 2 and ep 2 as two gloo
+    processes.  The CPU launches neither K1 nor K2, so the two launch
+    checks are the parts stubbed."""
+    import sys
+
+    import torch
+
+    from tpuslo_torch.models import mixtral
+
+    monkeypatch.setitem(sys.modules, "chip_smoke", chip_smoke)  # the ranks import it
+    monkeypatch.setattr(chip_smoke, "_hold_lanes", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "_hold_launched", lambda *a, **k: None)
+    cfg = mixtral.mixtral_tiny(max_seq_len=512)
+    out = chip_smoke.phase_moemesh(torch, *_phase_25_modules(), cfg=cfg, device="cpu")
+    one = out["one_rank"]
+    assert all(all(v.values()) for v in one["equal"].values())
+    L = cfg.n_layers
+    assert one["calls"]["ep"] == {"all_reduce": one["calls"]["ep"]["all_reduce"]}
+    assert one["calls"]["ep"]["all_reduce"] % L == 0
+    assert set(one["calls"]["tp"]) == {"all_reduce", "all_gather"}
+    assert out["exchange"]["calls"] == {"all_to_all": 2}
+    assert 0 < out["ep_err"] <= out["exchange"]["tol"]
+    two = out["two_ranks"]
+    assert two["tp"]["max_logit_err"] <= chip_smoke.PARITY_TOL
+    assert two["ep"]["bitwise"] and two["ep"]["max_logit_err"] == 0.0
+    for axis in ("tp", "ep"):
+        for rank in two[axis]["per_rank"]:
+            assert rank["host_copies"] == 0 and len(rank["step_ms"]) == 2
+    assert two["tp"]["shards"]["w1"] == (L, cfg.n_experts, cfg.dim, cfg.ffn_dim // 2)
+    assert two["ep"]["shards"]["w1"] == (L, cfg.n_experts // 2, cfg.dim, cfg.ffn_dim)
+    assert out["tp_moe_tokens"] == _left_count(two["tp"]["tokens"])
+    assert not torch.distributed.is_initialized()
+
+
+def _left_count(rows):
+    return sum(r["diverged_at"] is not None for r in rows)
+
+
+def test_a_failed_moemesh_part_is_not_caught_and_the_group_is_torn_down(monkeypatch):
+    import torch
+    import torch.distributed as dist
+
+    calls = []
+    monkeypatch.setattr(chip_smoke, "open_nccl_rank", lambda *a, **k: calls.append("open"))
+    monkeypatch.setattr(dist, "destroy_process_group", lambda *a, **k: calls.append("destroy"))
+
+    def one(*a, **k):
+        calls.append("a")
+        chip_smoke._fail("moemesh: a part failed")
+
+    monkeypatch.setattr(chip_smoke, "_moemesh1", one)
+    for later in ("_moemesh_exchange", "_moemesh2"):
+        monkeypatch.setattr(chip_smoke, later, lambda *a, **k: calls.append(later))
+    from tpuslo_torch.models import mixtral
+
+    with pytest.raises(SystemExit) as exit_:
+        chip_smoke.phase_moemesh(torch, *_phase_25_modules(),
+                                 cfg=mixtral.mixtral_tiny(max_seq_len=512), device="cpu")
     assert exit_.value.code == 1
     assert calls == ["open", "a", "destroy"]

@@ -90,7 +90,7 @@ def test_sp_mesh_in_ranks_gives_jaxs_axis_and_reduces_by_sum_and_max():
 def test_the_training_shardings_name_13b():
     for fn, args in ((tmesh.param_shardings, (None,)), (tmesh.batch_sharding, (None,)),
                      (tmesh.optimizer_state_shardings, (None, None, None))):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 13b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 13b-iii"):
             fn(*args)
 
 

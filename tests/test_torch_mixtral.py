@@ -318,12 +318,22 @@ def test_batched_engines_refuse_a_prefix_at_submit(cls):
 
 
 def test_serve_engine_refuses_a_prefix_and_a_mesh():
+    """A prefix, and a mesh with neither a ``tp`` nor an ``ep`` axis (JAX's
+    message; the tp and ep meshes themselves: ``test_torch_moe_mesh.py``)."""
+    from jax.sharding import Mesh
+
+    from tpuslo_torch.parallel import mesh as tmesh
+
     _, pt = _weights()
     engine = tm.MoEServeEngine(cfg=CFG_T, params=pt, device="cpu", **_engine_kw())
     with pytest.raises(ValueError, match="no prefix cache"):
         engine.ingest_prompt("q", prefix="p")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        tm.MoEServeEngine(cfg=CFG_T, params=pt, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="'tp' or 'ep'") as jerr:
+        jm.MoEServeEngine(cfg=CFG_J, mesh=Mesh(np.array(jax.devices()[:2]), ("dp",)))
+    dp = tmesh.Mesh(None, torch.device("cpu"), backend="gloo", axes=(("dp",), (2,)))
+    with pytest.raises(ValueError, match="'tp' or 'ep'") as terr:
+        tm.MoEServeEngine(cfg=CFG_T, params=pt, device="cpu", mesh=dp)
+    assert str(terr.value) == str(jerr.value)
 
 
 def test_paged_engine_refuses_bad_block_geometry_before_building():

@@ -194,9 +194,45 @@ def test_capacity_matches_jax(T):
         assert ct.capacity(T) == cj.capacity(T)
 
 
+def _ep_mesh_at(n: int, rank: int):
+    """A mesh object of ``n`` ep ranks seen from ``rank``, with no group
+    behind it: enough for what raises, or cuts, before any collective."""
+    from tpuslo_torch.parallel import mesh as tmesh
+
+    return tmesh.Mesh(None, torch.device("cpu"), backend="gloo", ranks={"ep": rank},
+                      axes=(("ep",), (n,)))
+
+
 @pytest.mark.parametrize("fn", ["moe_mlp_sharded", "moe_params_specs", "place_moe_params"])
 def test_expert_parallelism_waits_for_the_multi_device_slice(fn):
-    args = {"moe_mlp_sharded": (None, None, None, None), "moe_params_specs": (),
-            "place_moe_params": (None, None)}[fn]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        getattr(tmoe, fn)(*args)
+    """Expert parallelism, once the multi-device slice's, is ported: the
+    layout table names JAX's split dims, a rank's shard is JAX's
+    ``addressable_shards[r].data``, and ``moe_mlp_sharded`` refuses what
+    JAX refuses, with its messages, before any collective.  (The sharded
+    outputs against JAX: ``test_torch_moe_mesh.py``.)"""
+    from jax.sharding import Mesh
+
+    cj, ct, pj, pt, x = _inputs(16, 8, 2, 2.0)
+    if fn == "moe_params_specs":
+        for axis in ("ep", "experts"):
+            want = {k: (list(s).index(axis) if axis in s else None)
+                    for k, s in jmoe.moe_params_specs(axis).items()}
+            assert tmoe.moe_params_specs(axis) == want
+        return
+    if fn == "place_moe_params":
+        for n in (2, 4):
+            placed = jmoe.place_moe_params(pj, Mesh(np.array(jax.devices()[:n]), ("ep",)))
+            for r in range(n):
+                got = tmoe.place_moe_params(pt, _ep_mesh_at(n, r))
+                for k, leaf in placed.items():
+                    shard = next(s for s in leaf.addressable_shards
+                                 if s.device == jax.devices()[r])
+                    np.testing.assert_array_equal(got[k].numpy(), np.asarray(shard.data))
+        return
+    for n, rows, what in ((3, 12, "n_experts"), (2, 15, "tokens")):
+        xs = jnp.asarray(x[:rows])
+        with pytest.raises(ValueError, match=f"{what}=.* not divisible by ep={n}") as jerr:
+            jmoe.moe_mlp_sharded(pj, xs, cj, Mesh(np.array(jax.devices()[:n]), ("ep",)))
+        with pytest.raises(ValueError) as terr:
+            tmoe.moe_mlp_sharded(pt, torch.from_numpy(x[:rows]), ct, _ep_mesh_at(n, 0))
+        assert str(terr.value) == str(jerr.value)

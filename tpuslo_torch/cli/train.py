@@ -6,7 +6,7 @@ The same flags and JSON lines as ``python -m tpuslo train``: one
 "first_step", "last_step", "final_loss"}`` line.  It trains on the card;
 ``--cpu-mesh 1`` trains on the CPU.  A plan of more than one device
 (``--cpu-mesh N`` with N > 1, ``--slices`` > 1) is refused: the shardings
-belong to the multi-device slice (ROADMAP item 13b).  ``mixtral_*``
+belong to the multi-device slice's last part (ROADMAP item 13b-iii).  ``mixtral_*``
 trains the MoE family on the one device (dp 1, ep 1).
 """
 
@@ -37,17 +37,17 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--ckpt-every", type=int, default=0)
     parser.add_argument(
         "--slices", type=int, default=1,
-        help="multi-slice plan (more than 1 needs the multi-device slice, ROADMAP 13b)",
+        help="multi-slice plan (more than 1 needs the multi-device slice, ROADMAP 13b-iii)",
     )
     parser.add_argument(
         "--cpu-mesh", type=int, default=0, metavar="N",
-        help="train on the CPU (N must be 1: more devices need ROADMAP 13b)",
+        help="train on the CPU (N must be 1: more devices need ROADMAP 13b-iii)",
     )
     args = parser.parse_args(argv)
     if args.cpu_mesh > 1 or args.slices > 1:
         print(
             "tpuslo_torch train: a plan of more than one device (--cpu-mesh > 1, "
-            "--slices > 1) belongs to the multi-device slice (ROADMAP item 13b) and "
+            "--slices > 1) belongs to the multi-device slice (ROADMAP item 13b-iii) and "
             "is not ported yet",
             file=sys.stderr,
         )

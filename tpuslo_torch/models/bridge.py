@@ -24,6 +24,10 @@ by one framework's front door can be adopted by the other's.
 :func:`shard_serve_params` cuts one tp rank's shards out of a serving
 tree, as JAX's ``serve_param_shardings`` places them on its mesh: rank
 ``r``'s leaves equal the JAX mesh's ``addressable_shards[r].data``.
+:func:`shard_moe_serve_params` does the same for a Mixtral serving tree
+under its tp or ep layout (:data:`MOE_TP_SPLIT_AXIS`,
+:data:`MOE_EP_SPLIT_AXIS`: JAX's ``tp_serve_param_shardings`` and
+``ep_serve_param_shardings``).
 
 AdamW's moments go both ways (:func:`adamw_state_from_numpy`,
 :func:`adamw_state_to_numpy`): optax's ``ScaleByAdamState(count, mu,
@@ -189,43 +193,68 @@ SERVE_SPLIT_AXIS = {
 }
 
 
-def _split(t: torch.Tensor, axis: int | None, tp: int, rank: int) -> torch.Tensor:
-    """Rank ``rank``'s contiguous part of ``t`` along ``axis`` (a fresh
-    tensor, so that the whole leaf can be freed); ``None``: a copy."""
+#: The Mixtral family's serving layouts.  tp (JAX's
+#: ``tp_serve_param_shardings``): attention, the embedding and the head as
+#: in :data:`SERVE_SPLIT_AXIS`, the router replicated, ``w1`` and ``w3``
+#: split on each expert's hidden axis (3 of ``(L, E, D, F)``), ``w2`` on
+#: its contracting axis.  ep (JAX's ``param_shardings``, which
+#: ``ep_serve_param_shardings`` returns): the expert axis (1) of ``w1``,
+#: ``w3`` and ``w2`` split, everything else replicated.
+MOE_TP_SPLIT_AXIS = {**SERVE_SPLIT_AXIS, "layers/router": None,
+                     "layers/w1": 3, "layers/w3": 3, "layers/w2": 2}
+MOE_EP_SPLIT_AXIS = {**{path: None for path in MOE_TP_SPLIT_AXIS},
+                     "layers/w1": 1, "layers/w3": 1, "layers/w2": 1}
+
+
+def split_part(t: torch.Tensor, axis: int | None, n: int, rank: int) -> torch.Tensor:
+    """Rank ``rank`` of ``n``'s contiguous part of ``t`` along ``axis`` (a
+    fresh tensor, so that the whole leaf can be freed); ``None``: a
+    copy."""
     if axis is None:
         return t.clone()
-    n = t.shape[axis]
-    if n % tp:
-        raise ValueError(f"axis {axis} of {tuple(t.shape)} does not split over tp={tp}")
-    return t.narrow(axis, rank * (n // tp), n // tp).contiguous()
+    size = t.shape[axis]
+    if size % n:
+        raise ValueError(f"axis {axis} of {tuple(t.shape)} does not split over {n} ranks")
+    return t.narrow(axis, rank * (size // n), size // n).contiguous()
 
 
-def shard_leaf(path: str, leaf, tp: int, rank: int):
-    """Rank ``rank``'s shard of the serving leaf at ``path`` (dense, or an
-    int8 ``{"q", "s"}`` leaf: ``q`` split like the dense weight, ``s``
-    like ``q``'s output axis, which is ``q``'s split with the contracting
-    axis -2 dropped)."""
-    axis = SERVE_SPLIT_AXIS[path]
+def shard_leaf(path: str, leaf, tp: int, rank: int, layout: dict = SERVE_SPLIT_AXIS):
+    """Rank ``rank``'s shard of the serving leaf at ``path`` under
+    ``layout`` (dense, or an int8 ``{"q", "s"}`` leaf: ``q`` split like
+    the dense weight, ``s`` like ``q``'s output axis, which is ``q``'s
+    split with the contracting axis -2 dropped)."""
+    axis = layout[path]
     if not isinstance(leaf, dict):
-        return _split(leaf, axis, tp, rank)
+        return split_part(leaf, axis, tp, rank)
     q_nd = leaf["q"].ndim
     s_axis = None
     if axis is not None and axis != q_nd - 2:
         s_axis = axis if axis < q_nd - 2 else axis - 1
-    return {"q": _split(leaf["q"], axis, tp, rank), "s": _split(leaf["s"], s_axis, tp, rank)}
+    return {"q": split_part(leaf["q"], axis, tp, rank),
+            "s": split_part(leaf["s"], s_axis, tp, rank)}
 
 
-def shard_serve_params(params: dict, tp: int, rank: int) -> dict:
-    """Rank ``rank`` of ``tp``'s shards of a Llama serving tree (dense or
-    int8): a new tree of fresh tensors on the leaves' device."""
+def shard_serve_params(params: dict, tp: int, rank: int,
+                       layout: dict = SERVE_SPLIT_AXIS) -> dict:
+    """Rank ``rank`` of ``tp``'s shards of a serving tree (dense or int8)
+    under ``layout`` (default: the Llama family's): a new tree of fresh
+    tensors on the leaves' device."""
     out: dict = {}
-    for path in SERVE_SPLIT_AXIS:
+    for path in layout:
         *parents, name = path.split("/")
         src, dst = params, out
         for key in parents:
             src, dst = src[key], dst.setdefault(key, {})
-        dst[name] = shard_leaf(path, src[name], tp, rank)
+        dst[name] = shard_leaf(path, src[name], tp, rank, layout)
     return out
+
+
+def shard_moe_serve_params(params: dict, layout: dict, n: int, rank: int) -> dict:
+    """Rank ``rank`` of ``n``'s shards of a Mixtral serving tree under
+    ``layout`` (:data:`MOE_TP_SPLIT_AXIS` or :data:`MOE_EP_SPLIT_AXIS`):
+    rank ``r``'s leaves equal the JAX mesh's ``addressable_shards[r].data``
+    under the matching JAX shardings."""
+    return shard_serve_params(params, n, rank, layout)
 
 
 def _tree_leaf(tree: dict, path: str):

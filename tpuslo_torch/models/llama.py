@@ -103,9 +103,10 @@ Params = dict[str, Any]
 
 
 class ShardedParams(dict):
-    """One tp rank's shards of a parameter tree, carrying ``mesh``, the
-    mesh they are sharded over on its ``tp`` axis (see the module
-    docstring)."""
+    """One rank's shards of a parameter tree, carrying ``mesh``, the mesh
+    they are sharded over: on its ``tp`` axis (see the module docstring),
+    or, for the Mixtral family, its ``ep`` axis, where the Llama layers see
+    a replicated tree and only the MoE block reduces."""
 
     def __init__(self, tree: Params, mesh):
         super().__init__(tree)
@@ -113,8 +114,10 @@ class ShardedParams(dict):
 
 
 def tp_mesh_of(params: Params):
-    """The mesh a :class:`ShardedParams` tree is sharded over, else None."""
-    return getattr(params, "mesh", None)
+    """The mesh a :class:`ShardedParams` tree is sharded over on a ``tp``
+    axis, else None."""
+    mesh = getattr(params, "mesh", None)
+    return mesh if mesh is not None and "tp" in mesh.axis_names else None
 
 
 def _width(w) -> int:

@@ -24,17 +24,29 @@ Incremental decode equals the full-sequence forward only while routing
 is drop-free (``capacity_factor >= n_experts / top_k``); the batched
 engines refuse any other config, as JAX's do.
 
+Over a mesh (``mesh=`` in the three engines, one rank's engine each):
+a ``tp`` mesh shards attention, the embedding and the head as the Llama
+family's tp serving does (:class:`~tpuslo_torch.models.llama.ShardedParams`)
+and every expert's hidden axis (JAX's :func:`tp_serve_param_shardings`),
+each rank's cache holding ``n_kv_heads / tp`` heads; an ``ep`` mesh
+shards whole experts and replicates everything else, the cache included
+(:func:`ep_serve_param_shardings`).  Tokens never move: the MoE block
+(:func:`tpuslo_torch.ops.moe.moe_mlp_serve`) reads the mesh from the
+sharded tree and makes one f32 ``all_reduce`` per block.  ``mesh=None``
+makes no collective call.
+
 Long context: :func:`sp_generate` (the ring prefill and distributed
 decode of :mod:`tpuslo_torch.models.longserve` with the MoE block).
 
 Training: :func:`loss_fn` (NLL plus the router's load-balancing term)
-and :func:`build_moe_train_step` on one device.  What waits: the tp /
-ep shardings, for the multi-device slice's second half.
+and :func:`build_moe_train_step` on one device.  The dp x ep step
+belongs to the multi-device slice's last part (ROADMAP item 13b-iii).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 import time
 from dataclasses import dataclass
 from typing import Any, Iterator
@@ -44,20 +56,27 @@ import torch
 from tpuslo_torch.device import resolve_device, synchronize
 from tpuslo_torch.models import llama
 from tpuslo_torch.models.batching import ContinuousBatchingEngine
+from tpuslo_torch.models.bridge import (
+    MOE_EP_SPLIT_AXIS,
+    MOE_TP_SPLIT_AXIS,
+    shard_leaf,
+    shard_moe_serve_params,
+)
 from tpuslo_torch.models.kv_cache import validate_kv_dtype
-from tpuslo_torch.models.llama import LlamaConfig, _dense_init
+from tpuslo_torch.models.llama import LlamaConfig, ShardedParams, _dense_init, _set_leaf
 from tpuslo_torch.models.paged_kv import PagedBatchingEngine, paged_decode_step
-from tpuslo_torch.models.serve import EOS, TokenEvent, _bucket, _HostRead, encode_bytes
-from tpuslo_torch.ops.moe import MoEConfig, moe_mlp
+from tpuslo_torch.models.serve import (
+    EOS,
+    TokenEvent,
+    _bucket,
+    _HostRead,
+    _to_device,
+    encode_bytes,
+)
+from tpuslo_torch.ops.moe import MoEConfig, moe_mlp, moe_mlp_serve
 from tpuslo_torch.otel.xla_spans import dispatch_range
 
 Params = dict[str, Any]
-
-_MESH_NOT_PORTED = (
-    "MoE serving over a mesh (tp or ep) belongs to the multi-device slice's "
-    "second half (ROADMAP item 13b) and is not ported yet; the port serves MoE "
-    "models on one device"
-)
 
 
 @dataclass(frozen=True)
@@ -167,6 +186,36 @@ def active_param_count(cfg: MixtralConfig) -> int:
     return param_count(cfg) - expert + routed
 
 
+def init_leaves(rng: torch.Generator | int, cfg: MixtralConfig,
+                device: str | torch.device = "cuda"):
+    """:func:`init_params` one leaf at a time: ``(path, tensor)`` pairs in
+    its draw order, so that a caller can keep a part of each leaf and free
+    the rest before the next is drawn (a tp or ep rank's shard)."""
+    dev = resolve_device(device)
+    gen = rng
+    if not isinstance(gen, torch.Generator):
+        gen = torch.Generator(device=dev).manual_seed(int(rng))
+    L, D, F_, E = cfg.n_layers, cfg.dim, cfg.ffn_dim, cfg.n_experts
+    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def dense(shape, fan_in, dtype=cfg.dtype):
+        return _dense_init(gen, shape, fan_in, dtype, dev)
+
+    yield "embed", dense((cfg.vocab_size, D), D)
+    yield "layers/attn_norm", torch.ones((L, D), dtype=cfg.dtype, device=dev)
+    yield "layers/wq", dense((L, D, H * HD), D)
+    yield "layers/wk", dense((L, D, KV * HD), D)
+    yield "layers/wv", dense((L, D, KV * HD), D)
+    yield "layers/wo", dense((L, H * HD, D), H * HD)
+    yield "layers/mlp_norm", torch.ones((L, D), dtype=cfg.dtype, device=dev)
+    yield "layers/router", dense((L, D, E), D, torch.float32)
+    yield "layers/w1", dense((L, E, D, F_), D)
+    yield "layers/w3", dense((L, E, D, F_), D)
+    yield "layers/w2", dense((L, E, F_, D), F_)
+    yield "final_norm", torch.ones((D,), dtype=cfg.dtype, device=dev)
+    yield "output", dense((D, cfg.vocab_size), D)
+
+
 def init_params(
     rng: torch.Generator | int, cfg: MixtralConfig, device: str | torch.device = "cuda"
 ) -> Params:
@@ -175,43 +224,23 @@ def init_params(
     ``(L, E, ...)`` leaves and the router stays f32.  The draws differ
     from ``jax.random``'s; parity tests carry JAX's weights over
     (``bridge``)."""
-    dev = resolve_device(device)
-    gen = rng
-    if not isinstance(gen, torch.Generator):
-        gen = torch.Generator(device=dev).manual_seed(int(rng))
-    L, D, F_, E = cfg.n_layers, cfg.dim, cfg.ffn_dim, cfg.n_experts
-    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-
-    def dense(shape, fan_in):
-        return _dense_init(gen, shape, fan_in, cfg.dtype, dev)
-
-    embed = dense((cfg.vocab_size, D), D)
-    layers = {
-        "attn_norm": torch.ones((L, D), dtype=cfg.dtype, device=dev),
-        "wq": dense((L, D, H * HD), D),
-        "wk": dense((L, D, KV * HD), D),
-        "wv": dense((L, D, KV * HD), D),
-        "wo": dense((L, H * HD, D), H * HD),
-        "mlp_norm": torch.ones((L, D), dtype=cfg.dtype, device=dev),
-        "router": torch.randn((L, D, E), generator=gen, dtype=torch.float32,
-                              device=dev) * D**-0.5,
-        "w1": dense((L, E, D, F_), D),
-        "w3": dense((L, E, D, F_), D),
-        "w2": dense((L, E, F_, D), F_),
-    }
-    return {
-        "embed": embed,
-        "layers": layers,
-        "final_norm": torch.ones((D,), dtype=cfg.dtype, device=dev),
-        "output": dense((D, cfg.vocab_size), D),
-    }
+    tree: Params = {}
+    for path, leaf in init_leaves(rng, cfg, device):
+        _set_leaf(tree, path, leaf)
+    return tree
 
 
-def _moe_block(layer: Params, x: torch.Tensor, cfg: MixtralConfig):
+def _moe_block(layer: Params, x: torch.Tensor, cfg: MixtralConfig, mesh=None):
     """MoE block over (B, S, D) hidden states -> (output, aux loss),
-    through :func:`tpuslo_torch.ops.moe.moe_mlp`."""
+    through :func:`tpuslo_torch.ops.moe.moe_mlp`; a serving rank's layer
+    (``mesh``) through :func:`tpuslo_torch.ops.moe.moe_mlp_serve`, with
+    no aux loss."""
     B, S, D = x.shape
     moe_params = {name: layer[name] for name in ("router", "w1", "w3", "w2")}
+    if mesh is not None:
+        axis = "tp" if "tp" in mesh.axis_names else "ep"
+        y = moe_mlp_serve(moe_params, x.reshape(B * S, D), cfg.moe(), mesh, axis)
+        return y.reshape(B, S, D), None
     y, aux = moe_mlp(moe_params, x.reshape(B * S, D), cfg.moe(), return_aux=True)
     return y.reshape(B, S, D), aux
 
@@ -243,8 +272,8 @@ def build_moe_train_step(mesh, cfg: MixtralConfig, optimizer=None):
     """``(step_fn, init_fn)`` of an AdamW step on the mesh's one device
     (dp 1, ep 1), the contract of
     :func:`tpuslo_torch.models.train.build_sharded_train_step`.  The
-    expert-parallel (dp x ep) step belongs to the multi-device slice
-    (ROADMAP item 13b)."""
+    expert-parallel (dp x ep) step belongs to the multi-device slice's
+    last part (ROADMAP item 13b-iii)."""
     from tpuslo_torch.models import train
 
     return train.build_step(mesh, cfg, init_params, loss_fn, optimizer)
@@ -261,22 +290,36 @@ def _aux_mlp_fn(cfg: MixtralConfig):
 
 
 @functools.lru_cache(maxsize=16)
-def _serving_mlp_fn(cfg: MixtralConfig):
+def _serving_mlp_fn(cfg: MixtralConfig, mesh=None):
     """The ``mlp_fn`` hook of the Llama serving paths: MoE, aux
-    discarded.  One function object per config."""
-    return lambda layer, x: _moe_block(layer, x, cfg)[0]
+    discarded; ``mesh``: a serving rank's block over its tp or ep axis.
+    One function object per config and mesh."""
+    return lambda layer, x: _moe_block(layer, x, cfg, mesh)[0]
+
+
+def moe_mesh_of(params: Params):
+    """The mesh a serving rank's :class:`ShardedParams` tree is sharded
+    over (its ``tp`` or ``ep`` axis), else None."""
+    return getattr(params, "mesh", None)
+
+
+def serving_mlp_fn(params: Params, cfg: MixtralConfig):
+    """The MoE ``mlp_fn`` hook for ``params``: over the mesh a sharded
+    tree carries, or on one device."""
+    return _serving_mlp_fn(cfg, moe_mesh_of(params))
 
 
 def prefill(params: Params, tokens: torch.Tensor, cache: dict, cfg: MixtralConfig,
             true_length=None):
     """Bucketed prompt ingestion (``llama.prefill`` with the MoE MLP)."""
     return llama.prefill(params, tokens, cache, cfg, true_length=true_length,
-                         mlp_fn=_serving_mlp_fn(cfg))
+                         mlp_fn=serving_mlp_fn(params, cfg))
 
 
 def verify_chunk(params: Params, tokens: torch.Tensor, cache: dict, cfg: MixtralConfig):
     """Score K tokens against the cache (``llama.verify_chunk`` + MoE)."""
-    return llama.verify_chunk(params, tokens, cache, cfg, mlp_fn=_serving_mlp_fn(cfg))
+    return llama.verify_chunk(params, tokens, cache, cfg,
+                              mlp_fn=serving_mlp_fn(params, cfg))
 
 
 def decode_step(params: Params, token: torch.Tensor, cache: dict, cfg: MixtralConfig):
@@ -297,12 +340,110 @@ def decode_chunk(params: Params, token: torch.Tensor, cache: dict, cfg: MixtralC
     return torch.stack(toks, dim=1), token, cache
 
 
+def tp_serve_param_shardings(mesh) -> dict:
+    """The tensor-parallel serving layout over ``mesh``'s ``tp`` axis
+    (JAX's): :data:`~tpuslo_torch.models.bridge.MOE_TP_SPLIT_AXIS`, the
+    dim each leaf path splits over (``None``: replicated).  Megatron's
+    layout inside every expert: ``w1``/``w3`` split their hidden axis,
+    ``w2`` its contracting axis (one f32 all_reduce a MoE block), and
+    attention as the Llama family's; routing stays on every rank."""
+    if "tp" not in mesh.axis_names:
+        raise ValueError(f"the tp serving layout needs a 'tp' axis, got {mesh.axis_names}")
+    return dict(MOE_TP_SPLIT_AXIS)
+
+
+def param_shardings(mesh) -> dict:
+    """The dp x ep layout over ``mesh``'s ``ep`` axis (JAX's):
+    :data:`~tpuslo_torch.models.bridge.MOE_EP_SPLIT_AXIS`, the expert axis
+    of ``w1``, ``w3`` and ``w2`` split and every other leaf replicated."""
+    if "ep" not in mesh.axis_names:
+        raise ValueError(f"the ep layout needs an 'ep' axis, got {mesh.axis_names}")
+    return dict(MOE_EP_SPLIT_AXIS)
+
+
+def ep_serve_param_shardings(mesh) -> dict:
+    """The expert-parallel serving layout: whole experts over ``ep``,
+    attention, the embeddings, the router and the cache replicated.
+    Tokens never move (one psum at the combine per MoE block), and each
+    rank reads only its own experts' weights per token.  The layout is the
+    training placement's, so this returns :func:`param_shardings`, as
+    JAX's does."""
+    return param_shardings(mesh)
+
+
+def serve_layout(mesh) -> dict:
+    """The serving layout of a MoE mesh's axis: tp's or ep's."""
+    if "tp" in mesh.axis_names:
+        return tp_serve_param_shardings(mesh)
+    return ep_serve_param_shardings(mesh)
+
+
+def check_moe_mesh(mesh, cfg: MixtralConfig) -> tuple[str, int]:
+    """(axis, size) of a MoE serving mesh, with the JAX engine's
+    ``ValueError``s: a mesh with both a ``tp`` and an ``ep`` axis, a mesh
+    with neither, a tp that does not divide ``n_heads``, ``n_kv_heads``
+    and ``ffn_dim``, an ep that does not divide ``n_experts``.  The port
+    also needs tp to divide the vocabulary (its shards are contiguous) and
+    the axis to span the mesh."""
+    if "tp" in mesh.axis_names and "ep" in mesh.axis_names:
+        # A combined layout would need expert leaves sharded on both
+        # axes; picking one would replicate the experts over the other.
+        raise ValueError(
+            "MoE serving supports a 'tp' OR an 'ep' mesh axis, "
+            "not both; build a 1-axis mesh for the layout you "
+            "want"
+        )
+    if "tp" in mesh.axis_names:
+        axis, n = "tp", mesh.shape["tp"]
+        if cfg.n_kv_heads % n or cfg.n_heads % n or cfg.ffn_dim % n:
+            raise ValueError(
+                f"tp={n} must divide n_kv_heads="
+                f"{cfg.n_kv_heads}, n_heads={cfg.n_heads} "
+                f"and ffn_dim={cfg.ffn_dim}"
+            )
+        if cfg.vocab_size % n:
+            raise ValueError(f"tp={n} must divide vocab_size={cfg.vocab_size}")
+    elif "ep" in mesh.axis_names:
+        axis, n = "ep", mesh.shape["ep"]
+        if cfg.n_experts % n:
+            raise ValueError(
+                f"ep={n} must divide n_experts="
+                f"{cfg.n_experts}"
+            )
+    else:
+        raise ValueError(
+            f"MoE serving mesh must have a 'tp' or 'ep' axis, "
+            f"got {mesh.axis_names}"
+        )
+    if math.prod(mesh.shape.values()) != n:
+        raise ValueError(f"a MoE serving mesh shards over {axis} alone, got {mesh.shape}")
+    return axis, n
+
+
+def sharded_init_params(rng_seed: int, cfg: MixtralConfig, mesh) -> ShardedParams:
+    """This rank's shards of ``init_params(rng_seed, cfg)`` under the
+    mesh's tp or ep layout, drawn one leaf at a time on the mesh's device:
+    no rank holds the whole expert tree."""
+    axis, n = check_moe_mesh(mesh, cfg)
+    layout = serve_layout(mesh)
+    tree: Params = {}
+    for path, leaf in init_leaves(rng_seed, cfg, mesh.device):
+        _set_leaf(tree, path, shard_leaf(path, leaf, n, mesh.rank(axis), layout))
+        del leaf
+    return ShardedParams(tree, mesh)
+
+
 class MoEServeEngine:
     """Greedy streaming serving for the Mixtral family: bucketed prefill,
     chunked decode, a TokenEvent stream with TTFT (the compact
     counterpart of :class:`~tpuslo_torch.models.serve.ServeEngine`;
     sampling, prefix caching and batching stay Llama-engine features).
-    ``device`` defaults to ``"cuda"`` and raises without a card."""
+    ``device`` defaults to ``"cuda"`` and raises without a card.  With
+    ``mesh`` (a ``tp`` or an ``ep`` axis) the engine is one rank's and
+    serves on the mesh's device: ``params`` given whole are cut to the
+    rank's shards, a tree already sharded over ``mesh`` (another engine's
+    ``params``) is kept as it is, and ``params=None`` draws only the
+    rank's shards."""
 
     def __init__(
         self,
@@ -315,13 +456,19 @@ class MoEServeEngine:
         kv_dtype: str = "bf16",
         device: str | torch.device = "cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(_MESH_NOT_PORTED)
-        self.mesh, self.tp = None, 1
-        self.device = resolve_device(device)
         self.kv_dtype = validate_kv_dtype(kv_dtype)
         self.cfg = cfg or mixtral_tiny(max_seq_len=256)
-        if params is None:
+        self.mesh, self.tp, self.ep = mesh, 1, 1
+        self.device = resolve_device(device) if mesh is None else mesh.device
+        if mesh is not None:
+            axis, n = check_moe_mesh(mesh, self.cfg)
+            setattr(self, axis, n)
+            if params is None:
+                params = sharded_init_params(rng_seed, self.cfg, mesh)
+            elif moe_mesh_of(params) is not mesh:
+                shards = shard_moe_serve_params(params, serve_layout(mesh), n, mesh.rank(axis))
+                params = ShardedParams(_to_device(shards, self.device), mesh)
+        elif params is None:
             params = init_params(rng_seed, self.cfg, self.device)
         elif params["embed"].device != self.device:
             raise ValueError(
@@ -338,7 +485,7 @@ class MoEServeEngine:
 
     def _new_cache(self, batch: int) -> dict:
         return llama.init_kv_cache(self.cfg, batch, kv_dtype=self.kv_dtype,
-                                   device=self.device)
+                                   device=self.device, tp=self.tp)
 
     def _decode(self, token: torch.Tensor, cache: dict):
         with dispatch_range("decode_chunk", token, self.decode_chunk_size):
@@ -487,7 +634,7 @@ class MoEContinuousBatchingEngine(_MoEBatchedContract, ContinuousBatchingEngine)
             cfg=cfg, max_slots=max_slots, rng_seed=rng_seed,
             prefill_buckets=prefill_buckets, kv_dtype=kv_dtype, ingest=ingest,
             step_fn=functools.partial(llama.decode_step, cfg=cfg,
-                                      mlp_fn=_serving_mlp_fn(cfg)),
+                                      mlp_fn=serving_mlp_fn(ingest.params, cfg)),
         )
 
 
@@ -524,7 +671,7 @@ class MoEPagedBatchingEngine(_MoEBatchedContract, PagedBatchingEngine):
             pallas_attention=pallas_attention, share_prefixes=False, ingest=ingest,
             paged_step_fn=functools.partial(
                 paged_decode_step, cfg=cfg, block_size=block_size,
-                pallas=pallas_attention, mlp_fn=_serving_mlp_fn(cfg),
+                pallas=pallas_attention, mlp_fn=serving_mlp_fn(ingest.params, cfg),
             ),
         )
 
@@ -562,15 +709,20 @@ __all__ = [
     "MoEPagedBatchingEngine",
     "MoEServeEngine",
     "active_param_count",
+    "check_moe_mesh",
     "decode_chunk",
     "decode_step",
+    "ep_serve_param_shardings",
     "forward",
+    "init_leaves",
     "init_params",
     "mixtral_2b6",
     "mixtral_8x7b",
     "mixtral_tiny",
     "param_count",
+    "param_shardings",
     "prefill",
     "sp_generate",
+    "tp_serve_param_shardings",
     "verify_chunk",
 ]

@@ -34,8 +34,27 @@ expert products (``torch.bmm(..., out_dtype=torch.float32)``, which
 PyTorch does not differentiate) take their gradient from
 :func:`f32_product_backward`.
 
-Expert parallelism (``moe_mlp_sharded``, ``moe_params_specs``,
-``place_moe_params``) belongs to the multi-device slice and raises.
+Over a mesh, where JAX's GSPMD and ``shard_map`` insert collectives the
+port calls them through the counted wrappers of
+:mod:`tpuslo_torch.parallel.mesh`, every rank the same calls in the same
+order:
+
+* :func:`moe_mlp_sharded` is JAX's token-sharded expert exchange
+  (``_moe_shard_body``): each rank routes its own rows against the whole
+  router, with the capacity of its rows (so tokens drop where JAX's do),
+  sends each expert's buffer to the rank that holds the expert
+  (``all_to_all`` in the model dtype), runs its local experts, sends the
+  outputs back (a second ``all_to_all``, in the model dtype too) and
+  combines them in f32.  :func:`moe_params_specs` is its layout table and
+  :func:`place_moe_params` cuts a rank's shard.
+* :func:`moe_mlp_serve` is the MoE block of the serving engines, whose
+  tokens every rank holds whole: under ``tp`` each rank runs every expert
+  on its columns of the hidden axis and one f32 ``all_reduce`` sums the
+  ``w2`` partials before the combine (where XLA puts the psum of JAX's
+  f32-output contraction); under ``ep`` each rank runs its own experts'
+  buffers, combines them in f32 in k order (another rank's expert reads
+  a zero row) and one f32 ``all_reduce`` sums the partial outputs (JAX's
+  one psum at the combine einsum).
 """
 
 from __future__ import annotations
@@ -47,14 +66,11 @@ import torch
 import torch.nn.functional as F
 
 from tpuslo_torch.device import resolve_device
+from tpuslo_torch.models.bridge import split_part
 from tpuslo_torch.models.llama import GEMM_ROWS, _matmul
+from tpuslo_torch.parallel import mesh as mesh_mod
 
 Params = dict[str, Any]
-
-_NOT_PORTED = (
-    "expert-parallel MoE (mesh=, the ep axis) belongs to the multi-device "
-    "slice (ROADMAP item 13b) and is not ported yet; the port serves on one device"
-)
 
 
 @dataclass(frozen=True)
@@ -199,14 +215,12 @@ def _expert_ffn(params: Params, xe: torch.Tensor, cfg: MoEConfig) -> torch.Tenso
     return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=1)
 
 
-def moe_mlp(params: Params, x: torch.Tensor, cfg: MoEConfig, return_aux: bool = False):
-    """Single-device MoE MLP.  x: (T, D) -> (T, D) in x's dtype.
-
-    ``return_aux=True`` also returns the :func:`load_balancing_loss` of
-    this block's routing."""
+def _dispatch(params: Params, x: torch.Tensor, cfg: MoEConfig, capacity: int,
+              experts: slice = slice(None)):
+    """(router logits, :class:`Routing`, the buffers (E', C, D) of the
+    ``experts`` slice in the model dtype) for tokens x: (T, D)."""
     T, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
-    capacity = cfg.capacity(T)
     logits = router_logits(params, x)
     r = _routing(logits, cfg, capacity)
     dev = x.device
@@ -218,26 +232,120 @@ def moe_mlp(params: Params, x: torch.Tensor, cfg: MoEConfig, return_aux: bool = 
     slot = torch.where(r.kept, r.positions, capacity)
     table.index_put_((r.experts.reshape(-1), slot.reshape(-1)), tokens.reshape(-1))
     xz = torch.cat([x.to(cfg.dtype), x.new_zeros((1, D), dtype=cfg.dtype)])
-    out = _expert_ffn(params, xz[table[:, :capacity]], cfg)  # (E, C, D) f32
-    flat = torch.cat([out.reshape(E * capacity, D), out.new_zeros((1, D))])
-    index = torch.where(r.kept, r.experts * capacity + r.positions, E * capacity)
+    return logits, r, xz[table[experts, :capacity]]
+
+
+def _combine(r: Routing, out: torch.Tensor, first: int = 0) -> torch.Tensor:
+    """f32 (T, D): each token's k expert outputs times its gates, summed in
+    k order.  ``out`` (E', C, D) f32 holds experts ``first`` to ``first +
+    E' - 1``; a dropped choice, or one of another expert, reads a zero
+    row."""
+    E_out, C, D = out.shape
+    flat = torch.cat([out.reshape(E_out * C, D), out.new_zeros((1, D))])
+    held = r.kept & (r.experts >= first) & (r.experts < first + E_out)
+    index = torch.where(held, (r.experts - first) * C + r.positions, E_out * C)
     y = None
-    for k in range(K):  # the combine: f32, in k order
+    for k in range(r.experts.shape[1]):
         term = r.gates[:, k, None] * flat[index[:, k]]
         y = term if y is None else y + term
-    y = y.to(x.dtype)
-    if return_aux:
-        return y, load_balancing_loss(logits, E)
     return y
 
 
-def moe_params_specs(axis_name: str = "ep"):
-    raise NotImplementedError(_NOT_PORTED)
+def moe_mlp(params: Params, x: torch.Tensor, cfg: MoEConfig, return_aux: bool = False):
+    """Single-device MoE MLP.  x: (T, D) -> (T, D) in x's dtype.
+
+    ``return_aux=True`` also returns the :func:`load_balancing_loss` of
+    this block's routing."""
+    logits, r, xe = _dispatch(params, x, cfg, cfg.capacity(x.shape[0]))
+    y = _combine(r, _expert_ffn(params, xe, cfg)).to(x.dtype)
+    if return_aux:
+        return y, load_balancing_loss(logits, cfg.n_experts)
+    return y
 
 
-def moe_mlp_sharded(params, x, cfg, mesh, axis_name: str = "ep"):
-    raise NotImplementedError(_NOT_PORTED)
+def moe_mlp_serve(params: Params, x: torch.Tensor, cfg: MoEConfig, mesh, axis: str
+                  ) -> torch.Tensor:
+    """The MoE block of a serving rank: x (T, D), the same on every rank of
+    ``mesh``'s ``axis``, -> (T, D) in x's dtype, the whole output on every
+    rank.  ``params``: the rank's shard, under ``"tp"`` every expert's
+    columns of the hidden axis (``w1``/``w3`` ``(E, D, F / tp)``, ``w2``
+    ``(E, F / tp, D)``), under ``"ep"`` whole experts (``(E / ep, ...)``,
+    the rank's in rank order); the router whole on both.  See the module
+    docstring for the collectives."""
+    capacity = cfg.capacity(x.shape[0])
+    if axis == "tp":
+        _, r, xe = _dispatch(params, x, cfg, capacity)
+        out = mesh_mod.all_reduce(_expert_ffn(params, xe, cfg), mesh, "tp")
+        return _combine(r, out).to(x.dtype)
+    if axis != "ep":
+        raise ValueError(f"a serving MoE block shards over 'tp' or 'ep', not {axis!r}")
+    n_local = params["w1"].shape[0]
+    first = mesh.rank("ep") * n_local
+    _, r, xe = _dispatch(params, x, cfg, capacity, slice(first, first + n_local))
+    y = _combine(r, _expert_ffn(params, xe, cfg), first)
+    return mesh_mod.all_reduce(y, mesh, "ep").to(x.dtype)
 
 
-def place_moe_params(params, mesh, axis_name: str = "ep"):
-    raise NotImplementedError(_NOT_PORTED)
+def moe_params_specs(axis_name: str = "ep") -> dict[str, int | None]:
+    """The layout of :func:`init_moe_params`' tree under expert sharding:
+    the dim each leaf splits over the mesh axis (``None``: replicated), as
+    JAX's PartitionSpecs name ``axis_name`` at those dims.  The router is
+    replicated; ``w1``, ``w3`` and ``w2`` split their expert axis."""
+    return {"router": None, "w1": 0, "w3": 0, "w2": 0}
+
+
+def place_moe_params(params: Params, mesh, axis_name: str = "ep") -> Params:
+    """This rank's shard of a whole :func:`init_moe_params` tree under
+    :func:`moe_params_specs` (fresh tensors): the router copied, ``E /
+    ep`` experts of ``w1``, ``w3`` and ``w2``, rank r's the r-th run of
+    them (JAX's ``addressable_shards[r].data``)."""
+    n, rank = mesh.shape[axis_name], mesh.rank(axis_name)
+    specs = moe_params_specs(axis_name)
+    return {name: split_part(leaf, specs[name], n, rank) for name, leaf in params.items()}
+
+
+def _moe_shard_body(params: Params, x: torch.Tensor, cfg: MoEConfig, mesh,
+                    axis_name: str) -> torch.Tensor:
+    """JAX's ``shard_map`` body on one rank: x (T_local, D) the rank's
+    rows, ``params`` its expert shard (``E_local`` experts), the router
+    whole."""
+    ep = mesh.shape[axis_name]
+    D = x.shape[1]
+    n_local = params["w1"].shape[0]
+    # Routing is local, against the whole router; the capacity is per
+    # expert per source shard, so the buffers keep one shape.
+    capacity = cfg.capacity(x.shape[0])
+    _, r, xe = _dispatch(params, x, cfg, capacity)  # (E, C, D), the model dtype
+    # Grouped by the rank that owns each expert; after the exchange the
+    # leading axis is the source rank.
+    xe = mesh_mod.all_to_all(xe.reshape(ep, n_local, capacity, D), mesh, axis_name)
+    xe = xe.transpose(0, 1).reshape(n_local, ep * capacity, D)
+    out = _expert_ffn(params, xe, cfg)  # (E_local, ep * C, D) f32
+    out = out.to(cfg.dtype).reshape(n_local, ep, capacity, D).transpose(0, 1)
+    # The return hop, in the model dtype too: each source's rows back.
+    out = mesh_mod.all_to_all(out, mesh, axis_name).reshape(cfg.n_experts, capacity, D)
+    return _combine(r, out.float()).to(x.dtype)
+
+
+def moe_mlp_sharded(params: Params, x: torch.Tensor, cfg: MoEConfig, mesh,
+                    axis_name: str = "ep") -> torch.Tensor:
+    """Expert-parallel MoE MLP over the mesh axis ``axis_name``, tokens
+    sharded over it as JAX's ``P(axis_name, None)``.
+
+    Every rank passes the whole x (T, D) and ``params`` whole or as its
+    :func:`place_moe_params` shard; each returns the output of its own
+    rows, ``x[r * T / ep:(r + 1) * T / ep]`` on rank r, so that an
+    ``all_gather`` over the axis gives JAX's whole output.
+    ``cfg.n_experts`` and T must be divisible by the axis's size."""
+    ep = mesh.shape[axis_name]
+    if cfg.n_experts % ep:
+        raise ValueError(
+            f"n_experts={cfg.n_experts} not divisible by ep={ep}"
+        )
+    if x.shape[0] % ep:
+        raise ValueError(f"tokens={x.shape[0]} not divisible by ep={ep}")
+    if ep > 1 and params["w1"].shape[0] == cfg.n_experts:
+        params = place_moe_params(params, mesh, axis_name)
+    rows = x.shape[0] // ep
+    me = mesh.rank(axis_name)
+    return _moe_shard_body(params, x[me * rows:(me + 1) * rows], cfg, mesh, axis_name)

@@ -40,9 +40,13 @@ whose collectives go through host memory (gloo with CUDA tensors)
 cannot be captured in a CUDA graph: :attr:`Mesh.graph_capturable` says
 so, and the graphed paths refuse such a mesh.
 
+:func:`ep_mesh` builds the one-axis ``("ep",)`` mesh of expert-parallel
+MoE serving and of :func:`tpuslo_torch.ops.moe.moe_mlp_sharded` the same
+way.
+
 The training shardings (``param_shardings``, ``batch_sharding``,
-``optimizer_state_shardings``) belong to the second half of the
-multi-device slice (ROADMAP item 13b) and raise.
+``optimizer_state_shardings``) belong to the multi-device slice's last
+part (ROADMAP item 13b-iii) and raise.
 """
 
 from __future__ import annotations
@@ -70,8 +74,8 @@ GLOO_CUDA_OPS = frozenset({"all_reduce", "all_reduce_max", "all_gather", "reduce
 
 TRAINING_SHARDINGS_NOT_PORTED = (
     "the training shardings (param_shardings, batch_sharding, "
-    "optimizer_state_shardings) belong to the multi-device slice's second half "
-    "(ROADMAP item 13b) and are not ported yet"
+    "optimizer_state_shardings) belong to the multi-device slice's last part "
+    "(ROADMAP item 13b-iii) and are not ported yet"
 )
 NO_GROUP = (
     "a mesh of {n} devices needs an initialized torch.distributed group of {n} "
@@ -265,6 +269,13 @@ def sp_mesh(n: int, devices: list | None = None, backend: str | None = None) -> 
     default group; ``n`` 1 with no group is the one-device mesh of
     :func:`make_mesh`.  It has no plan."""
     return _group_mesh(None, (("sp",), (n,)), devices, backend)
+
+
+def ep_mesh(n: int, devices: list | None = None, backend: str | None = None) -> Mesh:
+    """An expert-parallel mesh of ``n`` ranks on one axis, ``"ep"`` (the
+    JAX tests' ``Mesh(devices[:n], ("ep",))``), built as :func:`sp_mesh`
+    builds its own."""
+    return _group_mesh(None, (("ep",), (n,)), devices, backend)
 
 
 # --- collectives over a mesh axis ----------------------------------------
