@@ -6,7 +6,8 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py probe
-{admission,bench,norm,train,multidevice,gloo,sp,moemesh} [--tree DIR] [--runs N]`` measures one part of the path instead, on this checkout or
+{admission,bench,norm,train,multidevice,gloo,sp,moemesh,train_mesh} [--tree DIR]
+[--runs N]`` measures one part of the path instead, on this checkout or
 on another one (an older commit unpacked with ``git archive``), whose own
 ``tpuslo_torch`` (and, for ``admission``, ``bench`` and ``train``, its own
 ``chip_smoke.py`` phases) it imports: phase 12's profiled windows with
@@ -17,7 +18,8 @@ at phase 18's shapes; phase 23 alone after the builds; K2-f32 at head
 dim 24 and phase 24 alone after the builds (``multidevice``: this
 checkout only); which ops gloo runs on CUDA tensors (``gloo``); phase 25
 alone after the builds (``sp``: this checkout only); phase 26 alone after
-the builds (``moemesh``: this checkout only).  One JSON line per
+the builds (``moemesh``: this checkout only); phase 27 alone after the
+builds (``train_mesh``: this checkout only).  One JSON line per
 measurement (:func:`probe_main`).
 
 Phases, each printing its own lines; any failure ends the run with a
@@ -44,7 +46,8 @@ non-zero exit and no result line:
    version within 1e-4, with SDPA in the inputs' dtype as its library
    yardstick, its bound (3xTF32 on f32 inputs) and the FFMA-rate bound
    beside it;
-4. serve: a full-depth, full-width ``llama32_3b`` ``ServeEngine`` with
+4. serve: a full-width ``llama32_3b`` ``ServeEngine`` at SERVE_LAYERS of
+   its 28 layers (phases 4-12 serve this model) with
    seeded random weights answers three ``generate`` requests and one
    ``generate_batch``; K1's launch count over this phase must be one per
    layer for every flash-eligible prefill, and K2 once per layer of every
@@ -79,7 +82,8 @@ non-zero exit and no result line:
    the plain pool attention; K2's time in the step sums every kernel one
    call launches;
 9. speculative decoding: a ``SpeculativeEngine`` over the 3B target and a
-   full-width ``llama32_1b`` draft (random weights from a seed), k 4,
+   full-width ``llama32_1b`` draft at DRAFT_LAYERS of its 16 layers (random
+   weights from a seed), k 4,
    streams 2 prompts and serves one ``generate_batch`` of 4, then the
    same with a self-draft (a second engine over the target's own
    weights), which is what exercises acceptance; every stream is held
@@ -129,7 +133,8 @@ non-zero exit and no result line:
     per bucket; one ``attribution:`` JSON line;
 14. the process entry: ``python -m tpuslo_torch frontdoor`` (``llama_tiny``,
     two tenants, the remediation loop, the crash-safe runtime) run as a
-    subprocess for 40 cycles on the card and on the CPU: cycle 0 must admit
+    subprocess for 40 cycles on the card and on the CPU (these two and the
+    kill/resume below run together): cycle 0 must admit
     the burning tenant first and every later cycle the healthy one, the
     demotion must apply from cycle 0, the card's status rows must equal the
     CPU's in every key but ``ts`` and the summaries must be equal; then the
@@ -179,17 +184,19 @@ non-zero exit and no result line:
     then for the RMSNorm kernel, the lanes and the fixed-shape GEMM, row r
     alone must have the bits it has inside batches of 2 to 200 rows;
 20. the single-card serving bench (``python -m
-    tpuslo_torch.benchmark.serving_bench``), run as a subprocess with a
-    timeout once this script has freed its engines: ``llama32_3b(1024)``
-    in bf16 for TTFT, decode at batch 1 and 8, prefill, the prefix,
+    tpuslo_torch.benchmark.serving_bench --layers SERVING_LAYERS``), run as
+    a subprocess with a timeout once this script has freed its engines:
+    ``llama32_3b(1024)`` at full width and SERVING_LAYERS of its layers in
+    bf16 for TTFT, decode at batch 1 and 8, prefill, the prefix,
     long-prompt, speculative, batch-curve (K2 on and off), int8-KV,
     paged-vs-dense and shared-prefix lanes, the ``xla_launch`` join over
     a capture, the seeded device-plane and profiler lanes, then
-    ``llama3_8b`` with int8 weights; it fails on a lane's error, an HBM
-    share over 100%, ``bench.py``'s floors on the seeded lanes, a missing
-    join rate, K1 not launched in the prefill lane, K2 not launched in the
-    paged or MoE lanes, or a model whose parameter count is not the JAX
-    package's; its MoE lane serves ``mixtral_2b6`` at batch 1; one
+    ``llama3_8b`` with int8 weights (each model cut to SERVING_LAYERS
+    layers); it fails on a lane's error, an HBM share over 100%,
+    ``bench.py``'s floors on the seeded lanes, a missing join rate, K1 not
+    launched in the prefill lane, K2 not launched in the paged or MoE
+    lanes, or a model whose parameter count is not the JAX package's (of
+    the cut config); its MoE lane serves ``mixtral_2b6`` at batch 1; one
     ``serving:`` JSON line, and its launches go into the kernels line;
 21. MoE serving, the second model family: ``mixtral_2b6(1024)`` in bf16
     at full width and 8 of its 16 layers (D 2048, 16 heads, 4 kv heads, FFN
@@ -242,13 +249,16 @@ non-zero exit and no result line:
     back by ``slicecorr --xprof-dir`` (one host: no incident); (b)
     ``icibench --multiprocess 3 --delay-host 1`` (gloo CPU processes, as
     JAX runs its prober): every incident names host 1, then
-    ``--multiprocess 4 --n-slices 2``: a positive dcn component; (c) tp 1
-    over the one-rank NCCL group at ``llama32_3b``'s full width and depth:
+    ``--multiprocess 4 --n-slices 2``: a positive dcn component (these
+    CPU processes run in a thread beside (c) and (d)); (c) tp 1
+    over the one-rank NCCL group at ``llama32_3b``'s full width and
+    SERVE_LAYERS layers (the draft at DRAFT_LAYERS):
     ``ServeEngine``, the paged engine (K2 on) and the 8-slot front door
     with the 1B draft equal the same engines without a mesh bit for bit,
     and the collectives per token; (d) tp 2 as two processes on the one
     card over gloo (NCCL refuses two ranks on one GPU; the collectives go
-    through host memory): each rank 12 of 24 heads, 4 of 8 kv heads, 4096
+    through host memory), at MULTI_TP2_LAYERS of the 28 layers (its
+    unsharded reference alike): each rank 12 of 24 heads, 4 of 8 kv heads, 4096
     of 8192 FFN columns and half the vocabulary, prefill logits within
     PARITY_TOL of the unsharded engine, greedy and paged streams by the
     near-tie rule, K1 and K2 launched on each rank, the decode step's
@@ -287,6 +297,26 @@ non-zero exit and no result line:
     bit that engine's, and per rank the collectives, host copies, K1 and
     K2 launches (both > 0), the decode step and the peak memory; one
     ``moemesh:`` JSON line;
+27. sharded training and the pipeline on one card, in one pair of gloo
+    processes on ``cuda:0`` (one H100 forms no multi-rank NCCL group, so
+    no figure here is an NVLink one): ``llama32_3b`` at full width and
+    TRAIN_MESH_LAYERS layers, the phase 23 batch and seed.  This process
+    first runs TRAIN_MESH_STEPS AdamW steps on one device, whose losses,
+    first gradients, parameters after the steps and first-batch logits are
+    the reference (kept on the card; the ranks get them as CUDA IPC
+    handles, each comparing its own shards with their parts).  The ranks
+    then run (a) the same steps under ``MeshPlan(dp=2)``, ``(fsdp=2)``,
+    ``(tp=2)`` and ``(dcn=2)``; (b) ``pipelined_forward`` and the
+    gradients of ``pipelined_loss`` at pp 2 (one layer a stage,
+    TRAIN_MESH_MICROBATCHES microbatches); (c) ``mixtral_2b6`` at
+    TRAIN_MESH_LAYERS layers over dp 1 x ep 2, against its own one-device
+    steps.  Per mesh: the loss error, the worst gradient leaf's error over
+    its largest value, the parameters' error after the steps, the
+    collectives by op and the host copies, K1, RMSNorm and add + RMSNorm
+    launches (each > 0 on every rank), step wall times and the peak
+    memory per rank.  It fails on a loss past TRAIN_MESH_LOSS_TOL, a
+    gradient leaf past TRAIN_PARITY_GRAD_REL or pp 2's logits past
+    PARITY_TOL; one ``train_mesh:`` JSON line;
 19. the ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card and imports nothing of JAX or of the JAX package.
@@ -470,6 +500,22 @@ BATCH_PROMPTS = [
     "with an example of a shared system prompt.",
 ]
 NEW_TOKENS = 32
+# Phases 4-12 and phase 24 (c) serve llama32_3b and its llama32_1b draft at
+# full width and SERVE_LAYERS / DRAFT_LAYERS of their 28 / 16 layers: depth
+# is what a time cut may lower, and at full depth the script ran past the
+# contract's 1200 s on a slow host (those phases took 260 s of it).
+SERVE_LAYERS = 14
+DRAFT_LAYERS = 8
+
+
+def serve_config(llama, max_seq_len: int = 2048):
+    """The serving phases' target: llama32_3b at SERVE_LAYERS layers."""
+    return dataclasses.replace(llama.llama32_3b(max_seq_len=max_seq_len), n_layers=SERVE_LAYERS)
+
+
+def draft_config(llama, max_seq_len: int = 2048):
+    """The serving phases' draft: llama32_1b at DRAFT_LAYERS layers."""
+    return dataclasses.replace(llama.llama32_1b(max_seq_len=max_seq_len), n_layers=DRAFT_LAYERS)
 # The batching phases.  Dense: 8 requests through 4 slots, so requests
 # queue and slots are reused.  Paged: 12 requests through 8 slots; the 4
 # prefix requests come first so that the first populates the shared
@@ -1940,7 +1986,7 @@ def _steady_round(torch, serve, speculative, target, draft, what: str) -> dict:
 
 def phase_spec(torch, fa, llama, serve, speculative, cfg, target) -> tuple[dict, object]:
     t0 = time.perf_counter()
-    cfg_d = llama.llama32_1b(max_seq_len=cfg.max_seq_len)
+    cfg_d = draft_config(llama, cfg.max_seq_len)
     draft = serve.ServeEngine(cfg_d, rng_seed=1, prefill_buckets=BUCKETS,
                               decode_chunk_size=NEW_TOKENS, device="cuda")
     torch.cuda.synchronize()
@@ -3033,13 +3079,22 @@ def phase_entry(torch, fa, pa, workdir: Path) -> dict:
 
     t_phase = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
-    runs = {}
-    for device in ("cuda", "cpu"):
+
+    def fresh(device: str) -> dict:
         where = workdir / f"fresh-{device}"
         where.mkdir(parents=True)
-        runs[device] = run_entry(entry_argv(where, device, ENTRY_CYCLES), where)
-        print(f"entry: {device} run: {runs[device]['seconds']:.1f} s, "
-              f"summary {json.dumps(runs[device]['summary'])}", flush=True)
+        return run_entry(entry_argv(where, device, ENTRY_CYCLES), where)
+
+    # The fresh runs and the kill/resume are processes of their own: all
+    # three run together (their rows hold no time but ``ts``).
+    with ThreadPoolExecutor(3) as pool:
+        started = {device: pool.submit(fresh, device) for device in ("cuda", "cpu")}
+        killed = pool.submit(kill_and_resume, workdir / "kill", "cuda")
+        runs = {device: f.result() for device, f in started.items()}
+        resume = killed.result()
+    for device, run in runs.items():
+        print(f"entry: {device} run: {run['seconds']:.1f} s, "
+              f"summary {json.dumps(run['summary'])}", flush=True)
     card, cpu = runs["cuda"], runs["cpu"]
     if kind not in card["stderr"]:
         _fail(f"entry: the card run's stderr does not name {kind}: {card['stderr'][-500:]}")
@@ -3050,7 +3105,6 @@ def phase_entry(torch, fa, pa, workdir: Path) -> dict:
         _fail(f"entry: the card's status rows differ from the CPU's: {diff[:3]}")
     if card["summary"] != cpu["summary"]:
         _fail(f"entry: summaries differ: card {card['summary']}, cpu {cpu['summary']}")
-    resume = kill_and_resume(workdir / "kill", "cuda")
     if resume["failures"]:
         _fail(f"entry: kill -9 and resume: {resume['failures']}")
     print(f"entry: kill -9 after cycle {resume['killed_after_cycle']} (snapshot at "
@@ -3794,6 +3848,14 @@ def phase_bench(torch, fa, pa, serve, llama) -> dict:
 SERVING_TIMEOUT_S = 420
 SERVING_MODELS = {"llama32_3b": 3_606_752_256, "llama3_8b": 8_030_261_248}
 SERVING_MOE = ("mixtral_2b6", 2_513_635_328)  # the MoE lane's model and its JAX param_count
+# The bench's depth cut (``--layers``): every model at SERVING_LAYERS layers
+# and full width (llama32_3b 8 of 28, llama3_8b 8 of 32, mixtral_2b6 8 of
+# 16), for the script's time: at full depth the bench took 205-254 s of a
+# script that a slow host ran past the contract's 1200 s.  The parameter
+# counts of the cut configs are the JAX package's ``param_count`` of them.
+SERVING_LAYERS = 8
+SERVING_CUT_PARAMS = {"llama32_3b": 1_593_363_456, "llama3_8b": 2_795_573_248,
+                      "mixtral_2b6": 1_322_354_688}
 SERVING_DEVICEPLANE_MIN_JOIN = 0.9
 SERVING_DEVICEPLANE_MAX_UNEXPLAINED = 0.1
 SERVING_PROFILER_MAX_OVERHEAD_PCT = 3.0
@@ -3818,6 +3880,15 @@ def _lane_faults(node, path: str = "") -> list[str]:
         for i, value in enumerate(node):
             faults += _lane_faults(value, f"{path}[{i}]")
     return faults
+
+
+def _serving_params(report: dict, full: int | None) -> int | None:
+    """The JAX package's parameter count for one lane of a serving report:
+    its model's at SERVING_LAYERS when the lane says it ran the cut, else
+    ``full``."""
+    if report.get("n_layers") == SERVING_LAYERS:
+        return SERVING_CUT_PARAMS.get(report.get("model"))
+    return full
 
 
 def serving_failures(r: dict) -> list[str]:
@@ -3848,7 +3919,7 @@ def serving_failures(r: dict) -> list[str]:
         if not kv.get(lane, {}).get("k2_launches"):
             fails.append(f"K2 was not launched in the {lane} lane")
     for where, report in (("bf16", r), ("int8", r.get("int8", {}))):
-        want = SERVING_MODELS.get(report.get("model"))
+        want = _serving_params(report, SERVING_MODELS.get(report.get("model")))
         if report.get("n_params") != want:
             fails.append(f"{where} model {report.get('model')}: n_params "
                          f"{report.get('n_params')} != the JAX package's {want}")
@@ -3858,9 +3929,10 @@ def serving_failures(r: dict) -> list[str]:
     elif spec["parity_ok"] is not True:
         fails.append("speculative_measured: the speculative streams differ from target-only")
     moe = r.get("moe", {})
-    if (moe.get("model"), moe.get("n_params")) != SERVING_MOE:
+    want = (SERVING_MOE[0], _serving_params(moe, SERVING_MOE[1]))
+    if (moe.get("model"), moe.get("n_params")) != want:
         fails.append(f"moe model {moe.get('model')}: n_params {moe.get('n_params')} "
-                     f"!= the JAX package's {SERVING_MOE}")
+                     f"!= the JAX package's {want}")
     for key in ("ttft_ms", "decode_tokens_per_sec"):
         if not isinstance(moe.get(key), float | int) or moe[key] <= 0:
             fails.append(f"moe lane has no {key}: {moe.get(key)!r}")
@@ -3870,15 +3942,15 @@ def serving_failures(r: dict) -> list[str]:
 
 
 def phase_serving(torch) -> dict:
-    """Phase 20: the serving bench as a subprocess on the card, its report
-    held to :func:`serving_failures`."""
+    """Phase 20: the serving bench as a subprocess on the card, at
+    SERVING_LAYERS layers, its report held to :func:`serving_failures`."""
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(
             [sys.executable, "-m", "tpuslo_torch.benchmark.serving_bench",
-             "--platform", "auto"],
+             "--platform", "auto", "--layers", str(SERVING_LAYERS)],
             cwd=ROOT, capture_output=True, text=True, timeout=SERVING_TIMEOUT_S,
         )
     except subprocess.TimeoutExpired:
@@ -4701,8 +4773,9 @@ def phase_train(torch, fa, pa, timings: dict | None = None) -> dict:
 
 # (a) collectives: reps per op under the profiler; (b) the stragglers:
 # 3 hosts with host 1 delayed, then 4 hosts in 2 slices; (c) tp 1 over a
-# one-rank NCCL group at llama32_3b's full width and depth; (d) tp 2 as two
-# processes on the one card over gloo (NCCL refuses two ranks on one GPU).
+# one-rank NCCL group at llama32_3b's full width and SERVE_LAYERS; (d) tp 2, at
+# MULTI_TP2_LAYERS layers, as two processes on the one card over gloo (NCCL
+# refuses two ranks on one GPU).
 MULTI_REPS = 5
 MULTI_STRAGGLER = ["--multiprocess", "3", "--delay-host", "1", "--delay-ms", "150",
                    "--reps", "4", "--payload-kb", "256"]
@@ -4712,6 +4785,10 @@ MULTI_TP1_TOKENS = 16
 MULTI_TP2_PROMPTS = (PROMPTS["bucket128"], PROMPTS["bucket256"])
 MULTI_TP2_SEED = 25
 MULTI_TP2_TOKENS = 16
+# (d)'s depth: half of llama32_3b's 28 layers since phase 27 came (its
+# reference engine is cut alike), which halves tp 2's collectives and its
+# decode step against the whole model.
+MULTI_TP2_LAYERS = 14
 MULTI_TIMEOUT_S = 600.0
 
 
@@ -4870,7 +4947,7 @@ def _multi_tp1(torch, fa, pa, mesh_mod) -> dict:
     bit; the collectives each token makes."""
     from tpuslo_torch.models import frontdoor, llama, paged_kv, serve
 
-    cfg = llama.llama32_3b(max_seq_len=2048)
+    cfg = serve_config(llama)
     params = llama.init_params(24, cfg, "cuda")
     mesh = mesh_mod.tp_mesh(1)
     kw = dict(prefill_buckets=BUCKETS, decode_chunk_size=MULTI_TP1_TOKENS)
@@ -4895,7 +4972,7 @@ def _multi_tp1(torch, fa, pa, mesh_mod) -> dict:
         results = eng.run()
         paged[name] = [results[i] for i in ids_]
         del eng
-    draft = serve.ServeEngine(llama.llama32_1b(max_seq_len=cfg.max_seq_len), rng_seed=1, **kw)
+    draft = serve.ServeEngine(draft_config(llama, cfg.max_seq_len), rng_seed=1, **kw)
     front = {}
     fa.flash_attention.launches = pa.paged_decode_attention.launches = 0
     for name, target in (("plain", plain), ("mesh", sharded)):
@@ -4914,7 +4991,8 @@ def _multi_tp1(torch, fa, pa, mesh_mod) -> dict:
               f"{equal}")
     out = {"transport": "nccl, one rank", "equal": equal, "collectives_per_token": per_token,
            "frontdoor_launches": launches}
-    print(f"multidevice (c) tp 1 over one NCCL rank, llama32_3b full width and depth: bit for "
+    print(f"multidevice (c) tp 1 over one NCCL rank, llama32_3b at full width and "
+          f"{cfg.n_layers} layers: bit for "
           f"bit equal to the engines without a mesh {equal}; collectives per generated token "
           f"{per_token}; front doors' K1 {launches['k1']} K2 {launches['k2']} launches",
           flush=True)
@@ -4972,11 +5050,12 @@ def _multi_tp2(torch, mesh_mod, cfg=None, device: str = "cuda") -> dict:
     logits within PARITY_TOL of the unsharded engine's, its streams and the
     paged engine's held to ``generate`` by the near-tie rule, K1 and K2
     launched on each rank, the time per decode step.  ``cfg`` (default
-    ``llama32_3b(2048)``) and ``device`` let a CPU rehearsal run it
-    narrow."""
+    ``llama32_3b(2048)`` at MULTI_TP2_LAYERS layers) and ``device`` let a
+    CPU rehearsal run it narrow."""
     from tpuslo_torch.models import llama, serve
 
-    cfg = cfg or llama.llama32_3b(max_seq_len=2048)
+    cfg = cfg or dataclasses.replace(llama.llama32_3b(max_seq_len=2048),
+                                     n_layers=MULTI_TP2_LAYERS)
     jobs = PAGED_JOBS[:6]
     ref = serve.ServeEngine(cfg, rng_seed=MULTI_TP2_SEED, prefill_buckets=BUCKETS,
                             decode_chunk_size=MULTI_TP2_TOKENS, device=device)
@@ -5038,8 +5117,9 @@ def phase_multidevice(torch, fa, pa, captured: dict) -> dict:
     """Phase 24: the multi-device plane on one card (parts (a)-(d) above,
     one line each).  (a) and (c) run over the one-rank NCCL group
     :func:`open_nccl_rank` opened in this process (``captured``: (a)'s
-    profiled part, taken earlier), which is torn down before (b) and (d)
-    start processes of their own."""
+    profiled part, taken earlier), which is torn down before (d) starts
+    processes of its own.  (b)'s processes are CPU ones: they run in a
+    thread of their own beside (c) and (d)."""
     import tempfile
 
     import torch.distributed as dist
@@ -5048,15 +5128,17 @@ def phase_multidevice(torch, fa, pa, captured: dict) -> dict:
 
     t_phase = time.perf_counter()
     out = {}
-    with tempfile.TemporaryDirectory(prefix="multidevice-") as tmp:
+    with tempfile.TemporaryDirectory(prefix="multidevice-") as tmp, \
+            ThreadPoolExecutor(1) as pool:
         workdir = Path(tmp)
         try:
             out["collectives"] = _timed(_multi_collectives, workdir, captured)
+            stragglers = pool.submit(_timed, _multi_stragglers, workdir)
             out["tp1"] = _timed(_multi_tp1, torch, fa, pa, mesh_mod)
         finally:
             dist.destroy_process_group()
-        out["stragglers"] = _timed(_multi_stragglers, workdir)
-    out["tp2"] = _timed(_multi_tp2, torch, mesh_mod)
+        out["tp2"] = _timed(_multi_tp2, torch, mesh_mod)
+        out["stragglers"] = stragglers.result()
     out["seconds"] = time.perf_counter() - t_phase
     print(f"multidevice: phase took {out['seconds']:.1f} s", flush=True)
     return out
@@ -5676,6 +5758,335 @@ def phase_moemesh(torch, fa, pa, rn, launch_counts, cfg=None, device: str = "cud
     return out
 
 
+# --- phase 27: sharded training and the pipeline on one card -------------------
+
+TRAIN_MESH_LAYERS = 2  # bench (ii)'s cut of llama32_3b (BENCH_3B_LAYERS), mixtral_2b6 alike
+TRAIN_MESH_STEPS = 2
+TRAIN_MESH_SEED = 0  # phase 23's trainer seed
+TRAIN_MESH_PLANS = (("dp2", {"dp": 2}), ("fsdp2", {"fsdp": 2}), ("tp2", {"tp": 2}),
+                    ("dcn2", {"dcn": 2}))
+TRAIN_MESH_MICROBATCHES = 4
+# The loss against the one-device step: JAX's own dcn-vs-single-slice
+# bound (the multi-chip checklist's dcn2_loss line).
+TRAIN_MESH_LOSS_TOL = 2e-2
+TRAIN_MESH_TIMEOUT_S = 600.0
+
+
+def _train_mesh_batches(cfg, n: int) -> list[tuple]:
+    """The first ``n`` global batches of the CLI's corpus (phase 23's)."""
+    from tpuslo_torch.models.data import tokenize_corpus, window_batches
+
+    stream = window_batches(tokenize_corpus(TRAIN_TEXTS), TRAIN_BATCH, TRAIN_SEQ,
+                            seed=TRAIN_MESH_SEED)
+    return [next(stream) for _ in range(n)]
+
+
+def _one_device_reference(torch, build, init_params, loss_fn, cfg, device: str,
+                          logits_fn=None) -> dict:
+    """TRAIN_MESH_STEPS AdamW steps on one device: the losses, the first
+    step's gradients, the parameters after the steps and (``logits_fn``)
+    the first batch's logits at the initial weights, on the device."""
+    from tpuslo_torch.models import train
+    from tpuslo_torch.parallel import mesh as mesh_mod
+
+    mesh = mesh_mod.make_mesh(mesh_mod.MeshPlan(), devices=[device])
+    step, _ = build(mesh, cfg)
+    params = train.trainable(init_params(TRAIN_MESH_SEED, cfg, device))
+    opt = train.make_optimizer().init(params)
+    out: dict = {"losses": [], "step_wall_ms": []}
+    for i, (tok, tgt) in enumerate(_train_mesh_batches(cfg, TRAIN_MESH_STEPS)):
+        tok, tgt = (torch.from_numpy(a).to(device) for a in (tok, tgt))
+        if i == 0 and logits_fn is not None:
+            with torch.no_grad():
+                out["logits"] = logits_fn(train.frozen(params), tok)
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, tok, tgt)
+        _sync(torch, device)
+        out["step_wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(float(loss))
+        if i == 0:
+            out["grads"] = {p: t.grad.detach() for p, t in train.param_leaves(params)}
+    out["params"] = {p: t.detach() for p, t in train.param_leaves(params)}
+    del params, opt
+    return out
+
+
+def _hold_train_launched(what: str, counts: dict) -> None:
+    """K1, RMSNorm and add + RMSNorm all launched on a rank."""
+    missing = [k for k in ("flash_attention", "rms_norm", "add_rms_norm") if counts[k] <= 0]
+    if missing:
+        _fail(f"{what}: {missing} launched no time ({counts})")
+
+
+def _shard_errors(torch, got: dict, ref: dict, layout: dict, mesh, device: str) -> dict:
+    """Each leaf's error against the reference's part that this rank holds
+    (``place_leaf`` of the whole leaf), over the whole leaf's largest value:
+    the largest over the ranks is the gathered leaf's error."""
+    from tpuslo_torch.parallel import mesh as mesh_mod
+
+    out = {}
+    for path, t in got.items():
+        whole = ref[path].to(device).float()
+        part = mesh_mod.place_leaf(whole, layout[path], mesh)
+        out[path] = float((t.detach().float() - part).abs().max()
+                          / whole.abs().max().clamp_min(1e-30))
+        del whole, part
+    return out
+
+
+def _mesh_steps(torch, mods, mesh, cfg, build, ref: dict, device: str) -> dict:
+    """TRAIN_MESH_STEPS steps of ``build`` over ``mesh`` on this rank's rows:
+    per step the loss, wall ms, the collectives and host copies, the
+    kernels' launches; the first step's gradients and the parameters
+    after the steps against the reference, leaf by leaf."""
+    from tpuslo_torch.models import train
+    from tpuslo_torch.parallel import mesh as mesh_mod
+
+    _reset_peak(torch, device)
+    step, init = build(mesh, cfg)
+    params, opt = init(TRAIN_MESH_SEED)
+    index, count = mesh_mod.axis_index(mesh, step.data_axes)
+    rows = TRAIN_BATCH // count
+    out: dict = {"losses": [], "step_wall_ms": [], "rows": rows}
+    mesh.reset_counts()
+    _zero_counts(*mods)
+    for i, (tok, tgt) in enumerate(_train_mesh_batches(cfg, TRAIN_MESH_STEPS)):
+        sel = slice(index * rows, (index + 1) * rows)
+        tok, tgt = (torch.from_numpy(a[sel]).to(device) for a in (tok, tgt))
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, tok, tgt)
+        _sync(torch, device)
+        out["step_wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(float(loss))
+        if i == 0:
+            calls, copies = dict(mesh.calls), mesh.host_copies
+            grads = {p: t.grad for p, t in train.param_leaves(params)}
+            out["grad_rel_err"] = _shard_errors(torch, grads, ref["grads"], step.layout, mesh,
+                                                device)
+            del grads
+            mesh.reset_counts()
+    out["launches"] = _read_counts(*mods[:3])
+    out["calls_per_step"] = calls
+    out["calls_steps"] = {k: calls.get(k, 0) + mesh.calls.get(k, 0)
+                          for k in set(calls) | set(mesh.calls)}
+    out["host_copies"] = copies + mesh.host_copies
+    out["peak_gb"] = _peak_gb(torch, device)
+    out["param_rel_err"] = _shard_errors(
+        torch, dict(train.param_leaves(params)), ref["params"], step.layout, mesh, device)
+    del params, opt
+    return out
+
+
+def train_mesh_rank(rank: int, world: int, cfg, moe_cfg, ref: dict, device: str) -> dict:
+    """Phase 27's ranks: (a) each TRAIN_MESH_PLANS mesh, (b) pp 2, (c) the
+    MoE family over dp 1 x ep 2 (see the module docstring).  ``ref``: the
+    one-device reference, its tensors the parent's (CUDA tensors reach a
+    spawned rank as IPC handles, no copy)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from tpuslo_torch.models import llama, mixtral, train
+    from tpuslo_torch.parallel import mesh as mesh_mod
+    from tpuslo_torch.parallel import pipeline
+
+    mods = [importlib.import_module(f"tpuslo_torch.ops.{m}")
+            for m in ("flash_attention", "paged_attention", "rms_norm", "launch_counts")]
+    out: dict = {"meshes": {}}
+    for name, plan in TRAIN_MESH_PLANS:
+        mesh = mesh_mod.make_mesh(mesh_mod.MeshPlan(**plan), devices=[device])
+        out["meshes"][name] = _mesh_steps(torch, mods, mesh, cfg, train.build_sharded_train_step,
+                                          ref["llama"], device)
+        gc.collect()
+        if device.startswith("cuda"):
+            torch.cuda.empty_cache()
+
+    # (b) the pipeline at pp 2 from the same initial weights
+    mesh = mesh_mod.pp_mesh(world, devices=[device])
+    specs = pipeline.pipeline_param_specs()
+    (tok, tgt), = _train_mesh_batches(cfg, 1)
+    tok, tgt = (torch.from_numpy(a).to(device) for a in (tok, tgt))
+    _reset_peak(torch, device)
+    placed = pipeline.place_pipeline_params(llama.init_params(TRAIN_MESH_SEED, cfg, device), mesh)
+    gc.collect()
+    _zero_counts(*mods)
+    mesh.reset_counts()
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = pipeline.pipelined_forward(placed, tok, cfg, mesh,
+                                            n_microbatches=TRAIN_MESH_MICROBATCHES)
+    _sync(torch, device)
+    pp = {"forward_ms": (time.perf_counter() - t0) * 1e3, "forward_calls": dict(mesh.calls),
+          "forward_launches": _read_counts(*mods[:3])}
+    want = ref["llama"]["logits"].to(device)
+    pp["max_logit_err"] = float((logits - want).abs().max())
+    pp["finite"] = bool(torch.isfinite(logits).all())
+    del logits, want
+    placed = train.trainable(placed)
+    _zero_counts(*mods)
+    mesh.reset_counts()
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    loss = pipeline.pipelined_loss(placed, tok, tgt, cfg, mesh,
+                                   n_microbatches=TRAIN_MESH_MICROBATCHES)
+    loss.backward()
+    _sync(torch, device)
+    pp.update(loss_grad_ms=(time.perf_counter() - t0) * 1e3, loss=float(loss.detach()),
+              calls=dict(mesh.calls), host_copies=mesh.host_copies,
+              launches=_read_counts(*mods[:3]), peak_gb=_peak_gb(torch, device))
+    pp["grad_rel_err"] = _shard_errors(
+        torch, {p: t.grad for p, t in train.param_leaves(placed)}, ref["llama"]["grads"], specs,
+        mesh, device)
+    pp["layers_with_grad"] = [bool(g.abs().amax() > 0) for g in placed["layers"]["wq"].grad]
+    out["pp2"] = pp
+    del placed, loss
+    gc.collect()
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+
+    # (c) the MoE family over dp 1 x ep 2
+    mesh = mesh_mod.dp_ep_mesh(1, world, devices=[device])
+    out["moe_ep2"] = _mesh_steps(torch, mods, mesh, moe_cfg, mixtral.build_moe_train_step,
+                                 ref["mixtral"], device)
+    return out
+
+
+def _train_mesh_row(name: str, ranks: list[dict], ref: dict) -> dict:
+    """One mesh's line: the errors (worst over the ranks) and per rank the
+    calls, copies, launches, step times and peak memory."""
+    losses = ranks[0]["losses"]
+    row = {"losses": losses,
+           "loss_err": max(abs(a - b) for r in ranks for a, b in zip(r["losses"],
+                                                                      ref["losses"])),
+           "grad_rel_err": max(v for r in ranks for v in r["grad_rel_err"].values()),
+           "worst_grad_leaf": max(((v, p) for r in ranks for p, v in r["grad_rel_err"].items()))[1],
+           "param_rel_err": max(v for r in ranks for v in r["param_rel_err"].values()),
+           "per_rank": [{k: r[k] for k in ("rows", "calls_per_step", "calls_steps",
+                                          "host_copies", "launches", "step_wall_ms", "peak_gb")}
+                        for r in ranks]}
+    if any(r["losses"] != losses for r in ranks):
+        _fail(f"train_mesh {name}: the ranks' losses differ: {[r['losses'] for r in ranks]}")
+    for i, r in enumerate(ranks):
+        _hold_train_launched(f"train_mesh {name} rank {i}", r["launches"])
+    if not all(math.isfinite(x) for x in losses) or row["loss_err"] > TRAIN_MESH_LOSS_TOL or (
+            row["grad_rel_err"] > TRAIN_PARITY_GRAD_REL):
+        _fail(f"train_mesh {name}: losses {losses} against one device's {ref['losses']} "
+              f"(err {row['loss_err']}, tol {TRAIN_MESH_LOSS_TOL}); worst gradient leaf "
+              f"{row['worst_grad_leaf']} {row['grad_rel_err']} of its largest value (tol "
+              f"{TRAIN_PARITY_GRAD_REL})")
+    return row
+
+
+def _train_mesh_pp(pps: list[dict], ref: dict) -> dict:
+    """(b)'s line: the logits', the loss's and the gradients' errors (worst
+    over the stages) and per stage the times, calls and launches; fails
+    past PARITY_TOL, TRAIN_MESH_LOSS_TOL or TRAIN_PARITY_GRAD_REL, or on a
+    stage layer with no gradient."""
+    pp = {"max_logit_err": max(p["max_logit_err"] for p in pps),
+          "loss": pps[0]["loss"], "loss_err": abs(pps[0]["loss"] - ref["losses"][0]),
+          "grad_rel_err": max(v for p in pps for v in p["grad_rel_err"].values()),
+          "per_rank": [{k: p[k] for k in ("forward_ms", "forward_calls", "forward_launches",
+                                         "loss_grad_ms", "calls", "host_copies", "launches",
+                                         "peak_gb", "layers_with_grad")} for p in pps]}
+    for i, p in enumerate(pps):
+        _hold_train_launched(f"train_mesh pp 2 rank {i}", p["launches"])
+    if not all(p["finite"] for p in pps) or pp["max_logit_err"] > PARITY_TOL or (
+            pp["loss_err"] > TRAIN_MESH_LOSS_TOL or pp["grad_rel_err"] > TRAIN_PARITY_GRAD_REL
+            or not all(all(p["layers_with_grad"]) for p in pps)):
+        _fail(f"train_mesh pp 2: logits within {pp['max_logit_err']} of one device's (tol "
+              f"{PARITY_TOL}), loss err {pp['loss_err']}, worst gradient leaf "
+              f"{pp['grad_rel_err']} (tol {TRAIN_PARITY_GRAD_REL}), stage layers with a "
+              f"gradient {[p['layers_with_grad'] for p in pps]}")
+    return pp
+
+
+def phase_train_mesh(torch, fa, pa, rn, launch_counts, cfg=None, moe_cfg=None,
+                     device: str = "cuda") -> dict:
+    """Phase 27: sharded training and the pipeline over two gloo ranks on
+    one device (see the module docstring).  ``cfg`` / ``moe_cfg``
+    (default ``llama32_3b`` / ``mixtral_2b6`` at TRAIN_MESH_LAYERS) and
+    ``device`` let a CPU rehearsal run it narrow."""
+    from tpuslo_torch.models import llama, mixtral, train
+    from tpuslo_torch.parallel import mesh as mesh_mod
+
+    cfg = cfg or dataclasses.replace(llama.llama32_3b(max_seq_len=TRAIN_SEQ),
+                                     n_layers=TRAIN_MESH_LAYERS)
+    moe_cfg = moe_cfg or dataclasses.replace(mixtral.mixtral_2b6(max_seq_len=TRAIN_SEQ),
+                                             n_layers=TRAIN_MESH_LAYERS)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    out = {"config": "llama32_3b", "moe_config": "mixtral_2b6", "n_layers": cfg.n_layers,
+           "dim": cfg.dim, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+           "ffn_dim": cfg.ffn_dim, "vocab": cfg.vocab_size,
+           "n_params": llama.param_count(cfg), "moe_n_params": mixtral.param_count(moe_cfg),
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_MESH_STEPS,
+           "microbatches": TRAIN_MESH_MICROBATCHES,
+           "transport": "gloo: CUDA tensors through host memory (in gloo or the wrappers; "
+                        "not an NVLink figure)" if device == "cuda" else "gloo, CPU"}
+    t0 = time.perf_counter()
+    ref = {"llama": _one_device_reference(
+        torch, train.build_sharded_train_step, llama.init_params, llama.loss_fn, cfg, device,
+        lambda p, tok: llama.forward(p, tok, cfg)),
+        "mixtral": _one_device_reference(torch, mixtral.build_moe_train_step,
+                                         mixtral.init_params, mixtral.loss_fn, moe_cfg, device)}
+    out["one_device"] = {k: {"losses": v["losses"], "step_wall_ms": v["step_wall_ms"]}
+                         for k, v in ref.items()}
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["reference_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rank_device = "cuda:0" if device == "cuda" else device
+    ranks = mesh_mod.run_ranks(train_mesh_rank, 2, "gloo", device, timeout_s=TRAIN_MESH_TIMEOUT_S,
+                               args=(cfg, moe_cfg, ref, rank_device))
+    out["ranks_s"] = time.perf_counter() - t0
+    out["meshes"] = {name: _train_mesh_row(name, [r["meshes"][name] for r in ranks],
+                                           ref["llama"]) for name, _ in TRAIN_MESH_PLANS}
+    out["moe_ep2"] = _train_mesh_row("moe dp1 x ep2", [r["moe_ep2"] for r in ranks],
+                                     ref["mixtral"])
+    pps = [r["pp2"] for r in ranks]
+    out["pp2"] = pp = _train_mesh_pp(pps, ref["llama"])
+    stepped = [r for row in [*out["meshes"].values(), out["moe_ep2"]] for r in row["per_rank"]]
+    out["launches"] = {k: sum(r["launches"][k] for r in stepped)
+                       + sum(p["forward_launches"][k] + p["launches"][k] for p in pps)
+                       for k in stepped[0]["launches"]}
+    del ref
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    for name, row in [*out["meshes"].items(), ("moe dp1 x ep2", out["moe_ep2"])]:
+        print(f"train_mesh {name}: losses {row['losses']} (one device's within "
+              f"{row['loss_err']:.2e}, tol {TRAIN_MESH_LOSS_TOL}); worst gradient leaf "
+              f"{row['worst_grad_leaf']} {row['grad_rel_err']:.2e} of its largest (tol "
+              f"{TRAIN_PARITY_GRAD_REL}); parameters after {TRAIN_MESH_STEPS} steps "
+              f"{row['param_rel_err']:.2e}; per rank: "
+              + "; ".join(f"{r['rows']} rows, calls a step {r['calls_per_step']}, host copies "
+                          f"{r['host_copies']}, K1 {r['launches']['flash_attention']} RMSNorm "
+                          f"{r['launches']['rms_norm']} add + RMSNorm "
+                          f"{r['launches']['add_rms_norm']}, steps "
+                          + "/".join(f"{ms:.0f}" for ms in r["step_wall_ms"])
+                          + f" ms, peak {r['peak_gb']:.2f} GB" for r in row["per_rank"]),
+              flush=True)
+    print(f"train_mesh pp 2 ({TRAIN_MESH_MICROBATCHES} microbatches, one layer a stage): "
+          f"logits within {pp['max_logit_err']:.4f} of one device's (tol {PARITY_TOL}); "
+          f"pipelined_loss {pp['loss']:.5f} (err {pp['loss_err']:.2e}); worst gradient leaf "
+          f"{pp['grad_rel_err']:.2e} (tol {TRAIN_PARITY_GRAD_REL}); per rank: "
+          + "; ".join(f"forward {p['forward_ms']:.0f} ms {p['forward_calls']}, loss + backward "
+                      f"{p['loss_grad_ms']:.0f} ms {p['calls']}, host copies {p['host_copies']}"
+                      f", K1 {p['launches']['flash_attention']} RMSNorm "
+                      f"{p['launches']['rms_norm']} add + RMSNorm "
+                      f"{p['launches']['add_rms_norm']}, peak {p['peak_gb']:.2f} GB"
+                      for p in pp["per_rank"]), flush=True)
+    print(f"train_mesh: {out['transport']}; the reference took {out['reference_s']:.1f} s, "
+          f"the ranks {out['ranks_s']:.1f} s; phase took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def _load_tree(tree: Path):
     """The tree's ``chip_smoke`` module, with its ``tpuslo_torch`` first
     on the path."""
@@ -5730,10 +6141,10 @@ def _probe_admission(torch, cs, tree: Path, runs: int) -> None:
 
     fa = importlib.import_module("tpuslo_torch.ops.flash_attention")
     pa = importlib.import_module("tpuslo_torch.ops.paged_attention")
-    cfg = llama.llama32_3b(max_seq_len=2048)
+    cfg = serve_config(llama)
     target = serve.ServeEngine(cfg, rng_seed=0, prefill_buckets=cs.BUCKETS,
                                decode_chunk_size=cs.NEW_TOKENS, device="cuda")
-    draft = serve.ServeEngine(llama.llama32_1b(max_seq_len=2048), rng_seed=1,
+    draft = serve.ServeEngine(draft_config(llama), rng_seed=1,
                               prefill_buckets=cs.BUCKETS, decode_chunk_size=cs.NEW_TOKENS,
                               device="cuda")
     target.warmup()
@@ -5880,6 +6291,22 @@ def _probe_moemesh(torch) -> None:
     print(f"moemesh: probe took {time.perf_counter() - t0:.1f} s after the builds", flush=True)
 
 
+def _probe_train_mesh(torch) -> None:
+    """Phase 27 alone, after building the kernels (the ranks import this
+    script's rank function, so no other tree)."""
+    from tpuslo_torch.ops import _build
+
+    sys.path.insert(0, str(ROOT))
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(_build.build, KERNELS))
+    mods = [importlib.import_module(f"tpuslo_torch.ops.{m}")
+            for m in ("flash_attention", "paged_attention", "rms_norm", "launch_counts")]
+    t0 = time.perf_counter()
+    out = phase_train_mesh(torch, *mods)
+    print(f"train_mesh: {json.dumps(out)}", flush=True)
+    print(f"train_mesh: probe took {time.perf_counter() - t0:.1f} s after the builds", flush=True)
+
+
 def _probe_sp(torch) -> None:
     """Phase 25 alone, after building the kernels (the sp 2 ranks import
     this script's rank function, so no other tree)."""
@@ -5950,7 +6377,7 @@ def probe_main(argv: list[str]) -> int:
     """``python3 chip_smoke.py probe ...``: see the module's docstring."""
     p = argparse.ArgumentParser(prog="chip_smoke.py probe")
     p.add_argument("what", choices=("admission", "bench", "norm", "train", "multidevice",
-                                    "gloo", "sp", "moemesh"))
+                                    "gloo", "sp", "moemesh", "train_mesh"))
     p.add_argument("--tree", default=str(ROOT), help="the checkout whose code runs")
     p.add_argument("--runs", type=int, default=1)
     p.add_argument("--benches", nargs="+", default=["frontdoor_tiny", "frontdoor_3b", "router"],
@@ -5974,6 +6401,9 @@ def probe_main(argv: list[str]) -> int:
     if args.what == "moemesh":
         _probe_moemesh(torch)
         return 0
+    if args.what == "train_mesh":
+        _probe_train_mesh(torch)
+        return 0
     if args.what == "train":
         _probe_train(torch, tree)
         return 0
@@ -5994,6 +6424,13 @@ def main() -> int:
     import torch
 
     t_script = time.perf_counter()
+    marks: dict[str, float] = {}
+
+    def mark(phase: str) -> None:
+        """When a phase ended, in seconds from the script's start."""
+        marks[phase] = round(time.perf_counter() - t_script, 1)
+        print(f"chip_smoke: {phase} ended at {marks[phase]} s", flush=True)
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on a GPU only",
               file=sys.stderr)
@@ -6049,33 +6486,42 @@ def main() -> int:
     if missing:
         _fail(f"the main path's instantiations are not in the ptxas report: {sorted(missing)}")
 
+    mark("2 build")
     # 3. K1 vs plain, at the fixed shapes and the serve path's
-    cfg = llama.llama32_3b(max_seq_len=2048)
+    cfg = serve_config(llama)
     serve_shapes = serve_prefills(serve, fa, cfg)
     kernel = phase_kernel(torch, fa, cfg, serve_shapes)
     kernel_f32 = phase_kernel_f32(torch, fa)
+    mark("3 K1 vs plain")
     # 4. serve (its engine's weights serve every later phase)
     served, engine = phase_serve(torch, fa, llama, serve, cfg, serve_shapes)
+    mark("4 serve")
     # 5. dense continuous batching
     dense = phase_dense(torch, fa, pa, batching, serve, cfg, engine)
+    mark("5 dense")
     # 6. paged serving through K2
     paged, paged_engine, capture = phase_paged(torch, fa, pa, paged_kv, serve, cfg, engine)
+    mark("6 paged")
     # 7. K2 vs plain, at the paged phase's step and random tables
     k2 = phase_paged_kernel(torch, pa, kv_cache, cfg, paged_engine, capture)
     k2_f32 = phase_paged_kernel_f32(torch, pa, kv_cache, cfg, paged_engine, capture)
     k2_f32_hd24 = phase_paged_kernel_f32_hd24(torch, pa, kv_cache)
+    mark("7 K2 vs plain")
     # 8. one paged step with K2 on and off
     breakdown = phase_breakdown(torch, paged_kv, cfg, paged_engine, capture)
+    mark("8 breakdown")
     del paged_engine
     torch.cuda.empty_cache()
     # 9. speculative decoding: the 1B draft, then a self-draft
     spec, draft = phase_spec(torch, fa, llama, serve, speculative, cfg, engine)
+    mark("9 spec")
     # 10. the front door (this slice's main path)
     kernel_shapes = {(r["B"], r["S"], r["causal"]) for r in kernel["shapes"]
                      if r["D"] == cfg.head_dim}
     front = phase_frontdoor(torch, fa, pa, serve, frontdoor, sloengine, cfg, engine, draft,
                             kernel_shapes)
     torch.cuda.empty_cache()
+    mark("10 front door")
     # 18. batch invariance per op: the RMSNorm and fused add + RMSNorm
     # kernels, K2's lanes, the GEMM; and 17. the serving benches (K1 and
     # K2 counted from 0 before each bench).  Both run right after the
@@ -6091,12 +6537,15 @@ def main() -> int:
     # that phase 24 (c) uses and then closes
     open_nccl_rank(torch)
     multi_capture = capture_collectives(torch)
+    mark("18 invariance, 23 and 24 (a) profiled parts")
     benches = phase_bench(torch, fa, pa, serve, llama)
     print(f"bench: {json.dumps(benches)}", flush=True)
+    mark("17 benches")
     bench_k1 = {k: sum(benches[b][k] for b in ("frontdoor_tiny", "frontdoor_3b", "router"))
                 for k in ("k1_launches", "k1_f32_launches")}
     # 11. the router over two front doors, across a kill
     routed = phase_router(torch, fa, serve, frontdoor, router, cfg, engine, draft)
+    mark("11 router")
     torch.cuda.empty_cache()
     # 12. the device plane over the front door and a paged step
     fa.flash_attention.launches = 0
@@ -6104,11 +6553,13 @@ def main() -> int:
     device = phase_deviceplane(torch, fa, pa, llama, paged_kv, frontdoor, cfg, engine, draft)
     device_k1, device_k2 = fa.flash_attention.launches, pa.paged_decode_attention.launches
     print(f"deviceplane: {json.dumps(device)}", flush=True)
+    mark("12 device plane")
     del engine, draft
     torch.cuda.empty_cache()
     # 13. the attribution spine on the card
     attributed = phase_attribution(torch)
     print(f"attribution: {json.dumps(attributed)}", flush=True)
+    mark("13 attribution")
     # 14. the process entry: python -m tpuslo_torch frontdoor, a kill -9 and
     # a resume (its launches counted from 0 just before its in-process run)
     import tempfile
@@ -6116,6 +6567,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="entry-") as workdir:
         entry = phase_entry(torch, fa, pa, Path(workdir))
     print(f"entry: {json.dumps(entry)}", flush=True)
+    mark("14 entry")
     # 15. parity: the bf16 model, then the f32 path (its launches counted
     # from 0 just before it)
     parity = phase_parity(torch, fa, llama)
@@ -6129,33 +6581,40 @@ def main() -> int:
     # ... and K2-f32 against plain at the shape each of these engines gave it
     k2_f32_path = phase_paged_kernel_f32_path(torch, pa, kv_cache, [
         ("f32_path", f32_capture, F32_MODEL["n_heads"], "f32", 4323), *tiny_paths])
+    mark("15 parity")
     # 16. exactness in bf16 at llama32_3b(192): the front door against the
     # per-stream engine, and no op whose bits depend on the batch
     exactness = phase_exactness(torch)
     print(f"exactness: {json.dumps(exactness)}", flush=True)
-    # 20. the serving bench, a subprocess of its own (its launches are its
-    # process's, added to the kernels line below)
+    mark("16 exactness")
+    # 20. the serving bench, a subprocess of its own at SERVING_LAYERS layers
+    # (its launches are its process's, added to the kernels line below)
     serving = phase_serving(torch)
     print(f"serving: {json.dumps(serving)}", flush=True)
+    mark("20 serving bench")
     served_launches = serving["report"]["kernel_launches"]
     # 21. MoE serving: mixtral_2b6 through the three MoE engines (its
     # launches counted from 0 just before its path)
     moe = phase_moe(torch, fa, pa, serve)
     print(f"moe: {json.dumps(moe)}", flush=True)
+    mark("21 moe")
     # 22. the CUDA probe surface
     probed = phase_probe(torch)
     print(f"probe: {json.dumps(probed)}", flush=True)
+    mark("22 probe")
     # 23. training: gradients against plain, llama32_3b and mixtral_2b6
     # through train(), card against CPU, a resume, the trained draft (its
     # launches counted from 0 just before each of its paths)
     trained = phase_train(torch, fa, pa, train_timings)
     print(f"train: {json.dumps(trained)}", flush=True)
+    mark("23 train")
     train_launches = trained["launches"]
     # 24. the multi-device plane on one card: collectives, stragglers, tp 1
     # over one NCCL rank, tp 2 over gloo (its K1 and K2 launches: tp 1's
     # front doors, counted from 0 just before them, and tp 2's ranks)
     multi = phase_multidevice(torch, fa, pa, multi_capture)
     print(f"multidevice: {json.dumps(multi)}", flush=True)
+    mark("24 multidevice")
     multi_launches = {k: multi["tp1"]["frontdoor_launches"][k]
                       + sum(r[k] for r in multi["tp2"]["launches"]) for k in ("k1", "k2")}
     # 25. sequence parallelism: sp 1 over a one-rank NCCL group (the ring,
@@ -6164,6 +6623,7 @@ def main() -> int:
     sp = phase_sp(torch, fa, pa, importlib.import_module("tpuslo_torch.ops.rms_norm"),
                   importlib.import_module("tpuslo_torch.ops.launch_counts"))
     print(f"sp: {json.dumps(sp)}", flush=True)
+    mark("25 sp")
     sp_launches = sp["launches"]
     # 26. Mixtral serving over tp and ep meshes: tp 1 and ep 1 over a one-rank
     # NCCL group, the expert exchange at ep 1, tp 2 and ep 2 over gloo (its
@@ -6171,7 +6631,17 @@ def main() -> int:
     moemesh = phase_moemesh(torch, fa, pa, importlib.import_module("tpuslo_torch.ops.rms_norm"),
                             importlib.import_module("tpuslo_torch.ops.launch_counts"))
     print(f"moemesh: {json.dumps(moemesh)}", flush=True)
+    mark("26 moemesh")
     moemesh_launches = moemesh["launches"]
+    # 27. sharded training and the pipeline: the one-device reference here,
+    # then dp 2, fsdp 2, tp 2, dcn 2, pp 2 and the MoE family over dp 1 x ep 2
+    # in one pair of gloo processes (the ranks count their own launches)
+    train_mesh = phase_train_mesh(torch, fa, pa,
+                                  importlib.import_module("tpuslo_torch.ops.rms_norm"),
+                                  importlib.import_module("tpuslo_torch.ops.launch_counts"))
+    print(f"train_mesh: {json.dumps(train_mesh)}", flush=True)
+    mark("27 train_mesh")
+    train_mesh_launches = train_mesh["launches"]
 
     # 19. kernels line, card line, result line
     line_row = next(
@@ -6199,7 +6669,8 @@ def main() -> int:
                      + entry["launches"]["flash_attention"] + bench_k1["k1_launches"]
                      + served_launches["flash_attention"] + moe["k1_launches"]
                      + train_launches["flash_attention"] + multi_launches["k1"]
-                     + sp_launches["flash_attention"] + moemesh_launches["flash_attention"]),
+                     + sp_launches["flash_attention"] + moemesh_launches["flash_attention"]
+                     + train_mesh_launches["flash_attention"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel["shapes"]),
         "ms": line_row["ms"],
         "plain_ms": line_row["plain_ms"],
@@ -6299,7 +6770,7 @@ def main() -> int:
         "replaces": "tpuslo/models/llama.py:299",
         "launches": (front["norm_launches"] + served_launches["rms_norm"]
                      + train_launches["rms_norm"] + sp_launches["rms_norm"]
-                     + moemesh_launches["rms_norm"]),
+                     + moemesh_launches["rms_norm"] + train_mesh_launches["rms_norm"]),
         "max_abs_err": max(r["max_abs_err"] for r in invariance["norm"]),
         "ms": norm_row["ms"],
         "plain_ms": norm_row["plain_ms"],
@@ -6316,7 +6787,7 @@ def main() -> int:
         "replaces": "tpuslo/models/llama.py:739",
         "launches": (front["fused_launches"] + served_launches["add_rms_norm"]
                      + train_launches["add_rms_norm"] + sp_launches["add_rms_norm"]
-                     + moemesh_launches["add_rms_norm"]),
+                     + moemesh_launches["add_rms_norm"] + train_mesh_launches["add_rms_norm"]),
         "max_abs_err": max(r["max_abs_err"] for r in invariance["fused"]),
         "ms": fused_row["ms"],
         "plain_ms": fused_row["plain_ms"],
@@ -6334,12 +6805,12 @@ def main() -> int:
     seconds = time.perf_counter() - t_script
     print(f"chip_smoke: every phase passed in {seconds:.1f} s", flush=True)
     record = {"card": card, "kind": kind, "count": count, "torch": torch.__version__,
-              "seconds": seconds,
+              "seconds": seconds, "phase_end_s": marks,
               "build_s": {n: b.seconds for n, b in builds.items()},
               "ptxas": ptxas, "kernel": kernel, "kernel_f32": kernel_f32,
               "serve": served, "dense": dense, "paged": paged, "paged_kernel": k2,
               "paged_kernel_f32": k2_f32, "paged_kernel_f32_hd24": k2_f32_hd24,
-              "multidevice": multi, "sp": sp, "moemesh": moemesh,
+              "multidevice": multi, "sp": sp, "moemesh": moemesh, "train_mesh": train_mesh,
               "paged_kernel_f32_path": k2_f32_path, "paged_breakdown": breakdown, "spec": spec, "frontdoor": front,
               "router": routed, "deviceplane": device, "attribution": attributed,
               "entry": entry, "parity": parity, "parity_f32": parity_f32,

@@ -454,6 +454,96 @@ def test_serving_gates_name_each_failure(break_it, failure):
     assert fails and any(failure in f for f in fails), fails
 
 
+def test_every_phase_marks_when_it_ended():
+    """main() prints each phase's end in seconds from the start and keeps
+    them in the record: every phase from the build to 27, the last
+    line's (19) aside, once, in the order the phases run."""
+    import re
+
+    source = (Path(chip_smoke.__file__)).read_text()
+    main = source[source.index("def main() -> int:"):]
+    names = re.findall(r'mark\("([^"]+)"\)', main)
+    numbers = [int(n.split()[0]) for n in names]
+    assert sorted(numbers) == [n for n in range(2, 28) if n != 19]
+    assert numbers.index(20) == numbers.index(16) + 1 and numbers[-1] == 27
+    for name in names:
+        assert main.index(f'mark("{name}")') < main.index('kernels = {"kernels": [')
+    assert '"phase_end_s": marks' in main
+
+
+def _cut_report() -> dict:
+    """A good serving report whose three models ran at SERVING_LAYERS."""
+    r = _serving_report()
+    cut = chip_smoke.SERVING_CUT_PARAMS
+    for lane in (r, r["int8"], r["moe"]):
+        lane.update(n_layers=chip_smoke.SERVING_LAYERS, n_params=cut[lane["model"]])
+    return r
+
+
+def test_serving_gates_hold_a_cut_report_to_the_cut_counts():
+    assert chip_smoke.serving_failures(_cut_report()) == []
+
+
+@pytest.mark.parametrize("break_it,failure", [
+    (lambda r: r.update(n_params=3_606_752_256), "bf16 model llama32_3b"),
+    (lambda r: r["int8"].update(n_params=8_030_261_248), "int8 model llama3_8b"),
+    (lambda r: r["moe"].update(n_params=2_513_635_328), "moe model mixtral_2b6"),
+    (lambda r: r.update(n_layers=7), "bf16 model llama32_3b"),
+    (lambda r: r["moe"].update(n_layers=9), "moe model mixtral_2b6"),
+])
+def test_serving_gates_hold_each_lane_to_its_own_depth(break_it, failure):
+    """A lane that says it ran the cut is held to the cut config's count,
+    one at another depth to the full config's."""
+    report = _cut_report()
+    break_it(report)
+    fails = chip_smoke.serving_failures(report)
+    assert fails and any(failure in f for f in fails), fails
+
+
+def test_serving_cut_params_are_the_jax_param_counts():
+    """The cut counts are the JAX package's ``param_count`` of the bench's
+    configs at SERVING_LAYERS layers, and the port's bench builds them."""
+    import dataclasses
+
+    from tpuslo.benchmark import serving_bench as jsb
+    from tpuslo.models import mixtral
+    from tpuslo.models.llama import param_count
+    from tpuslo_torch.benchmark import serving_bench as tsb
+    from tpuslo_torch.models import llama as tllama
+    from tpuslo_torch.models import mixtral as tmixtral
+
+    n = chip_smoke.SERVING_LAYERS
+    want = {name: param_count(dataclasses.replace(jsb._make_config(name), n_layers=n))
+            for name in ("llama32_3b", "llama3_8b")}
+    want["mixtral_2b6"] = mixtral.param_count(
+        dataclasses.replace(mixtral.mixtral_2b6(), n_layers=n))
+    assert chip_smoke.SERVING_CUT_PARAMS == want
+    for name in ("llama32_3b", "llama3_8b"):
+        cfg = tsb._make_config(name, n)
+        assert cfg.n_layers == n and tllama.param_count(cfg) == want[name]
+    assert tmixtral.param_count(tsb._cut(tmixtral.mixtral_2b6(), n)) == want["mixtral_2b6"]
+
+
+def test_phase_20_runs_the_bench_at_its_depth_cut(monkeypatch):
+    """Phase 20 asks the bench for SERVING_LAYERS layers and holds its
+    report to the gates."""
+    import types
+
+    import torch
+
+    seen = []
+
+    def run(argv, **kwargs):
+        seen.append(argv)
+        return types.SimpleNamespace(
+            returncode=0, stderr="", stdout="SERVING_BENCH:" + json.dumps(_cut_report()))
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", run)
+    out = chip_smoke.phase_serving(torch)
+    assert seen[0][-2:] == ["--layers", str(chip_smoke.SERVING_LAYERS)]
+    assert out["report"]["n_layers"] == chip_smoke.SERVING_LAYERS
+
+
 def test_serving_models_are_the_jax_param_counts():
     """The constants phase 20 holds ``n_params`` to are the JAX package's
     ``param_count`` of the bench's two configs."""
@@ -643,6 +733,56 @@ def test_a_failed_part_is_not_caught_and_the_group_is_torn_down(monkeypatch, tmp
     assert calls == ["a", "destroy"]
 
 
+def _phase_24_parts(monkeypatch, stragglers):
+    import torch.distributed as dist
+
+    calls = []
+    monkeypatch.setattr(dist, "destroy_process_group", lambda *a, **k: calls.append("destroy"))
+    monkeypatch.setattr(chip_smoke, "_multi_collectives", lambda *a: calls.append("a") or {})
+
+    def part(name):
+        def run(*a):
+            calls.append(f"{name} start")
+            chip_smoke.time.sleep(0.4)
+            calls.append(f"{name} end")
+            return {}
+        return run
+
+    monkeypatch.setattr(chip_smoke, "_multi_tp1", part("c"))
+    monkeypatch.setattr(chip_smoke, "_multi_tp2", part("d"))
+    monkeypatch.setattr(chip_smoke, "_multi_stragglers", stragglers)
+    return calls
+
+
+def test_phase_24_runs_the_stragglers_beside_the_tp_parts(monkeypatch):
+    """(b)'s CPU processes run in a thread while (c) and (d) run here:
+    the phase takes about the longer of the two, not their sum."""
+    import torch
+
+    def stragglers(workdir):
+        chip_smoke.time.sleep(0.6)
+        assert workdir.is_dir()
+        return {"incidents": [1]}
+
+    calls = _phase_24_parts(monkeypatch, stragglers)
+    out = chip_smoke.phase_multidevice(torch, None, None, {})
+    assert calls == ["a", "c start", "c end", "destroy", "d start", "d end"]
+    assert out["stragglers"]["incidents"] == [1] and out["seconds"] < 1.2
+    assert all("seconds" in out[k] for k in ("collectives", "tp1", "stragglers", "tp2"))
+
+
+def test_a_failed_straggler_thread_fails_the_phase(monkeypatch, capsys):
+    import torch
+
+    def stragglers(workdir):
+        chip_smoke._fail("multidevice: the delayed host 1 is not named")
+
+    _phase_24_parts(monkeypatch, stragglers)
+    with pytest.raises(SystemExit) as exit_:
+        chip_smoke.phase_multidevice(torch, None, None, {})
+    assert exit_.value.code == 1 and "host 1 is not named" in capsys.readouterr().err
+
+
 def test_the_train_attention_bound_counts_the_ports_backward():
     """K1's forward and the plain backward at the train step (B 8, S 128,
     24 heads over 8, D 128, bf16): 16.8 MB forward (q, k, v read, o
@@ -821,3 +961,102 @@ def test_a_failed_moemesh_part_is_not_caught_and_the_group_is_torn_down(monkeypa
                                  cfg=mixtral.mixtral_tiny(max_seq_len=512), device="cpu")
     assert exit_.value.code == 1
     assert calls == ["open", "a", "destroy"]
+
+
+def test_phase_27_runs_after_phase_26_and_feeds_the_kernels_line():
+    source = (Path(chip_smoke.__file__)).read_text()
+    main = source[source.index("def main() -> int:"):]
+    assert main.index("phase_moemesh(torch") < main.index("phase_train_mesh(torch")
+    assert main.index("phase_train_mesh(torch") < main.index('kernels = {"kernels": [')
+    for kernel in ("flash_attention", "rms_norm", "add_rms_norm"):
+        assert f'train_mesh_launches["{kernel}"]' in main, kernel
+    assert '"train_mesh": train_mesh' in main
+    assert 'print(f"train_mesh: {json.dumps(train_mesh)}"' in main
+
+
+TRAIN_MESH_KEYS = {"config", "moe_config", "n_layers", "dim", "n_heads", "n_kv_heads", "ffn_dim",
+                   "vocab", "n_params", "moe_n_params", "batch", "seq", "steps", "microbatches",
+                   "transport", "one_device", "reference_s", "ranks_s", "meshes", "moe_ep2",
+                   "pp2", "launches", "seconds"}
+TRAIN_MESH_ROW_KEYS = {"losses", "loss_err", "grad_rel_err", "worst_grad_leaf", "param_rel_err",
+                       "per_rank"}
+
+
+def test_phase_27_rehearses_on_the_cpu_at_a_tiny_width(monkeypatch):
+    """Phase 27 at llama_tiny's and mixtral_tiny's widths on the CPU: the
+    one-device reference in this process, dp 2, fsdp 2, tp 2, dcn 2, pp 2
+    and dp 1 x ep 2 as two gloo processes.  The CPU launches none of the
+    kernels, so the launch check is the part stubbed; the ``train_mesh:``
+    line's keys and each mesh's bounds are the card's."""
+    import dataclasses
+    import sys
+
+    import torch
+
+    from tpuslo_torch.models import llama, mixtral
+
+    monkeypatch.setitem(sys.modules, "chip_smoke", chip_smoke)  # the ranks import it
+    monkeypatch.setattr(chip_smoke, "_hold_train_launched", lambda *a, **k: None)
+    cfg = llama.llama_tiny(max_seq_len=chip_smoke.TRAIN_SEQ)
+    moe_cfg = dataclasses.replace(mixtral.mixtral_tiny(max_seq_len=chip_smoke.TRAIN_SEQ))
+    out = chip_smoke.phase_train_mesh(torch, *_phase_25_modules(), cfg=cfg, moe_cfg=moe_cfg,
+                                      device="cpu")
+    assert set(out) == TRAIN_MESH_KEYS
+    json.dumps(out)  # the train_mesh: line
+    assert set(out["meshes"]) == {"dp2", "fsdp2", "tp2", "dcn2"}
+    for row in [*out["meshes"].values(), out["moe_ep2"]]:
+        assert set(row) == TRAIN_MESH_ROW_KEYS
+        assert len(row["losses"]) == chip_smoke.TRAIN_MESH_STEPS
+        assert row["loss_err"] <= chip_smoke.TRAIN_MESH_LOSS_TOL
+        assert row["grad_rel_err"] <= chip_smoke.TRAIN_PARITY_GRAD_REL
+        for rank in row["per_rank"]:
+            assert rank["host_copies"] == 0 and len(rank["step_wall_ms"]) == 2
+    assert out["meshes"]["dp2"]["per_rank"][0]["rows"] == chip_smoke.TRAIN_BATCH // 2
+    assert out["meshes"]["tp2"]["per_rank"][0]["rows"] == chip_smoke.TRAIN_BATCH
+    assert "reduce_scatter" in out["meshes"]["fsdp2"]["per_rank"][0]["calls_per_step"]
+    assert out["pp2"]["max_logit_err"] <= chip_smoke.PARITY_TOL
+    ticks = chip_smoke.TRAIN_MESH_MICROBATCHES + 1
+    for stage in out["pp2"]["per_rank"]:
+        assert stage["forward_calls"] == {"shift": ticks - 1, "all_reduce": 1}
+        assert all(stage["layers_with_grad"])
+    assert not torch.distributed.is_initialized()
+
+
+def _mesh_rank(loss_shift=0.0, grad_err=1e-3):
+    counts = {"flash_attention": 4, "rms_norm": 2, "add_rms_norm": 8}
+    return {"losses": [6.0 + loss_shift, 5.9 + loss_shift], "grad_rel_err": {"embed": grad_err},
+            "param_rel_err": {"embed": 1e-4}, "rows": 4, "calls_per_step": {},
+            "calls_steps": {}, "host_copies": 0, "launches": counts, "step_wall_ms": [1, 1],
+            "peak_gb": 0.0}
+
+
+@pytest.mark.parametrize("breach", ["none", "loss", "grad", "launch"])
+def test_a_train_mesh_bound_breach_fails_the_phase(breach):
+    ref = {"losses": [6.0, 5.9]}
+    shift = 2 * chip_smoke.TRAIN_MESH_LOSS_TOL if breach == "loss" else 0.0
+    grad = 2 * chip_smoke.TRAIN_PARITY_GRAD_REL if breach == "grad" else 1e-3
+    ranks = [_mesh_rank(shift, grad), _mesh_rank(shift)]
+    if breach == "launch":
+        ranks[1]["launches"]["add_rms_norm"] = 0
+    if breach == "none":
+        row = chip_smoke._train_mesh_row("dp2", ranks, ref)
+        assert row["loss_err"] == 0.0 and row["grad_rel_err"] == 1e-3
+        return
+    with pytest.raises(SystemExit):
+        chip_smoke._train_mesh_row("dp2", ranks, ref)
+
+
+@pytest.mark.parametrize("breach", ["none", "logits", "grad", "layer"])
+def test_a_pipeline_bound_breach_fails_the_phase(breach):
+    stage = {"max_logit_err": 2 * chip_smoke.PARITY_TOL if breach == "logits" else 0.01,
+             "finite": True, "loss": 6.0,
+             "grad_rel_err": {"embed": 1.0 if breach == "grad" else 1e-3},
+             "forward_ms": 1.0, "forward_calls": {}, "loss_grad_ms": 1.0, "calls": {},
+             "host_copies": 0, "peak_gb": 0.0, "layers_with_grad": [breach != "layer"],
+             "forward_launches": {}, "launches": {"flash_attention": 1, "rms_norm": 1,
+                                                  "add_rms_norm": 1}}
+    if breach == "none":
+        assert chip_smoke._train_mesh_pp([stage, stage], {"losses": [6.0]})["loss_err"] == 0.0
+        return
+    with pytest.raises(SystemExit):
+        chip_smoke._train_mesh_pp([stage, stage], {"losses": [6.0]})

@@ -18,6 +18,7 @@ import jax  # noqa: E402
 
 import test_torch_sp_ranks as sp_ranks  # noqa: E402
 import test_torch_tp_ranks as ranks  # noqa: E402
+import test_torch_train_mesh_ranks as train_ranks  # noqa: E402
 from tpuslo.parallel import mesh as jmesh  # noqa: E402
 from tpuslo_torch.parallel import mesh as tmesh  # noqa: E402
 
@@ -87,11 +88,62 @@ def test_sp_mesh_in_ranks_gives_jaxs_axis_and_reduces_by_sum_and_max():
         assert view["calls"] == {"all_reduce": 1, "all_reduce_max": 2}
 
 
-def test_the_training_shardings_name_13b():
-    for fn, args in ((tmesh.param_shardings, (None,)), (tmesh.batch_sharding, (None,)),
-                     (tmesh.optimizer_state_shardings, (None, None, None))):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 13b-iii"):
-            fn(*args)
+def test_the_collectives_have_their_transposes_under_autograd():
+    """In 2 gloo ranks, ``sum(y * c_r)`` of each collective's output ``y``
+    for rank-dependent cotangents ``c_r``: each input's gradient is what
+    the transpose gives (all_reduce and copy_to: the sum of the ranks'
+    cotangents; reduce_from: the rank's own; all_gather: its part of the
+    sum; reduce_scatter: its cotangent gathered; shift: the next rank's;
+    all_to_all: the inverse exchange of the cotangents), and the backward's
+    calls are counted."""
+    got = tmesh.run_ranks(train_ranks.autograd_collectives_rank, 2,
+                          timeout_s=train_ranks.RANK_TIMEOUT_S)
+
+    def c(r, cols=4):
+        return train_ranks.cotangent(r, cols)
+
+    for r, out in enumerate(got):
+        want = {
+            "all_reduce": c(0) + c(1),
+            "copy_to": c(0) + c(1),
+            "reduce_from": c(r),
+            "all_gather": (c(0, 8) + c(1, 8))[:, 4 * r:4 * r + 4],
+            "reduce_scatter": torch.cat([c(0, 2), c(1, 2)], dim=1),
+            "shift": c((r + 1) % 2),
+            "all_to_all": torch.cat([c(i)[:, 2 * r:2 * r + 2] for i in range(2)], dim=1),
+        }
+        for op, grad in want.items():
+            np.testing.assert_allclose(out[op]["grad"], grad.numpy(), rtol=0, atol=1e-6,
+                                       err_msg=f"rank {r} {op}")
+        assert out["all_gather"]["calls"] == {"all_gather": 1, "reduce_scatter": 1}
+        assert out["reduce_scatter"]["calls"] == {"reduce_scatter": 1, "all_gather": 1}
+        assert out["shift"]["calls"] == {"shift": 2}
+        assert out["all_to_all"]["calls"] == {"all_to_all": 2}
+        assert out["all_reduce"]["calls"] == {"all_reduce": 2}
+        assert out["copy_to"]["calls"] == {"all_reduce": 1}
+        assert out["reduce_from"]["calls"] == {"all_reduce": 1}
+
+
+def test_place_and_gather_leaf_round_trip_on_every_layout():
+    """Each rank's :func:`place_leaf` part of a leaf, over a tuple of axes
+    too, is the row-major run JAX's sharding gives it; a mesh of one rank
+    keeps the whole leaf (as a copy)."""
+    leaf = torch.arange(8 * 6, dtype=torch.float32).reshape(8, 6)
+    one = tmesh.Mesh(tmesh.MeshPlan(), torch.device("cpu"))
+    part = tmesh.place_leaf(leaf, {0: ("dp", "fsdp"), 1: "tp"}, one)
+    assert torch.equal(part, leaf) and part.data_ptr() != leaf.data_ptr()
+    assert tmesh.gather_leaf(part, {0: "fsdp"}, one) is part
+    plan = tmesh.MeshPlan(dp=2, fsdp=2, tp=2)
+    for dp in range(2):
+        for fsdp in range(2):
+            for tp in range(2):
+                mesh = tmesh.Mesh(plan, torch.device("cpu"),
+                                  ranks={"dp": dp, "fsdp": fsdp, "tp": tp})
+                got = tmesh.place_leaf(leaf, {0: ("dp", "fsdp"), 1: "tp"}, mesh)
+                row = dp * 2 + fsdp
+                assert torch.equal(got, leaf[2 * row:2 * row + 2, 3 * tp:3 * tp + 3])
+    with pytest.raises(ValueError, match="does not split"):
+        tmesh.place_leaf(leaf, {1: ("dp", "fsdp")}, mesh)
 
 
 def test_the_card_is_required_without_a_device_list():

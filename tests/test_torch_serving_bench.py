@@ -130,6 +130,25 @@ def test_the_card_picks_3b_in_bf16_and_8b_in_int8():
     assert tl.param_count(tsb._make_config("llama32_3b")) == 3_606_752_256
 
 
+@pytest.mark.parametrize("name,layers,want", [
+    ("llama32_3b", 8, 8), ("llama3_8b", 8, 8), ("llama_tiny", 8, 2), ("llama32_3b", None, 28),
+])
+def test_layers_cut_only_the_depth(name, layers, want):
+    """``--layers`` cuts a config to at most that many layers and leaves
+    its widths: the count is JAX's ``param_count`` of the same cut."""
+    t, j = tsb._make_config(name, layers), jsb._make_config(name)
+    assert t.n_layers == want
+    assert (t.dim, t.n_heads, t.n_kv_heads, t.ffn_dim, t.vocab_size, t.max_seq_len) == (
+        j.dim, j.n_heads, j.n_kv_heads, j.ffn_dim, j.vocab_size, j.max_seq_len)
+    assert tl.param_count(t) == jl.param_count(dataclasses.replace(j, n_layers=want))
+
+
+def test_layers_below_one_are_refused(capsys):
+    with pytest.raises(SystemExit) as exit_:
+        tsb.main(["--platform", "cpu", "--layers", "0"])
+    assert exit_.value.code == 2 and "--layers must be at least 1" in capsys.readouterr().err
+
+
 def test_auto_without_a_card_exits_2(capsys):
     assert not torch.cuda.is_available()
     assert tsb.main(["--platform", "auto"]) == 2

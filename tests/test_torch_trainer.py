@@ -6,8 +6,9 @@
 * the port's trainer over JAX's f32 ``llama_tiny`` weights follows JAX's
   trainer's loss curve (same seed, corpus and batches) to rtol 1e-5;
 * ``python -m tpuslo_torch train --cpu-mesh 1`` prints JSON lines with
-  the keys of ``tpuslo/cli/train.py``'s lines, and refuses a plan of
-  more than one device.
+  the keys of ``tpuslo/cli/train.py``'s lines; ``--cpu-mesh N`` trains
+  over N gloo ranks with JAX's mesh summary, and a plan of more slices
+  than its devices divide into exits 2 with JAX's plan error.
 """
 
 from __future__ import annotations
@@ -123,10 +124,60 @@ def test_cli_prints_the_jax_lines(capsys, model):
                             else {"dcn": 1, "dp": 1, "fsdp": 1, "tp": 1})
 
 
-@pytest.mark.parametrize("argv", [["--cpu-mesh", "4"], ["--cpu-mesh", "1", "--slices", "2"]])
+@pytest.mark.parametrize("argv", [["--cpu-mesh", "3", "--slices", "2"],
+                                  ["--cpu-mesh", "1", "--slices", "2"]])
 def test_cli_refuses_more_than_one_device(capsys, argv):
+    """A plan of more slices than its devices divide into exits 2 with JAX's
+    plan error (``--cpu-mesh 1 --slices 2``: one device, two slices)."""
+    n, slices = int(argv[1]), int(argv[3])
+    with pytest.raises(ValueError) as jax_error:
+        jplan(n, slices)
     assert tcli.main(argv) == 2
-    assert "ROADMAP item 13" in capsys.readouterr().err
+    assert str(jax_error.value) in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_a_one_rank_group_mesh_trains_as_one_device(tmp_path, family):
+    """A mesh of one rank over an initialized process group (a script that
+    keeps a one-rank group open, as chip_smoke does on the card) trains
+    through the one-device step, bit for bit the mesh without a group."""
+    import torch.distributed as dist
+
+    cfg, builder = FAMILIES[family]
+    tcfg = TrainerConfig(steps=2, **TCFG)
+    want = train(cfg, _mesh(), CORPUS, tcfg, step_builder=builder)["losses"]
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", world_size=1,
+                            rank=0)
+    try:
+        mesh = _mesh()
+        assert mesh.distributed and mesh.size == 1
+        got = train(cfg, mesh, CORPUS, tcfg, step_builder=builder)["losses"]
+    finally:
+        dist.destroy_process_group()
+    assert got == want
+
+
+@pytest.mark.parametrize("model,n,slices", [("llama_tiny", 4, 1), ("llama_tiny", 8, 2),
+                                            ("mixtral_tiny", 4, 1)])
+def test_cli_trains_over_a_cpu_mesh(capsys, model, n, slices):
+    """``--cpu-mesh N`` trains over N gloo ranks: JAX's ``mesh`` summary
+    (the plan of N devices, or dp x ep with ep = gcd(N, n_experts)) and a
+    descending loss."""
+    argv = ["--cpu-mesh", str(n), "--model", model, "--steps", "4", "--batch", "8",
+            "--seq-len", "32"]
+    if slices > 1:
+        argv += ["--slices", str(slices)]
+    assert tcli.main(argv) == 0
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    done = lines[-1]
+    if model.startswith("mixtral"):
+        assert done["mesh"] == {"dp": 1, "ep": 4}
+    else:
+        plan = jplan(n, slices)
+        assert done["mesh"] == {"dcn": plan.dcn, "dp": plan.dp, "fsdp": plan.fsdp, "tp": plan.tp}
+    losses = [line["loss"] for line in lines[:-1]]
+    assert len(losses) == 4 and losses[-1] < losses[0]
+    assert (done["first_step"], done["last_step"]) == (0, 4)
 
 
 def test_cli_resumes_from_its_checkpoints(capsys, tmp_path):

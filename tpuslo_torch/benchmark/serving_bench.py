@@ -21,8 +21,10 @@ The toolkit's own account of one card's serving speed:
 * the seeded device-plane and profiler lanes.
 
 Run as ``python -m tpuslo_torch.benchmark.serving_bench [--platform
-auto|cpu] [--model auto|llama3_8b|llama32_3b|llama32_1b|llama_tiny]``;
-prints one line ``SERVING_BENCH:{json}`` with the JAX bench's keys
+auto|cpu] [--model auto|llama3_8b|llama32_3b|llama32_1b|llama_tiny]
+[--layers N]``; ``--layers`` cuts every model the bench builds to at most
+N layers at its full widths (``n_layers`` in the report, beside each
+lane's ``n_params``); prints one line ``SERVING_BENCH:{json}`` with the JAX bench's keys
 wherever a lane has a counterpart.  ``auto`` serves on the CUDA device
 and exits 2 without one; the CPU runs only under ``--platform cpu``.
 ``chip_smoke.py`` runs it as a subprocess with a timeout.
@@ -157,16 +159,25 @@ def _pick_model(bytes_limit: float | None, bytes_per_param: float = 2.0) -> str:
     return "llama_tiny"
 
 
-def _make_config(name: str):
+def _cut(cfg, layers: int | None):
+    """``cfg`` at no more than ``layers`` layers (``None``: as it is)."""
+    if layers is None or layers >= cfg.n_layers:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
+def _make_config(name: str, layers: int | None = None):
     from tpuslo_torch.models import llama
 
     if name == "llama3_8b":
-        return dataclasses.replace(llama.llama3_8b(), max_seq_len=1024)
-    if name == "llama32_3b":
-        return llama.llama32_3b(max_seq_len=1024)
-    if name == "llama32_1b":
-        return llama.llama32_1b(max_seq_len=1024)
-    return llama.llama_tiny(max_seq_len=512)
+        cfg = dataclasses.replace(llama.llama3_8b(), max_seq_len=1024)
+    elif name == "llama32_3b":
+        cfg = llama.llama32_3b(max_seq_len=1024)
+    elif name == "llama32_1b":
+        cfg = llama.llama32_1b(max_seq_len=1024)
+    else:
+        cfg = llama.llama_tiny(max_seq_len=512)
+    return _cut(cfg, layers)
 
 
 def _free_device(device: torch.device) -> None:
@@ -1261,7 +1272,8 @@ def _resolve(platform: str) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def run(platform: str = "auto", model: str = "auto") -> dict[str, Any]:
+def run(platform: str = "auto", model: str = "auto",
+        layers: int | None = None) -> dict[str, Any]:
     t_bench = time.perf_counter()
     device = _resolve(platform)
     on_card = device.type == "cuda"
@@ -1296,7 +1308,8 @@ def run(platform: str = "auto", model: str = "auto") -> dict[str, Any]:
     if model == "auto":
         model = _pick_model(bytes_limit) if on_card else "llama_tiny"
     out["model"] = model
-    cfg = _make_config(model)
+    cfg = _make_config(model, layers)
+    out["n_layers"] = cfg.n_layers
 
     from tpuslo_torch.models.llama import init_kv_cache, init_params, kv_cache_bytes
     from tpuslo_torch.models.llama import param_count, prefill
@@ -1439,9 +1452,9 @@ def run(platform: str = "auto", model: str = "auto") -> dict[str, Any]:
         # the MoE and int8 lanes build models of their own.
         del engine, params
         _free_device(device)
-        out["moe"] = lane("moe", lambda: _bench_moe(peak_flops, peak_bw, device))
+        out["moe"] = lane("moe", lambda: _bench_moe(peak_flops, peak_bw, device, layers))
         out["int8"] = lane(
-            "int8", lambda: _bench_int8(bytes_limit, peak_flops, peak_bw, device)
+            "int8", lambda: _bench_int8(bytes_limit, peak_flops, peak_bw, device, layers)
         )
 
     now = kernel_launches()
@@ -1451,7 +1464,8 @@ def run(platform: str = "auto", model: str = "auto") -> dict[str, Any]:
     return out
 
 
-def _bench_moe(peak_flops, peak_bw, device: torch.device) -> dict[str, Any]:
+def _bench_moe(peak_flops, peak_bw, device: torch.device,
+               layers: int | None = None) -> dict[str, Any]:
     """Measured MoE serving: ``mixtral_2b6`` (drop-free routing) at full
     width and depth in bf16, batch-1 TTFT and decode tokens/s, the second
     model family's datum on the card.
@@ -1466,9 +1480,10 @@ def _bench_moe(peak_flops, peak_bw, device: torch.device) -> dict[str, Any]:
         param_count,
     )
 
-    cfg = mixtral_2b6()
+    cfg = _cut(mixtral_2b6(), layers)
     res: dict[str, Any] = {
         "model": "mixtral_2b6",
+        "n_layers": cfg.n_layers,
         "n_params": param_count(cfg),
         "n_params_active": active_param_count(cfg),
         "n_experts": cfg.n_experts,
@@ -1503,15 +1518,17 @@ def _bench_moe(peak_flops, peak_bw, device: torch.device) -> dict[str, Any]:
     return res
 
 
-def _bench_int8(bytes_limit, peak_flops, peak_bw, device: torch.device) -> dict[str, Any]:
+def _bench_int8(bytes_limit, peak_flops, peak_bw, device: torch.device,
+                layers: int | None = None) -> dict[str, Any]:
     """int8 weight-only lane: decode reads half the weight bytes, and
     llama3-8b fits the card."""
     from tpuslo_torch.models.llama import kv_cache_bytes, param_count
     from tpuslo_torch.models.serve import ServeEngine
 
     name = _pick_model(bytes_limit, bytes_per_param=1.0)
-    cfg = _make_config(name)
-    res: dict[str, Any] = {"model": name, "n_params": param_count(cfg)}
+    cfg = _make_config(name, layers)
+    res: dict[str, Any] = {"model": name, "n_layers": cfg.n_layers,
+                           "n_params": param_count(cfg)}
     flops_per_token = 2.0 * param_count(cfg)
 
     t0 = time.perf_counter()
@@ -1558,9 +1575,13 @@ def main(argv: list[str] | None = None) -> int:
         choices=("auto", "llama3_8b", "llama32_3b", "llama32_1b", "llama_tiny"),
         default="auto",
     )
+    parser.add_argument("--layers", type=int, default=None,
+                        help="cut every model to at most this many layers (widths stay)")
     args = parser.parse_args(argv)
+    if args.layers is not None and args.layers < 1:
+        parser.error("--layers must be at least 1")
     try:
-        result = run(platform=args.platform, model=args.model)
+        result = run(platform=args.platform, model=args.model, layers=args.layers)
     except RuntimeError as exc:
         if torch.cuda.is_available() or args.platform == "cpu":
             raise

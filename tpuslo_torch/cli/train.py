@@ -3,18 +3,83 @@ checkpoint/resume (the port of ``tpuslo/cli/train.py``).
 
 The same flags and JSON lines as ``python -m tpuslo train``: one
 ``{"step", "loss"}`` line per step, then one ``{"done", "model", "mesh",
-"first_step", "last_step", "final_loss"}`` line.  It trains on the card;
-``--cpu-mesh 1`` trains on the CPU.  A plan of more than one device
-(``--cpu-mesh N`` with N > 1, ``--slices`` > 1) is refused: the shardings
-belong to the multi-device slice's last part (ROADMAP item 13b-iii).  ``mixtral_*``
-trains the MoE family on the one device (dp 1, ep 1).
+"first_step", "last_step", "final_loss"}`` line.  It trains over every
+visible card (one NCCL rank each) or, with ``--cpu-mesh N``, over N gloo
+ranks on the CPU; N devices factor as JAX's do
+(:func:`~tpuslo_torch.parallel.mesh.plan_for_devices`, with a dcn axis of
+``--slices`` slices).  ``mixtral_*`` trains the MoE family over a
+``(dp, ep)`` mesh, ``ep = gcd(N, n_experts)``.  Every rank trains; rank 0's
+losses are printed (every rank holds the same ones).  Without a card and
+without ``--cpu-mesh`` it exits 2.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
+
+
+def _mesh(args, n: int, device: str):
+    """(mesh, its summary, the step builder, the config) of one rank."""
+    from tpuslo_torch.parallel.mesh import dp_ep_mesh, make_mesh, plan_for_devices
+
+    devices = [device] if device == "cpu" else None
+    if args.model.startswith("mixtral"):
+        from tpuslo_torch.models import mixtral
+
+        cfg = getattr(mixtral, args.model)(max_seq_len=max(args.seq_len, 64))
+        ep = math.gcd(n, cfg.n_experts)
+        dp = n // ep
+        if n == 1:
+            mesh = make_mesh(plan_for_devices(1), devices=devices)
+        else:
+            mesh = dp_ep_mesh(dp, ep, devices=devices)
+        return mesh, {"dp": dp, "ep": ep}, mixtral.build_moe_train_step, cfg
+    from tpuslo_torch.models import llama
+
+    cfg = getattr(llama, args.model)(max_seq_len=max(args.seq_len, 64))
+    plan = plan_for_devices(n, slices=args.slices)
+    summary = {"dcn": plan.dcn, "dp": plan.dp, "fsdp": plan.fsdp, "tp": plan.tp}
+    return make_mesh(plan, devices=devices), summary, None, cfg
+
+
+def _texts(args) -> list[str]:
+    if args.corpus:
+        with open(args.corpus, encoding="utf-8") as fh:
+            return [line.rstrip("\n") for line in fh if line.strip()]
+    return [f"synthetic document {i}: the five boxing wizards jump quickly" for i in range(200)]
+
+
+def _session(args, n: int, device: str) -> dict:
+    """One rank's training session: the trainer's result and the mesh's
+    summary."""
+    from tpuslo_torch.models.trainer import TrainerConfig, train
+
+    mesh, summary, step_builder, cfg = _mesh(args, n, device)
+    tcfg = TrainerConfig(
+        steps=args.steps,
+        batch=args.batch,
+        seq_len=args.seq_len,
+        seed=args.seed,
+        ckpt_every=args.ckpt_every,
+    )
+    result = train(cfg, mesh, _texts(args), tcfg,
+                   checkpoint_dir=args.checkpoint_dir or None, step_builder=step_builder)
+    return {**result, "mesh": summary}
+
+
+def rank_session(rank: int, world: int, args, device: str) -> dict:
+    """A spawned rank's session (``run_ranks``' function).  CPU ranks share
+    the host's cores, each taking its share of them for its threads."""
+    if device == "cpu":
+        import os
+
+        import torch
+
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    return _session(args, world, device)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -26,7 +91,7 @@ def main(argv: list[str] | None = None) -> int:
         "--model",
         choices=("llama_tiny", "llama32_1b", "llama32_3b", "mixtral_tiny", "mixtral_2b6"),
         default="llama_tiny",
-        help="mixtral_* trains the MoE family (one device: dp 1, ep 1)",
+        help="mixtral_* trains the MoE family over a dp x ep mesh (experts sharded)",
     )
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--batch", type=int, default=8)
@@ -37,66 +102,40 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--ckpt-every", type=int, default=0)
     parser.add_argument(
         "--slices", type=int, default=1,
-        help="multi-slice plan (more than 1 needs the multi-device slice, ROADMAP 13b-iii)",
+        help="multi-slice plan: factor a dcn data-parallel axis out first "
+        "(the cross-slice gradient all_reduce is the only dcn collective)",
     )
     parser.add_argument(
         "--cpu-mesh", type=int, default=0, metavar="N",
-        help="train on the CPU (N must be 1: more devices need ROADMAP 13b-iii)",
+        help="train over N gloo ranks on the CPU instead of the cards",
     )
     args = parser.parse_args(argv)
-    if args.cpu_mesh > 1 or args.slices > 1:
-        print(
-            "tpuslo_torch train: a plan of more than one device (--cpu-mesh > 1, "
-            "--slices > 1) belongs to the multi-device slice (ROADMAP item 13b-iii) and "
-            "is not ported yet",
-            file=sys.stderr,
-        )
-        return 2
+    if args.model.startswith("mixtral") and args.slices > 1:
+        parser.error("--slices applies to the llama dp/fsdp/tp plan")
 
-    from tpuslo_torch.models.trainer import TrainerConfig, train
-    from tpuslo_torch.parallel.mesh import make_mesh, plan_for_devices
+    import torch
 
-    plan = plan_for_devices(1, slices=args.slices)
+    from tpuslo_torch.parallel.mesh import plan_for_devices, run_ranks
+
+    if args.cpu_mesh:
+        n, device, backend = args.cpu_mesh, "cpu", "gloo"
+    else:
+        n, device, backend = torch.cuda.device_count(), "cuda", "nccl"
+        if n == 0:
+            print("tpuslo_torch train: no CUDA device is available; pass --cpu-mesh N to "
+                  "train on the CPU", file=sys.stderr)
+            return 2
     try:
-        mesh = make_mesh(plan, devices=["cpu"] if args.cpu_mesh else None)
-    except RuntimeError as exc:
+        plan_for_devices(n, slices=args.slices)
+    except ValueError as exc:
         print(f"tpuslo_torch train: {exc}", file=sys.stderr)
         return 2
-
-    step_builder = None
-    if args.model.startswith("mixtral"):
-        from tpuslo_torch.models import mixtral
-
-        cfg = getattr(mixtral, args.model)(max_seq_len=max(args.seq_len, 64))
-        mesh_summary = {"dp": 1, "ep": 1}
-        step_builder = mixtral.build_moe_train_step
+    if n == 1:
+        result = _session(args, 1, device)
     else:
-        from tpuslo_torch.models import llama
+        result = run_ranks(rank_session, n, backend, device, timeout_s=24 * 3600.0,
+                           args=(args, device))[0]
 
-        cfg = getattr(llama, args.model)(max_seq_len=max(args.seq_len, 64))
-        mesh_summary = {"dcn": plan.dcn, "dp": plan.dp, "fsdp": plan.fsdp, "tp": plan.tp}
-
-    if args.corpus:
-        with open(args.corpus, encoding="utf-8") as fh:
-            texts = [line.rstrip("\n") for line in fh if line.strip()]
-    else:
-        texts = [
-            f"synthetic document {i}: the five boxing wizards jump quickly"
-            for i in range(200)
-        ]
-
-    tcfg = TrainerConfig(
-        steps=args.steps,
-        batch=args.batch,
-        seq_len=args.seq_len,
-        seed=args.seed,
-        ckpt_every=args.ckpt_every,
-    )
-    result = train(
-        cfg, mesh, texts, tcfg,
-        checkpoint_dir=args.checkpoint_dir or None,
-        step_builder=step_builder,
-    )
     for i, loss in enumerate(result["losses"]):
         print(json.dumps({"step": result["first_step"] + i + 1, "loss": round(loss, 6)}))
     print(
@@ -104,7 +143,7 @@ def main(argv: list[str] | None = None) -> int:
             {
                 "done": True,
                 "model": args.model,
-                "mesh": mesh_summary,
+                "mesh": result["mesh"],
                 "first_step": result["first_step"],
                 "last_step": result["last_step"],
                 "final_loss": round(result["losses"][-1], 6) if result["losses"] else None,

@@ -2,7 +2,10 @@
 single-stream ``ServeEngine``, the continuous-batching engines (dense
 and paged), speculative decoding, the SLO-aware front door, the router
 over replicated front doors, long-context serving over a
-sequence-parallel mesh (``longserve``), and the JAX weight bridge."""
+sequence-parallel mesh (``longserve``), the JAX weight bridge, and
+training (``train``, ``trainer``): on one device, over a dp/fsdp/tp mesh
+(``build_sharded_train_step``) or, for the MoE family, a dp x ep one
+(``mixtral.build_moe_train_step``)."""
 
 from tpuslo_torch.models.llama import (
     GREEDY,
@@ -30,6 +33,7 @@ from tpuslo_torch.models.speculative import SpeculativeEngine
 from tpuslo_torch.models.frontdoor import FrontDoorEngine, FrontDoorObserver
 from tpuslo_torch.models.router import SLORouter
 from tpuslo_torch.models import longserve
+from tpuslo_torch.models.train import build_sharded_train_step
 
 __all__ = [
     "GREEDY",
@@ -43,6 +47,7 @@ __all__ = [
     "ServeEngine",
     "SpeculativeEngine",
     "TokenEvent",
+    "build_sharded_train_step",
     "decode_chunk",
     "decode_step",
     "forward",

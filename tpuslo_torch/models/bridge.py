@@ -29,6 +29,12 @@ under its tp or ep layout (:data:`MOE_TP_SPLIT_AXIS`,
 :data:`MOE_EP_SPLIT_AXIS`: JAX's ``tp_serve_param_shardings`` and
 ``ep_serve_param_shardings``).
 
+:func:`place_params` cuts a training rank's parts of a whole tree (JAX's
+numpy leaves carried over, or the port's own) under a training layout
+(leaf path -> ``{dim: axis}``, e.g. ``parallel.mesh.param_shardings``),
+and :func:`gather_params` puts the whole tree back together from every
+rank's parts (checkpoints, comparisons).
+
 AdamW's moments go both ways (:func:`adamw_state_from_numpy`,
 :func:`adamw_state_to_numpy`): optax's ``ScaleByAdamState(count, mu,
 nu)`` as numpy (``{"count", "mu", "nu"}``, the moment trees shaped like
@@ -255,6 +261,38 @@ def shard_moe_serve_params(params: dict, layout: dict, n: int, rank: int) -> dic
     rank ``r``'s leaves equal the JAX mesh's ``addressable_shards[r].data``
     under the matching JAX shardings."""
     return shard_serve_params(params, n, rank, layout)
+
+
+def place_params(tree: dict, layout: dict, mesh) -> dict:
+    """This rank's parts of a whole parameter tree under ``layout`` (fresh
+    tensors on the mesh's device)."""
+    from tpuslo_torch.models.train import param_leaves
+    from tpuslo_torch.parallel.mesh import place_leaf
+
+    out: dict = {}
+    for path, leaf in param_leaves(tree):
+        _set_path(out, path, place_leaf(leaf.to(mesh.device), layout[path], mesh))
+    return out
+
+
+def gather_params(params: dict, layout: dict, mesh) -> dict:
+    """The whole tree from every rank's :func:`place_params` parts (every
+    rank calls it, in one order, and gets it), outside autograd."""
+    from tpuslo_torch.models.train import param_leaves
+    from tpuslo_torch.parallel.mesh import gather_leaf
+
+    out: dict = {}
+    with torch.no_grad():
+        for path, leaf in param_leaves(params):
+            _set_path(out, path, gather_leaf(leaf.detach(), layout[path], mesh))
+    return out
+
+
+def _set_path(tree: dict, path: str, leaf) -> None:
+    *parents, name = path.split("/")
+    for key in parents:
+        tree = tree.setdefault(key, {})
+    tree[name] = leaf
 
 
 def _tree_leaf(tree: dict, path: str):

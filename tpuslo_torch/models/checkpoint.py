@@ -16,6 +16,12 @@ module:
   :meth:`~TrainCheckpointer.restore` onto a given device;
 * int8 ``{"q", "s"}`` leaves round-trip as they are.
 
+A sharded run's checkpoint is written the same way, by rank 0, from the
+whole tree gathered over the mesh (``train.gather_state``: the
+parameters and the AdamW moments as whole leaves), and every rank
+restores its own parts of it, so that a checkpoint does not depend on the
+layout (the trainer).
+
 Every write goes to a temporary file in the same directory that is then
 renamed over the target, so a crash mid-write leaves the previous
 checkpoint whole.

@@ -158,12 +158,22 @@ def corpus_stream(
     seed: int = 0,
     epochs: int = 1,
     skip: int = 0,
+    rows: tuple[int, int] | None = None,
 ) -> Iterator[tuple[torch.Tensor, torch.Tensor]]:
     """tokenize, window, shuffle and prefetch, in one call.  ``skip``
     passes over already-consumed batches on the host, before any copy to
-    the device, which is what a checkpoint resume wants."""
+    the device, which is what a checkpoint resume wants.  ``rows=(index,
+    count)``: a data rank's part of every global batch, the ``index``-th
+    of ``count`` equal runs of rows (``batch_sharding``'s row-major rank
+    order), cut on the host so that only those rows reach the device."""
     tokens = tokenize_corpus(texts)
     host = window_batches(tokens, batch, seq_len, seed=seed, epochs=epochs)
     if skip:
         host = itertools.islice(host, skip, None)
+    if rows is not None:
+        index, count = rows
+        if batch % count:
+            raise ValueError(f"batch={batch} does not split into {count} data ranks")
+        n = batch // count
+        host = ((t[index * n:(index + 1) * n], g[index * n:(index + 1) * n]) for t, g in host)
     return prefetch_to_device(host, device=device)

@@ -131,8 +131,15 @@ def local_heads(cfg, layer: Params) -> tuple[int, int]:
 
 
 def _reduce(t: torch.Tensor, mesh) -> torch.Tensor:
-    """The sum of the tp ranks' partial products (no mesh: ``t``)."""
-    return t if mesh is None else mesh_mod.all_reduce(t, mesh, "tp")
+    """The sum of the tp ranks' partial products (no mesh: ``t``); under
+    autograd Megatron's ``g``, whose gradient passes through."""
+    return t if mesh is None else mesh_mod.reduce_from(t, mesh, "tp")
+
+
+def _enter(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A tp rank's input to its column products: ``x`` itself, and under
+    autograd Megatron's ``f``, which sums its gradient over the ranks."""
+    return x if mesh is None else mesh_mod.copy_to(x, mesh, "tp")
 
 
 def _logits(params: Params, h: torch.Tensor, matmul) -> torch.Tensor:
@@ -454,13 +461,15 @@ def _matmul_fixed(x: torch.Tensor, w) -> torch.Tensor:
     return out.reshape(*lead, out.shape[-1])
 
 
-def _embed_lookup(params: Params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def _embed_lookup(params: Params, tokens: torch.Tensor, dtype: torch.dtype,
+                  mesh=None) -> torch.Tensor:
     """Embedding gather for dense or quantized embedding tables; a tp
-    rank's vocab rows: a masked local lookup summed over the ranks.  An id
+    rank's vocab rows (a :class:`ShardedParams` tree, or ``mesh``: a
+    training rank's): a masked local lookup summed over the ranks.  An id
     past the vocabulary reads the last row, as JAX's gather clamps it (a
     byte-level engine's BOS and EOS lie past a 256-id vocabulary)."""
     e = params["embed"]
-    mesh = tp_mesh_of(params)
+    mesh = mesh if mesh is not None else tp_mesh_of(params)
     inside = None
     rows = (e["q"] if isinstance(e, dict) else e).shape[0]
     tokens = tokens.clamp(max=rows * (1 if mesh is None else mesh.shape["tp"]) - 1)
@@ -537,8 +546,17 @@ def _attention_out(cfg, x: torch.Tensor, layer: Params, cos: torch.Tensor,
     the whole batch at once instead of row by row.  ``mesh``: a tp
     rank's layer, whose ``wo`` partials are summed over the ranks."""
     B, S, _ = x.shape
-    (H, KV), HD = local_heads(cfg, layer), cfg.head_dim
     matmul = _seq_matmul if invariant else _product
+    x = _enter(x, mesh)
+    split_heads = mesh is None or cfg.n_kv_heads % mesh.shape["tp"] == 0
+    if not split_heads:
+        # A training mesh whose tp splits a kv head (JAX's GSPMD reshards
+        # such a layout): every tp rank gathers the three column products'
+        # weights and computes every head, and its rows of ``wo`` take its
+        # columns of the heads' output.
+        layer = {**layer, **{n: mesh_mod.all_gather(layer[n], mesh, "tp", -1)
+                             for n in ("wq", "wk", "wv")}}
+    (H, KV), HD = local_heads(cfg, layer), cfg.head_dim
     q = matmul(x, layer["wq"]).reshape(B, S, H, HD)
     k = matmul(x, layer["wk"]).reshape(B, S, KV, HD)
     v = matmul(x, layer["wv"]).reshape(B, S, KV, HD)
@@ -554,7 +572,11 @@ def _attention_out(cfg, x: torch.Tensor, layer: Params, cos: torch.Tensor,
                           for b in range(B)])
     else:
         attn = attention(q, k, v, mask, H // KV)
-    return _reduce(matmul(attn.reshape(B, S, H * HD), layer["wo"]), mesh), (k, v)
+    attn = attn.reshape(B, S, H * HD)
+    if not split_heads:
+        cols = layer["wo"].shape[0]
+        attn = attn[..., mesh.rank("tp") * cols:(mesh.rank("tp") + 1) * cols]
+    return _reduce(matmul(attn, layer["wo"]), mesh), (k, v)
 
 
 def _dense_mlp(cfg, layer: Params, x: torch.Tensor, i: int | None = None,
@@ -563,6 +585,7 @@ def _dense_mlp(cfg, layer: Params, x: torch.Tensor, i: int | None = None,
     that :func:`trace_ops` records the products under; ``matmul``:
     :func:`_seq_matmul` in a full-sequence pass; ``mesh``: a tp rank's
     FFN columns, whose ``w2`` partials are summed over the ranks)."""
+    x = _enter(x, mesh)
     gate = F.silu(_traced("w1", i, matmul(x, layer["w1"])).float())
     up = _traced("w3", i, matmul(x, layer["w3"])).float()
     act = _traced("silu_mul", i, (gate * up).to(cfg.dtype))
@@ -571,8 +594,8 @@ def _dense_mlp(cfg, layer: Params, x: torch.Tensor, i: int | None = None,
 
 def _seq_layers(params: Params, cfg: LlamaConfig, h: torch.Tensor, cos: torch.Tensor,
                 sin: torch.Tensor, mask: torch.Tensor, write=None, mlp_fn=None,
-                remat: bool = False, invariant: bool = True, aux: list | None = None
-                ) -> torch.Tensor:
+                remat: bool = False, invariant: bool = True, aux: list | None = None,
+                mesh=None, gather=None) -> torch.Tensor:
     """The layer loop of a full-sequence pass (causal ``mask``), with the
     final norm: each residual add reaches the norm after it in one
     :func:`add_rms_norm`.  ``write(i, k, v)`` takes layer ``i``'s rotated
@@ -592,25 +615,49 @@ def _seq_layers(params: Params, cfg: LlamaConfig, h: torch.Tensor, cos: torch.Te
     from one ``unbind`` of each layer-stacked leaf: the backward then
     writes each leaf's gradient once, where indexing layer by layer would
     add a zero-filled leaf-sized gradient per layer (the 3B step's
-    largest cost on the card before)."""
+    largest cost on the card before).
+
+    ``mesh``: the tp mesh of the layers' shards (default: a
+    :class:`ShardedParams` tree's); ``gather(layer)``: a training rank's
+    layer leaves made whole on their fsdp dims, called inside each
+    layer's remat body, so that the recompute gathers again and no whole
+    weight outlives its layer."""
+    mesh = mesh if mesh is not None else tp_mesh_of(params)
+    return _stack(params["layers"], cfg, h, cos, sin, mask, params["final_norm"], write=write,
+                  mlp_fn=mlp_fn, remat=remat, invariant=invariant, aux=aux, mesh=mesh,
+                  gather=gather)[1]
+
+
+def _stack(layers: Params, cfg, h: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+           mask: torch.Tensor, last_norm, write=None, mlp_fn=None, remat: bool = False,
+           invariant: bool = True, aux: list | None = None, mesh=None, gather=None):
+    """:func:`_seq_layers` over the layer-stacked leaves ``layers`` (all of
+    the model's, or a pipeline stage's run of them; in a recorded pass
+    also as tuples of per-layer views, one ``unbind`` a leaf that the
+    caller reuses across calls) -> ``(h, x)``: the
+    residual stream after the last layer and, with ``last_norm``, its norm
+    (fused with the last residual add); ``last_norm=None`` leaves the last
+    add plain and ``x`` None (a pipeline stage hands ``h`` on)."""
+    n_layers = len(layers["attn_norm"])
     if invariant:
         def layer_at(i):
-            return _layer(params, i)
-        attn_norms = params["layers"]["attn_norm"]
+            return {name: _at(leaf, i) for name, leaf in layers.items()}
+        attn_norms = layers["attn_norm"]
     else:
-        split = {name: leaf.unbind(0) for name, leaf in params["layers"].items()}
+        split = {name: leaf if isinstance(leaf, tuple) else leaf.unbind(0)
+                 for name, leaf in layers.items()}
 
         def layer_at(i):
             return {name: leaves[i] for name, leaves in split.items()}
         attn_norms = split["attn_norm"]
 
     def next_norm(i):
-        return attn_norms[i + 1] if i + 1 < cfg.n_layers else params["final_norm"]
-
-    mesh = tp_mesh_of(params)
+        return attn_norms[i + 1] if i + 1 < n_layers else last_norm
 
     def layer_step(h, x, i):
         layer = layer_at(i)
+        if gather is not None:
+            layer = gather(layer)
         out, (k, v) = _attention_out(cfg, x, layer, cos, sin, mask, causal=True,
                                      invariant=invariant, mesh=mesh)
         if write is not None:
@@ -621,13 +668,15 @@ def _seq_layers(params: Params, cfg: LlamaConfig, h: torch.Tensor, cos: torch.Te
                              mesh=mesh)
         else:
             mlp = mlp_fn(layer, x)
-        if aux is None:
-            return add_rms_norm(h, mlp, next_norm(i), cfg.norm_eps)
-        mlp, a = mlp
-        return (*add_rms_norm(h, mlp, next_norm(i), cfg.norm_eps), a)
+        a = None
+        if aux is not None:
+            mlp, a = mlp
+        norm = next_norm(i)
+        h, x = add_rms_norm(h, mlp, norm, cfg.norm_eps) if norm is not None else (h + mlp, None)
+        return (h, x) if aux is None else (h, x, a)
 
     x = rms_norm(h, attn_norms[0], cfg.norm_eps)
-    for i in range(cfg.n_layers):
+    for i in range(n_layers):
         if remat:
             out = checkpoint(layer_step, h, x, i, use_reentrant=False,
                              preserve_rng_state=False)
@@ -636,7 +685,7 @@ def _seq_layers(params: Params, cfg: LlamaConfig, h: torch.Tensor, cos: torch.Te
         h, x = out[0], out[1]
         if aux is not None:
             aux.append(out[2])
-    return x
+    return h, x
 
 
 def _at(leaf, i: int):
@@ -692,9 +741,94 @@ def nll_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
-            cfg: LlamaConfig) -> torch.Tensor:
-    """Mean next-token cross-entropy of :func:`forward`'s logits."""
-    return nll_loss(forward(params, tokens, cfg), targets)
+            cfg: LlamaConfig, mesh=None) -> torch.Tensor:
+    """Mean next-token cross-entropy of :func:`forward`'s logits.
+
+    Over a training ``mesh`` of more than one rank (``params`` the rank's
+    shards under :func:`tpuslo_torch.parallel.mesh.param_shardings`,
+    ``tokens`` its rows under ``batch_sharding``): the rank's share of the
+    global mean, its rows' mean over the number of data ranks, so that the
+    global loss is the sum of the shares and its gradient the sum of the
+    ranks' gradients (:func:`mesh_logits`, :func:`sharded_nll`)."""
+    if mesh is None or mesh.size == 1:
+        return nll_loss(forward(params, tokens, cfg), targets)
+    _, n_data = mesh_mod.axis_index(mesh, mesh_mod.batch_sharding(mesh)[0])
+    return sharded_nll(mesh_logits(params, tokens, cfg, mesh), targets, mesh) / n_data
+
+
+def _size(mesh, axis: str) -> int:
+    return mesh.shape.get(axis, 1)
+
+
+def _fsdp_dims(layout: dict, prefix: str = "") -> dict[str, int]:
+    """name -> the dim a leaf splits over fsdp, from a layout table's paths
+    under ``prefix`` (a layer leaf's dims without its layer axis)."""
+    shift = 1 if prefix else 0
+    return {path[len(prefix):]: dim - shift for path, spec in layout.items()
+            if path.startswith(prefix) for dim, axis in spec.items() if axis == "fsdp"}
+
+
+def mesh_logits(params: Params, tokens: torch.Tensor, cfg, mesh, mlp_fn=None,
+                remat: bool = True, aux: list | None = None) -> torch.Tensor:
+    """A training rank's f32 logits (B, S, V / tp) over its vocab columns,
+    for its rows ``tokens``, from its shards ``params`` (JAX's
+    dp/fsdp/tp layout).  Where GSPMD inserts collectives in the JAX
+    module, this calls them:
+
+    * fsdp: each leaf split over fsdp is gathered whole before use, the
+      layer leaves inside each layer's remat body (the recompute gathers
+      again), and the gradient goes back through a ``reduce_scatter``;
+    * tp: Megatron's layout, ``f`` before the column products and ``g``
+      after the row ones (:func:`_enter`, :func:`_reduce`); the embedding's
+      vocab rows a masked lookup summed over tp, the head's vocab columns
+      left split for :func:`sharded_nll`.
+
+    Axes of size 1 make no call.  ``mlp_fn`` and ``aux`` as in
+    :func:`forward` (a MoE rank's block over its own axis)."""
+    B, S = tokens.shape
+    dev = tokens.device
+    tp = mesh if _size(mesh, "tp") > 1 else None
+    fsdp = _size(mesh, "fsdp") > 1
+    whole = _fsdp_dims(mesh_mod.PARAM_SHARDINGS)
+    layer_dims = _fsdp_dims(mesh_mod.PARAM_SHARDINGS, "layers/")
+
+    def gathered(name: str, leaf: torch.Tensor, dims: dict) -> torch.Tensor:
+        if not fsdp or name not in dims:
+            return leaf
+        return mesh_mod.all_gather(leaf, mesh, "fsdp", dims[name])
+
+    def gather(layer: Params) -> Params:
+        return {name: gathered(name, leaf, layer_dims) for name, leaf in layer.items()}
+
+    positions = torch.arange(S, device=dev).expand(B, S)
+    h = _embed_lookup({"embed": gathered("embed", params["embed"], whole)}, tokens, cfg.dtype,
+                      mesh=tp)
+    cos, sin = rope_frequencies(cfg, positions)
+    mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+    x = _seq_layers(params, cfg, h, cos, sin, mask, mlp_fn=mlp_fn, remat=remat,
+                    invariant=False, aux=aux, mesh=tp, gather=gather if fsdp else None)
+    return _product(_enter(x, tp), gathered("output", params["output"], whole)).float()
+
+
+def sharded_nll(logits: torch.Tensor, targets: torch.Tensor, mesh) -> torch.Tensor:
+    """:func:`nll_loss` of logits whose vocabulary is split over ``mesh``'s
+    tp axis in rank order (``logits``: this rank's f32 columns), the same
+    value on every tp rank, without gathering the logits: the max, the sum
+    of exponentials and the target's logit are reduced over tp (scalars
+    per row).  The max is a constant of the gradient, as JAX's
+    ``log_softmax`` stops it."""
+    if _size(mesh, "tp") == 1:
+        return nll_loss(logits, targets)
+    V = logits.shape[-1]
+    m = mesh_mod.all_reduce(logits.detach().amax(dim=-1), mesh, "tp", op="max")
+    z = logits - m[..., None]
+    total = mesh_mod.reduce_from(z.exp().sum(dim=-1), mesh, "tp")
+    t = targets.long() - mesh.rank("tp") * V
+    inside = (t >= 0) & (t < V)
+    picked = z.gather(-1, t.clamp(0, V - 1)[..., None])[..., 0]
+    picked = mesh_mod.reduce_from(torch.where(inside, picked, torch.zeros_like(picked)), mesh,
+                                  "tp")
+    return (total.log() - picked).mean()
 
 
 # --- KV-cache decode path ----------------------------------------------

@@ -39,8 +39,15 @@ Long context: :func:`sp_generate` (the ring prefill and distributed
 decode of :mod:`tpuslo_torch.models.longserve` with the MoE block).
 
 Training: :func:`loss_fn` (NLL plus the router's load-balancing term)
-and :func:`build_moe_train_step` on one device.  The dp x ep step
-belongs to the multi-device slice's last part (ROADMAP item 13b-iii).
+and :func:`build_moe_train_step`, on one device or over a ``(dp, ep)``
+mesh (:func:`tpuslo_torch.parallel.mesh.dp_ep_mesh`, JAX's layout: whole
+experts over ep, everything else replicated, the batch over dp).  The
+block differentiates over ep with Megatron's ``f``/``g`` around each
+rank's own experts (:func:`tpuslo_torch.ops.moe.moe_mlp_train`), the
+ep-serving arithmetic, rather than ``moe_mlp_sharded``'s two
+``all_to_all``s: every rank of an ep group already holds the group's
+tokens, so no token has to move, and at top 2 the forward is the
+one-device block bit for bit.
 """
 
 from __future__ import annotations
@@ -73,8 +80,9 @@ from tpuslo_torch.models.serve import (
     _to_device,
     encode_bytes,
 )
-from tpuslo_torch.ops.moe import MoEConfig, moe_mlp, moe_mlp_serve
+from tpuslo_torch.ops.moe import MoEConfig, moe_mlp, moe_mlp_serve, moe_mlp_train
 from tpuslo_torch.otel.xla_spans import dispatch_range
+from tpuslo_torch.parallel.mesh import batch_sharding
 
 Params = dict[str, Any]
 
@@ -260,23 +268,59 @@ def forward(params: Params, tokens: torch.Tensor, cfg: MixtralConfig,
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
-            cfg: MixtralConfig) -> torch.Tensor:
+            cfg: MixtralConfig, mesh=None) -> torch.Tensor:
     """Cross-entropy plus ``router_aux_coef`` times the router
     load-balancing loss (without it top-k routing collapses onto the
-    early-winning experts)."""
-    logits, aux = forward(params, tokens, cfg, return_aux=True)
-    return llama.nll_loss(logits, targets) + cfg.router_aux_coef * aux
+    early-winning experts).
+
+    Over a ``(dp, ep)`` ``mesh`` of more than one rank (``params`` the
+    rank's shards under :data:`TRAIN_LAYOUT`, ``tokens`` its dp rows): the
+    rank's share of the global loss, the whole loss over dp's size, as in
+    ``llama.loss_fn``; the load-balancing term is the whole batch's
+    (:func:`tpuslo_torch.ops.moe.moe_mlp_train`)."""
+    if mesh is None or mesh.size == 1:
+        logits, aux = forward(params, tokens, cfg, return_aux=True)
+        return llama.nll_loss(logits, targets) + cfg.router_aux_coef * aux
+    aux: list[torch.Tensor] = []
+    logits = llama.mesh_logits(params, tokens, cfg, mesh, mlp_fn=_train_mlp_fn(cfg, mesh),
+                               aux=aux)
+    loss = llama.nll_loss(logits, targets) + cfg.router_aux_coef * torch.stack(aux).mean()
+    return loss / mesh.shape.get("dp", 1)
+
+
+#: JAX's dp x ep training layout (:func:`param_shardings`) as a training
+#: table, leaf path -> ``{dim: axis}``: the expert axis of ``w1``, ``w3``
+#: and ``w2`` over ep, everything else replicated.
+TRAIN_LAYOUT = {path: ({} if dim is None else {dim: "ep"})
+                for path, dim in MOE_EP_SPLIT_AXIS.items()}
+
+
+def _train_mlp_fn(cfg: MixtralConfig, mesh):
+    """The ``mlp_fn`` hook of a ``(dp, ep)`` training rank: its experts'
+    block, returning ``(output, aux loss)``."""
+    def block(layer, x):
+        B, S, D = x.shape
+        y, aux = moe_mlp_train({name: layer[name] for name in ("router", "w1", "w3", "w2")},
+                               x.reshape(B * S, D), cfg.moe(), mesh)
+        return y.reshape(B, S, D), aux
+    return block
 
 
 def build_moe_train_step(mesh, cfg: MixtralConfig, optimizer=None):
-    """``(step_fn, init_fn)`` of an AdamW step on the mesh's one device
-    (dp 1, ep 1), the contract of
-    :func:`tpuslo_torch.models.train.build_sharded_train_step`.  The
-    expert-parallel (dp x ep) step belongs to the multi-device slice's
-    last part (ROADMAP item 13b-iii)."""
+    """``(step_fn, init_fn)`` of an AdamW step, the contract of
+    :func:`tpuslo_torch.models.train.build_sharded_train_step`: on the
+    mesh's one device (dp 1, ep 1), or over a ``(dp, ep)`` mesh of more
+    than one rank (:data:`TRAIN_LAYOUT`; the gradients summed over dp)."""
     from tpuslo_torch.models import train
 
-    return train.build_step(mesh, cfg, init_params, loss_fn, optimizer)
+    if mesh.size == 1:
+        return train.build_step(mesh, cfg, init_params, loss_fn, optimizer)
+    if "ep" not in mesh.axis_names:
+        raise ValueError(f"the MoE train step needs an 'ep' mesh axis, got {mesh.axis_names}")
+    if cfg.n_experts % mesh.shape["ep"]:
+        raise ValueError(f"ep={mesh.shape['ep']} must divide n_experts={cfg.n_experts}")
+    return train.build_mesh_step(mesh, cfg, dict(TRAIN_LAYOUT), batch_sharding(mesh)[0],
+                                 init_leaves, loss_fn, optimizer)
 
 
 # --- KV-cache serving path ---------------------------------------------

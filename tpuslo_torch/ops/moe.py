@@ -216,9 +216,11 @@ def _expert_ffn(params: Params, xe: torch.Tensor, cfg: MoEConfig) -> torch.Tenso
 
 
 def _dispatch(params: Params, x: torch.Tensor, cfg: MoEConfig, capacity: int,
-              experts: slice = slice(None)):
+              experts: slice = slice(None), x_experts: torch.Tensor | None = None):
     """(router logits, :class:`Routing`, the buffers (E', C, D) of the
-    ``experts`` slice in the model dtype) for tokens x: (T, D)."""
+    ``experts`` slice in the model dtype) for tokens x: (T, D); the buffers
+    read ``x_experts`` (default x: the same values, another autograd
+    path)."""
     T, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     logits = router_logits(params, x)
@@ -231,7 +233,8 @@ def _dispatch(params: Params, x: torch.Tensor, cfg: MoEConfig, capacity: int,
     table = torch.full((E, capacity + 1), T, dtype=torch.long, device=dev)
     slot = torch.where(r.kept, r.positions, capacity)
     table.index_put_((r.experts.reshape(-1), slot.reshape(-1)), tokens.reshape(-1))
-    xz = torch.cat([x.to(cfg.dtype), x.new_zeros((1, D), dtype=cfg.dtype)])
+    src = x if x_experts is None else x_experts
+    xz = torch.cat([src.to(cfg.dtype), src.new_zeros((1, D), dtype=cfg.dtype)])
     return logits, r, xz[table[experts, :capacity]]
 
 
@@ -284,6 +287,58 @@ def moe_mlp_serve(params: Params, x: torch.Tensor, cfg: MoEConfig, mesh, axis: s
     _, r, xe = _dispatch(params, x, cfg, capacity, slice(first, first + n_local))
     y = _combine(r, _expert_ffn(params, xe, cfg), first)
     return mesh_mod.all_reduce(y, mesh, "ep").to(x.dtype)
+
+
+def moe_mlp_train(params: Params, x: torch.Tensor, cfg: MoEConfig, mesh, axis: str = "ep",
+                  data_axis: str = "dp") -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE block of a training rank over a ``(dp, ep)`` mesh: x (T, D)
+    the rank's tokens, the same on every rank of its ``axis`` group,
+    ``params`` its whole experts (``(E / ep, ...)``, the rank's in rank
+    order) and the whole router -> (output in x's dtype, the
+    :func:`load_balancing_loss` of the whole batch).
+
+    The forward is :func:`moe_mlp_serve`'s ep arithmetic: each rank runs
+    its own experts' buffers, combines them in f32 in k order (another
+    rank's expert reads a zero row), and Megatron's ``g`` sums the partial
+    outputs over ``axis`` (at top 2 the sum of two exact products is the
+    one-device combine, bit for bit).  The backward keeps every rank's
+    gradients whole over ``axis``: ``f`` sums the tokens' gradient from
+    the expert buffers and the gates' gradient from the combine over the
+    ranks, so the router, and everything before the block, get the one
+    gradient the single device gets, on every rank.
+
+    The loss-balancing term needs the whole batch's expert shares and
+    mean probabilities: each is this rank's mean summed over
+    ``data_axis`` (the probabilities' sum under autograd is ``psum``, its
+    gradient summed back: the objective is the ranks' shares summed) and
+    divided by its size.  The capacity is this rank's tokens'; routing
+    drops nothing only where the config is drop-free, as every shipped
+    config is (``capacity_factor >= n_experts / top_k``): a droppy config
+    would drop per data rank where JAX drops over the whole batch, so it
+    is refused over more than one data rank."""
+    ep, n_dp = mesh.shape[axis], mesh.shape.get(data_axis, 1)
+    if n_dp > 1 and cfg.capacity_factor < cfg.n_experts / cfg.top_k:
+        raise ValueError(
+            f"the dp x ep MoE step routes each data rank's tokens on their own: it needs "
+            f"drop-free routing, capacity_factor >= n_experts/top_k = "
+            f"{cfg.n_experts / cfg.top_k}, got {cfg.capacity_factor}")
+    n_local = params["w1"].shape[0]
+    first = mesh.rank(axis) * n_local
+    capacity = cfg.capacity(x.shape[0])
+    x_experts = mesh_mod.copy_to(x, mesh, axis) if ep > 1 else x
+    logits, r, xe = _dispatch(params, x, cfg, capacity, slice(first, first + n_local),
+                              x_experts)
+    if ep > 1:
+        r = r._replace(gates=mesh_mod.copy_to(r.gates, mesh, axis))
+    y = _combine(r, _expert_ffn(params, xe, cfg), first)
+    if ep > 1:
+        y = mesh_mod.reduce_from(y, mesh, axis)
+    probs = torch.softmax(logits.float(), dim=-1).mean(dim=0)
+    share = F.one_hot(logits.argmax(dim=-1), cfg.n_experts).float().mean(dim=0)
+    if n_dp > 1:
+        probs = mesh_mod.all_reduce(probs, mesh, data_axis) / n_dp
+        share = mesh_mod.all_reduce(share, mesh, data_axis) / n_dp
+    return y.to(x.dtype), cfg.n_experts * (share * probs).sum()
 
 
 def moe_params_specs(axis_name: str = "ep") -> dict[str, int | None]:

@@ -44,9 +44,29 @@ so, and the graphed paths refuse such a mesh.
 MoE serving and of :func:`tpuslo_torch.ops.moe.moe_mlp_sharded` the same
 way.
 
-The training shardings (``param_shardings``, ``batch_sharding``,
-``optimizer_state_shardings``) belong to the multi-device slice's last
-part (ROADMAP item 13b-iii) and raise.
+Under autograd the collectives have their transposes (JAX's rules for
+``psum``, ``all_gather``, ``ppermute`` and ``all_to_all``), each a
+``torch.autograd.Function`` over the counted wrappers, so the backward's
+calls are counted too (and go through host memory where the forward's
+would): :func:`all_reduce` (sum) transposes to itself, :func:`all_gather`
+to :func:`reduce_scatter` and back, :func:`shift` to the opposite shift
+and :func:`all_to_all` to the inverse exchange.  These are the rules of a
+*summed* objective, each rank holding its share of the loss (the data
+axes).  Over a model axis (tp, ep) every rank holds the whole loss, and
+Megatron's pair applies instead: :func:`copy_to` (``f``: identity
+forward, gradients summed over the axis) and :func:`reduce_from` (``g``:
+the sum forward, the gradient passed through).
+
+The training layouts are tables, as the port writes every layout: leaf
+path -> ``{dim: axis}`` (an axis a name, or a tuple of names split
+row-major), with ``{}`` for a replicated leaf.  :func:`param_shardings`
+is JAX's dp/fsdp/tp layout, :func:`batch_sharding` splits the rows over
+the data axes and :func:`optimizer_state_shardings` gives an optimizer
+state's leaves the layout of the parameter whose path ends theirs.
+:func:`place_leaf` cuts a rank's part of a whole leaf and
+:func:`gather_leaf` puts the whole leaf back together.  :func:`pp_mesh`
+builds the one-axis ``("pp",)`` mesh of :mod:`.pipeline` and
+:func:`dp_ep_mesh` the MoE family's ``("dp", "ep")`` training mesh.
 """
 
 from __future__ import annotations
@@ -72,11 +92,6 @@ AXES = ("dp", "fsdp", "tp")
 #: through host memory.
 GLOO_CUDA_OPS = frozenset({"all_reduce", "all_reduce_max", "all_gather", "reduce_scatter"})
 
-TRAINING_SHARDINGS_NOT_PORTED = (
-    "the training shardings (param_shardings, batch_sharding, "
-    "optimizer_state_shardings) belong to the multi-device slice's last part "
-    "(ROADMAP item 13b-iii) and are not ported yet"
-)
 NO_GROUP = (
     "a mesh of {n} devices needs an initialized torch.distributed group of {n} "
     "ranks: start them with tpuslo_torch.parallel.mesh.run_ranks(fn, {n}, backend, "
@@ -187,6 +202,11 @@ class Mesh:
         return self.backend is not None
 
     @property
+    def size(self) -> int:
+        """The number of ranks (devices) the mesh spans."""
+        return math.prod(self.shape.values())
+
+    @property
     def graph_capturable(self) -> bool:
         """Can a CUDA graph capture the mesh's collectives?  Not when they
         go through host memory (gloo with CUDA tensors)."""
@@ -278,6 +298,22 @@ def ep_mesh(n: int, devices: list | None = None, backend: str | None = None) -> 
     return _group_mesh(None, (("ep",), (n,)), devices, backend)
 
 
+def dp_ep_mesh(dp: int, ep: int, devices: list | None = None,
+               backend: str | None = None) -> Mesh:
+    """The MoE family's training mesh: ``("dp", "ep")`` of ``dp x ep``
+    ranks laid out row-major (the JAX trainer's
+    ``Mesh(devices.reshape(dp, ep), ("dp", "ep"))``), built as
+    :func:`sp_mesh` builds its own.  It has no plan."""
+    return _group_mesh(None, (("dp", "ep"), (dp, ep)), devices, backend)
+
+
+def pp_mesh(n: int, devices: list | None = None, backend: str | None = None) -> Mesh:
+    """A pipeline mesh of ``n`` stages on one axis, ``"pp"`` (the JAX
+    tests' ``Mesh(devices[:n], ("pp",))``), built as :func:`sp_mesh`
+    builds its own."""
+    return _group_mesh(None, (("pp",), (n,)), devices, backend)
+
+
 # --- collectives over a mesh axis ----------------------------------------
 
 
@@ -300,7 +336,8 @@ def _run(mesh: Mesh, op: str, axis: str, x: torch.Tensor, body: Callable) -> tor
 def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str = "tp", op: str = "sum") -> torch.Tensor:
     """The sum of ``x`` over the axis (JAX ``psum``), or with ``op="max"``
     its elementwise max (JAX ``pmax``, counted as ``all_reduce_max``), in
-    ``x``'s dtype; a new tensor, ``x`` unchanged."""
+    ``x``'s dtype; a new tensor, ``x`` unchanged.  Under autograd the sum's
+    gradient is the sum of the ranks' gradients (``psum``'s transpose)."""
     import torch.distributed as dist
 
     reduce_op = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
@@ -310,13 +347,19 @@ def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str = "tp", op: str = "sum") -
         dist.all_reduce(t, op=reduce_op, group=mesh.group(axis))
         return t
 
+    if op == "sum" and _recorded(x):
+        return _PSum.apply(x, mesh, axis)
     return _run(mesh, "all_reduce" if op == "sum" else f"all_reduce_{op}", axis, x, body)
 
 
 def all_gather(x: torch.Tensor, mesh: Mesh, axis: str = "tp", dim: int = 0) -> torch.Tensor:
     """The axis's ``x`` concatenated along ``dim`` in rank order (JAX
-    ``all_gather(..., tiled=True)``)."""
+    ``all_gather(..., tiled=True)``); under autograd its gradient is
+    :func:`reduce_scatter`'s of the output's."""
     import torch.distributed as dist
+
+    if _recorded(x):
+        return _AllGather.apply(x, mesh, axis, dim)
 
     n = mesh.shape[axis]
 
@@ -331,8 +374,12 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str = "tp", dim: int = 0) -> t
 
 def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis: str = "tp", dim: int = 0) -> torch.Tensor:
     """The sum over the axis, split along ``dim`` in rank order, this
-    rank's part (JAX ``psum_scatter(..., tiled=True)``)."""
+    rank's part (JAX ``psum_scatter(..., tiled=True)``); under autograd
+    its gradient is :func:`all_gather`'s of the output's."""
     import torch.distributed as dist
+
+    if _recorded(x):
+        return _ReduceScatter.apply(x, mesh, axis, dim)
 
     n = mesh.shape[axis]
     if x.shape[dim] % n:
@@ -349,8 +396,12 @@ def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis: str = "tp", dim: int = 0) 
 
 def shift(x: torch.Tensor, mesh: Mesh, axis: str = "tp", offset: int = 1) -> torch.Tensor:
     """JAX ``ppermute`` with ``perm = [(i, (i + offset) % n)]``: each rank
-    sends ``x`` ``offset`` steps along the axis and returns what it got."""
+    sends ``x`` ``offset`` steps along the axis and returns what it got;
+    under autograd the gradient goes back by ``-offset``."""
     import torch.distributed as dist
+
+    if _recorded(x):
+        return _Shift.apply(x, mesh, axis, offset)
 
     n, me = mesh.shape[axis], mesh.rank(axis)
     group = mesh.group(axis)
@@ -374,8 +425,13 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str = "tp", split_dim: int = 0
                concat_dim: int = 0) -> torch.Tensor:
     """JAX ``all_to_all(x, axis, split_dim, concat_dim, tiled=True)``:
     ``x`` split into ``n`` parts along ``split_dim``, part ``i`` sent to
-    rank ``i``, the parts received concatenated along ``concat_dim``."""
+    rank ``i``, the parts received concatenated along ``concat_dim``;
+    under autograd the gradient takes the inverse exchange (``split_dim``
+    and ``concat_dim`` swapped)."""
     import torch.distributed as dist
+
+    if _recorded(x):
+        return _AllToAll.apply(x, mesh, axis, split_dim, concat_dim)
 
     n = mesh.shape[axis]
     if x.shape[split_dim] % n:
@@ -388,6 +444,219 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str = "tp", split_dim: int = 0
         return torch.cat(got, dim=concat_dim)
 
     return _run(mesh, "all_to_all", axis, x, body)
+
+
+# --- collectives under autograd ------------------------------------------
+
+
+def _recorded(x: torch.Tensor) -> bool:
+    """Does autograd record an op on ``x``?"""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        with torch.no_grad():
+            return all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ctx.axis), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        with torch.no_grad():
+            return all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        with torch.no_grad():
+            return reduce_scatter(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, offset):
+        ctx.mesh, ctx.axis, ctx.offset = mesh, axis, offset
+        with torch.no_grad():
+            return shift(x, mesh, axis, offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        return shift(g, ctx.mesh, ctx.axis, -ctx.offset), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
+        ctx.mesh, ctx.axis, ctx.dims = mesh, axis, (split_dim, concat_dim)
+        with torch.no_grad():
+            return all_to_all(x, mesh, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return all_to_all(g, ctx.mesh, ctx.axis, concat_dim, split_dim), None, None, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ctx.axis), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        with torch.no_grad():
+            return all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_to(x: torch.Tensor, mesh: Mesh, axis: str = "tp") -> torch.Tensor:
+    """Megatron's ``f`` over a model axis: ``x`` itself, and under autograd
+    its gradient summed over the axis (each rank's products read their
+    columns of ``x``, so each holds a part of its gradient).  Outside
+    autograd: ``x``, no call."""
+    return _CopyTo.apply(x, mesh, axis) if _recorded(x) else x
+
+
+def reduce_from(x: torch.Tensor, mesh: Mesh, axis: str = "tp") -> torch.Tensor:
+    """Megatron's ``g`` over a model axis: the sum of the ranks' partials
+    (:func:`all_reduce`), whose gradient, the same on every rank, passes
+    through unchanged."""
+    return _ReduceFrom.apply(x, mesh, axis) if _recorded(x) else all_reduce(x, mesh, axis)
+
+
+# --- the training layouts ---------------------------------------------------
+
+#: JAX's ``param_shardings``: column-parallel products split their input
+#: over fsdp and their output over tp, row-parallel ones the transpose, the
+#: embedding its vocab rows over tp, the head its vocab columns; the norms
+#: are replicated.  Layer leaves keep their leading layer axis whole.
+PARAM_SHARDINGS = {
+    "embed": {0: "tp", 1: "fsdp"},
+    "layers/attn_norm": {},
+    "layers/wq": {1: "fsdp", 2: "tp"},
+    "layers/wk": {1: "fsdp", 2: "tp"},
+    "layers/wv": {1: "fsdp", 2: "tp"},
+    "layers/wo": {1: "tp", 2: "fsdp"},
+    "layers/mlp_norm": {},
+    "layers/w1": {1: "fsdp", 2: "tp"},
+    "layers/w3": {1: "fsdp", 2: "tp"},
+    "layers/w2": {1: "tp", 2: "fsdp"},
+    "final_norm": {},
+    "output": {0: "fsdp", 1: "tp"},
+}
+#: The axes a batch's rows split over, outermost first (those the mesh has).
+DATA_AXES = ("dcn", "dp", "fsdp")
+
+
+def param_shardings(mesh: Mesh) -> dict[str, dict]:
+    """The dp/fsdp/tp layout of a ``init_params`` tree over ``mesh``
+    (:data:`PARAM_SHARDINGS`, a fresh copy)."""
+    missing = {"fsdp", "tp"} - set(mesh.axis_names)
+    if missing:
+        raise ValueError(f"the training layout needs the fsdp and tp axes, "
+                         f"the mesh has {mesh.axis_names}")
+    return {path: dict(spec) for path, spec in PARAM_SHARDINGS.items()}
+
+
+def batch_sharding(mesh: Mesh, seq_axis: str | None = None) -> dict:
+    """Tokens and targets: the rows over every data axis the mesh carries
+    (``dcn``, ``dp``, ``fsdp``, row-major), optionally the sequence over
+    ``seq_axis`` (JAX's ``P(data_axes, seq_axis)``)."""
+    spec: dict = {0: tuple(a for a in DATA_AXES if a in mesh.axis_names)}
+    if seq_axis is not None:
+        spec[1] = seq_axis
+    return spec
+
+
+def _tree_map_paths(fn, tree, prefix: tuple = ()):
+    """``tree`` (dicts, lists and tuples) with each leaf replaced by
+    ``fn(path, leaf)``, ``path`` the tuple of its keys."""
+    if isinstance(tree, dict):
+        return {k: _tree_map_paths(fn, v, (*prefix, k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map_paths(fn, v, (*prefix, i)) for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
+def optimizer_state_shardings(opt_state, p_shard: dict, mesh: Mesh):
+    """The layout tree of an optimizer state that mirrors a parameter tree
+    (e.g. ``{"count", "mu": params, "nu": params}``): a state leaf whose
+    path ends with a parameter's path (``("mu", "layers", "w1")`` ends
+    with ``"layers/w1"``) takes that parameter's layout, every other leaf
+    is replicated (``{}``).  Matching by path, as JAX's does, tells apart
+    two parameters of one shape and different layouts."""
+    by_path = {tuple(path.split("/")): spec for path, spec in p_shard.items()}
+
+    def lookup(path, _leaf):
+        for i in range(len(path)):
+            if path[i:] in by_path:
+                return dict(by_path[path[i:]])
+        return {}
+
+    return _tree_map_paths(lookup, opt_state)
+
+
+def axis_index(mesh: Mesh, axes) -> tuple[int, int]:
+    """(this rank's index, the count) over ``axes``, a name or a tuple of
+    names taken row-major."""
+    index, count = 0, 1
+    for a in (axes,) if isinstance(axes, str) else axes:
+        index, count = index * mesh.shape[a] + mesh.rank(a), count * mesh.shape[a]
+    return index, count
+
+
+def place_leaf(leaf: torch.Tensor, spec: dict, mesh: Mesh) -> torch.Tensor:
+    """This rank's part of a whole leaf under ``spec`` ``{dim: axis}``: a
+    fresh contiguous tensor (a copy where nothing splits), so that the
+    whole leaf can be freed."""
+    out = leaf
+    for dim, axes in spec.items():
+        index, count = axis_index(mesh, axes)
+        size = out.shape[dim]
+        if size % count:
+            raise ValueError(f"dim {dim} of {tuple(leaf.shape)} does not split into {count} "
+                             f"parts over {axes}")
+        out = out.narrow(dim, index * (size // count), size // count)
+    return out.clone(memory_format=torch.contiguous_format)
+
+
+def gather_leaf(part: torch.Tensor, spec: dict, mesh: Mesh) -> torch.Tensor:
+    """The whole leaf from every rank's :func:`place_leaf` part (every rank
+    calls it, in one order; each gets the whole leaf)."""
+    out = part
+    for dim, axes in spec.items():
+        for a in reversed((axes,) if isinstance(axes, str) else axes):
+            if mesh.shape[a] > 1:
+                out = all_gather(out, mesh, a, dim)
+    return out
 
 
 # --- starting ranks -------------------------------------------------------
@@ -483,13 +752,3 @@ def run_ranks(fn: Callable[..., Any], world_size: int, backend: str = "gloo",
     return [got[r] for r in range(world_size)]
 
 
-def param_shardings(mesh):
-    raise NotImplementedError(TRAINING_SHARDINGS_NOT_PORTED)
-
-
-def batch_sharding(mesh, seq_axis=None):
-    raise NotImplementedError(TRAINING_SHARDINGS_NOT_PORTED)
-
-
-def optimizer_state_shardings(opt_abstract, p_shard, mesh):
-    raise NotImplementedError(TRAINING_SHARDINGS_NOT_PORTED)
