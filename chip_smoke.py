@@ -6,8 +6,8 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py probe
-{admission,bench,norm,train,multidevice,gloo,sp,moemesh,train_mesh} [--tree DIR]
-[--runs N]`` measures one part of the path instead, on this checkout or
+{admission,bench,norm,train,multidevice,gloo,sp,moemesh,train_mesh,chaos,demo}
+[--tree DIR] [--runs N]`` measures one part of the path instead, on this checkout or
 on another one (an older commit unpacked with ``git archive``), whose own
 ``tpuslo_torch`` (and, for ``admission``, ``bench`` and ``train``, its own
 ``chip_smoke.py`` phases) it imports: phase 12's profiled windows with
@@ -19,8 +19,9 @@ dim 24 and phase 24 alone after the builds (``multidevice``: this
 checkout only); which ops gloo runs on CUDA tensors (``gloo``); phase 25
 alone after the builds (``sp``: this checkout only); phase 26 alone after
 the builds (``moemesh``: this checkout only); phase 27 alone after the
-builds (``train_mesh``: this checkout only).  One JSON line per
-measurement (:func:`probe_main`).
+builds (``train_mesh``: this checkout only); phase 28 or phase 29 alone
+after the builds (``chaos``, ``demo``: this checkout only).  One JSON
+line per measurement (:func:`probe_main`).
 
 Phases, each printing its own lines; any failure ends the run with a
 non-zero exit and no result line:
@@ -317,6 +318,34 @@ non-zero exit and no result line:
     memory per rank.  It fails on a loss past TRAIN_MESH_LOSS_TOL, a
     gradient leaf past TRAIN_PARITY_GRAD_REL or pp 2's logits past
     PARITY_TOL; one ``train_mesh:`` JSON line;
+28. the fault injectors on the card, each its real entry point as a
+    subprocess: (a) ``python -m tpuslo_torch.chaos.injectors.ici_contention
+    --mode both``: the collective prober over one NCCL rank with and
+    without a storm of bf16 matmuls on its stream at the JAX defaults
+    (baseline and contended p95, the degradation, whether the CLI's bar
+    of 1.0 is met: printed, not gated), its events schema-valid, and 3
+    straggler host processes whose SliceJoiner incidents must name the
+    delayed host in some launch; (b) ``hbm_pressure --fraction 0.85
+    --hold-s 3``: this process must see the card's free memory fall by
+    the squatter's own bytes less one chunk during the hold and come back
+    after its exit; (c) ``xla_recompile_storm --steps 8``: the p50 and
+    max of a first call plus a CUDA graph capture at a new shape; (d) the
+    attribution of (a)'s contended value (whether it names ``tpu_ici``,
+    the bar of the JAX package's e2e incident script: printed, not
+    gated); one ``chaos:`` JSON line;
+29. the demo workload on ``llama32_3b`` at full width and depth: (a)
+    ``python -m tpuslo_torch.demo.rag_service --backend torch`` as a
+    subprocess streams three ``/chat`` requests as NDJSON (TTFT, tok/s),
+    then ``/spans`` and ``/metrics``; each stream must equal
+    ``ServeEngine.generate`` on the backend's seed by the near-tie rule,
+    and the service's exit line gives its kernels' launches (K1 and K2's
+    dense-cache lanes both > 0); (b) ``torch_batched`` with
+    ``TPUSLO_SERVE_PAGED=1`` and K2 on, in this process over HTTP: four
+    concurrent requests, each stream held to ``generate`` the same way,
+    K1 and K2 launched (counted from 0 just before the requests); (c)
+    the vector store on the card against numpy's exact top-k on the demo
+    corpus and on 262,144 seeded unit vectors (ids equal, scores within
+    1e-5) with one search's time beside numpy's; one ``demo:`` JSON line;
 19. the ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card and imports nothing of JAX or of the JAX package.
@@ -4813,21 +4842,24 @@ def _icibench(argv: list[str], workdir: Path, name: str) -> tuple[list[dict], di
     return events, json.loads(report.read_text()) if extra else None
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 def open_nccl_rank(torch, backend: str = "nccl") -> None:
     """A one-rank NCCL group in this process (tcp on a free localhost
     port), for phase 24's (a) and (c): opened before (a)'s profiled part,
     closed by :func:`phase_multidevice` after (c); phase 25 opens its own.
     ``backend="gloo"`` opens a CPU one (a rehearsal's)."""
-    import socket
-
     import torch.distributed as dist
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
     kwargs = {"device_id": torch.device("cuda", 0)} if backend == "nccl" else {}
-    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", world_size=1,
-                            rank=0, **kwargs)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0, **kwargs)
 
 
 def capture_collectives(torch) -> dict:
@@ -6087,6 +6119,498 @@ def phase_train_mesh(torch, fa, pa, rn, launch_counts, cfg=None, moe_cfg=None,
     return out
 
 
+# --- phase 28: the fault injectors on the card ---------------------------------
+
+CHAOS_TIMEOUT_S = 300.0  # each injector subprocess
+CHAOS_HBM_FRACTION = 0.85
+CHAOS_HBM_HOLD_S = 3.0
+CHAOS_HBM_CHUNK_MB = 256  # the injector's default chunk
+CHAOS_HBM_RETURN_S = 10.0  # how long the card may take to free the squat after exit
+CHAOS_STORM_STEPS = 8
+
+
+class _Lines:
+    """A subprocess' pipe read line by line in a thread of its own, so that
+    a wait for one line can time out and the pipe never fills."""
+
+    def __init__(self, stream):
+        import threading
+
+        self.lines: list[str] = []
+        self._cond = threading.Condition()
+        self._done = False
+        threading.Thread(target=self._read, args=(stream,), daemon=True).start()
+
+    def _read(self, stream) -> None:
+        for line in stream:
+            with self._cond:
+                self.lines.append(line)
+                self._cond.notify_all()
+        with self._cond:
+            self._done = True
+            self._cond.notify_all()
+
+    def wait_for(self, needle: str, timeout_s: float) -> str | None:
+        """The first line holding ``needle``; None at EOF or past
+        ``timeout_s``."""
+        deadline = time.monotonic() + timeout_s
+        with self._cond:
+            while True:
+                hit = next((ln for ln in self.lines if needle in ln), None)
+                left = deadline - time.monotonic()
+                if hit is not None or self._done or left <= 0:
+                    return hit
+                self._cond.wait(left)
+
+    def text(self, timeout_s: float = 30.0) -> str:
+        """Everything read, once the pipe closed (or ``timeout_s`` passed)."""
+        deadline = time.monotonic() + timeout_s
+        with self._cond:
+            while not self._done and (left := deadline - time.monotonic()) > 0:
+                self._cond.wait(left)
+            return "".join(self.lines)
+
+
+def _injector(name: str, argv: list[str]) -> tuple[int, dict, str]:
+    """``python -m tpuslo_torch.chaos.injectors.<name>`` as a subprocess:
+    its exit code, its report (the last line of its output) and its
+    standard error."""
+    proc = subprocess.run([sys.executable, "-m", f"tpuslo_torch.chaos.injectors.{name}", *argv],
+                          cwd=ROOT, capture_output=True, text=True, timeout=CHAOS_TIMEOUT_S)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    if not lines:
+        _fail(f"chaos: {name} printed no report (exit {proc.returncode}): {proc.stderr[-800:]}")
+    return proc.returncode, json.loads(lines[-1]), proc.stderr
+
+
+def _chaos_ici() -> dict:
+    """(a) contention and the straggler, and (d) the attribution of the
+    measured contended value."""
+    from tpuslo_torch.schema.fastpath import validate_probe_payload
+
+    t0 = time.perf_counter()
+    rc, report, err = _injector("ici_contention", ["--mode", "both"])
+    if rc not in (0, 1):
+        _fail(f"chaos: ici_contention exited {rc}: {json.dumps(report)[:400]} {err[-600:]}")
+    cont, strag = report["contention"], report["straggler"]
+    if not cont.get("real") or not strag.get("real"):
+        _fail(f"chaos: ici_contention is not real: {json.dumps(report)[:600]}")
+    bad = [e for e in cont["events"] if not validate_probe_payload(e)]
+    if not cont["events"] or bad:
+        _fail(f"chaos: contention: {len(cont['events'])} events, {len(bad)} schema-invalid")
+    if strag["correct_attributions"] <= 0:
+        _fail(f"chaos: the straggler was attributed in no launch: {json.dumps(strag)[:600]}")
+    att = cont["attribution"]
+    out = {
+        "exit_code": rc, "seconds": time.perf_counter() - t0,
+        "transport": cont["transport"], "device": cont["device"],
+        "storm_dispatches": cont["storm_dispatches"],
+        "baseline_p95_ms": cont["baseline_p95_ms"], "contended_p95_ms": cont["contended_p95_ms"],
+        "degradation": cont["degradation"], "cli_bar_met": cont["degradation"] > 1.0,
+        "events": len(cont["events"]),
+        "straggler": {k: strag[k] for k in ("n_hosts", "launches", "delay_ms", "delayed_host",
+                                            "events_measured", "correct_attributions",
+                                            "top_confidence")},
+        "attribution": att, "attribution_meets_tpu_ici": att["predicted_domain"] == "tpu_ici",
+    }
+    print(f"chaos (a) contention over {cont['transport']} on {cont['device']}: p95 "
+          f"{cont['baseline_p95_ms']} ms baseline, {cont['contended_p95_ms']} ms under a storm "
+          f"of {cont['storm_dispatches']} bf16 burns of 1024 x 1024 (degradation "
+          f"{cont['degradation']}; the CLI's bar > 1.0 {'met' if out['cli_bar_met'] else 'NOT met'}"
+          f", exit {rc}); {len(cont['events'])} schema-valid events; straggler: "
+          f"{strag['correct_attributions']}/{strag['launches']} launches name host "
+          f"{strag['delayed_host']} ({strag['n_hosts']} host processes, "
+          f"{strag['delay_ms']} ms delay), top confidence {strag['top_confidence']}", flush=True)
+    print(f"chaos (d) the contended {cont['contended_p95_ms']} ms attributed: "
+          f"{att['predicted_domain']} at {att['confidence']} (the JAX e2e incident script's bar, "
+          f"tpu_ici top-1: {'met' if out['attribution_meets_tpu_ici'] else 'not met'}; not gated)",
+          flush=True)
+    return out
+
+
+def _chaos_hbm(torch) -> dict:
+    """(b) the HBM squatter, seen card-wide from this process."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    free0, total = torch.cuda.mem_get_info()
+    chunk = CHAOS_HBM_CHUNK_MB << 20
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpuslo_torch.chaos.injectors.hbm_pressure", "--fraction",
+         str(CHAOS_HBM_FRACTION), "--hold-s", str(CHAOS_HBM_HOLD_S), "--chunk-mb",
+         str(CHAOS_HBM_CHUNK_MB)], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    out_lines, err_lines = _Lines(proc.stdout), _Lines(proc.stderr)
+    try:
+        line = out_lines.wait_for("held_bytes", CHAOS_TIMEOUT_S)  # once the squat is held
+        free_hold = torch.cuda.mem_get_info()[0]
+        proc.wait(timeout=CHAOS_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0 or line is None:
+        _fail(f"chaos: hbm_pressure exited {proc.returncode}: {line} {err_lines.text()[-600:]}")
+    report = json.loads(line)
+    deadline = time.monotonic() + CHAOS_HBM_RETURN_S
+    free_after = torch.cuda.mem_get_info()[0]
+    while free_after < free0 - chunk and time.monotonic() < deadline:
+        time.sleep(0.1)
+        free_after = torch.cuda.mem_get_info()[0]
+    squatted = report["held_bytes"] - report["start_bytes_in_use"]
+    drop = free0 - free_hold
+    out = {"report": report, "free_before": free0, "free_during": free_hold,
+           "free_after": free_after, "total": total, "drop": drop, "squatted": squatted,
+           "seconds": time.perf_counter() - t0}
+    gib = 1 << 30
+    print(f"chaos (b) hbm_pressure: held {report['held_bytes'] / gib:.2f} GiB of "
+          f"{report['bytes_limit'] / gib:.2f} (fraction {report['fraction']}, "
+          f"{squatted / gib:.2f} GiB its own from {report['start_bytes_in_use'] / gib:.2f} "
+          f"in use) on {report['device_name']}; this process saw the card's free memory "
+          f"{free0 / gib:.2f} -> {free_hold / gib:.2f} GiB during the hold (a drop of "
+          f"{drop / gib:.2f}) and {free_after / gib:.2f} after the exit", flush=True)
+    if drop < squatted - chunk:
+        _fail(f"chaos: the squat of {squatted} bytes was not seen card-wide: free memory "
+              f"fell by {drop}")
+    if free_after < free0 - chunk:
+        _fail(f"chaos: the card's free memory did not come back after the squatter exited: "
+              f"{free_after} of {free0} bytes")
+    return out
+
+
+def _chaos_storm() -> dict:
+    """(c) the capture storm."""
+    t0 = time.perf_counter()
+    rc, report, err = _injector("xla_recompile_storm", ["--steps", str(CHAOS_STORM_STEPS)])
+    if (rc != 0 or report.get("mechanism") != "graph_capture"
+            or report.get("steps") != CHAOS_STORM_STEPS):
+        _fail(f"chaos: xla_recompile_storm exited {rc}: {json.dumps(report)} {err[-600:]}")
+    print(f"chaos (c) xla_recompile_storm: {report['steps']} {report['mechanism']} steps "
+          f"(a first call and a CUDA graph capture of tanh(x @ x.T).sum() at a new shape "
+          f"each), p50 "
+          f"{report['compile_ms_p50']:.2f} ms, max {report['compile_ms_max']:.2f} ms", flush=True)
+    return {**report, "seconds": time.perf_counter() - t0}
+
+
+def phase_chaos(torch) -> dict:
+    """Phase 28: the fault injectors on the card ((a)-(d) above), each the
+    real entry point in a subprocess."""
+    t_phase = time.perf_counter()
+    out = {"ici": _chaos_ici(), "hbm": _chaos_hbm(torch), "storm": _chaos_storm()}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"chaos: phase took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# --- phase 29: the demo workload on the card -----------------------------------
+
+DEMO_MODEL = "llama32_3b"  # full width and depth: head dim 128, so its prefills run K1
+DEMO_SEED = 0  # the demo backends' engines are built with ServeEngine's default rng_seed
+DEMO_PROFILE = "chat_short"  # every request: 24 tokens
+DEMO_QUERIES = tuple(PROMPTS.values())  # (a): bucket 128, bucket 256, a head prefill + appends
+DEMO_BATCH_QUERIES = tuple(BATCH_PROMPTS)  # (b)
+DEMO_BATCH_SLOTS = 4
+DEMO_START_S = 240.0  # the subprocess' start, weights and warm-up
+DEMO_REQUEST_S = 120.0
+DEMO_STORE_ROWS = 262_144
+DEMO_STORE_SEARCHES = 20
+DEMO_STORE_TOL = 1e-5
+DEMO_STORE_QUERIES = ("why is time to first token slow", "ICI link retries in the slice",
+                      "HBM pressure and allocation stalls", "dns timeouts on one node",
+                      "xla recompile storm", "tokens per second under load")
+
+
+def _chat(port: int, query: str, profile: str) -> tuple[list[int], dict, float]:
+    """One streamed ``/chat`` request: its token ids, its summary event and
+    the wall seconds from sending it to the summary."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/chat", method="POST",
+                                 data=json.dumps({"query": query, "profile": profile}).encode())
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=DEMO_REQUEST_S) as resp:
+        events = [json.loads(line) for line in resp.read().decode().splitlines() if line]
+    wall = time.perf_counter() - t0
+    tokens = [int(e["token"][len("tok"):]) for e in events if e["type"] == "token"]
+    if events[-1]["type"] != "summary" or events[-1]["token_count"] != len(tokens):
+        _fail(f"demo: a /chat stream did not end in its summary: {events[-1]}")
+    return tokens, events[-1], wall
+
+
+def _get_json(port: int, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as resp:
+        body = resp.read().decode()
+    return json.loads(body) if path != "/metrics" else body
+
+
+def _demo_references(ref, queries) -> dict[str, list[int]]:
+    """``ref.generate`` of each query as the demo's backends call it:
+    greedy, stopping at EOS, DEMO_PROFILE's token budget."""
+    from tpuslo_torch.demo.rag_service.service import PROFILES
+
+    n_tokens = PROFILES[DEMO_PROFILE][3]
+    return {q: [e.token_id for e in ref.generate(q, max_new_tokens=n_tokens)] for q in queries}
+
+
+def _hold_demo_streams(torch, serve, ref, wants: dict[str, list[int]], queries,
+                       got: list[list[int]], what: str) -> list[dict]:
+    """Each stream against its reference by the near-tie rule."""
+    rows = []
+    for i, (query, tokens) in enumerate(zip(queries, got)):
+        want = wants[query]
+        ids = _job_ids(serve, ref.cfg, query, None)
+        rows.append({"request": i, **_near_tie(
+            torch, f"{what} request {i}", want, tokens,
+            lambda k, ids=ids, want=want: ref.ingest_ids(ids + want[:k])[0])})
+    return rows
+
+
+def _check_spans_metrics(port: int, n_requests: int, backend: str, what: str) -> dict:
+    spans = _get_json(port, "/spans")["spans"]
+    metrics = _get_json(port, "/metrics")
+    names = [s["name"] for s in spans]
+    want = {"chat.request": n_requests, "chat.retrieval": n_requests,
+            "chat.generation": n_requests}
+    if any(names.count(n) != c for n, c in want.items()):
+        _fail(f"demo {what}: /spans holds {names}")
+    count = f"llm_slo_ttft_ms_count {float(n_requests)}"
+    if count not in metrics.splitlines() or f'backend="{backend}"' not in metrics:
+        _fail(f"demo {what}: /metrics lacks {count!r} or the backend label")
+    return {"spans": len(spans), "metrics_lines": len(metrics.splitlines())}
+
+
+def _demo_subprocess(torch, serve, model: str, device: str) -> tuple[dict, object, dict]:
+    """(a) the real entry point serving ``model``: three streamed requests,
+    then /spans and /metrics; its kernels' launches from its exit line.
+    While the service starts, this process builds the reference engine on
+    the backend's seed and takes every stream (a)'s and (b)'s requests are
+    held to, so no reference runs beside a timed request.  Returns (a)'s
+    line, the reference engine and the reference streams."""
+    import signal
+
+    from tpuslo_torch.models import llama
+
+    port = _free_port()
+    env = {**os.environ, "TPUSLO_SERVE_MODEL": model}
+    for knob in ("TPUSLO_SERVE_PAGED", "TPUSLO_PAGED_PALLAS", "TPUSLO_SYSTEM_PROMPT"):
+        env.pop(knob, None)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "tpuslo_torch.demo.rag_service", "--backend",
+                             "torch", "--port", str(port), "--device", device], cwd=ROOT,
+                            env=env, stderr=subprocess.PIPE, text=True)
+    err_lines = _Lines(proc.stderr)
+    try:
+        t_ref = time.perf_counter()
+        ref = serve.ServeEngine(cfg=getattr(llama, model)(), rng_seed=DEMO_SEED, device=device)
+        wants = _demo_references(ref, DEMO_QUERIES + DEMO_BATCH_QUERIES)
+        ref_s = time.perf_counter() - t_ref
+        # written once the engine is warm and listening
+        if err_lines.wait_for("listening", DEMO_START_S) is None:
+            _fail(f"demo: rag_service did not start in {DEMO_START_S} s: "
+                  f"{err_lines.text(0)[-800:]}")
+        start_s = time.perf_counter() - t0
+        got, summaries, walls = [], [], []
+        for query in DEMO_QUERIES:
+            tokens, summary, wall = _chat(port, query, DEMO_PROFILE)
+            got.append(tokens)
+            summaries.append(summary)
+            walls.append(wall)
+        served_s = time.perf_counter() - t0
+        checked = _check_spans_metrics(port, len(DEMO_QUERIES), "torch", "(a)")
+        proc.send_signal(signal.SIGINT)
+        proc.wait(timeout=60)
+        err = err_lines.text()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        _fail(f"demo: rag_service exited {proc.returncode}: {err[-800:]}")
+    launched = next((ln for ln in err.splitlines() if "kernel launches" in ln), None)
+    if launched is None:
+        _fail(f"demo: rag_service printed no kernel launches: {err[-800:]}")
+    launches = json.loads(launched.split("kernel launches", 1)[1])
+    parity = _hold_demo_streams(torch, serve, ref, wants, DEMO_QUERIES, got, "demo (a)")
+    out = {"start_s": start_s, "reference_s": ref_s, "served_s": served_s,
+           "request_wall_s": walls,
+           "ttft_ms": [s["ttft_ms"] for s in summaries],
+           "tokens_per_sec": [s["tokens_per_sec"] for s in summaries],
+           "tokens": [len(t) for t in got], "parity": parity, "launches": launches, **checked}
+    print(f"demo (a) python -m tpuslo_torch.demo.rag_service --backend torch, {model} at full "
+          f"width and depth: serving after {start_s:.1f} s (listening, and the references taken "
+          f"meanwhile in {ref_s:.1f} s), three {DEMO_PROFILE} requests done at {served_s:.1f} s; "
+          f"TTFT {out['ttft_ms']} ms, {out['tokens_per_sec']} tok/s, "
+          f"{out['tokens']} tokens; streams vs generate: left at "
+          f"{[r['diverged_at'] for r in parity]}; launches {launches}", flush=True)
+    _hold_launched("demo (a)", launches)
+    return out, ref, wants
+
+
+def _demo_batched(torch, fa, pa, rn, launch_counts, serve, ref, wants: dict[str, list[int]],
+                  model: str, device: str) -> dict:
+    """(b) ``torch_batched`` over the paged pool with K2 on, in this
+    process over HTTP: four concurrent streamed requests."""
+    from tpuslo_torch.demo.rag_service.server import serve as serve_http
+    from tpuslo_torch.demo.rag_service.service import RagService, TorchBatchedBackend
+
+    knobs = {"TPUSLO_SERVE_MODEL": model, "TPUSLO_SERVE_PAGED": "1", "TPUSLO_PAGED_PALLAS": "1"}
+    saved = {k: os.environ.get(k) for k in (*knobs, "TPUSLO_SYSTEM_PROMPT")}
+    os.environ.update(knobs)
+    os.environ.pop("TPUSLO_SYSTEM_PROMPT", None)
+    t0 = time.perf_counter()
+    try:
+        backend = TorchBatchedBackend(max_slots=DEMO_BATCH_SLOTS, device=device)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    built_s = time.perf_counter() - t0
+    server = serve_http(RagService(backend=backend, seed=1), 0, host="127.0.0.1")
+    port = server.server_address[1]
+    results: dict[int, tuple] = {}
+    try:
+        _zero_counts(fa, pa, rn, launch_counts)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(DEMO_BATCH_QUERIES)) as pool:
+            futures = [pool.submit(_chat, port, q, DEMO_PROFILE) for q in DEMO_BATCH_QUERIES]
+            for i, f in enumerate(futures):
+                results[i] = f.result()
+        served_s = time.perf_counter() - t0
+        launches = _read_counts(fa, pa, rn)
+        checked = _check_spans_metrics(port, len(DEMO_BATCH_QUERIES), "torch_batched", "(b)")
+        stats = _get_json(port, "/metrics")
+    finally:
+        server.shutdown()
+        server.server_close()
+    got = [results[i][0] for i in range(len(DEMO_BATCH_QUERIES))]
+    parity = _hold_demo_streams(torch, serve, ref, wants, DEMO_BATCH_QUERIES, got, "demo (b)")
+    engine = backend.engine
+    out = {"built_s": built_s, "served_s": served_s, "engine": type(engine).__name__,
+           "pallas_attention": engine.pallas_attention, "steps": engine.steps,
+           "ttft_ms": [results[i][1]["ttft_ms"] for i in results],
+           "tokens_per_sec": [results[i][1]["tokens_per_sec"] for i in results],
+           "tokens": [len(t) for t in got], "parity": parity, "launches": launches,
+           "engine_stat_lines": sum(ln.startswith("llm_slo_engine_stat{")
+                                    for ln in stats.splitlines()), **checked}
+    del backend, engine
+    print(f"demo (b) torch_batched, TPUSLO_SERVE_PAGED=1 and K2 on, {model}: built in "
+          f"{built_s:.1f} s, {len(got)} concurrent {DEMO_PROFILE} requests in "
+          f"{served_s:.1f} s over {out['steps']} steps; TTFT {out['ttft_ms']} ms, "
+          f"{out['tokens_per_sec']} tok/s, {out['tokens']} tokens; streams vs generate: left at "
+          f"{[r['diverged_at'] for r in parity]}; launches {launches}", flush=True)
+    _hold_launched("demo (b)", launches)
+    return out
+
+
+def _numpy_topk(matrix, q, k: int):
+    import numpy as np
+
+    scores = q @ matrix.T
+    idx = np.argsort(-scores, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(scores, idx, axis=1), idx
+
+
+def _store_row(store, what: str, k: int = 3) -> dict:
+    """The store's search against numpy's exact top-k over the same
+    embeddings: ids equal, scores within DEMO_STORE_TOL; search times."""
+    import numpy as np
+
+    from tpuslo_torch.demo.vectordb.store import embed_texts
+
+    matrix = store.matrix()
+    pos = {doc: i for i, doc in enumerate(store.doc_ids())}
+    t0 = time.perf_counter()
+    first = store.search_batch(list(DEMO_STORE_QUERIES), k)  # copies the corpus to the device
+    first_ms = (time.perf_counter() - t0) * 1000.0
+    q = embed_texts(list(DEMO_STORE_QUERIES), store.dim)
+    t0 = time.perf_counter()
+    ref_scores, ref_idx = _numpy_topk(matrix, q, k)
+    numpy_ms = (time.perf_counter() - t0) * 1000.0
+    got_idx = np.array([[pos[h.doc_id] for h in row] for row in first])
+    got_scores = np.array([[h.score for h in row] for row in first])
+    if got_idx.shape != ref_idx.shape or not (got_idx == ref_idx).all():
+        _fail(f"demo (c) {what}: search ids {got_idx.tolist()} vs numpy {ref_idx.tolist()}")
+    err = float(np.abs(got_scores - ref_scores).max())
+    if err > DEMO_STORE_TOL:
+        _fail(f"demo (c) {what}: scores within {err} of numpy's (tol {DEMO_STORE_TOL})")
+    one = []
+    for i in range(DEMO_STORE_SEARCHES):
+        t0 = time.perf_counter()
+        store.search(DEMO_STORE_QUERIES[i % len(DEMO_STORE_QUERIES)], k)
+        one.append((time.perf_counter() - t0) * 1000.0)
+    numpy_one = []
+    for i in range(DEMO_STORE_SEARCHES):
+        t0 = time.perf_counter()
+        _numpy_topk(matrix, q[i % len(q)][None], k)
+        numpy_one.append((time.perf_counter() - t0) * 1000.0)
+    out = {"docs": len(store), "dim": store.dim, "device": str(store.device), "k": k,
+           "max_score_err": err, "first_batch_ms": first_ms,
+           "search_ms_p50": float(np.median(one)), "search_ms_max": max(one),
+           "numpy_search_ms_p50": float(np.median(numpy_one)),
+           "numpy_batch_ms": numpy_ms}
+    print(f"demo (c) vector store, {what} ({len(store)} documents of {store.dim} dims) on "
+          f"{store.device}: ids equal numpy's exact top-{k} for {len(DEMO_STORE_QUERIES)} queries, "
+          f"scores within {err:.2e}; one search {out['search_ms_p50']:.3f} ms (p50 of "
+          f"{DEMO_STORE_SEARCHES}; max {out['search_ms_max']:.3f}) against numpy's "
+          f"{out['numpy_search_ms_p50']:.3f} ms on the host; the first batch, with the corpus "
+          f"copy, {first_ms:.1f} ms", flush=True)
+    return out
+
+
+def _demo_store(device: str) -> dict:
+    """(c) the store on the demo corpus and on DEMO_STORE_ROWS seeded
+    random unit vectors (a bulk-loaded corpus: embedding 262,144 texts on
+    the host would take most of the phase)."""
+    import numpy as np
+
+    from tpuslo_torch.demo.rag_service.server import DEFAULT_CORPUS
+    from tpuslo_torch.demo.vectordb.store import VectorStore
+
+    small = _store_row(VectorStore.from_corpus(DEFAULT_CORPUS, device=device), "the demo corpus")
+    rows = DEMO_STORE_ROWS
+    rng = np.random.default_rng(DEMO_SEED)
+    vectors = rng.standard_normal((rows, 256), dtype=np.float32)
+    vectors /= np.linalg.norm(vectors, axis=1, keepdims=True)
+    big = VectorStore(device=device)
+    big.add_embedded([f"doc-{i}" for i in range(rows)], [""] * rows, vectors)
+    large = _store_row(big, f"{rows} seeded unit vectors")
+    del big
+    return {"demo_corpus": small, "large": large}
+
+
+def phase_demo(torch, fa, pa, rn, launch_counts, model: str = DEMO_MODEL,
+               device: str = "cuda") -> dict:
+    """Phase 29: the demo workload on the card ((a)-(c) above).  ``model``
+    and ``device`` let a CPU rehearsal run it small."""
+    from tpuslo_torch.models import serve
+
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    served, ref, wants = _demo_subprocess(torch, serve, model, device)
+    cfg = ref.cfg
+    out = {"model": model, "dim": cfg.dim, "n_layers": cfg.n_layers, "head_dim": cfg.head_dim,
+           "served": served}
+    out["batched"] = _demo_batched(torch, fa, pa, rn, launch_counts, serve, ref, wants, model,
+                                   device)
+    del ref
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["store"] = _demo_store(device)
+    out["launches"] = {k: out["served"]["launches"][k] + out["batched"]["launches"][k]
+                       for k in out["batched"]["launches"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"demo: phase took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def _load_tree(tree: Path):
     """The tree's ``chip_smoke`` module, with its ``tpuslo_torch`` first
     on the path."""
@@ -6307,6 +6831,25 @@ def _probe_train_mesh(torch) -> None:
     print(f"train_mesh: probe took {time.perf_counter() - t0:.1f} s after the builds", flush=True)
 
 
+def _probe_chaos_demo(torch, what: str) -> None:
+    """Phase 28 (``chaos``) or phase 29 (``demo``) alone, after building
+    the kernels (this checkout only)."""
+    from tpuslo_torch.ops import _build
+
+    sys.path.insert(0, str(ROOT))
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(_build.build, KERNELS))
+    t0 = time.perf_counter()
+    if what == "chaos":
+        out = phase_chaos(torch)
+    else:
+        out = phase_demo(torch, *[importlib.import_module(f"tpuslo_torch.ops.{m}") for m in
+                                  ("flash_attention", "paged_attention", "rms_norm",
+                                   "launch_counts")])
+    print(f"{what}: {json.dumps(out)}", flush=True)
+    print(f"{what}: probe took {time.perf_counter() - t0:.1f} s after the builds", flush=True)
+
+
 def _probe_sp(torch) -> None:
     """Phase 25 alone, after building the kernels (the sp 2 ranks import
     this script's rank function, so no other tree)."""
@@ -6377,7 +6920,7 @@ def probe_main(argv: list[str]) -> int:
     """``python3 chip_smoke.py probe ...``: see the module's docstring."""
     p = argparse.ArgumentParser(prog="chip_smoke.py probe")
     p.add_argument("what", choices=("admission", "bench", "norm", "train", "multidevice",
-                                    "gloo", "sp", "moemesh", "train_mesh"))
+                                    "gloo", "sp", "moemesh", "train_mesh", "chaos", "demo"))
     p.add_argument("--tree", default=str(ROOT), help="the checkout whose code runs")
     p.add_argument("--runs", type=int, default=1)
     p.add_argument("--benches", nargs="+", default=["frontdoor_tiny", "frontdoor_3b", "router"],
@@ -6403,6 +6946,9 @@ def probe_main(argv: list[str]) -> int:
         return 0
     if args.what == "train_mesh":
         _probe_train_mesh(torch)
+        return 0
+    if args.what in ("chaos", "demo"):
+        _probe_chaos_demo(torch, args.what)
         return 0
     if args.what == "train":
         _probe_train(torch, tree)
@@ -6642,6 +7188,19 @@ def main() -> int:
     print(f"train_mesh: {json.dumps(train_mesh)}", flush=True)
     mark("27 train_mesh")
     train_mesh_launches = train_mesh["launches"]
+    # 28. the fault injectors on the card, each a subprocess (no kernel of
+    # the port's: the storm's matmuls are cuBLAS's)
+    chaos = phase_chaos(torch)
+    print(f"chaos: {json.dumps(chaos)}", flush=True)
+    mark("28 chaos")
+    # 29. the demo workload: the rag service's entry point (its launches, from
+    # its exit line), torch_batched in this process (counted from 0 just
+    # before its requests) and the vector store
+    demo = phase_demo(torch, fa, pa, importlib.import_module("tpuslo_torch.ops.rms_norm"),
+                      importlib.import_module("tpuslo_torch.ops.launch_counts"))
+    print(f"demo: {json.dumps(demo)}", flush=True)
+    mark("29 demo")
+    demo_launches = demo["launches"]
 
     # 19. kernels line, card line, result line
     line_row = next(
@@ -6670,7 +7229,8 @@ def main() -> int:
                      + served_launches["flash_attention"] + moe["k1_launches"]
                      + train_launches["flash_attention"] + multi_launches["k1"]
                      + sp_launches["flash_attention"] + moemesh_launches["flash_attention"]
-                     + train_mesh_launches["flash_attention"]),
+                     + train_mesh_launches["flash_attention"]
+                     + demo_launches["flash_attention"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel["shapes"]),
         "ms": line_row["ms"],
         "plain_ms": line_row["plain_ms"],
@@ -6689,7 +7249,8 @@ def main() -> int:
                      + benches["frontdoor_3b"]["k2_launches"]
                      + served_launches["paged_attention"] + moe["k2_launches"]
                      + train_launches["paged_attention"] + multi_launches["k2"]
-                     + sp_launches["paged_attention"] + moemesh_launches["paged_attention"]),
+                     + sp_launches["paged_attention"] + moemesh_launches["paged_attention"]
+                     + demo_launches["paged_attention"]),
         "max_abs_err": max(r["max_abs_err"] for r in k2["shapes"]),
         "ms": k2_row["ms"],
         "plain_ms": k2_row["plain_ms"],
@@ -6716,7 +7277,8 @@ def main() -> int:
         "replaces": "tpuslo/ops/flash_attention.py:41",
         "launches": (parity_f32["k1_f32_launches"] + entry["launches"]["flash_attention_f32"]
                      + bench_k1["k1_f32_launches"] + served_launches["flash_attention_f32"]
-                     + train_launches["flash_attention_f32"]),
+                     + train_launches["flash_attention_f32"]
+                     + demo_launches["flash_attention_f32"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel_f32["shapes"]
                            if r["dtype"] == "f32"),
         "ms": f32_row["ms"],
@@ -6734,7 +7296,8 @@ def main() -> int:
         "launches": (sum(k2_f32_launches.values()) + entry["launches"]["paged_attention_f32"]
                      + benches["frontdoor_tiny"]["k2_launches"] + benches["router"]["k2_launches"]
                      + served_launches["paged_attention_f32"]
-                     + train_launches["paged_attention_f32"]),
+                     + train_launches["paged_attention_f32"]
+                     + demo_launches["paged_attention_f32"]),
         "max_abs_err": max(r["max_abs_err"] for r in k2_f32["shapes"] + k2_f32_path["shapes"]
                            + k2_f32_hd24["shapes"] if r["q"] == "f32"),
         "ms": k2_f32_row["ms"],
@@ -6770,7 +7333,8 @@ def main() -> int:
         "replaces": "tpuslo/models/llama.py:299",
         "launches": (front["norm_launches"] + served_launches["rms_norm"]
                      + train_launches["rms_norm"] + sp_launches["rms_norm"]
-                     + moemesh_launches["rms_norm"] + train_mesh_launches["rms_norm"]),
+                     + moemesh_launches["rms_norm"] + train_mesh_launches["rms_norm"]
+                     + demo_launches["rms_norm"]),
         "max_abs_err": max(r["max_abs_err"] for r in invariance["norm"]),
         "ms": norm_row["ms"],
         "plain_ms": norm_row["plain_ms"],
@@ -6787,7 +7351,8 @@ def main() -> int:
         "replaces": "tpuslo/models/llama.py:739",
         "launches": (front["fused_launches"] + served_launches["add_rms_norm"]
                      + train_launches["add_rms_norm"] + sp_launches["add_rms_norm"]
-                     + moemesh_launches["add_rms_norm"] + train_mesh_launches["add_rms_norm"]),
+                     + moemesh_launches["add_rms_norm"] + train_mesh_launches["add_rms_norm"]
+                     + demo_launches["add_rms_norm"]),
         "max_abs_err": max(r["max_abs_err"] for r in invariance["fused"]),
         "ms": fused_row["ms"],
         "plain_ms": fused_row["plain_ms"],
@@ -6811,6 +7376,7 @@ def main() -> int:
               "serve": served, "dense": dense, "paged": paged, "paged_kernel": k2,
               "paged_kernel_f32": k2_f32, "paged_kernel_f32_hd24": k2_f32_hd24,
               "multidevice": multi, "sp": sp, "moemesh": moemesh, "train_mesh": train_mesh,
+              "chaos": chaos, "demo": demo,
               "paged_kernel_f32_path": k2_f32_path, "paged_breakdown": breakdown, "spec": spec, "frontdoor": front,
               "router": routed, "deviceplane": device, "attribution": attributed,
               "entry": entry, "parity": parity, "parity_f32": parity_f32,

@@ -1,7 +1,8 @@
 """The port stands alone: nothing in ``tpuslo_torch/`` or ``chip_smoke.py``
-imports JAX or the JAX package (``tpuslo``), statically or at run time,
-nor ``jsonschema`` or ``yaml`` (the card's machine has neither; the
-port's contract validator is its own, its probe manifest is JSON)."""
+imports JAX, the JAX package (``tpuslo``) or its demo (``demo``),
+statically or at run time, nor ``jsonschema`` or ``yaml`` (the card's
+machine has neither; the port's contract validator is its own, its probe
+manifest is JSON)."""
 
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ PORT_FILES = sorted((REPO / "tpuslo_torch").rglob("*.py")) + [REPO / "chip_smoke
 
 def _forbidden(module: str) -> bool:
     root = module.split(".")[0]
-    return root in ("jax", "jaxlib", "tpuslo", "jsonschema", "yaml")
+    return root in ("jax", "jaxlib", "tpuslo", "demo", "jsonschema", "yaml")
 
 
 def _imported_modules(tree: ast.AST):
@@ -64,7 +65,13 @@ def test_port_files_exist():
                 "models/data.py", "models/train.py", "models/checkpoint.py",
                 "models/trainer.py", "cli/train.py", "parallel/collectives.py",
                 "parallel/distributed.py", "correlation/multihost.py",
-                "faultreplay/slice_streams.py", "cli/icibench.py", "cli/slicecorr.py"):
+                "faultreplay/slice_streams.py", "cli/icibench.py", "cli/slicecorr.py",
+                "chaos/__init__.py", "chaos/backend_guard.py", "chaos/ici_contention.py",
+                "chaos/injectors/ici_contention.py", "chaos/injectors/hbm_pressure.py",
+                "chaos/injectors/xla_recompile_storm.py", "otel/processor/correlator.py",
+                "slo/calculator.py", "demo/common.py", "demo/vectordb/store.py",
+                "demo/vectordb/server.py", "demo/rag_service/service.py",
+                "demo/rag_service/server.py"):
         assert REPO / "tpuslo_torch" / rel in PORT_FILES
 
 
@@ -99,9 +106,14 @@ def test_importing_the_port_loads_no_jax():
         "tpuslo_torch.cli.train, tpuslo_torch.parallel.collectives, "
         "tpuslo_torch.parallel.distributed, tpuslo_torch.correlation.multihost, "
         "tpuslo_torch.faultreplay.slice_streams, tpuslo_torch.cli.icibench, "
-        "tpuslo_torch.cli.slicecorr; "
+        "tpuslo_torch.cli.slicecorr, tpuslo_torch.chaos.backend_guard, "
+        "tpuslo_torch.chaos.ici_contention, tpuslo_torch.chaos.injectors.ici_contention, "
+        "tpuslo_torch.chaos.injectors.hbm_pressure, "
+        "tpuslo_torch.chaos.injectors.xla_recompile_storm, "
+        "tpuslo_torch.otel.processor.correlator, tpuslo_torch.slo, "
+        "tpuslo_torch.demo.vectordb.server, tpuslo_torch.demo.rag_service.server; "
         "bad = sorted(m for m in sys.modules "
-        "if m.split('.')[0] in ('jax', 'tpuslo', 'jsonschema', 'yaml')); "
+        "if m.split('.')[0] in ('jax', 'tpuslo', 'demo', 'jsonschema', 'yaml')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     proc = subprocess.run(
@@ -127,6 +139,31 @@ def test_spawned_workers_load_no_jax():
         "except SystemExit as e:\n"
         "    assert not e.code, e.code\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tpuslo'))\n"
+        "print(bad, file=sys.stderr); sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert '"signal": "ici_collective_latency_ms"' in proc.stdout
+
+
+def test_straggler_host_worker_loads_no_jax():
+    """A straggler host process (``python -m tpuslo_torch.chaos.ici_contention
+    --worker``) runs port code alone."""
+    code = (
+        "import runpy, socket, sys, threading\n"
+        "from tpuslo_torch.chaos import ici_contention as ic\n"
+        "server = socket.socket(); server.bind(('127.0.0.1', 0)); server.listen(1)\n"
+        "t = threading.Thread(target=ic._barrier_coordinator, args=(server, 1, 1))\n"
+        "t.start()\n"
+        "sys.argv = ['ici_contention', '--worker', '--port', str(server.getsockname()[1]), "
+        "'--host-index', '0', '--launches', '1', '--delay-ms', '0', '--delayed-host', '-1']\n"
+        "try:\n"
+        "    runpy.run_module('tpuslo_torch.chaos.ici_contention', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert not e.code, e.code\n"
+        "t.join(30)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tpuslo', 'demo'))\n"
         "print(bad, file=sys.stderr); sys.exit(1 if bad else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
