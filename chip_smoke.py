@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py probe
-{admission,bench,norm,train,multidevice,gloo,sp,moemesh,train_mesh,chaos,demo}
+{admission,bench,norm,train,multidevice,gloo,sp,moemesh,train_mesh,chaos,demo,agent}
 [--tree DIR] [--runs N]`` measures one part of the path instead, on this checkout or
 on another one (an older commit unpacked with ``git archive``), whose own
 ``tpuslo_torch`` (and, for ``admission``, ``bench`` and ``train``, its own
@@ -19,8 +19,8 @@ dim 24 and phase 24 alone after the builds (``multidevice``: this
 checkout only); which ops gloo runs on CUDA tensors (``gloo``); phase 25
 alone after the builds (``sp``: this checkout only); phase 26 alone after
 the builds (``moemesh``: this checkout only); phase 27 alone after the
-builds (``train_mesh``: this checkout only); phase 28 or phase 29 alone
-after the builds (``chaos``, ``demo``: this checkout only).  One JSON
+builds (``train_mesh``: this checkout only); phase 28, 29 or 30 alone
+after the builds (``chaos``, ``demo``, ``agent``: this checkout only).  One JSON
 line per measurement (:func:`probe_main`).
 
 Phases, each printing its own lines; any failure ends the run with a
@@ -346,6 +346,25 @@ non-zero exit and no result line:
     the vector store on the card against numpy's exact top-k on the demo
     corpus and on 262,144 seeded unit vectors (ids equal, scores within
     1e-5) with one search's time beside numpy's; one ``demo:`` JSON line;
+30. the agent on ``llama32_1b`` at full width and depth: (a) ``python -m
+    tpuslo_torch.demo.e2e_onchip_session`` as a subprocess (it serves 3
+    requests under the capture, writes a storm of 6 prefill captures at new
+    shapes into a ring that ``python -m tpuslo_torch agent --probe-source
+    ring`` consumes, stops the agent by SIGTERM, joins its rows to the
+    capture's spans and attributes them); every verdict of the JAX session
+    but the attribution's must hold, and the agent's own compile rows (one a
+    storm step, its wall) must be what is attributed, the agent must exit 0
+    by SIGTERM, open no CUDA context (``nvidia-smi`` lists as many compute
+    apps as before the agent started, not the agent's pid) and the three
+    streams under the capture must
+    equal ``generate`` outside it; the attributed domain must be what the
+    port's calibrated attributor gives for the measured maximum (printed,
+    not required to be ``xla_compile``); the session's K2, RMSNorm and add +
+    RMSNorm launches, from its exit line, go into the kernels line; (b)
+    ``python -m tpuslo_torch agent --ici-probe-interval-s`` on the card: one
+    measured ``ici_collective_latency_ms`` row per op (``collective:<op>``)
+    per probe round, exit 0, no prober-disabled line; one ``agent:`` JSON
+    line;
 19. the ``kernels`` JSON line, the card line, and the result line.
 
 It needs one card and imports nothing of JAX or of the JAX package.
@@ -6611,6 +6630,215 @@ def phase_demo(torch, fa, pa, rn, launch_counts, model: str = DEMO_MODEL,
     return out
 
 
+# --- phase 30: the agent and the on-chip session --------------------------------
+
+AGENT_SESSION_TIMEOUT_S = 420.0
+AGENT_PROBER_TIMEOUT_S = 180.0
+AGENT_PROBER_ARGV = ("--scenario", "ici_drop", "--count", "6", "--interval-s", "0.2",
+                     "--ici-probe-interval-s", "0.4", "--output", "jsonl",
+                     "--metrics-port", "0")
+AGENT_PROBER_OPS = ("psum", "all_gather", "reduce_scatter", "ppermute")
+# The JAX session's verdicts phase 30 requires (all but the attribution's).
+AGENT_VERDICTS = ("live_backend", "agent_consumed_ring", "storm_measured",
+                  "xprof_spans_captured", "spans_joined")
+AGENT_STORM_STEPS = 6
+# The kernels the session's serve and storm launch on the card (K2's dense
+# lanes, RMSNorm, add + RMSNorm).
+AGENT_KERNELS = ("paged_attention", "rms_norm", "add_rms_norm")
+
+
+def _quantile(values: list[float], q: float) -> float:
+    ordered = sorted(values)
+    return ordered[min(len(ordered) - 1, int(q * len(ordered)))]
+
+
+def calibrated_domain(compile_ms: float) -> str:
+    """The port's calibrated attributor's top-1 for the baseline profile
+    with only ``xla_compile_ms`` raised to ``compile_ms``, built here from
+    the attributor itself and not through the session's ``attribute``."""
+    from datetime import datetime, timezone
+
+    from tpuslo_torch.attribution.calibrate import calibrated_attributor
+    from tpuslo_torch.attribution.mapper import FaultSample
+    from tpuslo_torch.signals.generator import profile_for_fault
+
+    signals = {**profile_for_fault("baseline"), "xla_compile_ms": compile_ms}
+    sample = FaultSample(incident_id="smoke-agent", timestamp=datetime.now(timezone.utc),
+                         cluster="local", namespace="llm", service="onchip-serve",
+                         fault_label="", expected_domain="", signals=signals,
+                         confidence=0.9, burn_rate=2.5, window_minutes=5,
+                         request_id="smoke-agent-req", trace_id="smoke-agent-trace")
+    return calibrated_attributor().attribute_sample(sample).predicted_fault_domain
+
+
+def agent_session(workdir: Path, device: str) -> dict:
+    """(a) the session's entry point as a subprocess: its exit code,
+    ``session.json``, its kernels' launches (its exit line) and the values
+    of the agent's compile rows (its JSONL)."""
+    out = workdir / "session"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpuslo_torch.demo.e2e_onchip_session",
+                           "--out", str(out), "--device", device], cwd=ROOT,
+                          capture_output=True, text=True, timeout=AGENT_SESSION_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if not (out / "session.json").exists():
+        _fail(f"agent: the session wrote no session.json (exit {proc.returncode}): "
+              f"{proc.stderr[-800:]}")
+    session = json.loads((out / "session.json").read_text())
+    launched = next((ln for ln in proc.stderr.splitlines() if "kernel launches" in ln), None)
+    if launched is None:
+        _fail(f"agent: the session printed no kernel launches: {proc.stderr[-800:]}")
+    rows = read_rows(out / "agent_onchip.jsonl")
+    compile_ms = [r["value"] for r in rows
+                  if r.get("signal") == "xla_compile_ms" and r.get("tpu")]
+    return {"exit_code": proc.returncode, "session": session, "seconds": seconds,
+            "launches": json.loads(launched.split("kernel launches", 1)[1]),
+            "agent_compile_ms": compile_ms}
+
+
+def agent_prober(workdir: Path, device: str) -> dict:
+    """(b) the agent's collective prober lane: its exit code, its measured
+    rows by op, and any prober-disabled line on its standard error."""
+    jsonl = workdir / "prober.jsonl"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpuslo_torch", "agent", *AGENT_PROBER_ARGV,
+                           "--jsonl-path", str(jsonl), "--device", device], cwd=ROOT,
+                          capture_output=True, text=True, timeout=AGENT_PROBER_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    ops: dict[str, list[float]] = {}
+    for r in read_rows(jsonl) if jsonl.exists() else []:
+        if r.get("signal") == "ici_collective_latency_ms":
+            module = (r.get("tpu") or {}).get("module_name", "")
+            ops.setdefault(module.removeprefix("collective:"), []).append(r["value"])
+    values = [v for vs in ops.values() for v in vs]
+    return {"exit_code": proc.returncode, "seconds": seconds,
+            "rows": {op: len(vs) for op, vs in ops.items()},
+            "p50_ms": _quantile(values, 0.5) if values else None,
+            "p95_ms": _quantile(values, 0.95) if values else None,
+            "ops": {op: {"p50_ms": _quantile(vs, 0.5), "p95_ms": _quantile(vs, 0.95)}
+                    for op, vs in ops.items()},
+            "disabled": [ln for ln in proc.stderr.splitlines() if "prober disabled" in ln],
+            "stderr_tail": proc.stderr[-600:] if proc.returncode else ""}
+
+
+def agent_failures(r: dict) -> list[str]:
+    """Phase 30's gates over one ``agent:`` report, each naming itself."""
+    from tpuslo_torch.demo.e2e_onchip_session import agent_added_no_app
+
+    fails = []
+    a = r["session"]
+    s = a["session"]
+    for v in AGENT_VERDICTS:
+        if not s["verdicts"].get(v):
+            fails.append(f"session: verdict {v} is false")
+    others = [k for k, ok in {**s["verdicts"], **s["checks"]}.items()
+              if not ok and k != "attribution_top1_xla_compile"]
+    if a["exit_code"] not in (0, 1) or (a["exit_code"] == 1 and others) or (
+            a["exit_code"] == 0 and not s["pass"]):
+        fails.append(f"session exit: {a['exit_code']} (failing: {others})")
+    walls = [w["wall_ms"] for w in s["storm"]]
+    got = a["agent_compile_ms"]
+    if len(got) != AGENT_STORM_STEPS or [round(v, 1) for v in got] != walls:
+        fails.append(f"agent rows: the agent emitted compile rows {got} for the storm's "
+                     f"walls {walls}")
+    att = s["attribution"]
+    if not att["from_agent_emitted_events"] or not got or (
+            att["measured_compile_ms"] != round(max(got), 1)):
+        fails.append(f"attribution source: measured {att['measured_compile_ms']} ms is not "
+                     f"the agent's largest compile row (rows {got})")
+    if att["predicted_domain"] != r["expected_domain"]:
+        fails.append(f"attribution domain: {att['predicted_domain']}, the port's calibrated "
+                     f"attributor gives {r['expected_domain']} at the storm's largest wall")
+    idle = [k for k in AGENT_KERNELS if not a["launches"].get(k)]
+    if s["platform"] == "cuda" and idle:
+        fails.append(f"launches: the session's serve and storm launched no {idle} "
+                     f"({a['launches']})")
+    agent = s["agent"]
+    if agent["exit_code"] != 0 or not agent["stopped_by_sigterm"]:
+        fails.append(f"agent exit: {agent['exit_code']} ({agent['drain'] or 'no drain line'}"
+                     f"{', killed' if agent['killed'] else ''})")
+    apps, before = s["compute_apps"], s["compute_apps_before_agent"]
+    if s["platform"] == "cuda" and (apps is None or not agent_added_no_app(
+            before, apps, agent["pid"])):
+        fails.append(f"compute apps: nvidia-smi listed {apps} with the agent (pid "
+                     f"{agent['pid']}) running beside the session, {before} before it")
+    if not s["checks"]["streams_equal_generate"]:
+        fails.append("streams: the capture's streams differ from generate's")
+    p = r["prober"]
+    rounds = set(p["rows"].values())
+    if p["exit_code"] != 0 or set(p["rows"]) != set(AGENT_PROBER_OPS) or len(rounds) != 1 or (
+            not rounds or min(rounds) < 1) or p["disabled"]:
+        fails.append(f"prober: exit {p['exit_code']}, rows {p['rows']}, disabled lines "
+                     f"{p['disabled']} {p['stderr_tail']}")
+    return fails
+
+
+def phase_agent(torch, device: str = "cuda") -> dict:
+    """Phase 30: the agent and the on-chip session ((a) and (b) above), each
+    a subprocess; ``device`` lets a CPU rehearsal run it (the session at
+    ``llama_tiny``)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="agent-") as tmp:
+        workdir = Path(tmp)
+        session = agent_session(workdir, device)
+        prober = agent_prober(workdir, device)
+    s = session["session"]
+    expected = calibrated_domain(max((w["wall_ms"] for w in s["storm"]), default=0.0))
+    att = s["attribution"]
+    out = {
+        "model": s["model"], "device_kind": s["device_kind"], "exit_code": session["exit_code"],
+        "verdicts": s["verdicts"], "checks": s["checks"],
+        "storm_wall_ms": {str(w["length"]): w["wall_ms"] for w in s["storm"]},
+        "storm_mechanism": s["storm_mechanism"],
+        "agent_rows_by_signal": s["agent_rows_by_signal"],
+        "agent": s["agent"], "compute_apps": s["compute_apps"],
+        "compute_apps_before_agent": s["compute_apps_before_agent"], "session_pid": s["pid"],
+        "join_top_tier": s["join_top_tier"], "join_top_confidence": s["join_top_confidence"],
+        "span_joins": s["span_joins"], "xprof_spans": s["xprof_spans"],
+        "ttft_ms": [q["ttft_ms"] for q in s["requests"]],
+        "tokens_per_sec": [q["tokens_per_sec"] for q in s["requests"]],
+        "measured_compile_ms": att["measured_compile_ms"],
+        "domain": att["predicted_domain"], "confidence": att["confidence"],
+        "xla_compile_posterior": att.get("posteriors", {}).get("xla_compile"),
+        "expected_domain": expected, "session_parts_s": s.get("parts_s"),
+        "launches": session["launches"],
+        "prober": {k: prober[k] for k in ("exit_code", "rows", "p50_ms", "p95_ms", "ops",
+                                          "disabled", "seconds")},
+        "seconds": {"session": session["seconds"], "prober": prober["seconds"]},
+    }
+    fails = agent_failures({"session": session, "prober": prober, "expected_domain": expected})
+    print(f"agent (a) python -m tpuslo_torch.demo.e2e_onchip_session on {s['model']} "
+          f"({s['device_kind']}): verdicts {s['verdicts']}, checks {s['checks']}; storm "
+          f"({s['storm_mechanism']}) walls {out['storm_wall_ms']} ms; agent rows "
+          f"{s['agent_rows_by_signal']}, exit {s['agent']['exit_code']} "
+          f"({s['agent']['drain']}); compute apps {s['compute_apps']}, "
+          f"{s['compute_apps_before_agent']} before the agent (session pid "
+          f"{s['pid']}, agent pid {s['agent']['pid']}); joins {s['span_joins']} at top "
+          f"{s['join_top_tier']} {s['join_top_confidence']}; TTFT {out['ttft_ms']} ms, "
+          f"{out['tokens_per_sec']} tok/s under the capture; launches {session['launches']}; "
+          f"{session['seconds']:.1f} s", flush=True)
+    print(f"agent (a) attribution of the agent's largest compile row, "
+          f"{att['measured_compile_ms']} ms: {att['predicted_domain']} at "
+          f"{att['confidence']} (xla_compile posterior {out['xla_compile_posterior']}; the "
+          f"port's calibrated attributor gives {expected}; xla_compile top-1 "
+          f"{'met' if s['verdicts']['attribution_top1_xla_compile'] else 'not met'}, not "
+          f"required)", flush=True)
+    print(f"agent (b) python -m tpuslo_torch agent --ici-probe-interval-s 0.4: exit "
+          f"{prober['exit_code']}, rows by op {prober['rows']}, p50 {prober['p50_ms']} ms, "
+          f"p95 {prober['p95_ms']} ms, disabled lines {prober['disabled']}; "
+          f"{prober['seconds']:.1f} s", flush=True)
+    if fails:
+        _fail(f"agent: {fails}")
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    print(f"agent: phase took {out['seconds']['phase']:.1f} s", flush=True)
+    return out
+
+
 def _load_tree(tree: Path):
     """The tree's ``chip_smoke`` module, with its ``tpuslo_torch`` first
     on the path."""
@@ -6832,8 +7060,8 @@ def _probe_train_mesh(torch) -> None:
 
 
 def _probe_chaos_demo(torch, what: str) -> None:
-    """Phase 28 (``chaos``) or phase 29 (``demo``) alone, after building
-    the kernels (this checkout only)."""
+    """Phase 28 (``chaos``), phase 29 (``demo``) or phase 30 (``agent``)
+    alone, after building the kernels (this checkout only)."""
     from tpuslo_torch.ops import _build
 
     sys.path.insert(0, str(ROOT))
@@ -6842,6 +7070,8 @@ def _probe_chaos_demo(torch, what: str) -> None:
     t0 = time.perf_counter()
     if what == "chaos":
         out = phase_chaos(torch)
+    elif what == "agent":
+        out = phase_agent(torch)
     else:
         out = phase_demo(torch, *[importlib.import_module(f"tpuslo_torch.ops.{m}") for m in
                                   ("flash_attention", "paged_attention", "rms_norm",
@@ -6920,7 +7150,8 @@ def probe_main(argv: list[str]) -> int:
     """``python3 chip_smoke.py probe ...``: see the module's docstring."""
     p = argparse.ArgumentParser(prog="chip_smoke.py probe")
     p.add_argument("what", choices=("admission", "bench", "norm", "train", "multidevice",
-                                    "gloo", "sp", "moemesh", "train_mesh", "chaos", "demo"))
+                                    "gloo", "sp", "moemesh", "train_mesh", "chaos", "demo",
+                                    "agent"))
     p.add_argument("--tree", default=str(ROOT), help="the checkout whose code runs")
     p.add_argument("--runs", type=int, default=1)
     p.add_argument("--benches", nargs="+", default=["frontdoor_tiny", "frontdoor_3b", "router"],
@@ -6947,7 +7178,7 @@ def probe_main(argv: list[str]) -> int:
     if args.what == "train_mesh":
         _probe_train_mesh(torch)
         return 0
-    if args.what in ("chaos", "demo"):
+    if args.what in ("chaos", "demo", "agent"):
         _probe_chaos_demo(torch, args.what)
         return 0
     if args.what == "train":
@@ -7201,6 +7432,13 @@ def main() -> int:
     print(f"demo: {json.dumps(demo)}", flush=True)
     mark("29 demo")
     demo_launches = demo["launches"]
+    # 30. the agent: the on-chip session (serve -> ring -> agent -> matcher ->
+    # attributor) and the agent's collective prober, each a subprocess (the
+    # session's launches from its exit line)
+    agent = phase_agent(torch)
+    print(f"agent: {json.dumps(agent)}", flush=True)
+    mark("30 agent")
+    agent_launches = agent["launches"]
 
     # 19. kernels line, card line, result line
     line_row = next(
@@ -7230,7 +7468,7 @@ def main() -> int:
                      + train_launches["flash_attention"] + multi_launches["k1"]
                      + sp_launches["flash_attention"] + moemesh_launches["flash_attention"]
                      + train_mesh_launches["flash_attention"]
-                     + demo_launches["flash_attention"]),
+                     + demo_launches["flash_attention"] + agent_launches["flash_attention"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel["shapes"]),
         "ms": line_row["ms"],
         "plain_ms": line_row["plain_ms"],
@@ -7250,7 +7488,7 @@ def main() -> int:
                      + served_launches["paged_attention"] + moe["k2_launches"]
                      + train_launches["paged_attention"] + multi_launches["k2"]
                      + sp_launches["paged_attention"] + moemesh_launches["paged_attention"]
-                     + demo_launches["paged_attention"]),
+                     + demo_launches["paged_attention"] + agent_launches["paged_attention"]),
         "max_abs_err": max(r["max_abs_err"] for r in k2["shapes"]),
         "ms": k2_row["ms"],
         "plain_ms": k2_row["plain_ms"],
@@ -7278,7 +7516,8 @@ def main() -> int:
         "launches": (parity_f32["k1_f32_launches"] + entry["launches"]["flash_attention_f32"]
                      + bench_k1["k1_f32_launches"] + served_launches["flash_attention_f32"]
                      + train_launches["flash_attention_f32"]
-                     + demo_launches["flash_attention_f32"]),
+                     + demo_launches["flash_attention_f32"]
+                     + agent_launches["flash_attention_f32"]),
         "max_abs_err": max(r["max_abs_err"] for r in kernel_f32["shapes"]
                            if r["dtype"] == "f32"),
         "ms": f32_row["ms"],
@@ -7297,7 +7536,8 @@ def main() -> int:
                      + benches["frontdoor_tiny"]["k2_launches"] + benches["router"]["k2_launches"]
                      + served_launches["paged_attention_f32"]
                      + train_launches["paged_attention_f32"]
-                     + demo_launches["paged_attention_f32"]),
+                     + demo_launches["paged_attention_f32"]
+                     + agent_launches["paged_attention_f32"]),
         "max_abs_err": max(r["max_abs_err"] for r in k2_f32["shapes"] + k2_f32_path["shapes"]
                            + k2_f32_hd24["shapes"] if r["q"] == "f32"),
         "ms": k2_f32_row["ms"],
@@ -7334,7 +7574,7 @@ def main() -> int:
         "launches": (front["norm_launches"] + served_launches["rms_norm"]
                      + train_launches["rms_norm"] + sp_launches["rms_norm"]
                      + moemesh_launches["rms_norm"] + train_mesh_launches["rms_norm"]
-                     + demo_launches["rms_norm"]),
+                     + demo_launches["rms_norm"] + agent_launches["rms_norm"]),
         "max_abs_err": max(r["max_abs_err"] for r in invariance["norm"]),
         "ms": norm_row["ms"],
         "plain_ms": norm_row["plain_ms"],
@@ -7352,7 +7592,7 @@ def main() -> int:
         "launches": (front["fused_launches"] + served_launches["add_rms_norm"]
                      + train_launches["add_rms_norm"] + sp_launches["add_rms_norm"]
                      + moemesh_launches["add_rms_norm"] + train_mesh_launches["add_rms_norm"]
-                     + demo_launches["add_rms_norm"]),
+                     + demo_launches["add_rms_norm"] + agent_launches["add_rms_norm"]),
         "max_abs_err": max(r["max_abs_err"] for r in invariance["fused"]),
         "ms": fused_row["ms"],
         "plain_ms": fused_row["plain_ms"],
@@ -7376,7 +7616,7 @@ def main() -> int:
               "serve": served, "dense": dense, "paged": paged, "paged_kernel": k2,
               "paged_kernel_f32": k2_f32, "paged_kernel_f32_hd24": k2_f32_hd24,
               "multidevice": multi, "sp": sp, "moemesh": moemesh, "train_mesh": train_mesh,
-              "chaos": chaos, "demo": demo,
+              "chaos": chaos, "demo": demo, "agent": agent,
               "paged_kernel_f32_path": k2_f32_path, "paged_breakdown": breakdown, "spec": spec, "frontdoor": front,
               "router": routed, "deviceplane": device, "attribution": attributed,
               "entry": entry, "parity": parity, "parity_f32": parity_f32,

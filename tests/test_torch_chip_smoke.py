@@ -456,7 +456,7 @@ def test_serving_gates_name_each_failure(break_it, failure):
 
 def test_every_phase_marks_when_it_ended():
     """main() prints each phase's end in seconds from the start and keeps
-    them in the record: every phase from the build to 29, the last
+    them in the record: every phase from the build to 30, the last
     line's (19) aside, once, in the order the phases run."""
     import re
 
@@ -464,8 +464,8 @@ def test_every_phase_marks_when_it_ended():
     main = source[source.index("def main() -> int:"):]
     names = re.findall(r'mark\("([^"]+)"\)', main)
     numbers = [int(n.split()[0]) for n in names]
-    assert sorted(numbers) == [n for n in range(2, 30) if n != 19]
-    assert numbers.index(20) == numbers.index(16) + 1 and numbers[-3:] == [27, 28, 29]
+    assert sorted(numbers) == [n for n in range(2, 31) if n != 19]
+    assert numbers.index(20) == numbers.index(16) + 1 and numbers[-4:] == [27, 28, 29, 30]
     for name in names:
         assert main.index(f'mark("{name}")') < main.index('kernels = {"kernels": [')
     assert '"phase_end_s": marks' in main
@@ -1060,3 +1060,103 @@ def test_a_pipeline_bound_breach_fails_the_phase(breach):
         return
     with pytest.raises(SystemExit):
         chip_smoke._train_mesh_pp([stage, stage], {"losses": [6.0]})
+
+
+def _agent_report() -> dict:
+    """A phase 30 report that meets every gate: the card's session, whose
+    attribution abstains (the storm's captures stay under the band where
+    the attributor names xla_compile), and the prober's rows."""
+    walls = [186.1, 121.2, 110.3, 100.8, 168.6, 112.0]
+    verdicts = {v: True for v in chip_smoke.AGENT_VERDICTS}
+    session = {
+        "platform": "cuda", "pass": False, "pid": 267,
+        "verdicts": {**verdicts, "attribution_top1_xla_compile": False},
+        "checks": {"from_agent_emitted_events": True, "agent_exit_0_by_sigterm": True,
+                   "agent_opened_no_cuda_context": True, "streams_equal_generate": True},
+        "storm": [{"length": 33 + 2 * i, "wall_ms": w} for i, w in enumerate(walls)],
+        "attribution": {"predicted_domain": "unknown", "confidence": 0.0786,
+                        "measured_compile_ms": 186.1, "from_agent_emitted_events": True},
+        "agent": {"exit_code": 0, "killed": False, "stopped_by_sigterm": True, "pid": 277,
+                  "drain": "agent: drain: reason=signal_15 outcome=clean took=0.00s"},
+        "compute_apps": [1], "compute_apps_before_agent": [1],
+    }
+    return {
+        "session": {"exit_code": 1, "session": session, "seconds": 40.0,
+                    "agent_compile_ms": [w + 0.0123 for w in walls],
+                    "launches": {"flash_attention": 0, "flash_attention_f32": 0,
+                                 "paged_attention": 576, "paged_attention_f32": 0,
+                                 "rms_norm": 39, "add_rms_norm": 1248}},
+        "prober": {"exit_code": 0, "rows": {op: 4 for op in chip_smoke.AGENT_PROBER_OPS},
+                   "disabled": [], "stderr_tail": ""},
+        "expected_domain": "unknown",
+    }
+
+
+@pytest.mark.parametrize("before,during", [([1], [1]), ([1, 1], [1, 1]), ([267], [267]),
+                                           ([1, 1, 1], [1, 1])])
+def test_agent_gates_pass_a_good_report(before, during):
+    """One app, or the script's own CUDA context beside the session's, or
+    an earlier phase's process gone between the reads: the gate reads what
+    the agent added, not a fixed count."""
+    report = _agent_report()
+    _session(report).update(compute_apps_before_agent=before, compute_apps=during)
+    assert chip_smoke.agent_failures(report) == []
+
+
+def _session(r: dict) -> dict:
+    return r["session"]["session"]
+
+
+@pytest.mark.parametrize("break_it,failure", [
+    (lambda r: r["session"]["agent_compile_ms"].pop(), "agent rows"),
+    (lambda r: r["session"].update(agent_compile_ms=[]), "agent rows"),
+    (lambda r: _session(r)["agent"].update(exit_code=1), "agent exit"),
+    (lambda r: _session(r)["agent"].update(exit_code=-9, killed=True,
+                                           stopped_by_sigterm=False), "agent exit"),
+    (lambda r: _session(r).update(compute_apps=[1, 277]), "compute apps"),
+    (lambda r: _session(r).update(compute_apps=[277]), "compute apps"),
+    (lambda r: _session(r).update(compute_apps_before_agent=[1, 1],
+                                  compute_apps=[1, 1, 1]), "compute apps"),
+    (lambda r: _session(r).update(compute_apps=None), "compute apps"),
+    (lambda r: _session(r)["attribution"].update(measured_compile_ms=200.0),
+     "attribution source"),
+    (lambda r: _session(r)["attribution"].update(from_agent_emitted_events=False),
+     "attribution source"),
+    (lambda r: _session(r)["attribution"].update(predicted_domain="xla_compile"),
+     "attribution domain"),
+    (lambda r: _session(r)["verdicts"].update(spans_joined=False), "verdict spans_joined"),
+    (lambda r: r["session"]["launches"].update(paged_attention=0), "launches"),
+    (lambda r: r["session"]["launches"].update(add_rms_norm=0), "launches"),
+    (lambda r: r["session"]["launches"].pop("rms_norm"), "launches"),
+    (lambda r: _session(r)["checks"].update(streams_equal_generate=False), "streams"),
+    (lambda r: r["session"].update(exit_code=2), "session exit"),
+    (lambda r: r["prober"].update(exit_code=2), "prober"),
+    (lambda r: r["prober"]["rows"].pop("ppermute"), "prober"),
+    (lambda r: r["prober"].update(disabled=["agent: ici prober disabled: boom"]), "prober"),
+])
+def test_agent_gates_name_each_failure(break_it, failure):
+    report = _agent_report()
+    break_it(report)
+    fails = chip_smoke.agent_failures(report)
+    assert fails and any(f.startswith(failure) or failure in f for f in fails), fails
+
+
+@pytest.mark.parametrize("compile_ms,domain", [(194.7, "unknown"), (450.0, "unknown"),
+                                               (500.0, "xla_compile"), (900.0, "xla_compile")])
+def test_the_expected_domain_is_the_calibrated_attributors(compile_ms, domain):
+    """Phase 30 holds the session's domain to the attributor at the storm's
+    largest wall: under the ~500 ms band it abstains, from it on it names
+    xla_compile."""
+    assert chip_smoke.calibrated_domain(compile_ms) == domain
+
+
+def test_phase_30_runs_after_29_and_feeds_the_kernels_line():
+    source = Path(chip_smoke.__file__).read_text()
+    main = source[source.index("def main() -> int:"):]
+    order = ["phase_demo(torch", "phase_agent(torch", 'kernels = {"kernels": [']
+    assert [main.index(o) for o in order] == sorted(main.index(o) for o in order)
+    for kernel in ("flash_attention", "flash_attention_f32", "paged_attention",
+                   "paged_attention_f32", "rms_norm", "add_rms_norm"):
+        assert f'agent_launches["{kernel}"]' in main, kernel
+    assert '"agent": agent' in main and 'print(f"agent: {json.dumps(agent)}"' in main
+    assert 'mark("30 agent")' in main

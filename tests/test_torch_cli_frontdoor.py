@@ -287,11 +287,11 @@ class TestDispatcher:
         assert tdispatch.main([]) == 2
         out = capsys.readouterr().out
         assert out == ("usage: python -m tpuslo_torch <binary> [flags]\n\nbinaries:\n"
-                       "  frontdoor\n  icibench\n  loadgen\n  slicecorr\n  train\n")
+                       "  agent\n  frontdoor\n  icibench\n  loadgen\n  slicecorr\n  train\n")
         assert tdispatch.main(["--help"]) == 0
         assert capsys.readouterr().out == out
 
-    @pytest.mark.parametrize("name", ["agent", "sloctl", "nosuch"])
+    @pytest.mark.parametrize("name", ["fleetagg", "sloctl", "nosuch"])
     def test_other_binaries_are_not_ported_yet(self, capsys, name):
         assert tdispatch.main([name]) == 2
         assert capsys.readouterr().err == f"tpuslo_torch: binary {name!r} not ported yet\n"

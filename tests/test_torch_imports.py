@@ -71,7 +71,15 @@ def test_port_files_exist():
                 "chaos/injectors/xla_recompile_storm.py", "otel/processor/correlator.py",
                 "slo/calculator.py", "demo/common.py", "demo/vectordb/store.py",
                 "demo/vectordb/server.py", "demo/rag_service/service.py",
-                "demo/rag_service/server.py"):
+                "demo/rag_service/server.py", "cli/agent.py", "cli/common.py",
+                "config/__init__.py", "config/toolkitcfg.py", "config/yamlsubset.py",
+                "delivery/__init__.py", "delivery/options.py", "delivery/breaker.py",
+                "delivery/spool.py", "delivery/channel.py", "delivery/sinks.py",
+                "delivery/faultsink.py", "webhook/__init__.py", "webhook/exporter.py",
+                "webhook/pagerduty.py", "webhook/opsgenie.py", "metrics/registry.py",
+                "otel/exporters.py", "obs/export.py", "collector/kernel.py",
+                "collector/pipeline.py", "collector/hello_tracer.py",
+                "demo/e2e_onchip_session.py"):
         assert REPO / "tpuslo_torch" / rel in PORT_FILES
 
 
@@ -111,7 +119,14 @@ def test_importing_the_port_loads_no_jax():
         "tpuslo_torch.chaos.injectors.hbm_pressure, "
         "tpuslo_torch.chaos.injectors.xla_recompile_storm, "
         "tpuslo_torch.otel.processor.correlator, tpuslo_torch.slo, "
-        "tpuslo_torch.demo.vectordb.server, tpuslo_torch.demo.rag_service.server; "
+        "tpuslo_torch.demo.vectordb.server, tpuslo_torch.demo.rag_service.server, "
+        "tpuslo_torch.cli.agent, tpuslo_torch.cli.common, tpuslo_torch.config, "
+        "tpuslo_torch.config.yamlsubset, tpuslo_torch.delivery, "
+        "tpuslo_torch.delivery.sinks, tpuslo_torch.delivery.faultsink, "
+        "tpuslo_torch.webhook, tpuslo_torch.metrics.registry, "
+        "tpuslo_torch.otel.exporters, tpuslo_torch.obs.export, "
+        "tpuslo_torch.collector.kernel, tpuslo_torch.collector.pipeline, "
+        "tpuslo_torch.collector.hello_tracer, tpuslo_torch.demo.e2e_onchip_session; "
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'tpuslo', 'demo', 'jsonschema', 'yaml')); "
         "print(bad); sys.exit(1 if bad else 0)"

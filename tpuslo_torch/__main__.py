@@ -9,6 +9,7 @@ import os
 import sys
 
 BINARIES = {
+    "agent": "tpuslo_torch.cli.agent",
     "frontdoor": "tpuslo_torch.cli.frontdoor",
     "icibench": "tpuslo_torch.cli.icibench",
     "loadgen": "tpuslo_torch.cli.loadgen",

@@ -58,6 +58,7 @@ import torch
 
 from tpuslo_torch.device import synchronize
 from tpuslo_torch.deviceplane.roofline import H100_PEAK_BF16_FLOPS, H100_PEAK_HBM_BW, PEAKS
+from tpuslo_torch.ops.launch_counts import kernel_launches
 
 # Peak dense bf16 FLOP/s and HBM bytes/s per card, keyed by substrings of
 # ``torch.cuda.get_device_name()`` (the H100 row is the device plane's
@@ -185,23 +186,6 @@ def _free_device(device: torch.device) -> None:
     engine finds the card's memory (the callers drop their references)."""
     if device.type == "cuda":
         torch.cuda.empty_cache()
-
-
-def kernel_launches() -> dict[str, int]:
-    """The process's launches of each hand-written kernel so far (a graph
-    replay credits what its capture recorded)."""
-    from tpuslo_torch.ops import rms_norm
-    from tpuslo_torch.ops.flash_attention import flash_attention
-    from tpuslo_torch.ops.paged_attention import paged_decode_attention
-
-    return {
-        "flash_attention": flash_attention.launches,
-        "flash_attention_f32": flash_attention.f32_launches,
-        "paged_attention": paged_decode_attention.launches,
-        "paged_attention_f32": paged_decode_attention.f32_launches,
-        "rms_norm": rms_norm.rms_norm.launches,
-        "add_rms_norm": rms_norm.add_rms_norm.launches,
-    }
 
 
 def _k1() -> int:

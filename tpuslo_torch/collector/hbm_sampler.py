@@ -64,8 +64,9 @@ def _read_device() -> tuple[int, int] | None:
     return int(torch.cuda.memory_allocated(device)), int(total)
 
 
-def read_stats(path: str | None = None) -> tuple[int, int] | None:
-    """Return (bytes_in_use, bytes_limit) or None."""
+def read_stats(path: str | None = None, live: bool = True) -> tuple[int, int] | None:
+    """Return (bytes_in_use, bytes_limit) or None.  ``live=False`` reads
+    the stats file alone and never touches a device."""
     stats_path = path or os.environ.get("TPUSLO_HBM_STATS_PATH", "")
     if stats_path and os.path.exists(stats_path):
         try:
@@ -74,6 +75,8 @@ def read_stats(path: str | None = None) -> tuple[int, int] | None:
             return int(raw["bytes_in_use"]), int(raw["bytes_limit"])
         except (OSError, ValueError, KeyError):
             return None
+    if not live:
+        return None
     # Live device stats behind a join-timeout worker: a hung driver makes
     # the first CUDA call block with no exception for the except to
     # catch, and a wedged sampler would stall the loop it feeds.
@@ -114,13 +117,14 @@ def read_stats(path: str | None = None) -> tuple[int, int] | None:
 class HBMSampler:
     """Periodically writes utilization basis points into a ring."""
 
-    def __init__(self, ring_path: str, stats_path: str | None = None):
+    def __init__(self, ring_path: str, stats_path: str | None = None, live: bool = True):
         self._writer = RingWriter(ring_path)
         self._stats_path = stats_path
+        self._live = live
         self.samples = 0
 
     def sample_once(self) -> bool:
-        stats = read_stats(self._stats_path)
+        stats = read_stats(self._stats_path, live=self._live)
         if stats is None:
             return False
         in_use, limit = stats

@@ -1,14 +1,16 @@
 """ctypes binding to the repo's native runtime (``native/libtpuslo_runtime.so``):
-the port's own copy of the parts of ``tpuslo/collector/native.py`` that a
-ring producer and the probe manager call (``load_runtime``,
-``runtime_available``, ``pack_event``, the ``tpuslo_pm_*`` attach entry
-points, the signal id and flag constants).
+the port's own copy of ``tpuslo/collector/native.py`` (``load_runtime``,
+``runtime_available``, ``pack_event``, the ring producer's and the
+consumer's ``tpuslo_ring_*`` / ``tpuslo_consumer_*`` entry points, the
+``tpuslo_pm_*`` attach entry points, the signal id and flag constants).
 
-The runtime owns the ring-buffer transport; this module locates it
-(building it on demand with ``make -C native`` if needed), loads it and
-packs the flat wire event.  The struct layout here MUST match
-``ebpf/c/tpuslo_event.h`` (``WireEvent``); ``load_runtime`` checks the
-size against the library's own.
+The runtime owns the ring-buffer transport, the wire decode and the
+unit normalization; this module locates it (building it on demand with
+``make -C native`` if needed), loads it, packs the flat wire event and
+mirrors the decoded ``Sample``.  The struct layouts here MUST match
+``ebpf/c/tpuslo_event.h`` (``WireEvent``) and ``native/decode.h``
+(``Sample``, the consumer's output); ``load_runtime`` checks both sizes
+against the library's own.
 """
 
 from __future__ import annotations
@@ -41,8 +43,12 @@ SIG_ICI_LINK_RETRY = 19
 SIG_ICI_COLLECTIVE = 20
 SIG_HOST_OFFLOAD = 21
 SIG_DCN_TRANSFER = 22
+SIG_HELLO = 31
 
 # Flags — mirror of TPUSLO_F_*.
+F_ERROR = 0x0001
+F_CONN = 0x0002
+F_IPV6 = 0x0004
 F_TPU = 0x0008
 
 
@@ -68,6 +74,24 @@ class WireEvent(ctypes.Structure):
     ]
 
 
+class NativeSample(ctypes.Structure):
+    """Mirror of ``tpuslo::Sample`` (native/decode.h)."""
+
+    _fields_ = [
+        ("value", ctypes.c_double),
+        ("ts_ns", ctypes.c_uint64),
+        ("aux", ctypes.c_uint64),
+        ("pid", ctypes.c_uint32),
+        ("tid", ctypes.c_uint32),
+        ("err", ctypes.c_int32),
+        ("flags", ctypes.c_uint32),
+        ("signal", ctypes.c_char * 40),
+        ("unit", ctypes.c_char * 8),
+        ("conn_tuple", ctypes.c_char * 64),
+        ("comm", ctypes.c_char * 16),
+    ]
+
+
 class NativeRuntimeError(RuntimeError):
     """The native runtime could not be built or loaded."""
 
@@ -85,6 +109,27 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.tpuslo_ring_dropped.restype = ctypes.c_uint64
     lib.tpuslo_ring_dropped.argtypes = [ctypes.c_void_p]
     lib.tpuslo_ring_close.argtypes = [ctypes.c_void_p]
+    lib.tpuslo_ring_open.restype = ctypes.c_void_p
+    lib.tpuslo_ring_open.argtypes = [ctypes.c_char_p]
+
+    lib.tpuslo_consumer_new.restype = ctypes.c_void_p
+    lib.tpuslo_consumer_free.argtypes = [ctypes.c_void_p]
+    lib.tpuslo_consumer_add_userspace.restype = ctypes.c_int
+    lib.tpuslo_consumer_add_userspace.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p,
+    ]
+    lib.tpuslo_consumer_add_kernel.restype = ctypes.c_int
+    lib.tpuslo_consumer_add_kernel.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.tpuslo_consumer_poll.restype = ctypes.c_int
+    lib.tpuslo_consumer_poll.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(NativeSample), ctypes.c_int,
+        ctypes.c_int,
+    ]
+    lib.tpuslo_consumer_configure_steal.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,
+    ]
+    lib.tpuslo_consumer_decode_errors.restype = ctypes.c_uint64
+    lib.tpuslo_consumer_decode_errors.argtypes = [ctypes.c_void_p]
 
     lib.tpuslo_pm_available.restype = ctypes.c_int
     lib.tpuslo_pm_new.restype = ctypes.c_void_p
@@ -113,6 +158,7 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.tpuslo_pm_last_error.argtypes = [ctypes.c_void_p]
 
     lib.tpuslo_event_size.restype = ctypes.c_int
+    lib.tpuslo_sample_size.restype = ctypes.c_int
 
 
 def load_runtime(build: bool = True) -> ctypes.CDLL:
@@ -147,6 +193,12 @@ def load_runtime(build: bool = True) -> ctypes.CDLL:
             f"wire-event size drift: native={wire} python="
             f"{ctypes.sizeof(WireEvent)}"
         )
+    native_sample = lib.tpuslo_sample_size()
+    if native_sample != ctypes.sizeof(NativeSample):
+        raise NativeRuntimeError(
+            f"sample size drift: native={native_sample} python="
+            f"{ctypes.sizeof(NativeSample)}"
+        )
     _lib = lib
     return lib
 
@@ -175,7 +227,7 @@ def pack_event(
     err: int = 0,
     comm: bytes = b"",
 ) -> bytes:
-    """Pack one wire event."""
+    """Pack one wire event — producers (tests, fallback emitters)."""
     ev = WireEvent(
         ts_ns=ts_ns,
         value=value,

@@ -52,7 +52,6 @@ from typing import Any
 
 import numpy as np
 
-from tpuslo_torch.device import resolve_device, synchronize
 
 #: Auto mode CONSIDERS the torch lane at this batch size: below it, the
 #: launches and copies cost more than the products save, so the probe
@@ -204,6 +203,8 @@ def _torch_kernel(values, observed, mats, soft, sharpness, device="cuda"):
     Raises without a card unless ``device="cpu"``."""
     import torch
 
+    from tpuslo_torch.device import resolve_device
+
     dev = resolve_device(device)
 
     def up(a):
@@ -289,6 +290,8 @@ def _probe_auto(values, observed, mats, soft, sharpness, device="cuda") -> bool:
     cached = _AUTO_PROBES.get(key)
     if cached is not None:
         return cached["jit_wins"]
+    from tpuslo_torch.device import resolve_device, synchronize
+
     dev = resolve_device(device)
     sample = values[:bucket]
     sample_obs = observed[:bucket]

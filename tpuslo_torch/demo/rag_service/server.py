@@ -22,6 +22,7 @@ import torch
 
 from tpuslo_torch.demo.common import DemoHTTPHandler, serve_threaded
 from tpuslo_torch.demo.rag_service.service import BACKENDS, PROFILES, RagService, StubBackend
+from tpuslo_torch.ops.launch_counts import kernel_launches
 
 DEFAULT_CORPUS = str(Path(__file__).resolve().parent / "fixtures/corpus.json")
 
@@ -87,20 +88,6 @@ def make_handler(service: RagService):
 
 def serve(service: RagService, port: int, host: str = "0.0.0.0"):
     return serve_threaded(make_handler(service), port, host)
-
-
-def kernel_launches() -> dict[str, int]:
-    """The launch counters of the port's kernels in this process (the
-    modules by name: ``tpuslo_torch.ops`` re-exports their functions under
-    the same names)."""
-    import importlib
-
-    fa = importlib.import_module("tpuslo_torch.ops.flash_attention").flash_attention
-    pa = importlib.import_module("tpuslo_torch.ops.paged_attention").paged_decode_attention
-    rn = importlib.import_module("tpuslo_torch.ops.rms_norm")
-    return {"flash_attention": fa.launches, "flash_attention_f32": fa.f32_launches,
-            "paged_attention": pa.launches, "paged_attention_f32": pa.f32_launches,
-            "rms_norm": rn.rms_norm.launches, "add_rms_norm": rn.add_rms_norm.launches}
 
 
 def main(argv=None) -> int:

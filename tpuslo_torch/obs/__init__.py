@@ -2,8 +2,15 @@
 sampling, the overhead gate) and the null cycle the untraced serving
 step runs under (the port's own copy of ``tpuslo/obs/tracer.py``), and
 the incident provenance log the remediation engine appends to (its copy
-of ``tpuslo/obs/provenance.py``)."""
+of ``tpuslo/obs/provenance.py``), and the OTLP/HTTP traces exporter the
+agent ships its cycle spans through (its copy of ``tpuslo/obs/export.py``)."""
 
+from tpuslo_torch.obs.export import (
+    BackgroundSpanPoster,
+    SpanExporter,
+    span_to_record,
+    trace_endpoint_from_logs,
+)
 from tpuslo_torch.obs.provenance import (
     EvidenceEvent,
     ProvenanceLog,
@@ -29,6 +36,7 @@ from tpuslo_torch.obs.tracer import (
 )
 
 __all__ = [
+    "BackgroundSpanPoster",
     "CYCLE_STAGES",
     "DROPPED",
     "KEPT_ERROR",
@@ -41,6 +49,7 @@ __all__ = [
     "ProvenanceRecord",
     "SelfTracer",
     "Span",
+    "SpanExporter",
     "TraceObserver",
     "TracerConfig",
     "format_chain",
@@ -48,4 +57,6 @@ __all__ = [
     "new_span_id",
     "new_trace_id",
     "probe_event_id",
+    "span_to_record",
+    "trace_endpoint_from_logs",
 ]

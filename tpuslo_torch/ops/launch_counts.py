@@ -40,6 +40,23 @@ def since(before: dict[tuple[int, str], int]) -> list[tuple[object, str, int]]:
     return moved
 
 
+def kernel_launches() -> dict[str, int]:
+    """The process's launches of each hand-written kernel so far (a graph
+    replay credits what its capture recorded)."""
+    from tpuslo_torch.ops import rms_norm
+    from tpuslo_torch.ops.flash_attention import flash_attention
+    from tpuslo_torch.ops.paged_attention import paged_decode_attention
+
+    return {
+        "flash_attention": flash_attention.launches,
+        "flash_attention_f32": flash_attention.f32_launches,
+        "paged_attention": paged_decode_attention.launches,
+        "paged_attention_f32": paged_decode_attention.f32_launches,
+        "rms_norm": rms_norm.rms_norm.launches,
+        "add_rms_norm": rms_norm.add_rms_norm.launches,
+    }
+
+
 def add(moved: list[tuple[object, str, int]], sign: int = 1) -> None:
     """Add (or with ``sign`` -1 take back) the increments of :func:`since`."""
     for owner, attr, d in moved:

@@ -1,2 +1,3 @@
-"""Span sources of the port (the counterpart of ``tpuslo/otel``'s device
-span source, :mod:`tpuslo_torch.otel.xla_spans`)."""
+"""Span sources and exporters of the port (the counterparts of
+``tpuslo/otel``'s device span source, :mod:`tpuslo_torch.otel.xla_spans`,
+and its OTLP/HTTP log exporters, :mod:`tpuslo_torch.otel.exporters`)."""
